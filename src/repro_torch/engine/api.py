@@ -1,0 +1,368 @@
+"""Engine front-door ops (DESIGN.md §3) — port of ``repro.engine.api``.
+
+Every op takes an :class:`EngineConfig`, resolves the backend from the
+device of its operands, and dispatches through the registry.  ``linear``,
+``conv2d`` and ``maxpool2d`` also take an :class:`EventStream`, so
+consecutive layers chain events with no decode and re-encode.  Zero-extent
+operands short-circuit before any dispatch: no kernel sees a 0-extent
+launch.  Every stream dispatch appends a trace record of the JAX package's
+schema (``chained``, ``strip``, ``launches``, ``route``,
+``fallback_decode``, ``est_*_cost`` ...).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import events as ev
+from repro_torch.core.mnf_conv import conv_out_size
+from repro_torch.costmodel import crossover as xover
+from repro_torch.engine import trace
+from repro_torch.engine.config import EngineConfig
+from repro_torch.engine.registry import dispatch, get_backend, list_backends
+from repro_torch.engine.stream import EventStream
+
+__all__ = ["matmul", "linear", "conv2d", "maxpool2d",
+           "pool_ineligible_reason", "route_conv", "route_pool",
+           "route_linear", "fire", "fire_conv"]
+
+_DEFAULT = EngineConfig()
+
+
+def _resolve(cfg: EngineConfig, device) -> str:
+    return cfg.resolve_backend(*([] if device is None else [device]))
+
+
+# ---------------------------------------------------------------------------
+# Boundary routing (DESIGN.md §11): one decision function per op kind, used
+# by the dispatching op and by the model planner with the same inputs.
+# ``device`` names where the stream lives (None: backend names only).
+# ---------------------------------------------------------------------------
+
+def route_conv(logical_shape: tuple, w_shape: tuple, cfg: EngineConfig, *,
+               stride: int = 1, padding: int = 0, blk_m: int = 1,
+               device=None) -> xover.RouteDecision:
+    """Route a conv boundary consuming a stream of granularity ``blk_m``:
+    strip streams can ride only the fused strip conv, pixel streams only
+    the per-tap path."""
+    name = _resolve(cfg, device)
+    bsz, h, wd, ci = logical_shape
+    kh, kw, _, co = w_shape
+    if blk_m == ev.STRIP_W:
+        event_route = "strip" if (
+            ev.strip_eligible(wd, kh, stride, padding, co=co)
+            and name in list_backends("conv2d_events_strip")) else None
+    else:
+        event_route = "pixel" if name in list_backends("conv2d_events") \
+            else None
+    oy = conv_out_size(h, kh, stride, padding)
+    ox = conv_out_size(wd, kw, stride, padding)
+    dec = xover.decide_route(
+        cfg.route, "conv", occupancy=cfg.occupancy_hint,
+        event_route=event_route,
+        dense_macs=float(bsz * oy * ox * kh * kw * ci * co),
+        avg_touched=(oy * ox * kh * kw) / max(bsz * h * wd, 1) * bsz,
+        c_out=co, backend=name, shape_class=f"k{kh}s{stride}")
+    if dec.is_event and dec.route != event_route:
+        dec = dataclasses.replace(dec, route=event_route or "dense")
+    return dec
+
+
+def route_pool(logical_shape: tuple, k: int, stride: int,
+               cfg: EngineConfig, *, blk_m: int = 1, eligible: bool = True,
+               device=None) -> xover.RouteDecision:
+    """Route a max-pool boundary: "window" (window-major strip grid) where
+    the pooled width tiles into strips, else "pixel" (per-event segment
+    max); ``eligible=False`` forces the visible dense fallback."""
+    name = _resolve(cfg, device)
+    b, h, w, c = logical_shape
+    oh = max((h - k) // stride + 1, 0)
+    ow = max((w - k) // stride + 1, 0)
+    if not eligible:
+        event_route = None
+    elif (ev.pool_window_ineligible_reason(logical_shape, k, stride,
+                                           blk_m) is None
+          and name in list_backends("maxpool2d_events_window")
+          and cfg.route != "pixel"):
+        event_route = "window"
+    else:
+        event_route = "pixel"
+    dec = xover.decide_route(
+        cfg.route, "pool", occupancy=cfg.occupancy_hint,
+        event_route=event_route, dense_macs=float(b * oh * ow * k * k * c),
+        avg_touched=(oh * ow * k * k) / max(h * w, 1), c_out=c,
+        backend=name, shape_class=f"k{k}s{stride}c{c}")
+    if dec.is_event and dec.route != event_route:
+        dec = dataclasses.replace(dec, route=event_route or "dense")
+    return dec
+
+
+def route_linear(m: int, k: int, n: int, cfg: EngineConfig, *,
+                 eligible: bool = True, device=None) -> xover.RouteDecision:
+    """Route an FC boundary consuming a fire stream (for a conv→FC seam,
+    the flattened shape m = B, k = H·W·C)."""
+    name = _resolve(cfg, device)
+    event_route = "event" if (eligible and
+                              name in list_backends("linear_events")) \
+        else None
+    dec = xover.decide_route(
+        cfg.route, "linear", occupancy=cfg.occupancy_hint,
+        event_route=event_route, dense_macs=float(m * k * n),
+        avg_touched=1.0, c_out=n, backend=name,
+        shape_class=xover.linear_shape_class(m, k, n))
+    if dec.is_event and dec.route != event_route:
+        dec = dataclasses.replace(dec, route=event_route or "dense")
+    return dec
+
+
+def _route_fields(dec: xover.RouteDecision, shape_class: str) -> dict:
+    return dict(route=dec.route, est_event_cost=dec.est_event_cost,
+                est_dense_cost=dec.est_dense_cost, occupancy=dec.occupancy,
+                route_source=dec.source, shape_class=shape_class)
+
+
+def _is_conv_stream(x: EventStream) -> bool:
+    return x.logical_shape is not None and len(x.logical_shape) == 4
+
+
+# ---------------------------------------------------------------------------
+# Ops
+# ---------------------------------------------------------------------------
+
+def matmul(a: torch.Tensor, w: torch.Tensor,
+           cfg: EngineConfig = _DEFAULT) -> torch.Tensor:
+    """y = a @ W.  a (M, K), w (K, N)."""
+    return dispatch("matmul", cfg, a, w)(a, w, cfg)
+
+
+def linear(x, w: torch.Tensor, b: torch.Tensor | None = None,
+           cfg: EngineConfig = _DEFAULT) -> torch.Tensor:
+    """y = x @ W (+ b); ``x`` dense (..., K) or an EventStream.  A conv
+    stream re-tiles to the flattened (B, H·W·C) view first (DESIGN.md §12);
+    a re-tile-ineligible one decodes visibly with the named rule."""
+    if isinstance(x, EventStream):
+        conv_stream = _is_conv_stream(x)
+        if conv_stream and 0 in x.logical_shape:
+            y = w.new_zeros((x.logical_shape[0], w.shape[-1]))
+            return y if b is None else y + b
+        if x.shape[0] == 0:
+            y = w.new_zeros((0, w.shape[-1]))
+            return y if b is None else y + b
+        retile_reason = None
+        retiled = False
+        if conv_stream:
+            retile_reason = ev.retile_ineligible_reason(
+                x.logical_shape, x.blk_m, x.blk_k)
+            if retile_reason is None:
+                x = x.retile_fc()
+                retiled = True
+        if retile_reason is None:
+            m, k = x.shape
+        else:
+            bsz, hh, ww, cc = x.logical_shape
+            m, k = bsz, hh * ww * cc
+        name = cfg.resolve_backend(x.device, w)
+        dec = route_linear(m, k, w.shape[-1], cfg,
+                           eligible=retile_reason is None, device=x.device)
+        fields = _route_fields(dec,
+                               xover.linear_shape_class(m, k, w.shape[-1]))
+        if retiled:
+            fields["retile"] = True
+        if dec.is_event:
+            trace.record(op="linear", backend=name, chained=True, **fields)
+            return get_backend("linear_events", name)(x, w, b, cfg)
+        if dec.source == "geometry":
+            if retile_reason is not None:
+                fields["reason"] = retile_reason
+            trace.record(op="linear", backend=name, fallback_decode=True,
+                         **fields)
+        else:
+            trace.record(op="linear", backend=name, routed_dense=True,
+                         **fields)
+        xd = x.dense_nhwc().reshape(m, k) if (conv_stream and not retiled) \
+            else x.dense()
+        return linear(xd, w, b, cfg)
+    lead = x.shape[:-1]
+    y = dispatch("linear", cfg, x, w)(x.reshape(-1, x.shape[-1]), w, b, cfg)
+    return y.reshape(*lead, w.shape[-1])
+
+
+def conv2d(x, w: torch.Tensor, b: torch.Tensor | None = None,
+           cfg: EngineConfig = _DEFAULT, *, stride: int = 1,
+           padding: int = 0) -> torch.Tensor:
+    """2-D conv.  x (B, H, W, CI) dense or a conv EventStream, w (KH, KW,
+    CI, CO).  A strip stream on a strip-eligible layer rides the fused
+    strip conv (one launch per layer, DESIGN.md §6); a pixel stream the
+    per-tap path; anything else decodes visibly."""
+    if isinstance(x, EventStream):
+        name = cfg.resolve_backend(x.device, w)
+        conv_stream = _is_conv_stream(x)
+        if conv_stream and x.shape[0] == 0:
+            bsz, h, wd, _ = x.logical_shape
+            y = w.new_zeros((bsz, conv_out_size(h, w.shape[0], stride,
+                                                padding),
+                             conv_out_size(wd, w.shape[1], stride, padding),
+                             w.shape[-1]))
+            return y if b is None else y + b
+        k = w.shape[0]
+        if conv_stream:
+            dec = route_conv(x.logical_shape, tuple(w.shape), cfg,
+                             stride=stride, padding=padding, blk_m=x.blk_m,
+                             device=x.device)
+            fields = _route_fields(dec, f"k{k}s{stride}")
+            if dec.route == "strip":
+                subtaps, worst = ev.strip_subtap_counts(k, padding, stride)
+                trace.record(op="conv2d", backend=name, chained=True,
+                             strip=True, launches=1, stride=stride,
+                             subtaps=subtaps, subtaps_worst=worst,
+                             compaction=subtaps / worst, **fields)
+                return get_backend("conv2d_events_strip", name)(
+                    x, w, b, cfg, stride, padding)
+            if dec.route == "pixel":
+                trace.record(op="conv2d", backend=name, chained=True,
+                             launches=k * k, **fields)
+                return get_backend("conv2d_events", name)(x, w, b, cfg,
+                                                          stride, padding)
+            if dec.source == "geometry":
+                trace.record(op="conv2d", backend=name, fallback_decode=True,
+                             strip=x.blk_m == ev.STRIP_W, **fields)
+            else:
+                trace.record(op="conv2d", backend=name, routed_dense=True,
+                             **fields)
+            x = x.dense_nhwc()
+        else:
+            dec = xover.decide_route(
+                cfg.route, "conv", occupancy=cfg.occupancy_hint,
+                event_route=None,
+                dense_macs=float(x.shape[0] * x.shape[1] * w.shape[-1]),
+                avg_touched=1.0, c_out=w.shape[-1], backend=name)
+            trace.record(op="conv2d", backend=name, fallback_decode=True,
+                         **_route_fields(dec, f"k{k}s{stride}"))
+            x = x.dense()
+    return dispatch("conv2d", cfg, x, w)(x, w, b, cfg, stride, padding)
+
+
+def pool_ineligible_reason(x, k: int, stride: int | None = None,
+                           cfg: EngineConfig = _DEFAULT) -> str | None:
+    """Why ``maxpool2d`` cannot pool ``x`` (a stream or an NHWC shape) in
+    the event domain (None = it can).  Messages as in the JAX package."""
+    stride = k if stride is None else stride
+    shape = x.logical_shape if isinstance(x, EventStream) else x
+    if shape is None or len(shape) != 4:
+        return "not a conv stream (no NHWC logical_shape)"
+    b, h, w, c = shape
+    if k < 1 or stride < 1:
+        return f"degenerate window k={k}, stride={stride}"
+    if h < k or w < k:
+        return (f"VALID {k}x{k} window exceeds the {h}x{w} map "
+                f"(no output pixels)")
+    if cfg.magnitude:
+        return ("magnitude fire can emit negative events; the segment max "
+                "runs with identity 0 and needs a ReLU-family stream")
+    if isinstance(x, EventStream) and x.signed:
+        return ("stream carries signed event values (signed/magnitude "
+                "fire); the segment max runs with identity 0 and needs a "
+                "ReLU-family stream")
+    name = _resolve(cfg, x.device if isinstance(x, EventStream) else None)
+    if name not in list_backends("maxpool2d_events"):
+        return f"backend {name!r} has no maxpool2d_events op"
+    return None
+
+
+def maxpool2d(x, k: int, stride: int | None = None,
+              cfg: EngineConfig = _DEFAULT, *, keep_dense: bool = True):
+    """VALID max-pool.  A conv stream pools in the event domain (segment
+    max, bitwise the dense pool, DESIGN.md §7) and re-emits through the
+    fire phase at ``cfg.blk_m`` granularity; a dense map returns the dense
+    pooled map."""
+    stride = k if stride is None else stride
+    if isinstance(x, EventStream):
+        name = cfg.resolve_backend(x.device)
+        reason = pool_ineligible_reason(x, k, stride, cfg)
+        shape_ok = _is_conv_stream(x)
+        if shape_ok:
+            dec = route_pool(x.logical_shape, k, stride, cfg, blk_m=x.blk_m,
+                             eligible=reason is None, device=x.device)
+        else:
+            dec = xover.decide_route(
+                cfg.route, "pool", occupancy=cfg.occupancy_hint,
+                event_route=None, dense_macs=float(x.shape[0] * x.shape[1]),
+                avg_touched=1.0, c_out=x.shape[1], backend=name)
+        fields = _route_fields(
+            dec, f"k{k}s{stride}c{x.logical_shape[3]}" if shape_ok
+            else f"k{k}s{stride}")
+        if reason is None:
+            b, h, w, c = x.logical_shape
+            oh = (h - k) // stride + 1
+            ow = (w - k) // stride + 1
+            bm = cfg.blk_m if cfg.blk_m == 1 or (
+                cfg.blk_m == ev.STRIP_W and ow % ev.STRIP_W == 0) else 1
+            if x.shape[0] == 0:
+                return EventStream.empty(
+                    (b * oh * ow, c), blk_m=bm, blk_k=cfg.blk_k,
+                    dtype=x.events.values.dtype, device=x.device,
+                    logical_shape=(b, oh, ow, c))
+            if dec.is_event:
+                op_name = ("maxpool2d_events_window" if dec.route == "window"
+                           else "maxpool2d_events")
+                trace.record(op="maxpool2d", backend=name, chained=True,
+                             pool_events=True, launches=1, **fields)
+                rows = get_backend(op_name, name)(x, k, stride, cfg)
+            else:
+                trace.record(op="maxpool2d", backend=name, routed_dense=True,
+                             **fields)
+                rows = dispatch("maxpool2d", cfg, x.device)(
+                    x.dense_nhwc(), k, stride, cfg).reshape(b * oh * ow, c)
+            # Pooled values are already fired: fire at threshold 0 is the
+            # identity re-emission at the consumer's granularity.
+            return fire_conv(rows.reshape(b, oh, ow, c),
+                             cfg.replace(threshold=0.0),
+                             keep_dense=keep_dense, blk_m=bm)
+        trace.record(op="maxpool2d", backend=name, fallback_decode=True,
+                     reason=reason, **fields)
+        x = x.dense_nhwc() if x.logical_shape is not None else x.dense()
+    return dispatch("maxpool2d", cfg, x)(x, k, stride, cfg)
+
+
+def fire(acc: torch.Tensor, cfg: EngineConfig = _DEFAULT, *,
+         keep_dense: bool = True) -> EventStream:
+    """Fire phase: threshold ``acc`` (M, K) and emit the next layer's
+    events; ``keep_dense=False`` drops the dense twin."""
+    c = cfg.for_width(*acc.shape)
+    signed = cfg.magnitude or cfg.signed
+    if 0 in acc.shape:
+        s = EventStream.empty(tuple(acc.shape), blk_m=c.blk_m, blk_k=c.blk_k,
+                              capacity=c.capacity, dtype=acc.dtype,
+                              device=acc.device,
+                              fired=acc if keep_dense else None)
+        return dataclasses.replace(s, signed=signed)
+    fired, bev = dispatch("fire", cfg, acc)(acc, c)
+    return EventStream(events=bev, fired=fired if keep_dense else None,
+                       shape=tuple(acc.shape), blk_m=c.blk_m, blk_k=c.blk_k,
+                       signed=signed)
+
+
+def fire_conv(acc: torch.Tensor, cfg: EngineConfig = _DEFAULT, *,
+              keep_dense: bool = True, blk_m: int = 1) -> EventStream:
+    """Fire over a conv accumulator (B, OY, OX, CO) -> conv stream at pixel
+    (blk_m 1) or strip (STRIP_W, OX % 8 == 0) granularity."""
+    b, h, w, c = acc.shape
+    assert blk_m == 1 or (blk_m == ev.STRIP_W and w % ev.STRIP_W == 0), \
+        (blk_m, tuple(acc.shape), "strip streams need blk_m == STRIP_W and "
+         "W % STRIP_W == 0")
+    acc2 = acc.reshape(b * h * w, c)
+    c2 = cfg.replace(blk_m=blk_m).for_width(*acc2.shape)
+    signed = cfg.magnitude or cfg.signed
+    if 0 in acc2.shape:
+        s = EventStream.empty(tuple(acc2.shape), blk_m=c2.blk_m,
+                              blk_k=c2.blk_k, capacity=c2.capacity,
+                              dtype=acc.dtype, device=acc.device,
+                              fired=acc2 if keep_dense else None,
+                              logical_shape=(b, h, w, c))
+        return dataclasses.replace(s, signed=signed)
+    fired, bev = dispatch("fire_conv", cfg, acc2)(acc2, c2)
+    return EventStream(events=bev, fired=fired if keep_dense else None,
+                       shape=tuple(acc2.shape), blk_m=c2.blk_m,
+                       blk_k=c2.blk_k, logical_shape=(b, h, w, c),
+                       signed=signed)

@@ -1,0 +1,87 @@
+"""EngineConfig — the one knob bundle for MNF compute (DESIGN.md §3), port
+of ``repro.engine.config``.
+
+The backend resolves from the device of the tensors handed in: ``"auto"``
+gives ``"cuda"`` (the hand-written kernels) for CUDA tensors and
+``"block"`` (the same dataflow through the kernels' plain versions) for
+CPU tensors.  An explicit ``"cuda"`` on a CPU tensor raises, and so does an
+explicit ``"block"`` on a CUDA tensor: a CUDA tensor launches the kernels
+or raises.  There is no interpret mode.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+__all__ = ["BACKENDS", "EngineConfig"]
+
+#: Execution backends (DESIGN.md §4): dense — the oracle (F.conv2d /
+#: torch.matmul); block — the block-event dataflow through the kernels'
+#: plain versions, CPU tensors only; cuda — the same dataflow through the
+#: hand-written Hopper kernels, CUDA tensors only.
+BACKENDS = ("dense", "block", "cuda")
+
+
+def _device_type(t) -> str:
+    if isinstance(t, torch.Tensor):
+        return t.device.type
+    return torch.device(t).type
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """backend: one of BACKENDS or "auto"; blk_m/blk_k: event tile rows and
+    K width (the CUDA kernels pick their own CTA width over N and mask the
+    ragged edge, so there is no N tile); capacity: static event slots per
+    row group (None = lossless); threshold/magnitude/signed: the fire rule; route: boundary routing
+    policy (DESIGN.md §11) — "auto", "adaptive" or a forced route label;
+    occupancy_hint: static occupancy for adaptive routing; int8_events:
+    int8 event values — not ported yet (ROADMAP A7)."""
+
+    backend: str = "auto"
+    blk_m: int = 8
+    blk_k: int = 128
+    capacity: int | None = None
+    threshold: float = 0.0
+    magnitude: bool = False
+    signed: bool = False
+    route: str = "auto"
+    occupancy_hint: float | None = None
+    int8_events: bool = False
+
+    def __post_init__(self):
+        if self.int8_events:
+            raise NotImplementedError(
+                "int8 event values (int8_events=True) are not ported yet "
+                "(ROADMAP A7)")
+
+    def resolve_backend(self, *tensors) -> str:
+        """Concrete backend for operands on the devices of ``tensors``
+        (tensors or devices).  "auto" -> cuda for CUDA operands, block
+        otherwise; "cuda" with a CPU operand and "block" with a CUDA
+        operand raise."""
+        types = {_device_type(t) for t in tensors}
+        if self.backend == "cuda" and types - {"cuda"}:
+            raise ValueError(f"backend 'cuda' needs CUDA tensors, got "
+                             f"tensors on {sorted(types)}")
+        if self.backend == "block" and "cuda" in types:
+            raise ValueError(f"backend 'block' needs CPU tensors, got "
+                             f"tensors on {sorted(types)}; CUDA tensors "
+                             f"take backend 'cuda'")
+        if self.backend != "auto":
+            return self.backend
+        return "cuda" if "cuda" in types else "block"
+
+    def replace(self, **kw) -> "EngineConfig":
+        return dataclasses.replace(self, **kw)
+
+    def for_width(self, m: int, k: int) -> "EngineConfig":
+        """Clamp tile sizes to an (M, K) operand."""
+        return dataclasses.replace(self, blk_m=min(self.blk_m, max(m, 1)),
+                                   blk_k=min(self.blk_k, max(k, 1)))
+
+    def for_conv(self, ci: int) -> "EngineConfig":
+        """Clamp blk_k to a conv's input-channel depth (a wider K tile would
+        only pad)."""
+        return dataclasses.replace(self, blk_k=min(self.blk_k, max(ci, 1)))

@@ -1,0 +1,455 @@
+"""The paper's evaluation workloads — AlexNet and VGG16 with MNF inference —
+port of ``repro.models.cnn``.
+
+Two execution paths over identical params, both dispatched through
+``repro_torch.engine``:
+
+  * dense (``mnf=False``) — the engine's dense backend + ReLU, the oracle;
+  * mnf — event-resident (``chain=True``): one EventStream threads the
+    network.  Each conv fire emits strip-aligned rows when the consumer can
+    ride the fused strip conv or the window-major pool, pixel rows
+    otherwise; pools run in the event domain; the conv→FC seam re-tiles by
+    static address plan; FC layers chain streams to the logits — zero
+    densify points (DESIGN.md §5–§7, §12).  ``chain=False`` is the
+    per-layer round-trip twin (dense at every boundary, same compute
+    geometry), bitwise equal to the chained path.
+
+The forward runs on the card unless the caller passes ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import engine
+from repro_torch.core.fire import FireConfig, fire
+from repro_torch.core.mnf_conv import conv_out_size
+from repro_torch.device import default_device
+from repro_torch.models.layers import max_pool_nhwc
+
+__all__ = ["ConvSpec", "FCSpec", "PoolSpec", "CNNSpec", "ALEXNET", "VGG16",
+           "ALEXNET_DS", "ALEXNET_FF", "VGG16_DS", "MINI", "MINI_S4",
+           "conv_downsampled", "init_cnn_params", "params_from_numpy",
+           "cnn_forward", "chain_boundary_summary"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvSpec:
+    out_ch: int
+    k: int
+    stride: int = 1
+    padding: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolSpec:
+    k: int = 2
+    stride: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class FCSpec:
+    out: int
+
+
+@dataclasses.dataclass(frozen=True)
+class CNNSpec:
+    name: str
+    input_size: int
+    in_ch: int
+    layers: tuple
+    num_classes: int = 1000
+
+    def scaled(self, input_size: int) -> "CNNSpec":
+        """Same topology at another input resolution."""
+        return dataclasses.replace(self, input_size=input_size)
+
+
+ALEXNET = CNNSpec(
+    "alexnet", 224, 3,
+    (ConvSpec(96, 11, 4, 2), PoolSpec(3, 2),
+     ConvSpec(256, 5, 1, 2), PoolSpec(3, 2),
+     ConvSpec(384, 3, 1, 1), ConvSpec(384, 3, 1, 1), ConvSpec(256, 3, 1, 1),
+     PoolSpec(3, 2),
+     FCSpec(4096), FCSpec(4096), FCSpec(1000)))
+
+VGG16 = CNNSpec(
+    "vgg16", 224, 3,
+    (ConvSpec(64, 3, 1, 1), ConvSpec(64, 3, 1, 1), PoolSpec(),
+     ConvSpec(128, 3, 1, 1), ConvSpec(128, 3, 1, 1), PoolSpec(),
+     ConvSpec(256, 3, 1, 1), ConvSpec(256, 3, 1, 1), ConvSpec(256, 3, 1, 1),
+     PoolSpec(),
+     ConvSpec(512, 3, 1, 1), ConvSpec(512, 3, 1, 1), ConvSpec(512, 3, 1, 1),
+     PoolSpec(),
+     ConvSpec(512, 3, 1, 1), ConvSpec(512, 3, 1, 1), ConvSpec(512, 3, 1, 1),
+     PoolSpec(),
+     FCSpec(4096), FCSpec(4096), FCSpec(1000)))
+
+
+def conv_downsampled(spec: CNNSpec, *, k: int = 3) -> CNNSpec:
+    """All-conv variant: every pool becomes a stride-2 k×k conv (padding
+    k//2, channel-preserving)."""
+    layers = []
+    c = spec.in_ch
+    for layer in spec.layers:
+        if isinstance(layer, PoolSpec):
+            layers.append(ConvSpec(c, k, 2, k // 2))
+        else:
+            layers.append(layer)
+            if isinstance(layer, ConvSpec):
+                c = layer.out_ch
+    return dataclasses.replace(spec, name=spec.name + "_ds",
+                               layers=tuple(layers))
+
+
+ALEXNET_DS = conv_downsampled(ALEXNET)
+VGG16_DS = conv_downsampled(VGG16)
+
+#: Fully fused AlexNet: conv1 padding 4 and input 256, so every layer width
+#: tiles into 8-pixel strips (see the JAX package's note on ALEXNET_FF).
+ALEXNET_FF = CNNSpec(
+    "alexnet_ff", 256, 3,
+    (ConvSpec(96, 11, 4, 4), ConvSpec(96, 3, 2, 1),
+     ConvSpec(256, 5, 1, 2), ConvSpec(256, 3, 2, 1),
+     ConvSpec(384, 3, 1, 1), ConvSpec(384, 3, 1, 1), ConvSpec(256, 3, 1, 1),
+     ConvSpec(256, 3, 2, 1),
+     FCSpec(4096), FCSpec(4096), FCSpec(1000)))
+
+#: Seconds-scale net with every chain seam: conv→conv, conv→pool→conv,
+#: conv→FC.
+MINI = CNNSpec("mini", 8, 3,
+               (ConvSpec(8, 3, 1, 1), ConvSpec(8, 3, 1, 1), PoolSpec(),
+                ConvSpec(8, 3, 1, 1), FCSpec(10)), num_classes=10)
+
+#: Stride-4 smoke net: a strip-eligible k3s4 conv between stride-1 convs.
+MINI_S4 = CNNSpec("mini_s4", 32, 3,
+                  (ConvSpec(8, 3, 1, 1), ConvSpec(8, 3, 4, 1),
+                   ConvSpec(8, 3, 1, 1), FCSpec(10)), num_classes=10)
+
+
+def _trace_shapes(spec: CNNSpec):
+    """(H, W, C) entering each layer."""
+    h = w = spec.input_size
+    c = spec.in_ch
+    shapes = []
+    for layer in spec.layers:
+        shapes.append((h, w, c))
+        if isinstance(layer, ConvSpec):
+            h = conv_out_size(h, layer.k, layer.stride, layer.padding)
+            w = conv_out_size(w, layer.k, layer.stride, layer.padding)
+            c = layer.out_ch
+        elif isinstance(layer, PoolSpec):
+            h = (h - layer.k) // layer.stride + 1
+            w = (w - layer.k) // layer.stride + 1
+        elif isinstance(layer, FCSpec):
+            h, w, c = 1, 1, layer.out
+    return shapes
+
+
+def init_cnn_params(spec: CNNSpec, generator: torch.Generator, *,
+                    weight_sparsity: float = 0.0) -> list:
+    """He-initialized weights (HWIO convs, (K, N) FCs, None for pools) drawn
+    from ``generator`` on its device; optional unstructured pruning."""
+    dev = generator.device
+    params = []
+    for layer, (h, w, c) in zip(spec.layers, _trace_shapes(spec)):
+        if isinstance(layer, ConvSpec):
+            shape = (layer.k, layer.k, c, layer.out_ch)
+            fan_in = layer.k * layer.k * c
+        elif isinstance(layer, FCSpec):
+            shape = (h * w * c, layer.out)
+            fan_in = h * w * c
+        else:
+            params.append(None)
+            continue
+        wgt = torch.randn(shape, generator=generator, device=dev) \
+            * (2.0 / fan_in) ** 0.5
+        if weight_sparsity > 0.0:
+            keep = torch.rand(shape, generator=generator, device=dev)
+            wgt = torch.where(keep >= weight_sparsity, wgt, 0.0)
+        params.append(wgt)
+    return params
+
+
+def params_from_numpy(params: list, device=None) -> list:
+    """The JAX package's ``init_cnn_params`` list (arrays, None for pools)
+    as the port's params, same layout — both packages then compute the
+    same function."""
+    return [None if p is None
+            else torch.from_numpy(np.array(p, np.float32)).to(device or "cpu")
+            for p in params]
+
+
+def _layer_cfg(base: engine.EngineConfig | None, *, mnf: bool,
+               fire_cfg: FireConfig) -> engine.EngineConfig:
+    cfg = base or engine.EngineConfig()
+    if not mnf:
+        cfg = cfg.replace(backend="dense")
+    return cfg.replace(threshold=fire_cfg.threshold,
+                       magnitude=fire_cfg.magnitude)
+
+
+def _next_conv_blk_m(nxt, out_shape: tuple) -> int:
+    """Granularity a fired layer emits, chosen from its consumer: strips
+    for a strip-eligible conv or a window-eligible pool, pixels else."""
+    out_w = out_shape[2]
+    if isinstance(nxt, ConvSpec) and engine.strip_eligible(
+            out_w, nxt.k, nxt.stride, nxt.padding, co=nxt.out_ch):
+        return engine.STRIP_W
+    if isinstance(nxt, PoolSpec) and engine.pool_window_ineligible_reason(
+            tuple(out_shape), nxt.k, nxt.stride, engine.STRIP_W) is None:
+        return engine.STRIP_W
+    return 1
+
+
+def _input_stream_blk_m(layer: ConvSpec, x_shape: tuple,
+                        cfg: engine.EngineConfig, device) -> int:
+    """STRIP_W when the chained path strip-encodes a dense conv input (the
+    chain head) because the conv is strip-eligible and routes to the event
+    path; 0 = stay dense."""
+    b, h, w, c = x_shape
+    if not engine.strip_eligible(w, layer.k, layer.stride, layer.padding,
+                                 co=layer.out_ch):
+        return 0
+    dec = engine.route_conv((b, h, w, c),
+                            (layer.k, layer.k, c, layer.out_ch), cfg,
+                            stride=layer.stride, padding=layer.padding,
+                            blk_m=engine.STRIP_W, device=device)
+    return engine.STRIP_W if dec.route == "strip" else 0
+
+
+def _next_boundary_route(nxt, out_shape: tuple, cfg: engine.EngineConfig,
+                         blk_m: int, device):
+    """The route the next boundary will take — same call, same inputs as
+    the dispatch, so planner and dispatch cannot disagree."""
+    if isinstance(nxt, ConvSpec):
+        return engine.route_conv(
+            out_shape, (nxt.k, nxt.k, out_shape[3], nxt.out_ch), cfg,
+            stride=nxt.stride, padding=nxt.padding, blk_m=blk_m,
+            device=device)
+    if isinstance(nxt, FCSpec):
+        b, oh, ow, c = out_shape
+        return engine.route_linear(b, oh * ow * c, nxt.out, cfg,
+                                   device=device)
+    return engine.route_pool(out_shape, nxt.k, nxt.stride, cfg, blk_m=blk_m,
+                             device=device)
+
+
+def _fc_chains(nxt, out_shape: tuple, cfg: engine.EngineConfig,
+               blk_m: int) -> bool:
+    """Whether a stream emitted at ``blk_m`` chains into a next-layer FC
+    through the re-tiler."""
+    if not isinstance(nxt, FCSpec):
+        return False
+    blk_k = min(cfg.blk_k, max(out_shape[-1], 1))
+    return engine.retile_ineligible_reason(tuple(out_shape), blk_m,
+                                           blk_k) is None
+
+
+def chain_boundary_summary(spec: CNNSpec, *, batch: int = 1,
+                           fire_cfg: FireConfig = FireConfig(),
+                           engine_cfg: engine.EngineConfig | None = None,
+                           device=None) -> dict:
+    """Shape-derived per-boundary accounting of the chained pipeline:
+    compute layers by kind, pools on the event path (``pool_events``),
+    conv→FC re-tiles, chain-head input encodes, and the densify points
+    left (``densify`` — 0 when every boundary is eligible), plus each
+    stream boundary's routing decision in chain order."""
+    cfg = _layer_cfg(engine_cfg, mnf=True, fire_cfg=fire_cfg)
+    conv_base = cfg.replace(blk_m=1, blk_k=min(8, cfg.blk_k))
+    shapes = _trace_shapes(spec)
+    out = dict(conv=0, fc=0, pool=0, pool_events=0, densify=0,
+               input_encode=0, retile=0, routes=[])
+    conv_stream_in = fc_stream_in = False
+    blk_m = 1
+    for i, layer in enumerate(spec.layers):
+        h, w, c = shapes[i]
+        nxt = spec.layers[i + 1] if i + 1 < len(spec.layers) else None
+        if isinstance(layer, ConvSpec):
+            out["conv"] += 1
+            if not conv_stream_in:
+                bm_in = _input_stream_blk_m(layer, (batch, h, w, c),
+                                            conv_base, device)
+                if bm_in:
+                    out["input_encode"] += 1
+                    conv_stream_in = True
+                    blk_m = bm_in
+            if conv_stream_in:
+                dec = engine.route_conv(
+                    (batch, h, w, c), (layer.k, layer.k, c, layer.out_ch),
+                    conv_base, stride=layer.stride, padding=layer.padding,
+                    blk_m=blk_m, device=device)
+                out["routes"].append(dict(
+                    op="conv2d", route=dec.route, occupancy=dec.occupancy,
+                    est_event_cost=dec.est_event_cost,
+                    est_dense_cost=dec.est_dense_cost, source=dec.source,
+                    shape_class=f"k{layer.k}s{layer.stride}"))
+            oy = conv_out_size(h, layer.k, layer.stride, layer.padding)
+            ox = conv_out_size(w, layer.k, layer.stride, layer.padding)
+            blk_m = _next_conv_blk_m(nxt, (batch, oy, ox, layer.out_ch))
+            conv_stream_in = True
+        elif isinstance(layer, FCSpec):
+            out["fc"] += 1
+            if conv_stream_in or fc_stream_in:
+                kf = h * w * c
+                reason = None
+                if conv_stream_in:
+                    reason = engine.retile_ineligible_reason(
+                        (batch, h, w, c), blk_m,
+                        min(conv_base.blk_k, max(c, 1)))
+                dec = engine.route_linear(batch, kf, layer.out, cfg,
+                                          eligible=reason is None,
+                                          device=device)
+                rec = dict(op="linear", route=dec.route,
+                           occupancy=dec.occupancy,
+                           est_event_cost=dec.est_event_cost,
+                           est_dense_cost=dec.est_dense_cost,
+                           source=dec.source,
+                           shape_class=engine.linear_shape_class(
+                               batch, kf, layer.out))
+                if conv_stream_in and reason is None:
+                    rec["retile"] = True
+                    out["retile"] += 1
+                if reason is not None:
+                    rec["reason"] = reason
+                    out["densify"] += 1
+                out["routes"].append(rec)
+            conv_stream_in = False
+            fc_stream_in = layer is not spec.layers[-1]
+        elif isinstance(layer, PoolSpec):
+            out["pool"] += 1
+            if conv_stream_in and engine.pool_ineligible_reason(
+                    (batch, h, w, c), layer.k, layer.stride,
+                    conv_base) is None:
+                out["pool_events"] += 1
+                dec = engine.route_pool((batch, h, w, c), layer.k,
+                                        layer.stride, conv_base, blk_m=blk_m,
+                                        device=device)
+                out["routes"].append(dict(
+                    op="maxpool2d", route=dec.route, occupancy=dec.occupancy,
+                    est_event_cost=dec.est_event_cost,
+                    est_dense_cost=dec.est_dense_cost, source=dec.source,
+                    shape_class=f"k{layer.k}s{layer.stride}c{c}"))
+                oh = (h - layer.k) // layer.stride + 1
+                ow = (w - layer.k) // layer.stride + 1
+                blk_m = _next_conv_blk_m(nxt, (batch, oh, ow, c))
+            else:
+                out["densify"] += 1
+                conv_stream_in = False
+    return out
+
+
+def _forward(params, x, spec: CNNSpec, *, fire_cfg: FireConfig,
+             cfg: engine.EngineConfig, chain: bool):
+    """The one forward body.  ``chain=True`` threads an EventStream through
+    conv→fire→conv→…→FC; ``chain=False`` is the round-trip twin.  The conv
+    dispatch config stays pixel-granular (blk_m 1, blk_k ≤ 8) so the twin
+    multiplies the same tiles in the same order as the chained path."""
+    layers = spec.layers
+    dev = x.device
+    conv_base = cfg.replace(blk_m=1, blk_k=min(8, cfg.blk_k))
+    for i, (layer, wgt) in enumerate(zip(layers, params)):
+        nxt = layers[i + 1] if i + 1 < len(layers) else None
+        if isinstance(layer, ConvSpec):
+            if chain and not isinstance(x, engine.EventStream):
+                bm_in = _input_stream_blk_m(layer, tuple(x.shape), conv_base,
+                                            dev)
+                if bm_in:
+                    x = engine.EventStream.encode_nhwc(
+                        x, blk_k=min(conv_base.blk_k, max(x.shape[-1], 1)),
+                        blk_m=bm_in, keep_dense=False)
+            ci = x.logical_shape[-1] if isinstance(x, engine.EventStream) \
+                else x.shape[-1]
+            ccfg = conv_base.replace(threshold=0.0).for_conv(ci)
+            acc = engine.conv2d(x, wgt, cfg=ccfg, stride=layer.stride,
+                                padding=layer.padding)
+            if chain:
+                shape = tuple(acc.shape)
+                pool_chains = (isinstance(nxt, PoolSpec)
+                               and engine.pool_ineligible_reason(
+                                   shape, nxt.k, nxt.stride, conv_base)
+                               is None)
+                bm_next = _next_conv_blk_m(nxt, shape)
+                keep = not (isinstance(nxt, ConvSpec) or pool_chains
+                            or _fc_chains(nxt, shape, conv_base, bm_next))
+                if not keep and conv_base.route != "auto":
+                    keep = not _next_boundary_route(nxt, shape, conv_base,
+                                                    bm_next, dev).is_event
+                x = engine.fire_conv(acc, conv_base, keep_dense=keep,
+                                     blk_m=bm_next)
+            else:
+                x = fire(acc, fire_cfg)
+        elif isinstance(layer, PoolSpec):
+            if chain and isinstance(x, engine.EventStream) \
+                    and engine.pool_ineligible_reason(
+                        x, layer.k, layer.stride, conv_base) is None:
+                b, h, w, c = x.logical_shape
+                pooled_shape = (b, (h - layer.k) // layer.stride + 1,
+                                (w - layer.k) // layer.stride + 1, c)
+                pcfg = conv_base.for_conv(c).replace(
+                    blk_m=_next_conv_blk_m(nxt, pooled_shape))
+                keep_pool = not (isinstance(nxt, ConvSpec)
+                                 or _fc_chains(nxt, pooled_shape, conv_base,
+                                               pcfg.blk_m))
+                if not keep_pool and conv_base.route != "auto":
+                    keep_pool = not _next_boundary_route(
+                        nxt, pooled_shape, conv_base, pcfg.blk_m,
+                        dev).is_event
+                x = engine.maxpool2d(x, layer.k, layer.stride, cfg=pcfg,
+                                     keep_dense=keep_pool)
+            else:
+                dense = x.dense_nhwc() if isinstance(x, engine.EventStream) \
+                    else x
+                pooled = max_pool_nhwc(dense, layer.k, layer.stride)
+                if chain and isinstance(nxt, ConvSpec):
+                    x = engine.EventStream.encode_nhwc(
+                        pooled, blk_k=conv_base.blk_k,
+                        blk_m=_next_conv_blk_m(nxt, tuple(pooled.shape)),
+                        keep_dense=False)
+                else:
+                    x = pooled
+        elif isinstance(layer, FCSpec):
+            # Conv-derived inputs dispatch under the re-tiled geometry
+            # (blk_m 1, the conv chain's blk_k), so the twin's encode of
+            # the flattened map gives exactly the re-tiler's BlockEvents.
+            if isinstance(x, engine.EventStream) \
+                    and x.logical_shape is not None:
+                fcfg = cfg.replace(threshold=0.0, blk_m=1, blk_k=x.blk_k)
+            elif not isinstance(x, engine.EventStream) and x.ndim == 4:
+                fcfg = cfg.replace(
+                    threshold=0.0, blk_m=1,
+                    blk_k=min(conv_base.blk_k, max(x.shape[-1], 1)))
+            else:
+                fcfg = cfg.replace(threshold=0.0)
+            flat = x if isinstance(x, engine.EventStream) \
+                else x.reshape(x.shape[0], -1)
+            acc = engine.linear(flat, wgt, cfg=fcfg)
+            if layer is layers[-1]:
+                x = acc
+            elif chain:
+                x = engine.fire(acc, cfg, keep_dense=False)
+            else:
+                x = fire(acc, fire_cfg)
+    if isinstance(x, engine.EventStream):
+        return x.dense_nhwc() if x.logical_shape is not None else x.dense()
+    return x
+
+
+def cnn_forward(params, x, spec: CNNSpec, *, mnf: bool = True,
+                fire_cfg: FireConfig = FireConfig(),
+                engine_cfg: engine.EngineConfig | None = None,
+                chain: bool | None = None, device=None) -> torch.Tensor:
+    """x (B, H, W, C) -> logits (B, classes).  ``mnf=False`` is the dense
+    oracle; ``chain=False`` the per-layer round-trip twin.  Runs on the
+    card (``default_device()``) unless ``device`` says otherwise; inputs
+    and params move there."""
+    dev = default_device() if device is None else torch.device(device)
+    x = torch.as_tensor(x, dtype=torch.float32).to(dev)
+    params = [None if p is None else p.to(dev) for p in params]
+    cfg = _layer_cfg(engine_cfg, mnf=mnf, fire_cfg=fire_cfg)
+    if chain is None:
+        chain = mnf
+    return _forward(params, x, spec, fire_cfg=fire_cfg, cfg=cfg,
+                    chain=chain and mnf)

@@ -1,0 +1,102 @@
+"""The CUDA kernels against their plain versions, on the card, at small
+shapes.  Marked ``cuda``: each test skips where there is no GPU (decided
+inside the fixture, never at import).  On a machine with a card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import engine
+from repro_torch.kernels.event_conv.ops import event_conv, strip_conv_inputs
+from repro_torch.kernels.event_conv.ref import event_conv_ref
+from repro_torch.kernels.event_matmul.ops import event_matmul
+from repro_torch.kernels.event_matmul.ref import event_matmul_ref
+from repro_torch.kernels.event_pool.ops import (event_pool, event_pool_window,
+                                                pool_inputs,
+                                                pool_window_inputs)
+from repro_torch.kernels.event_pool.ref import (event_pool_ref,
+                                                event_pool_window_ref)
+from repro_torch.kernels.fire_compact.ops import fire_compact
+from repro_torch.kernels.fire_compact.ref import fire_compact_ref
+from repro_torch.models import cnn
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _fired(seed, shape, dev, sparsity=0.5):
+    r = np.random.default_rng(seed)
+    x = r.normal(size=shape) * (r.random(shape) > sparsity)
+    return torch.from_numpy(np.maximum(x, 0).astype(np.float32)).to(dev)
+
+
+def _close(a, b):
+    return float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()),
+                                                    1e-30)
+
+
+@pytest.mark.parametrize("m,k,bm,bk,mag", [(64, 64, 8, 8, False),
+                                           (4, 1000, 4, 128, True)])
+def test_fire_compact_matches_plain(dev, m, k, bm, bk, mag):
+    acc = torch.randn((m, k - k % bk), device=dev)
+    n = fire_compact.launches
+    f1, o1 = fire_compact(acc, blk_m=bm, blk_k=bk, magnitude=mag)
+    f2, o2 = fire_compact_ref(acc, blk_m=bm, blk_k=bk, magnitude=mag)
+    assert fire_compact.launches == n + 1
+    assert torch.equal(f1, f2) and torch.equal(o1, o2)
+
+
+@pytest.mark.parametrize("m,k,n,bm,bk", [(16, 64, 1000, 1, 8),
+                                         (8, 512, 40, 8, 128)])
+def test_event_matmul_matches_plain(dev, m, k, n, bm, bk):
+    s = engine.EventStream.encode(_fired(m, (m, k), dev), blk_m=bm, blk_k=bk)
+    w = torch.randn((k, n), device=dev)
+    args = (s.events.values, s.events.block_idx, s.events.counts, w)
+    assert _close(event_matmul(*args), event_matmul_ref(*args))
+
+
+@pytest.mark.parametrize("shape,k,p,s", [((2, 8, 32, 8), 3, 1, 1),
+                                         ((1, 8, 32, 8), 3, 1, 2),
+                                         ((1, 16, 64, 3), 11, 4, 4)])
+def test_event_conv_matches_plain(dev, shape, k, p, s):
+    x = _fired(k, shape, dev)
+    w = torch.randn((k, k, shape[3], 16), device=dev)
+    st = engine.EventStream.encode_nhwc(x, blk_k=8, blk_m=8)
+    args, nkb = strip_conv_inputs(st, w, stride=s, padding=p)
+    assert _close(event_conv(*args, nkb=nkb, row_stride=s),
+                  event_conv_ref(*args, nkb=nkb, row_stride=s))
+
+
+@pytest.mark.parametrize("shape,bm", [((2, 16, 16, 16), 8),
+                                      ((2, 7, 7, 16), 1)])
+def test_event_pools_match_plain(dev, shape, bm):
+    x = _fired(bm, shape, dev)
+    st = engine.EventStream.encode_nhwc(x, blk_k=8, blk_m=bm)
+    args = pool_inputs(st, 2, 2)
+    assert torch.equal(event_pool(*args, nkb=2), event_pool_ref(*args, nkb=2))
+    if bm == 8:
+        args = pool_window_inputs(st, 2, 2)
+        assert torch.equal(event_pool_window(*args, nkb=2, row_stride=2),
+                           event_pool_window_ref(*args, nkb=2, row_stride=2))
+
+
+def test_mini_chain_bitwise_and_matches_cpu(dev):
+    gen = torch.Generator().manual_seed(0)
+    params = cnn.init_cnn_params(cnn.MINI, gen, weight_sparsity=0.5)
+    x = torch.relu(torch.randn((2, 8, 8, 3), generator=gen))
+    yc = cnn.cnn_forward(params, x, cnn.MINI)
+    yr = cnn.cnn_forward(params, x, cnn.MINI, chain=False)
+    assert torch.equal(yc, yr)
+    y_cpu = cnn.cnn_forward(params, x, cnn.MINI, device="cpu")
+    torch.testing.assert_close(yc.cpu(), y_cpu, atol=1e-5, rtol=1e-5)

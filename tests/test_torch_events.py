@@ -1,0 +1,154 @@
+"""repro_torch.core.events against repro.core.events: the same numpy inputs,
+integer arrays exactly equal, messages verbatim."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import events as jev
+from repro_torch.core import events as tev
+
+
+def _fired(seed, shape, sparsity=0.5):
+    r = np.random.default_rng(seed)
+    x = r.normal(size=shape) * (r.random(shape) > sparsity)
+    return np.maximum(x, 0).astype(np.float32)
+
+
+def _jit(fn, *args, **static):
+    """Run a JAX function as one compiled call (eager dispatch compiles
+    every small op separately, which dominates these tests' time)."""
+    return jax.jit(functools.partial(fn, **static))(*args)
+
+
+def _assert_bev_equal(tb, jb):
+    np.testing.assert_array_equal(tb.values.numpy(), np.asarray(jb.values))
+    np.testing.assert_array_equal(tb.block_idx.numpy(),
+                                  np.asarray(jb.block_idx))
+    np.testing.assert_array_equal(tb.counts.numpy(), np.asarray(jb.counts))
+    assert tb.block_idx.dtype == torch.int32 and tb.counts.dtype == torch.int32
+    assert tb.num_k_blocks == jb.num_k_blocks
+
+
+@pytest.mark.parametrize("m,k,bm,bk,cap,thr,sp", [
+    (8, 64, 8, 8, None, 0.0, 0.5),
+    (16, 128, 1, 8, None, 0.0, 0.9),
+    (12, 48, 4, 16, 2, 0.0, 0.7),       # capacity below the live count
+    (8, 40, 8, 8, None, 0.3, 0.2),      # threshold > 0
+    (4, 32, 1, 8, None, 0.0, 1.0),      # all-empty groups
+])
+def test_encode_decode_match(m, k, bm, bk, cap, thr, sp):
+    x = _fired(m * k, (m, k), sp)
+    tb = tev.encode_block_events(torch.from_numpy(x), blk_m=bm, blk_k=bk,
+                                 capacity=cap, threshold=thr)
+    jb = _jit(jev.encode_block_events, jnp.asarray(x), blk_m=bm, blk_k=bk,
+              capacity=cap, threshold=thr)
+    _assert_bev_equal(tb, jb)
+    if cap is None and thr == 0.0:
+        y = tev.decode_block_events(tb, blk_m=bm, blk_k=bk, m=m, k=k)
+        np.testing.assert_array_equal(y.numpy(), x)
+
+
+def test_encode_with_occupancy_equals_rescan():
+    x = _fired(3, (16, 64))
+    live = torch.from_numpy(x).reshape(2, 8, 8, 8).permute(0, 2, 1, 3) \
+        .flatten(2).ne(0).any(-1)
+    a = tev.encode_block_events(torch.from_numpy(x), blk_m=8, blk_k=8)
+    b = tev.encode_block_events(torch.from_numpy(x), blk_m=8, blk_k=8,
+                                live=live)
+    for f in ("values", "block_idx", "counts"):
+        assert torch.equal(getattr(a, f), getattr(b, f))
+
+
+GEOMS = [  # (B, H, W, C), k, padding, stride — strides 1, 2 and 4
+    ((2, 5, 16, 8), 3, 1, 1), ((1, 4, 8, 8), 1, 0, 1),
+    ((1, 3, 24, 4), 5, 2, 1), ((2, 8, 16, 8), 3, 1, 2),
+    ((1, 6, 32, 4), 1, 0, 2), ((1, 9, 32, 4), 3, 1, 4),
+    ((1, 12, 64, 3), 11, 4, 4), ((1, 8, 32, 8), 1, 0, 4),
+]
+
+
+@pytest.mark.parametrize("shape,k,p,s", GEOMS)
+def test_strip_plan_and_gathers_match(shape, k, p, s):
+    assert tev.strip_ineligible_reason(shape[2], k, s, p) is None
+    assert tev.strip_subtap_counts(k, p, s) == jev.strip_subtap_counts(k, p,
+                                                                       s)
+    tplan = tev.strip_tap_map(shape, k, p, s)
+    jplan = jev.strip_tap_map(shape, k, p, s)
+    for a, b in zip(tplan, jplan):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+    x = _fired(k + s, (shape[0] * shape[1] * shape[2], shape[3]))
+    bk = min(4, shape[3])
+    tb = tev.encode_block_events(torch.from_numpy(x), blk_m=8, blk_k=bk)
+    jb = _jit(jev.encode_block_events, jnp.asarray(x), blk_m=8, blk_k=bk)
+    src, live, shift, _ = jplan
+    # the first subtap of up to six distinct row shifts, both signs included
+    firsts = sorted({int(d): t for t, d in reversed(list(enumerate(shift)))}
+                    .items())
+    for _, t in firsts[:3] + firsts[3:][-3:]:
+        _assert_bev_equal(
+            tev.gather_row_strips(tb, torch.from_numpy(src[:, t].copy()),
+                                  torch.from_numpy(live[:, t].copy()),
+                                  int(shift[t]), s),
+            _jit(jev.gather_row_strips, jb, jnp.asarray(src[:, t]),
+                 jnp.asarray(live[:, t]), shift=int(shift[t]), row_stride=s))
+
+
+@pytest.mark.parametrize("shape,k,s,bm", [
+    ((2, 8, 16, 8), 2, 2, 8), ((1, 6, 8, 4), 3, 2, 1),
+    ((1, 4, 8, 8), 2, 2, 8), ((2, 7, 7, 4), 3, 2, 1),
+    ((1, 32, 32, 8), 2, 2, 8),
+])
+def test_pool_plans_match(shape, k, s, bm):
+    for a, b in zip(tev.pool_window_map(shape, k, s, bm),
+                    jev.pool_window_map(shape, k, s, bm)):
+        np.testing.assert_array_equal(a, b)
+    reason = tev.pool_window_ineligible_reason(shape, k, s, bm)
+    assert reason == jev.pool_window_ineligible_reason(shape, k, s, bm)
+    if reason is None:
+        for a, b in zip(tev.pool_strip_map(shape, k, s),
+                        jev.pool_strip_map(shape, k, s)):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("shape,bm,bk,sp", [
+    ((2, 2, 8, 16), 8, 8, 0.6), ((2, 3, 3, 16), 1, 8, 0.8),
+    ((1, 1, 8, 8), 8, 8, 1.0),          # zero-event stream
+])
+def test_retile_matches(shape, bm, bk, sp):
+    b, h, w, c = shape
+    x = _fired(7, (b * h * w, c), sp)
+    tb = tev.encode_block_events(torch.from_numpy(x), blk_m=bm, blk_k=bk)
+    jb = _jit(jev.encode_block_events, jnp.asarray(x), blk_m=bm, blk_k=bk)
+    np.testing.assert_array_equal(
+        tev.retile_fc_addr_offsets(shape, c // bk, c // bk),
+        jev.retile_fc_addr_offsets(shape, c // bk, c // bk))
+    _assert_bev_equal(tev.retile_block_events(tb, shape, bm),
+                      _jit(jev.retile_block_events, jb, logical_shape=shape,
+                           blk_m=bm))
+
+
+def test_ineligible_reasons_verbatim():
+    for width in (0, 8, 12, 16, 24, 64):
+        for k in (1, 3, 5, 11, 19):
+            for stride in (1, 2, 3, 4):
+                for padding in (0, 1, 2, 4, 5, 9):
+                    for co in (None, 8, 12):
+                        assert tev.strip_ineligible_reason(
+                            width, k, stride, padding, co) == \
+                            jev.strip_ineligible_reason(width, k, stride,
+                                                        padding, co)
+    for shape in ((1, 8, 16, 4), (1, 8, 12, 4), (1, 1, 8, 4),
+                  (1, 8, 18, 4), (1, 16, 32, 4)):
+        for k, s in ((2, 2), (3, 2), (3, 1), (9, 9)):
+            for bm in (1, 8):
+                assert tev.pool_window_ineligible_reason(shape, k, s, bm) == \
+                    jev.pool_window_ineligible_reason(shape, k, s, bm)
+    for shape in (None, (4, 8), (1, 2, 2, 12), (1, 2, 2, 16)):
+        for bm, bk in ((1, 8), (8, 8), (4, 8), (1, 5)):
+            assert tev.retile_ineligible_reason(shape, bm, bk) == \
+                jev.retile_ineligible_reason(shape, bm, bk)
