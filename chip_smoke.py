@@ -3,30 +3,52 @@
 
     python3 chip_smoke.py
 
-Phases (any mismatch exits non-zero):
+Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
+3, so that phase 3 can replay what phases 2 and 4 handed the kernels):
 
 1. Probe and build: the card's name and power limit, TF32 off for the dense
-   oracles, the CUDA kernels built from src/repro_torch/csrc.
-2. The slice: VGG16 at 224x224, full widths, batch 4 (four requests), He
-   weights from a seeded torch.Generator with weight sparsity 0.5, inputs
-   relu(normal).  Every kernel's launch counter is set to 0 just before the
-   chained forward and read just after; each must have moved.  Each
-   wrapper's ``capture`` list collects the inputs of its launches.  The trace
-   must hold no fallback_decode, the plan no densify point; chained ==
-   round-trip bitwise; logits within 5e-3 of the dense oracle and within
-   1e-4 of its largest magnitude.  Prints the warm forward time (median
-   of 3).
+   oracles, the CUDA kernels (B1-B6) built from src/repro_torch/csrc.
+2. VGG16 at 224x224, full widths, batch 4 (four requests), f32 events.
+   He weights from a seeded torch.Generator with weight sparsity 0.5,
+   inputs relu(normal).  Every kernel's launch counter is set to 0 just
+   before the chained forward and read just after; the kernels of the path
+   (B1-B4) must have launched, as the route plan says, the int8 ones not.
+   Each wrapper's ``capture`` list collects the inputs of its launches.
+   The trace must hold no fallback_decode, the plan no densify point;
+   chained == round-trip bitwise; logits within 5e-3 of the dense oracle
+   and within 1e-4 of its largest magnitude.  Prints the warm forward time
+   (median of 3) and a device profile (busy, idle share, ms by kernel).
+4. The same VGG16@224 batch 4 with int8 event values
+   (FireConfig(quantize_to_int8=True)): counts as in phase 2, the path is
+   B3 (conv1_1, f32 input), B6, B5 (per-tap convs and FCs) and B4; the
+   int8 chain == its fake-quant round-trip twin bitwise; zero
+   fallback_decode and densify.  The twin layer by layer against plain
+   torch (teacher_forced: every conv/FC within 1e-4 of max|plain| on the
+   twin's own input, every fired map the int8 fake quant of its
+   accumulator, every code the plain product's except at a rounding tie),
+   and the logits against the free-running dense int8 oracle, whose codes
+   rounding ties move (allclose 5e-3; the ratio printed beside how far
+   noise of 1e-7 of each input value moves the oracle itself).  Prints
+   the gap to the f32 logits, the warm forward time and a profile.
+5. LeNet-300-100 (784-300-100-10) at batch 128, weight sparsity 0.5,
+   seeded non-negative inputs with a fifth of them non-zero, in f32 and in
+   int8: launch counts per mode (f32: B2 x3, B1 x2; int8: B2 x1 for the
+   dense head, B5 x2), chained == round trip bitwise, the f32 logits
+   within 2e-4 of the dense oracle, the int8 ones checked as in phase 4;
+   warm forward times.
 3. Kernel checks: each kernel against its plain PyTorch version on the
-   inputs the forward handed it (captured during phase 2), plus the strip
-   conv at stride 4 and 2 (ALEXNET_FF@256 conv1 and a k3s2 layer).  Pools
-   and fire must agree exactly; the event matmul and strip conv within
+   inputs the forwards handed it (B1, B2 and B5 at the shapes of both
+   VGG16 and LeNet-300-100), plus the strip convs at stride 4 and 2
+   (ALEXNET_FF@256 conv1 and a k3s2 layer; B6 on their int8 codes).  Pools
+   and fire must agree exactly; the matmuls and strip convs within
    max|d| <= 1e-4 * max|plain| (the kernel accumulates with fmaf, the plain
-   version with a separate multiply and add: one rounding fewer per step).
-   The forward's matmuls, strip convs and pools are also held against
-   torch.matmul, F.conv2d and F.max_pool2d on the decoded maps (the same
-   tolerance; pools exact).
-   Prints each kernel's time, the plain version's, one PyTorch library
-   call's on the same function, and the bound.
+   version with a separate multiply and add: one rounding fewer per step),
+   and B5/B6 bitwise B2/B3 fed the dequantized tiles.  The forwards'
+   matmuls, strip convs and pools are also held against torch.matmul,
+   F.conv2d and F.max_pool2d on the decoded (dequantized) maps (the same
+   tolerance; pools exact).  Prints each kernel's time, the plain
+   version's, one PyTorch library call's on the same function, and the
+   bound.
 
 The last lines are the card line, a JSON line of per-kernel numbers, and
 the result line {"ok": true, "device": {...}}.
@@ -43,7 +65,8 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 
 #: Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and f32
-#: FLOP/s outside the tensor cores — the kernels here are f32 CUDA-core code.
+#: FLOP/s outside the tensor cores — the kernels here are f32 CUDA-core code
+#: (B5/B6 dequantize int8 codes to f32 at load).
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
@@ -58,7 +81,27 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
                           "src/repro/kernels/event_pool/kernel.py:200"),
     "event_pool": ("src/repro_torch/csrc/event_pool.cu",
                    "src/repro/kernels/event_pool/kernel.py:106"),
+    "event_matmul_int8": ("src/repro_torch/csrc/event_matmul.cu",
+                          "src/repro/kernels/event_matmul/kernel.py:126"),
+    "event_conv_int8": ("src/repro_torch/csrc/event_conv.cu",
+                        "src/repro/kernels/event_conv/kernel.py:268"),
 }
+
+#: Launches per chained forward that the route plan gives (the JAX
+#: package's routes): phases 2, 4 and 5.  A kernel listed with 0 is off
+#: that path and must not launch.
+PLAN_F32_VGG = dict(fire_compact=20, event_matmul=57, event_conv=7,
+                    event_pool_window=2, event_pool=3, event_matmul_int8=0,
+                    event_conv_int8=0)
+PLAN_INT8_VGG = dict(fire_compact=0, event_matmul=0, event_conv=1,
+                     event_pool_window=2, event_pool=3, event_matmul_int8=57,
+                     event_conv_int8=6)
+PLAN_F32_MLP = dict(fire_compact=2, event_matmul=3, event_conv=0,
+                    event_pool_window=0, event_pool=0, event_matmul_int8=0,
+                    event_conv_int8=0)
+PLAN_INT8_MLP = dict(fire_compact=0, event_matmul=1, event_conv=0,
+                     event_pool_window=0, event_pool=0, event_matmul_int8=2,
+                     event_conv_int8=0)
 
 
 class SmokeFailure(Exception):
@@ -93,35 +136,79 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(torch, fn, reps: int = 3) -> tuple[float, list]:
+    """Median host-clock ms of ``reps`` calls, each ending in a sync."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def profile(torch, fn, label: str, steps: int = 3) -> None:
+    """Print the device busy time, idle share and ms by kernel of ``fn``
+    (warm, ``steps`` calls under torch.profiler, per-call averages)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dur = e.device_time_total if hasattr(e, "device_time_total") \
+            else e.cuda_time_total
+        name = e.name.split("(")[0].replace("void ", "")
+        rec = by_name.setdefault(name if name.startswith("mnf_") else "other",
+                                 [0.0, 0])
+        rec[0] += dur / 1e3 / steps
+        rec[1] += 1
+    busy = sum(v[0] for v in by_name.values())
+    parts = ", ".join(f"{n} {ms:.4f} ms x{c // steps}" for n, (ms, c) in
+                      sorted(by_name.items(), key=lambda kv: -kv[1][0]))
+    print(f"{label} profile ({steps} warm calls): host {wall:.3f} ms/call "
+          f"under the profiler, device busy {busy:.3f} ms (idle share "
+          f"{max(0.0, 1 - busy / wall):.3f}); {parts}", flush=True)
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 # ---------------------------------------------------------------------------
-# Per-kernel work: the bytes each input/output moves once and the operations
-# this run's data needs (live events only).
+# Per-kernel work: the bytes each input/output moves once (an int8 code is
+# one byte) and the operations this run's data needs (live events only).
 # ---------------------------------------------------------------------------
 
-def matmul_work(torch, a_vals, a_idx, counts, w):
+def matmul_work(torch, a_vals, a_idx, counts, w, qbytes=0):
     g, e, bm, bk = a_vals.shape
     n = w.shape[1]
     cnt = counts.clamp(max=e).long()
     live = torch.arange(e, device=cnt.device)[None, :] < cnt[:, None]
     slots = int(cnt.sum())
     blocks = int(torch.unique(a_idx[live]).numel())
-    nbytes = (slots * (bm * bk + 1) + g) * 4 + blocks * bk * n * 4 \
-        + g * bm * n * 4
+    nbytes = slots * (bm * bk * a_vals.element_size() + 4) + g * 4 \
+        + blocks * bk * n * 4 + g * bm * n * 4 + qbytes
     return nbytes, 2.0 * slots * bm * bk * n
 
 
 def live_slots(a_vals):
     """(G, E) live event slots: padding slots hold zeros, a live tile from
-    the fire phase holds a non-zero value."""
+    the fire phase holds a non-zero value (or code)."""
     return a_vals.flatten(2).ne(0).any(-1)
 
 
-def conv_work(torch, args, stride):
+def conv_work(torch, args, stride, qbytes=0):
     a_vals, a_idx, tap, shift, src, cnt, ws = args
     g_in, e, bm, bk = a_vals.shape
     g_out, t_n = src.shape
@@ -135,8 +222,9 @@ def conv_work(torch, args, stride):
     rows = ((r >= 0) & (r < bm)).sum(1)                      # (T,)
     events = cnt.clamp(max=e).long().sum(0)                  # (T,)
     flops = 2.0 * bk * n * float((rows * events).sum())
-    nbytes = (slots * (bm * bk + 1)) * 4 + taps * blocks * bk * n * 4 \
-        + g_out * bm * n * 4 + src.numel() * 8
+    nbytes = slots * (bm * bk * a_vals.element_size() + 4) \
+        + taps * blocks * bk * n * 4 + g_out * bm * n * 4 + src.numel() * 8 \
+        + qbytes
     return nbytes, flops
 
 
@@ -164,6 +252,93 @@ def layer_inputs(cnn, spec, batch: int) -> list:
         else:
             h, w, c = 1, 1, layer.out
     return out
+
+
+# ---------------------------------------------------------------------------
+# The int8 forwards against plain torch, layer by layer.  A free-running
+# dense int8 forward can pick a different code wherever a value sits at a
+# rounding tie (half a step between two codes): the two sums differ in the
+# order of their f32 additions, and so may the scales calibrated over them;
+# one flipped code then moves every later layer, and the flips cascade
+# (on VGG16@224 the free-running int8 oracle ends as far from the chain as
+# the f32 logits are).  So each layer of the fake-quant twin (bitwise the
+# chain) is held against F.conv2d / torch.matmul on the twin's own input,
+# and every fired code against an independent fake quant of that product
+# under its own scale; a code may differ only where the two values
+# straddle a half step.
+# ---------------------------------------------------------------------------
+
+def record_fires(models, fn):
+    """Run ``fn`` with the models' dense ``fire`` (the round-trip twin's and
+    the dense oracle's) recording (accumulator, fired map) per call."""
+    orig = models[0].fire
+    seen = []
+
+    def rec(acc, cfg, out_qp=None):
+        out = orig(acc, cfg, out_qp)
+        seen.append((acc, out))
+        return out
+
+    for m in models:
+        m.fire = rec
+    try:
+        y = fn()
+    finally:
+        for m in models:
+            m.fire = orig
+    return y, seen
+
+
+def teacher_forced(torch, F, cnn, layers, params, x, fires, logits):
+    """Replay the int8 fake-quant forward whose fires are ``fires`` with
+    plain torch: each conv/FC on the twin's input within 1e-4 of max|plain|,
+    each fired map bitwise a symmetric int8 fake quant of the twin's
+    accumulator (scale max/127, round half to even), each code of the plain
+    product (under the scale calibrated over it) equal to the twin's except
+    at a rounding tie, pools by F.max_pool2d.  Returns (worst ratio, codes
+    at ties)."""
+    cur, fi, worst, ties = x, 0, 0.0, 0
+    for i, (layer, w) in enumerate(zip(layers, params)):
+        if isinstance(layer, cnn.PoolSpec):
+            cur = F.max_pool2d(cur.permute(0, 3, 1, 2), layer.k,
+                               layer.stride).permute(0, 2, 3, 1)
+            continue
+        if isinstance(layer, cnn.ConvSpec):
+            acc = F.conv2d(cur.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                           stride=layer.stride,
+                           padding=layer.padding).permute(0, 2, 3, 1)
+        else:
+            acc = cur.reshape(cur.shape[0], -1) @ w
+        twin = logits if i == len(layers) - 1 else fires[fi][0]
+        d = float((twin.reshape(acc.shape) - acc).abs().max())
+        ratio = d / max(float(acc.abs().max()), 1e-30)
+        check(ratio <= 1e-4, f"layer {i} ({layer}): max|twin - plain| "
+              f"{ratio:.3e} of max|plain| (limit 1e-4)")
+        worst = max(worst, ratio)
+        if i == len(layers) - 1:
+            break
+        acc_t, out_t = fires[fi]
+        fi += 1
+        ft, fo = torch.relu(acc_t), torch.relu(acc.reshape(acc_t.shape))
+        s = ft.abs().max().clamp(min=1e-8) / 127
+        so = fo.abs().max().clamp(min=1e-8) / 127
+        qt = torch.round(ft / s).clamp(-128, 127)
+        check(torch.equal(out_t, qt * s), f"layer {i}: the fired map is not "
+              f"the int8 fake quant of its accumulator")
+        qo = torch.round(fo / so).clamp(-128, 127)
+        diff = qo != qt
+        if bool(diff.any()):
+            a, b = (ft / s)[diff], (fo / so)[diff]
+            half = torch.minimum(qt, qo)[diff] + 0.5
+            at_tie = ((qt - qo).abs()[diff] == 1) \
+                & (torch.minimum(a, b) <= half) & (half <= torch.maximum(a, b))
+            check(bool(at_tie.all()), f"layer {i}: {int((~at_tie).sum())} "
+                  f"codes differ from the plain product's away from a "
+                  f"rounding tie")
+            ties += int(diff.sum())
+        cur = out_t
+    check(fi == len(fires), f"{len(fires)} fires recorded, {fi} replayed")
+    return worst, ties
 
 
 # ---------------------------------------------------------------------------
@@ -198,17 +373,21 @@ def run(torch) -> int:
 
     from repro_torch import engine
     from repro_torch.core import events as ev
+    from repro_torch.core import quantize as qz
+    from repro_torch.core.fire import FireConfig
     from repro_torch.kernels import build
     from repro_torch.kernels.event_conv import ops as conv_ops
-    from repro_torch.kernels.event_conv.ref import event_conv_ref
+    from repro_torch.kernels.event_conv.ref import (event_conv_int8_ref,
+                                                    event_conv_ref)
     from repro_torch.kernels.event_matmul import ops as mm_ops
-    from repro_torch.kernels.event_matmul.ref import event_matmul_ref
+    from repro_torch.kernels.event_matmul.ref import (event_matmul_int8_ref,
+                                                      event_matmul_ref)
     from repro_torch.kernels.event_pool import ops as pool_ops
     from repro_torch.kernels.event_pool.ref import (event_pool_ref,
                                                     event_pool_window_ref)
     from repro_torch.kernels.fire_compact import ops as fire_ops
     from repro_torch.kernels.fire_compact.ref import fire_compact_ref
-    from repro_torch.models import cnn
+    from repro_torch.models import cnn, mlp
 
     t_start = time.perf_counter()
     card = card_line()
@@ -227,9 +406,108 @@ def run(torch) -> int:
                 "event_matmul": mm_ops.event_matmul,
                 "event_conv": conv_ops.event_conv,
                 "event_pool_window": pool_ops.event_pool_window,
-                "event_pool": pool_ops.event_pool}
+                "event_pool": pool_ops.event_pool,
+                "event_matmul_int8": mm_ops.event_matmul_dequant,
+                "event_conv_int8": conv_ops.event_conv_dequant}
 
-    # -- 2. the slice: VGG16@224, batch 4 ------------------------------------
+    def drive(fn):
+        """Run ``fn`` once with every launch count set to 0 just before and
+        read just after; each wrapper captures its launches' inputs
+        (kernels.note_launch) for phase 3 to replay."""
+        for w in wrappers.values():
+            w.launches = 0
+            w.capture = []
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with engine.trace_dispatch() as recs:
+                y = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {name: w.launches for name, w in wrappers.items()}
+        finally:
+            captured = {name: w.capture for name, w in wrappers.items()}
+            for w in wrappers.values():
+                w.capture = None
+        check(all(len(captured[n]) == launches[n] for n in wrappers),
+              "a wrapper's capture list disagrees with its launch count")
+        return y, recs, launches, captured, secs
+
+    def check_plan(tag, launches, plan):
+        """Every kernel of the path launched, none off it; say whether the
+        counts are the route plan's."""
+        missing = [n for n, want in plan.items() if want and not launches[n]]
+        stray = [n for n, want in plan.items() if not want and launches[n]]
+        check(not missing, f"{tag}: kernels of the path never launched: "
+              f"{missing} ({launches})")
+        check(not stray, f"{tag}: kernels off the path launched: {stray} "
+              f"({launches})")
+        diff = {n: (launches[n], want) for n, want in plan.items()
+                if launches[n] != want}
+        print(f"{tag} launches per kernel: {launches}; route plan "
+              f"{'confirmed' if not diff else f'differs (got, plan): {diff}'}",
+              flush=True)
+
+    def check_trace(tag, spec, recs, launches, summary):
+        check(len(recs) == len(spec.layers),
+              f"{tag}: {len(recs)} trace records for {len(spec.layers)} "
+              f"layers")
+        geometry = layer_inputs(cnn, spec, batch=4)
+        strips = [(layer, shape) for (layer, shape), r in zip(geometry, recs)
+                  if r["op"] == "conv2d" and r.get("strip")]
+        pools = {route: [(layer, shape) for (layer, shape), r in
+                         zip(geometry, recs)
+                         if r["op"] == "maxpool2d" and r.get("pool_events")
+                         and (r["route"] == "window") == (route == "window")]
+                 for route in ("window", "event")}
+        check(len(strips) == launches["event_conv"]
+              + launches["event_conv_int8"]
+              and len(pools["window"]) == launches["event_pool_window"]
+              and len(pools["event"]) == launches["event_pool"],
+              f"{tag}: trace routes disagree with the launches {launches}")
+        fallbacks = [r for r in recs if r.get("fallback_decode")
+                     or r.get("decode")]
+        check(not fallbacks, f"{tag}: fallback_decode on the chain: "
+              f"{fallbacks}")
+        check(summary["densify"] == 0,
+              f"{tag}: densify points: {summary['densify']}")
+        routes = [(r["op"], r["route"]) for r in recs]
+        print(f"{tag} trace: {len(recs)} records, routes "
+              f"{sorted(set(routes))}, densify {summary['densify']}, "
+              f"pool_events {summary['pool_events']}, retile "
+              f"{summary['retile']}", flush=True)
+        return strips, pools
+
+    def check_int8_oracle(tag, layers, params_, x_, fires, y, oracle):
+        """The int8 chain (bitwise its twin, whose fires are ``fires``)
+        layer by layer against plain torch (teacher_forced: the tight
+        check), then end to end against the free-running dense int8 oracle
+        ``oracle(x)`` (F.conv2d / torch.matmul on its own fake-quant maps),
+        which rounding ties move off the chain: printed beside how far
+        noise of 1e-7 of each input value moves the oracle itself, and
+        held at the 5e-3 of the CPU tests against the JAX package."""
+        worst, ties = teacher_forced(torch, F, cnn, layers, params_, x_,
+                                     fires, y)
+        y_dense = oracle(x_)
+        scale = max(float(y_dense.abs().max()), 1e-30)
+        d = float((y - y_dense).abs().max())
+        ratio = d / scale
+        noise = torch.randn(x_.shape, device=x_.device,
+                            generator=torch.Generator(
+                                device=x_.device).manual_seed(1))
+        moved = float((oracle(x_ * (1 + 1e-7 * noise)) - y_dense).abs().max())
+        print(f"{tag}: layer by layer vs plain torch: worst {worst:.3e} of "
+              f"max|plain| (limit 1e-4), every fired map the fake quant of "
+              f"its accumulator, {ties} codes differ from the plain "
+              f"product's (each at a rounding tie); end to end vs the "
+              f"free-running dense int8 oracle: max|d| {d:.3e}, ratio "
+              f"{ratio:.3e} (allclose 5e-3); noise of 1e-7 of each input "
+              f"value moves that oracle by ratio {moved / scale:.3e}",
+              flush=True)
+        check(bool(torch.allclose(y, y_dense, atol=5e-3, rtol=5e-3)),
+              f"{tag}: int8 logits off the dense int8 oracle by {d:.3e}")
+
+    # -- 2. VGG16@224, batch 4, f32 events -----------------------------------
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     spec = cnn.VGG16
@@ -237,54 +515,14 @@ def run(torch) -> int:
     x = torch.relu(torch.randn((4, spec.input_size, spec.input_size,
                                 spec.in_ch), generator=gen, device=dev))
 
-    # Every wrapper appends what the chained forward hands its kernel to
-    # its ``capture`` list (kernels.note_launch); the checks of phase 3
-    # replay those inputs.
-    for w in wrappers.values():
-        w.launches = 0
-        w.capture = []
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with engine.trace_dispatch() as recs:
-            y_chain = cnn.cnn_forward(params, x, spec)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        launches = {name: w.launches for name, w in wrappers.items()}
-    finally:
-        captured = {name: w.capture for name, w in wrappers.items()}
-        for w in wrappers.values():
-            w.capture = None
+    y_chain, recs, launches, captured, first_s = drive(
+        lambda: cnn.cnn_forward(params, x, spec))
     print(f"[2] {spec.name}@{spec.input_size} batch 4 chained forward "
-          f"(first, plans built): "
-          f"{first_s:.3f} s; launches per kernel: {launches}", flush=True)
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the path never launched: {launches}")
-    check(all(len(captured[n]) == launches[n] for n in wrappers),
-          "a wrapper's capture list disagrees with its launch count")
-    check(len(recs) == len(spec.layers),
-          f"{len(recs)} trace records for {len(spec.layers)} layers")
-    geometry = layer_inputs(cnn, spec, batch=4)
-    strip_convs = [(layer, shape) for (layer, shape), r in zip(geometry, recs)
-                   if r["op"] == "conv2d" and r.get("strip")]
-    pools = {route: [(layer, shape) for (layer, shape), r in zip(geometry,
-                                                                 recs)
-                     if r["op"] == "maxpool2d" and r.get("pool_events")
-                     and (r["route"] == "window") == (route == "window")]
-             for route in ("window", "event")}
-    check(len(strip_convs) == launches["event_conv"]
-          and len(pools["window"]) == launches["event_pool_window"]
-          and len(pools["event"]) == launches["event_pool"],
-          f"trace routes disagree with the launches {launches}")
-    fallbacks = [r for r in recs if r.get("fallback_decode")]
-    check(not fallbacks, f"fallback_decode on the chain: {fallbacks}")
-    summary = cnn.chain_boundary_summary(spec, batch=4, device=dev)
-    check(summary["densify"] == 0, f"densify points: {summary['densify']}")
-    routes = [(r["op"], r["route"]) for r in recs]
-    print(f"[2] trace: {len(recs)} records, routes "
-          f"{sorted(set(routes))}, densify {summary['densify']}, "
-          f"pool_events {summary['pool_events']}, retile "
-          f"{summary['retile']}", flush=True)
+          f"(first, plans built): {first_s:.3f} s", flush=True)
+    check_plan("[2]", launches, PLAN_F32_VGG)
+    strip_convs, pools = check_trace(
+        "[2]", spec, recs, launches,
+        cnn.chain_boundary_summary(spec, batch=4, device=dev))
     check(y_chain.shape == (4, spec.num_classes)
           and bool(torch.isfinite(y_chain).all()),
           f"logits {tuple(y_chain.shape)} not finite (4, {spec.num_classes})")
@@ -306,14 +544,7 @@ def run(torch) -> int:
     # event shows here.
     check(ratio <= 1e-4, f"logits off the dense oracle by {ratio:.3e} of "
           f"max|dense| (limit 1e-4)")
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cnn.cnn_forward(params, x, spec)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    fwd_ms = statistics.median(times)
+    fwd_ms, times = host_ms(torch, lambda: cnn.cnn_forward(params, x, spec))
     print(f"[2] warm chained forward: median {fwd_ms:.3f} ms of "
           f"{[round(t, 3) for t in times]} (host clock, synchronized)",
           flush=True)
@@ -321,10 +552,99 @@ def run(torch) -> int:
                                                       mnf=False), 3)
     print(f"[2] dense oracle forward (F.conv2d/torch.matmul, f32): "
           f"{dense_ms:.3f} ms", flush=True)
+    profile(torch, lambda: cnn.cnn_forward(params, x, spec), "[2]")
     del y_rt, y_dense
+
+    # -- 4. VGG16@224, batch 4, int8 events -----------------------------------
+    q8 = FireConfig(quantize_to_int8=True)
+    y8, recs8, launches8, captured8, first_s = drive(
+        lambda: cnn.cnn_forward(params, x, spec, fire_cfg=q8))
+    print(f"[4] {spec.name}@{spec.input_size} batch 4 int8 chained forward "
+          f"(first): {first_s:.3f} s", flush=True)
+    check_plan("[4]", launches8, PLAN_INT8_VGG)
+    strip_convs8, _ = check_trace(
+        "[4]", spec, recs8, launches8,
+        cnn.chain_boundary_summary(spec, batch=4, fire_cfg=q8, device=dev))
+    check(y8.shape == (4, spec.num_classes)
+          and bool(torch.isfinite(y8).all()),
+          f"int8 logits {tuple(y8.shape)} not finite")
+    y8_rt, fires8 = record_fires((cnn, mlp), lambda: cnn.cnn_forward(
+        params, x, spec, fire_cfg=q8, chain=False))
+    bitwise8 = bool(torch.equal(y8, y8_rt))
+    print(f"[4] int8 chained == fake-quant round trip bitwise: {bitwise8}",
+          flush=True)
+    check(bitwise8, "int8 chained != fake-quant round trip bitwise")
+    check_int8_oracle("[4] int8", spec.layers, params, x, fires8, y8,
+                      lambda xin: cnn.cnn_forward(params, xin, spec,
+                                                  fire_cfg=q8, mnf=False))
+    del y8_rt, fires8
+    gap = float((y8 - y_chain).abs().max())
+    f32_max = float(y_chain.abs().max())
+    print(f"[4] max|int8 - f32 chained| = {gap:.3e} (max|f32| "
+          f"{f32_max:.3e}, ratio {gap / max(f32_max, 1e-30):.3e})",
+          flush=True)
+    fwd8_ms, times = host_ms(
+        torch, lambda: cnn.cnn_forward(params, x, spec, fire_cfg=q8))
+    print(f"[4] warm int8 chained forward: median {fwd8_ms:.3f} ms of "
+          f"{[round(t, 3) for t in times]}; f32 chained {fwd_ms:.3f} ms, "
+          f"dense {dense_ms:.3f} ms", flush=True)
+    profile(torch, lambda: cnn.cnn_forward(params, x, spec, fire_cfg=q8),
+            "[4]")
+
+    # -- 5. LeNet-300-100, batch 128, f32 and int8 ----------------------------
+    lenet = mlp.LENET_300_100
+    mparams = mlp.init_mlp_params(lenet, gen, weight_sparsity=0.5)
+    xm = torch.randn((128, lenet.in_features), generator=gen,
+                     device=dev).abs()
+    xm = xm * (torch.rand(xm.shape, generator=gen, device=dev) > 0.8)
+    ym_dense = mlp.mlp_forward(mparams, xm, lenet, mnf=False)
+    ym = {}
+    captured_mlp = {name: [] for name in wrappers}
+    for mode, fire_cfg, plan in (("f32", FireConfig(), PLAN_F32_MLP),
+                                 ("int8", q8, PLAN_INT8_MLP)):
+        tag = f"[5] {mode}"
+        y, recs_m, launches_m, caps, _ = drive(
+            lambda: mlp.mlp_forward(mparams, xm, lenet, fire_cfg=fire_cfg))
+        for name, calls in caps.items():
+            captured_mlp[name] += calls
+        check_plan(tag, launches_m, plan)
+        check(not any(r.get("fallback_decode") or r.get("decode")
+                      for r in recs_m), f"{tag}: fallback on the chain")
+        check(y.shape == (128, 10) and bool(torch.isfinite(y).all()),
+              f"{tag}: logits {tuple(y.shape)} not finite")
+        y_rt, fires_m = record_fires((cnn, mlp), lambda: mlp.mlp_forward(
+            mparams, xm, lenet, fire_cfg=fire_cfg, chain=False))
+        check(torch.equal(y, y_rt), f"{tag}: chained != round trip bitwise")
+        d = float((y - ym_dense).abs().max())
+        if mode == "f32":
+            check(bool(torch.allclose(y, ym_dense, atol=2e-4, rtol=2e-4)),
+                  f"{tag}: logits off the dense oracle by {d:.3e}")
+        else:
+            check_int8_oracle(tag, [cnn.FCSpec(n) for n in lenet.widths],
+                              mparams, xm, fires_m, y,
+                              lambda xin: mlp.mlp_forward(
+                                  mparams, xin, lenet, fire_cfg=q8,
+                                  mnf=False))
+        ms, _ = host_ms(torch, lambda: mlp.mlp_forward(
+            mparams, xm, lenet, fire_cfg=fire_cfg), reps=5)
+        ym[mode] = (y, ms)
+        print(f"{tag}: {lenet.name} batch 128 chained == round trip "
+              f"bitwise: True; max|chained - f32 dense| {d:.3e} (max|dense| "
+              f"{float(ym_dense.abs().max()):.3e}); warm forward median "
+              f"{ms:.3f} ms", flush=True)
+    mlp_dense_ms, _ = host_ms(torch, lambda: mlp.mlp_forward(
+        mparams, xm, lenet, mnf=False), reps=5)
+    print(f"[5] dense oracle forward {mlp_dense_ms:.3f} ms; max|int8 - f32 "
+          f"chained| {float((ym['int8'][0] - ym['f32'][0]).abs().max()):.3e}",
+          flush=True)
+    profile(torch, lambda: mlp.mlp_forward(mparams, xm, lenet,
+                                           fire_cfg=q8), "[5] int8")
 
     # -- 3. kernel checks on the captured inputs ------------------------------
     results = []
+    launched = {**{n: launches[n] for n in wrappers},
+                "event_matmul_int8": launches8["event_matmul_int8"],
+                "event_conv_int8": launches8["event_conv_int8"]}
 
     def shapes(args, kw):
         return tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
@@ -365,21 +685,26 @@ def run(torch) -> int:
         src, replaces = KERNELS[name]
         results.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name], max_abs_err=err, ms=ms,
+            launches=launched[name], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
             library_ms=lib_ms))
         print(f"[3] {name}: max_abs_err {err:.3e}, {ms:.4f} ms, plain "
               f"{plain_ms:.3f} ms, library {lib_ms:.4f} ms, bound "
               f"{b[0]:.4f} ms ({b[1]}){extra}", flush=True)
 
-    # B1 fire_compact: fired and occupancy exact, every launch
-    for (acc,), kw in captured["fire_compact"]:
+    def dq(a_vals, scale, zero_point):
+        return qz.dequantize(a_vals, qz.QParams(scale, zero_point))
+
+    # B1 fire_compact: fired and occupancy exact, every launch of VGG16 and
+    # LeNet-300-100
+    fires = captured["fire_compact"] + captured_mlp["fire_compact"]
+    for (acc,), kw in fires:
         f1, o1 = fire_ops.fire_compact(acc, **kw)
         f2, o2 = fire_compact_ref(acc, **kw)
         check(torch.equal(f1, f2) and torch.equal(o1, o2),
               f"fire_compact != plain at {tuple(acc.shape)} {kw}")
     b, ((acc,), kw) = heaviest(
-        captured["fire_compact"],
+        fires,
         lambda c: (c[0][0].numel() * 8 + c[0][0].numel()
                    // (c[1]["blk_m"] * c[1]["blk_k"]) * 4,
                    float(c[0][0].numel())))
@@ -388,10 +713,14 @@ def run(torch) -> int:
            cuda_ms(torch, lambda: fire_compact_ref(acc, **kw), 3),
            cuda_ms(torch, lambda: torch.relu(acc), 20), b,
            f" at acc {tuple(acc.shape)}, "
-           f"{len(captured['fire_compact'])} launches checked exact")
+           f"{len(captured['fire_compact'])} VGG16 + "
+           f"{len(captured_mlp['fire_compact'])} LeNet launches checked exact")
 
-    # B2 event_matmul: against its plain version and against torch.matmul
-    # on the decoded map, each within 1e-4 * max|ref|
+    # B2 event_matmul and B5 event_matmul_int8, at every shape VGG16 and
+    # LeNet-300-100 gave them (LeNet's N = 10 head is narrower than one
+    # CTA's columns): against the plain version and against torch.matmul
+    # on the decoded (dequantized) map, each within 1e-4 * max|ref|; B5
+    # also bitwise B2 on the dequantized tiles
     def decoded(a_vals, a_idx, counts, w):
         g, e, bm, bk = a_vals.shape
         return ev.decode_block_events(
@@ -400,6 +729,8 @@ def run(torch) -> int:
 
     worst = 0.0
     mm_calls = unique(captured["event_matmul"])
+    mm_mlp = unique(captured_mlp["event_matmul"])
+    mm_calls += mm_mlp
     for args, _ in mm_calls:
         what = f"event_matmul at {tuple(args[0].shape)}x{tuple(args[3].shape)}"
         y = mm_ops.event_matmul(*args)
@@ -413,47 +744,101 @@ def run(torch) -> int:
            cuda_ms(torch, lambda: event_matmul_ref(*args), 1),
            cuda_ms(torch, lambda: torch.matmul(dense_a, args[3]), 10), b,
            f" at a_vals {tuple(args[0].shape)} x W {tuple(args[3].shape)}, "
-           f"{len(mm_calls)} shapes checked")
+           f"{len(mm_calls) - len(mm_mlp)} VGG16 + {len(mm_mlp)} LeNet "
+           f"shapes checked")
     del dense_a
 
-    # B3 event_conv: the slice's strip layers against the plain version and
-    # F.conv2d, then stride 4 and stride 2
+    worst = 0.0
+    mm8_calls = unique(captured8["event_matmul_int8"])
+    mm8_mlp = unique(captured_mlp["event_matmul_int8"])
+    mm8_calls += mm8_mlp
+    for args, _ in mm8_calls:
+        a_vals, a_idx, counts, sc, zp, w = args
+        what = (f"event_matmul_int8 at {tuple(a_vals.shape)}x"
+                f"{tuple(w.shape)}")
+        y = mm_ops.event_matmul_dequant(*args)
+        worst = max(worst, close(y, event_matmul_int8_ref(*args), what))
+        check(torch.equal(y, mm_ops.event_matmul(dq(a_vals, sc, zp), a_idx,
+                                                 counts, w)),
+              what + ": != event_matmul on the dequantized tiles")
+        close(y.reshape(-1, y.shape[-1]),
+              decoded(dq(a_vals, sc, zp), a_idx, counts, w) @ w,
+              what + " vs torch.matmul")
+    b, (args, _) = heaviest(mm8_calls, lambda c: matmul_work(
+        torch, *c[0][:3], c[0][5], qbytes=8))
+    dense_a = decoded(dq(*args[:1], *args[3:5]), *args[1:3], args[5])
+    report("event_matmul_int8", worst,
+           cuda_ms(torch, lambda: mm_ops.event_matmul_dequant(*args), 10),
+           cuda_ms(torch, lambda: event_matmul_int8_ref(*args), 1),
+           cuda_ms(torch, lambda: torch.matmul(dense_a, args[5]), 10), b,
+           f" at codes {tuple(args[0].shape)} x W {tuple(args[5].shape)}, "
+           f"{len(mm8_calls) - len(mm8_mlp)} VGG16 + {len(mm8_mlp)} LeNet "
+           f"shapes checked")
+    del dense_a
+
+    # B3 event_conv and B6 event_conv_int8: the strip layers against the
+    # plain version and F.conv2d, then stride 4 and stride 2
     def conv_oihw(ws, k, ci):
         return ws.reshape(k, k, ws.shape[0] // (k * k), -1)[:, :, :ci] \
             .permute(3, 2, 0, 1).contiguous()
 
-    worst = 0.0
-    convs = list(zip(strip_convs, captured["event_conv"]))
-    for (layer, shape), (args, kw) in convs:
-        check(kw["row_stride"] == layer.stride, f"{layer} ran at {kw}")
-        what = f"event_conv at {shape} k{layer.k}s{layer.stride}"
-        y = conv_ops.event_conv(*args, **kw)
-        worst = max(worst, close(y, event_conv_ref(*args, **kw), what))
-        ref = F.conv2d(dense_nchw(args[0], args[1], kw["nkb"], shape),
-                       conv_oihw(args[6], layer.k, shape[3]),
-                       stride=layer.stride, padding=layer.padding)
-        co = ref.shape[1]
-        close(y.reshape(-1, co)[:ref.numel() // co],
-              ref.permute(0, 2, 3, 1).reshape(-1, co), what + " vs F.conv2d")
-    ff = cnn.ALEXNET_FF                  # conv1 (k11 s4) and conv2 (k3 s2)
-    for layer, shape in ((ff.layers[0], (4, ff.input_size, ff.input_size,
-                                         ff.in_ch)),
-                         (ff.layers[1], (4, 64, 64, ff.layers[0].out_ch))):
-        k, s, p, co = layer.k, layer.stride, layer.padding, layer.out_ch
-        xin = torch.relu(torch.randn(shape, generator=gen, device=dev))
-        xin = xin * (torch.rand(shape, generator=gen, device=dev) > 0.5)
-        wk = torch.randn((k, k, shape[3], co), generator=gen, device=dev) \
-            * (2.0 / (k * k * shape[3])) ** 0.5
-        st = engine.EventStream.encode_nhwc(xin, blk_k=min(8, shape[3]),
-                                            blk_m=8, keep_dense=False)
-        args, nkb = conv_ops.strip_conv_inputs(st, wk, stride=s, padding=p)
-        d = close(conv_ops.event_conv(*args, nkb=nkb, row_stride=s),
-                  event_conv_ref(*args, nkb=nkb, row_stride=s),
-                  f"event_conv at {shape} k{k}s{s}")
-        ms = cuda_ms(torch, lambda: conv_ops.event_conv(
-            *args, nkb=nkb, row_stride=s), 5)
-        print(f"[3] event_conv stride {s} (k{k}, input {shape}): max_abs_err "
-              f"{d:.3e}, {ms:.4f} ms", flush=True)
+    def check_convs(name, kern, ref, layers, calls):
+        """Each captured strip conv against its plain version and F.conv2d
+        (on the dequantized map for B6); returns (worst, checked)."""
+        worst = 0.0
+        checked = list(zip(layers, calls))
+        for (layer, shape), (args, kw) in checked:
+            check(kw["row_stride"] == layer.stride, f"{layer} ran at {kw}")
+            what = f"{name} at {shape} k{layer.k}s{layer.stride}"
+            y = kern(*args, **kw)
+            worst = max(worst, close(y, ref(*args, **kw), what))
+            if name == "event_conv_int8":
+                a32 = dq(args[0], *args[6:8])
+                args = (a32, *args[1:6], args[8])
+                check(torch.equal(y, conv_ops.event_conv(*args, **kw)),
+                      what + ": != event_conv on the dequantized tiles")
+            ref2 = F.conv2d(dense_nchw(args[0], args[1], kw["nkb"], shape),
+                            conv_oihw(args[6], layer.k, shape[3]),
+                            stride=layer.stride, padding=layer.padding)
+            co = ref2.shape[1]
+            close(y.reshape(-1, co)[:ref2.numel() // co],
+                  ref2.permute(0, 2, 3, 1).reshape(-1, co),
+                  what + " vs F.conv2d")
+        return worst, checked
+
+    def other_strides(name, int8):
+        ff = cnn.ALEXNET_FF              # conv1 (k11 s4) and conv2 (k3 s2)
+        for layer, shape in ((ff.layers[0], (4, ff.input_size,
+                                             ff.input_size, ff.in_ch)),
+                             (ff.layers[1], (4, 64, 64,
+                                             ff.layers[0].out_ch))):
+            k, s, p, co = layer.k, layer.stride, layer.padding, layer.out_ch
+            xin = torch.relu(torch.randn(shape, generator=gen, device=dev))
+            xin = xin * (torch.rand(shape, generator=gen, device=dev) > 0.5)
+            wk = torch.randn((k, k, shape[3], co), generator=gen,
+                             device=dev) * (2.0 / (k * k * shape[3])) ** 0.5
+            qp = qz.calibrate(xin)
+            st = engine.EventStream.encode_nhwc(
+                qz.quantize(xin, qp) if int8 else xin,
+                blk_k=min(8, shape[3]), blk_m=8, keep_dense=False)
+            args, nkb = conv_ops.strip_conv_inputs(st, wk, stride=s,
+                                                   padding=p)
+            if int8:
+                args = (*args[:6], qp.scale, qp.zero_point, args[6])
+                kern, ref = conv_ops.event_conv_dequant, event_conv_int8_ref
+            else:
+                kern, ref = conv_ops.event_conv, event_conv_ref
+            d = close(kern(*args, nkb=nkb, row_stride=s),
+                      ref(*args, nkb=nkb, row_stride=s),
+                      f"{name} at {shape} k{k}s{s}")
+            ms = cuda_ms(torch, lambda: kern(*args, nkb=nkb, row_stride=s), 5)
+            print(f"[3] {name} stride {s} (k{k}, input {shape}): "
+                  f"max_abs_err {d:.3e}, {ms:.4f} ms", flush=True)
+
+    worst, convs = check_convs("event_conv", conv_ops.event_conv,
+                               event_conv_ref, strip_convs,
+                               captured["event_conv"])
+    other_strides("event_conv", False)
     b, ((layer, shape), (args, kw)) = heaviest(
         convs, lambda c: conv_work(torch, c[1][0], c[0][0].stride))
     x_nchw = dense_nchw(args[0], args[1], kw["nkb"], shape)
@@ -465,6 +850,27 @@ def run(torch) -> int:
                                            stride=layer.stride,
                                            padding=layer.padding), 10), b,
            f" at {shape} -> {layer.out_ch} ch, {len(convs)} layers checked")
+    del x_nchw
+
+    # B6: the int8 forward's strip convs past conv1_1 (which takes the f32
+    # input through B3)
+    worst, convs8 = check_convs("event_conv_int8", conv_ops.event_conv_dequant,
+                                event_conv_int8_ref, strip_convs8[1:],
+                                captured8["event_conv_int8"])
+    other_strides("event_conv_int8", True)
+    b, ((layer, shape), (args, kw)) = heaviest(
+        convs8, lambda c: conv_work(
+            torch, (*c[1][0][:6], c[1][0][8]), c[0][0].stride, qbytes=8))
+    x_nchw = dense_nchw(dq(args[0], *args[6:8]), args[1], kw["nkb"], shape)
+    w_oihw = conv_oihw(args[8], layer.k, shape[3])
+    report("event_conv_int8", worst,
+           cuda_ms(torch, lambda: conv_ops.event_conv_dequant(*args, **kw),
+                   10),
+           cuda_ms(torch, lambda: event_conv_int8_ref(*args, **kw), 1),
+           cuda_ms(torch, lambda: F.conv2d(x_nchw, w_oihw,
+                                           stride=layer.stride,
+                                           padding=layer.padding), 10), b,
+           f" at {shape} -> {layer.out_ch} ch, {len(convs8)} layers checked")
     del x_nchw
 
     # B4 pools: exact against the plain version and F.max_pool2d
@@ -496,7 +902,10 @@ def run(torch) -> int:
         del x_nchw
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all; warm "
-          f"forward {fwd_ms:.3f} ms", flush=True)
+          f"forwards: VGG16 f32 {fwd_ms:.3f} ms, int8 {fwd8_ms:.3f} ms, "
+          f"dense {dense_ms:.3f} ms; LeNet-300-100 f32 "
+          f"{ym['f32'][1]:.3f} ms, int8 {ym['int8'][1]:.3f} ms, dense "
+          f"{mlp_dense_ms:.3f} ms", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {

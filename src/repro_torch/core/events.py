@@ -55,7 +55,8 @@ STRIP_STRIDES = (1, 2, 4)
 class BlockEvents:
     """Compacted K-block events of a row-grouped (M, K) activation matrix.
 
-    values:    (G, E, blk_m, blk_k)  live activation tiles (padding = 0)
+    values:    (G, E, blk_m, blk_k)  live activation tiles (padding = 0),
+                                     f32 values or int8 codes
     block_idx: (G, E) int32          direct weight-tile address of each
                                      event; padding repeats the last live
                                      address (all-empty groups point at 0)
@@ -71,6 +72,12 @@ class BlockEvents:
     @property
     def capacity(self) -> int:
         return self.block_idx.shape[-1]
+
+
+def _zero(values: torch.Tensor) -> torch.Tensor:
+    """A 0-d zero of ``values``' dtype: ``torch.where(mask, int8, 0.0)``
+    would promote int8 codes to f32, so padding is zeroed with this."""
+    return torch.zeros((), dtype=values.dtype, device=values.device)
 
 
 def pad_to_block_multiple(x: torch.Tensor, block: int,
@@ -125,7 +132,7 @@ def encode_block_events(a: torch.Tensor, *, blk_m: int, blk_k: int,
     order, slot_live, counts = _compact(live, capacity)
     rows = torch.arange(g, device=a.device)[:, None]
     vals = tiles[rows, order]                               # (G, E, bm, bk)
-    vals = torch.where(slot_live[:, :, None, None], vals, 0.0)
+    vals = torch.where(slot_live[:, :, None, None], vals, _zero(vals))
     return BlockEvents(values=vals, block_idx=order.to(torch.int32),
                        counts=counts, num_k_blocks=nkb)
 
@@ -139,7 +146,8 @@ def decode_block_events(ev: BlockEvents, *, blk_m: int, blk_k: int,
     dense = ev.values.new_zeros((g, nkb, blk_m, blk_k))
     slot = torch.arange(e, device=ev.counts.device)
     slot_live = slot[None, :] < ev.counts[:, None]
-    vals = torch.where(slot_live[:, :, None, None], ev.values, 0.0)
+    vals = torch.where(slot_live[:, :, None, None], ev.values,
+                       _zero(ev.values))
     rows = torch.arange(g, device=dense.device)[:, None].expand(g, e)
     dense.index_put_((rows.reshape(-1), ev.block_idx.reshape(-1).long()),
                      vals.reshape(g * e, blk_m, blk_k), accumulate=True)
@@ -168,7 +176,8 @@ def remap_rows(values: torch.Tensor, shift: int,
     bm = values.shape[-2]
     rows = row_stride * torch.arange(bm, device=values.device) + shift
     ok = ((rows >= 0) & (rows < bm))[:, None]
-    return torch.where(ok, values[..., rows.clamp(0, bm - 1), :], 0.0)
+    return torch.where(ok, values[..., rows.clamp(0, bm - 1), :],
+                       _zero(values))
 
 
 def gather_row_strips(bev: BlockEvents, idx: torch.Tensor, live: torch.Tensor,
@@ -471,6 +480,6 @@ def retile_block_events(bev: BlockEvents, logical_shape: tuple,
     addr = torch.gather(addr, 1, order)
     rows = torch.arange(b, device=vals.device)[:, None]
     vals = vals.reshape(b, slots, 1, bk)[rows, order]
-    vals = torch.where(slot_live[:, :, None, None], vals, 0.0)
+    vals = torch.where(slot_live[:, :, None, None], vals, _zero(vals))
     return BlockEvents(values=vals, block_idx=addr.to(torch.int32),
                        counts=counts_fc, num_k_blocks=h * w * nkb)

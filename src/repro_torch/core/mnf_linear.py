@@ -26,15 +26,20 @@ def dense_linear(x: torch.Tensor, w: torch.Tensor,
 
 
 def block_event_linear_from_events(bev: ev.BlockEvents, w: torch.Tensor,
-                                   matmul=event_matmul_ref) -> torch.Tensor:
+                                   matmul=event_matmul_ref, *,
+                                   qparams=None) -> torch.Tensor:
     """Multiply phase on pre-encoded events.  Returns (G * blk_m, N);
-    callers slice off row padding.  ``matmul(a_vals, a_idx, counts, w)``
-    is the event multiply (plain version by default)."""
+    callers slice off row padding.  ``matmul(a_vals, a_idx, counts, w,
+    qparams=)`` is the event multiply (plain version by default).  With
+    ``qparams`` the values are int8 codes, dequantized at tile load —
+    before the slot mask, so padding slots stay exact f32 zeros whatever
+    the zero point — and contracted in f32 (DESIGN.md §12)."""
     g, e, bm, bk = bev.values.shape
     wp = ev.pad_to_block_multiple(w, bk, 0)
     assert wp.shape[0] == bev.num_k_blocks * bk, (w.shape, bev.num_k_blocks,
                                                   bk)
-    y = matmul(bev.values, bev.block_idx, bev.counts, wp.contiguous())
+    y = matmul(bev.values, bev.block_idx, bev.counts, wp.contiguous(),
+               qparams=qparams)
     return y.reshape(g * bm, w.shape[1])
 
 

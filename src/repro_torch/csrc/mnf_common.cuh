@@ -1,21 +1,49 @@
 // Shared pieces of the MNF event kernels for Hopper (sm_90a).
 //
-// mnf_tile_dot is the one inner tile dot of the event matmul (B2) and the
-// fused strip conv (B3): one output element's sum over the bk columns of
+// mnf_tile_dot is the one inner tile dot of the event matmul (B2/B5) and the
+// fused strip conv (B3/B6): one output element's sum over the bk columns of
 // an event tile row, j ascending, fmaf into an f32 register.  Both kernels
 // walk their events e ascending and call it per event, so a row that is
 // all zero in a tile adds fmaf(0, w, acc) == acc exactly.  That is what
 // makes strip == per-tap and chained == round-trip bitwise on the card.
+//
+// The tile loader is the one thing the int8 kernels change: MnfF32Tile
+// reads f32 values, MnfInt8Tile dequantizes int8 codes at load as
+// (q - zp) * scale with explicit round-to-nearest intrinsics, which nvcc
+// never contracts.  That is exactly the float quantize.dequantize gives,
+// so an int8 kernel is bitwise its f32 twin fed the dequantized tiles.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__device__ __forceinline__ float mnf_tile_dot(const float* __restrict__ a_row,
-                                              const float* __restrict__ w_col,
-                                              int64_t ldw, int bk, float acc) {
+struct MnfF32Tile {
+  using T = float;
+  __device__ __forceinline__ MnfF32Tile(const float*, const int32_t*) {}
+  __device__ __forceinline__ float operator()(const float* a, int j) const {
+    return a[j];
+  }
+};
+
+// scale and zero_point are 1-element device arrays (the stream's QParams,
+// the image of the TPU kernels' scalar prefetch): read once per thread.
+struct MnfInt8Tile {
+  using T = int8_t;
+  float zp, scale;
+  __device__ __forceinline__ MnfInt8Tile(const float* s, const int32_t* z)
+      : zp((float)*z), scale(*s) {}
+  __device__ __forceinline__ float operator()(const int8_t* a, int j) const {
+    return __fmul_rn(__fsub_rn((float)a[j], zp), scale);
+  }
+};
+
+template <typename Tile>
+__device__ __forceinline__ float mnf_tile_dot(
+    const typename Tile::T* __restrict__ a_row,
+    const float* __restrict__ w_col, int64_t ldw, int bk, float acc,
+    const Tile& tile) {
   for (int j = 0; j < bk; ++j) {
-    acc = fmaf(a_row[j], w_col[(int64_t)j * ldw], acc);
+    acc = fmaf(tile(a_row, j), w_col[(int64_t)j * ldw], acc);
   }
   return acc;
 }

@@ -16,6 +16,9 @@ import dataclasses
 import torch
 
 from repro_torch.core import events as ev
+from repro_torch.core import quantize as qz
+from repro_torch.core.fire import FireConfig
+from repro_torch.core.fire import fire as plain_fire
 from repro_torch.core.mnf_conv import conv_out_size
 from repro_torch.costmodel import crossover as xover
 from repro_torch.engine import trace
@@ -275,9 +278,14 @@ def maxpool2d(x, k: int, stride: int | None = None,
     """VALID max-pool.  A conv stream pools in the event domain (segment
     max, bitwise the dense pool, DESIGN.md §7) and re-emits through the
     fire phase at ``cfg.blk_m`` granularity; a dense map returns the dense
-    pooled map."""
+    pooled map.  An int8 stream pools its dequantized values and re-encodes
+    the pooled rows quantized under the incoming ``QParams`` — every pooled
+    value is a dequantized code, so that recovers the codes exactly and
+    pooling never recalibrates."""
     stride = k if stride is None else stride
     if isinstance(x, EventStream):
+        qp_in = x.qparams
+        x = x.dequantize_events()
         name = cfg.resolve_backend(x.device)
         reason = pool_ineligible_reason(x, k, stride, cfg)
         shape_ok = _is_conv_stream(x)
@@ -316,19 +324,54 @@ def maxpool2d(x, k: int, stride: int | None = None,
                     x.dense_nhwc(), k, stride, cfg).reshape(b * oh * ow, c)
             # Pooled values are already fired: fire at threshold 0 is the
             # identity re-emission at the consumer's granularity.
-            return fire_conv(rows.reshape(b, oh, ow, c),
-                             cfg.replace(threshold=0.0),
-                             keep_dense=keep_dense, blk_m=bm)
+            if qp_in is None:
+                return fire_conv(rows.reshape(b, oh, ow, c),
+                                 cfg.replace(threshold=0.0,
+                                             int8_events=False),
+                                 keep_dense=keep_dense, blk_m=bm)
+            q_rows = qz.quantize(rows, qp_in)
+            s = EventStream.encode_nhwc(q_rows.reshape(b, oh, ow, c),
+                                        blk_k=cfg.blk_k, blk_m=bm,
+                                        capacity=cfg.capacity, threshold=0.0,
+                                        keep_dense=False)
+            return dataclasses.replace(
+                s, fired=rows if keep_dense else None, qparams=qp_in)
         trace.record(op="maxpool2d", backend=name, fallback_decode=True,
                      reason=reason, **fields)
         x = x.dense_nhwc() if x.logical_shape is not None else x.dense()
     return dispatch("maxpool2d", cfg, x)(x, k, stride, cfg)
 
 
+def _fire_int8(acc2: torch.Tensor, c2: EngineConfig, keep_dense: bool,
+               logical_shape: tuple | None = None
+               ) -> EventStream:
+    """Int8 fire (DESIGN.md §12): threshold the accumulator, calibrate a
+    symmetric QParams over the fired map (zero point 0: an absent event is
+    an exact zero in both domains), quantize into it (the JAX package
+    requantizes with unit input and weight scales, which multiplies by 1.0:
+    the consumers dequantize at tile load, so accumulators carry real
+    values), and encode the codes at threshold 0.  The kept
+    twin is the dequantized map — exactly the fake-quant round trip's
+    values, which makes the int8 chain bitwise its fake-quant twin.  Plain
+    torch ops, as the JAX package lowers it: no fire kernel launches."""
+    fired = plain_fire(acc2, FireConfig(threshold=c2.threshold,
+                                        magnitude=c2.magnitude,
+                                        signed=c2.signed))
+    qp = qz.calibrate(fired, symmetric=True)
+    q = qz.quantize(fired, qp)
+    s = EventStream.encode(q, blk_m=c2.blk_m, blk_k=c2.blk_k,
+                           capacity=c2.capacity, threshold=0.0,
+                           keep_dense=False)
+    return dataclasses.replace(
+        s, fired=qz.dequantize(q, qp) if keep_dense else None, qparams=qp,
+        logical_shape=logical_shape, signed=c2.magnitude or c2.signed)
+
+
 def fire(acc: torch.Tensor, cfg: EngineConfig = _DEFAULT, *,
          keep_dense: bool = True) -> EventStream:
     """Fire phase: threshold ``acc`` (M, K) and emit the next layer's
-    events; ``keep_dense=False`` drops the dense twin."""
+    events; ``keep_dense=False`` drops the dense twin.  With
+    ``cfg.int8_events`` the events carry int8 codes and their QParams."""
     c = cfg.for_width(*acc.shape)
     signed = cfg.magnitude or cfg.signed
     if 0 in acc.shape:
@@ -337,6 +380,8 @@ def fire(acc: torch.Tensor, cfg: EngineConfig = _DEFAULT, *,
                               device=acc.device,
                               fired=acc if keep_dense else None)
         return dataclasses.replace(s, signed=signed)
+    if cfg.int8_events:
+        return _fire_int8(acc, c, keep_dense)
     fired, bev = dispatch("fire", cfg, acc)(acc, c)
     return EventStream(events=bev, fired=fired if keep_dense else None,
                        shape=tuple(acc.shape), blk_m=c.blk_m, blk_k=c.blk_k,
@@ -361,6 +406,9 @@ def fire_conv(acc: torch.Tensor, cfg: EngineConfig = _DEFAULT, *,
                               fired=acc2 if keep_dense else None,
                               logical_shape=(b, h, w, c))
         return dataclasses.replace(s, signed=signed)
+    if cfg.int8_events:
+        return _fire_int8(acc2, c2, keep_dense,
+                          logical_shape=(b, h, w, c))
     fired, bev = dispatch("fire_conv", cfg, acc2)(acc2, c2)
     return EventStream(events=bev, fired=fired if keep_dense else None,
                        shape=tuple(acc2.shape), blk_m=c2.blk_m,

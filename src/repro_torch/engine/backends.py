@@ -16,7 +16,9 @@ One uniform signature per op:
 "dense" is the oracle.  "block" and "cuda" are one block-event dataflow
 registered under both names: every callable goes through the kernels'
 wrappers (``kernels/*/ops.py``), which launch the hand-written kernel on a
-CUDA tensor and take the plain version (``ref.py``) on a CPU tensor.
+CUDA tensor and take the plain version (``ref.py``) on a CPU tensor.  Every
+event multiply gets the stream's ``qparams``: int8 codes go to the
+dequantize-at-load kernels (B5, B6).
 ``EngineConfig.resolve_backend`` holds "block" to CPU operands and "cuda"
 to CUDA operands, so the name says which of the two ran.
 """
@@ -73,7 +75,8 @@ def _linear(x, w, b, cfg: EngineConfig, *, name: str):
 def _linear_events(stream, w, b, cfg: EngineConfig):
     m, k = stream.shape
     assert w.shape[0] == k, (tuple(w.shape), stream.shape)
-    y = block_event_linear_from_events(stream.events, w, matmul=event_matmul)
+    y = block_event_linear_from_events(stream.events, w, matmul=event_matmul,
+                                       qparams=stream.qparams)
     return _bias(y[:m], b)
 
 
@@ -132,11 +135,12 @@ def _conv2d_events(stream, w, b, cfg: EngineConfig, stride, padding):
     idx, live = ev.device_plan(tap_row_map,
                                (tuple(stream.logical_shape), k, stride,
                                 padding), str(stream.device))
-    acc = stream.events.values.new_zeros((bsz * oy * ox, co))
+    acc = w.new_zeros((bsz * oy * ox, co))  # f32 for int8 codes too
     for t in range(k * k):
         tap = ev.gather_row_groups(stream.events, idx[t], live[t])
         acc = acc + block_event_linear_from_events(
-            tap, w[t // k, t % k], matmul=event_matmul)
+            tap, w[t // k, t % k], matmul=event_matmul,
+            qparams=stream.qparams)
     return _bias(acc.reshape(bsz, oy, ox, co), b)
 
 

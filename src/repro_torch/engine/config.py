@@ -37,7 +37,10 @@ class EngineConfig:
     row group (None = lossless); threshold/magnitude/signed: the fire rule; route: boundary routing
     policy (DESIGN.md §11) — "auto", "adaptive" or a forced route label;
     occupancy_hint: static occupancy for adaptive routing; int8_events:
-    int8 event values — not ported yet (ROADMAP A7)."""
+    fire emits int8 event values with a symmetric per-layer ``QParams`` on
+    the stream, and the consumers dequantize at tile load (DESIGN.md §12);
+    int8_bits: the code width, kept for parity with the JAX package and
+    refused unless 8 — the int8 kernels take int8 tiles only."""
 
     backend: str = "auto"
     blk_m: int = 8
@@ -49,12 +52,12 @@ class EngineConfig:
     route: str = "auto"
     occupancy_hint: float | None = None
     int8_events: bool = False
+    int8_bits: int = 8
 
     def __post_init__(self):
-        if self.int8_events:
-            raise NotImplementedError(
-                "int8 event values (int8_events=True) are not ported yet "
-                "(ROADMAP A7)")
+        if self.int8_bits != 8:
+            raise ValueError(f"int8_bits={self.int8_bits}: the int8 kernels "
+                             f"take 8-bit codes only")
 
     def resolve_backend(self, *tensors) -> str:
         """Concrete backend for operands on the devices of ``tensors``

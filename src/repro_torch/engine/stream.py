@@ -4,8 +4,8 @@ port of ``repro.engine.stream``.
 The ``BlockEvents`` of a fired (M, K) activation matrix plus the geometry
 needed to consume them: conv feature maps ride the flattened (B·H·W, C)
 view with their NHWC ``logical_shape``.  ``fired`` is the optional dense
-twin, kept only where a consumer reads it for free.  ``qparams`` is always
-None here: int8 event values are not ported yet (ROADMAP A7).
+twin, kept only where a consumer reads it for free.  ``qparams`` is set
+when the event values are int8 codes (DESIGN.md §12).
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import events as ev
+from repro_torch.core.quantize import QParams, dequantize
 from repro_torch.engine import trace
 
 __all__ = ["EventStream"]
@@ -24,6 +25,9 @@ class EventStream:
     """events: BlockEvents over the tile-padded matrix; fired: dense (M, K)
     twin or None; shape: logical (M, K); blk_m/blk_k: tile geometry;
     logical_shape: (B, H, W, C) for conv streams, None for FC streams;
+    qparams: the quantization parameters of int8 event values (symmetric,
+    zero point 0, so an absent event is an exact zero in both domains; the
+    kept twin is the dequantized f32 map), None for f32 streams;
     signed: the fire rule can emit negative events."""
 
     events: ev.BlockEvents
@@ -32,13 +36,8 @@ class EventStream:
     blk_m: int
     blk_k: int
     logical_shape: tuple | None = None
-    qparams: None = None
+    qparams: QParams | None = None
     signed: bool = False
-
-    def __post_init__(self):
-        if self.qparams is not None:
-            raise NotImplementedError(
-                "int8 event values (qparams) are not ported yet (ROADMAP A7)")
 
     # -- construction -------------------------------------------------------
 
@@ -70,7 +69,8 @@ class EventStream:
     def encode(cls, x: torch.Tensor, *, blk_m: int, blk_k: int,
                capacity: int | None = None, threshold: float = 0.0,
                keep_dense: bool = True) -> "EventStream":
-        """Encode a dense (M, K) activation matrix."""
+        """Encode a dense (M, K) activation matrix (f32 values or int8
+        codes; the events keep ``x``'s dtype)."""
         m, k = x.shape
         if m == 0 or k == 0:
             return cls.empty((m, k), blk_m=blk_m, blk_k=blk_k,
@@ -120,6 +120,8 @@ class EventStream:
         y = ev.decode_block_events(self.events, blk_m=self.blk_m,
                                    blk_k=self.blk_k, m=g * self.blk_m,
                                    k=self.events.num_k_blocks * self.blk_k)
+        if self.qparams is not None:
+            y = dequantize(y, self.qparams)
         return y[:m, :k]
 
     def dense_nhwc(self) -> torch.Tensor:
@@ -132,7 +134,9 @@ class EventStream:
 
     def retile_fc(self) -> "EventStream":
         """Re-tile a conv stream to the flattened (B, H·W·C) FC view by
-        static address plan (DESIGN.md §12) — no decode."""
+        static address plan (DESIGN.md §12) — no decode; values (f32 or
+        int8 codes) move by gather only, the twin and ``qparams`` ride
+        along."""
         reason = ev.retile_ineligible_reason(self.logical_shape, self.blk_m,
                                              self.blk_k)
         assert reason is None, reason
@@ -142,4 +146,16 @@ class EventStream:
         fired = None if self.fired is None else self.fired.reshape(b, -1)
         return EventStream(events=bev, fired=fired, shape=(b, h * w * c),
                            blk_m=1, blk_k=self.blk_k, logical_shape=None,
-                           signed=self.signed)
+                           qparams=self.qparams, signed=self.signed)
+
+    def dequantize_events(self) -> "EventStream":
+        """Dequantize int8 event values in place — still event-domain: a
+        per-tile scalar multiply (zero stays zero, padding slots stay exact
+        zeros), not a decode, so a consumer that wants f32 values (the
+        pool's segment max) reads the floats the kept twin carries,
+        bitwise.  No-op on f32 streams."""
+        if self.qparams is None:
+            return self
+        vals = dequantize(self.events.values, self.qparams)
+        bev = dataclasses.replace(self.events, values=vals)
+        return dataclasses.replace(self, events=bev, qparams=None)

@@ -42,7 +42,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "mnf_fire_compact": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _P],
     "mnf_event_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mnf_event_matmul_int8": [_P] * 7 + [_I] * 5 + [_P],
     "mnf_event_conv": [_P] * 8 + [_I] * 8 + [_P],
+    "mnf_event_conv_int8": [_P] * 10 + [_I] * 8 + [_P],
     "mnf_event_pool": [_P] * 6 + [_I] * 6 + [_P],
     "mnf_event_pool_window": [_P] * 6 + [_I] * 6 + [_P],
 }

@@ -1,14 +1,17 @@
-"""The fused strip conv of the event backends (B3).
+"""The fused strip conv of the event backends (B3, and B6 on int8 codes).
 
 ``event_conv`` is the wrapper of ``csrc/event_conv.cu``, which replaces
-``repro.kernels.event_conv.kernel.event_conv_pallas``: a CUDA tensor
-launches the kernel and counts it (``kernels.note_launch``); a CPU tensor
-takes the plain version (``ref.py``).  Bound on the card: f32 FMA issue.
+``repro.kernels.event_conv.kernel.event_conv_pallas``, and
+``event_conv_dequant`` the wrapper of its int8 entry, which replaces
+``event_conv_int8_pallas``: a CUDA tensor launches the kernel and counts
+it (``kernels.note_launch``); a CPU tensor takes the plain version
+(``ref.py``).  Bound on the card: f32 FMA issue.
 
 ``fused_event_conv2d`` runs a whole conv layer from a strip-aligned conv
 stream in one launch: it builds the cached ``strip_tap_map`` plan on the
 device, the live counts per (output strip, subtap) and the tap-stacked
-weights, then calls ``event_conv``.
+weights, then calls ``event_conv``, or ``event_conv_dequant`` when the
+stream carries int8 codes (``stream.qparams``).
 """
 from __future__ import annotations
 
@@ -17,11 +20,13 @@ import torch
 from repro_torch.core import events as ev
 from repro_torch.core.mnf_conv import conv_out_size
 from repro_torch.kernels import note_launch
-from repro_torch.kernels.event_conv.kernel import event_conv_cuda
-from repro_torch.kernels.event_conv.ref import event_conv_ref
+from repro_torch.kernels.event_conv.kernel import (event_conv_cuda,
+                                                  event_conv_int8_cuda)
+from repro_torch.kernels.event_conv.ref import (event_conv_int8_ref,
+                                               event_conv_ref)
 
-__all__ = ["event_conv", "fused_event_conv2d", "stacked_weights",
-           "strip_conv_inputs"]
+__all__ = ["event_conv", "event_conv_dequant", "fused_event_conv2d",
+           "stacked_weights", "strip_conv_inputs"]
 
 
 def event_conv(a_vals, a_idx, tap, shift, src, cnt, ws, *, nkb: int,
@@ -38,6 +43,26 @@ def event_conv(a_vals, a_idx, tap, shift, src, cnt, ws, *, nkb: int,
 
 event_conv.launches = 0
 event_conv.capture = None
+
+
+def event_conv_dequant(a_vals, a_idx, tap, shift, src, cnt, scale,
+                       zero_point, ws, *, nkb: int,
+                       row_stride: int = 1) -> torch.Tensor:
+    """B6: :func:`event_conv` on int8 codes, each sourced row dequantized
+    at load as (q - zero_point) * scale — bitwise B3 fed the dequantized
+    tiles."""
+    args = (a_vals, a_idx, tap, shift, src, cnt, scale, zero_point, ws)
+    if a_vals.device.type == "cpu":
+        return event_conv_int8_ref(*args, nkb=nkb, row_stride=row_stride)
+    out = event_conv_int8_cuda(*(t.contiguous() for t in args), nkb=nkb,
+                               row_stride=row_stride)
+    note_launch(event_conv_dequant, args,
+                dict(nkb=nkb, row_stride=row_stride))
+    return out
+
+
+event_conv_dequant.launches = 0
+event_conv_dequant.capture = None
 
 
 def stacked_weights(w: torch.Tensor, bk: int, nkb: int) -> torch.Tensor:
@@ -74,7 +99,12 @@ def fused_event_conv2d(stream, w: torch.Tensor, *, stride: int = 1,
     b, h, wd, _ = stream.logical_shape
     k, co = w.shape[0], w.shape[-1]
     args, nkb = strip_conv_inputs(stream, w, stride=stride, padding=padding)
-    y = event_conv(*args, nkb=nkb, row_stride=stride)
+    if stream.qparams is None:
+        y = event_conv(*args, nkb=nkb, row_stride=stride)
+    else:
+        qp = stream.qparams
+        y = event_conv_dequant(*args[:6], qp.scale, qp.zero_point, args[6],
+                               nkb=nkb, row_stride=stride)
     oy = conv_out_size(h, k, stride, padding)
     ox = conv_out_size(wd, k, stride, padding)
     return y.reshape(-1, co)[:b * oy * ox]

@@ -1,6 +1,7 @@
-"""Plain PyTorch version of the block-event multiply phase (B2).
+"""Plain PyTorch version of the block-event multiply phase (B2, and B5).
 
-``event_matmul_ref`` computes what ``kernel.py`` computes, on any device:
+``event_matmul_ref`` computes what ``kernel.py`` computes, on any device
+(``event_matmul_int8_ref`` the same on int8 codes, B5):
 
     y[g] = sum_{e < counts[g]} a_vals[g, e] @ W[a_idx[g, e]*bk : +bk, :]
 
@@ -16,7 +17,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["event_matmul_ref", "tile_dot"]
+from repro_torch.core.quantize import QParams, dequantize
+
+__all__ = ["event_matmul_int8_ref", "event_matmul_ref", "tile_dot"]
 
 
 def tile_dot(acc: torch.Tensor, a: torch.Tensor,
@@ -29,9 +32,14 @@ def tile_dot(acc: torch.Tensor, a: torch.Tensor,
 
 
 def event_matmul_ref(a_vals: torch.Tensor, a_idx: torch.Tensor,
-                     counts: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+                     counts: torch.Tensor, w: torch.Tensor, *,
+                     qparams: QParams | None = None) -> torch.Tensor:
     """Plain multiply phase.  a_vals (G, E, bm, bk) f32, a_idx (G, E) int32,
-    counts (G,) int32, w (K, N) with K a multiple of bk -> (G, bm, N)."""
+    counts (G,) int32, w (K, N) with K a multiple of bk -> (G, bm, N).
+    With ``qparams`` the values are int8 codes: B5's plain version."""
+    if qparams is not None:
+        return event_matmul_int8_ref(a_vals, a_idx, counts, qparams.scale,
+                                     qparams.zero_point, w)
     g, e, bm, bk = a_vals.shape
     k, n = w.shape
     assert k % bk == 0, (w.shape, bk)
@@ -43,3 +51,16 @@ def event_matmul_ref(a_vals: torch.Tensor, a_idx: torch.Tensor,
         a = torch.where(live, a_vals[:, s], 0.0)
         acc = tile_dot(acc, a, wb[a_idx[:, s].long()])
     return acc
+
+
+def event_matmul_int8_ref(a_vals: torch.Tensor, a_idx: torch.Tensor,
+                          counts: torch.Tensor, scale: torch.Tensor,
+                          zero_point: torch.Tensor,
+                          w: torch.Tensor) -> torch.Tensor:
+    """Plain version of B5: every tile of int8 codes dequantized as
+    ``(q - zero_point) * scale`` in f32 — before the slot mask, so padding
+    slots stay exact zeros — then B2's plain multiply.  The counterpart of
+    ``repro.kernels.event_matmul.ref.event_matmul_int8_ref``, on the
+    kernel's own inputs (events, not the dense code matrix)."""
+    vals = dequantize(a_vals, QParams(scale=scale, zero_point=zero_point))
+    return event_matmul_ref(vals, a_idx, counts, w)

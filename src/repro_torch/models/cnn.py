@@ -14,6 +14,10 @@ Two execution paths over identical params, both dispatched through
     per-layer round-trip twin (dense at every boundary, same compute
     geometry), bitwise equal to the chained path.
 
+``FireConfig(quantize_to_int8=True)`` or ``EngineConfig(int8_events=True)``
+makes every fire emit int8 event values; the round-trip twin is then the
+fake-quant forward, and the chain stays bitwise equal to it.
+
 The forward runs on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
@@ -188,7 +192,9 @@ def _layer_cfg(base: engine.EngineConfig | None, *, mnf: bool,
     if not mnf:
         cfg = cfg.replace(backend="dense")
     return cfg.replace(threshold=fire_cfg.threshold,
-                       magnitude=fire_cfg.magnitude)
+                       magnitude=fire_cfg.magnitude,
+                       int8_events=cfg.int8_events
+                       or fire_cfg.quantize_to_int8)
 
 
 def _next_conv_blk_m(nxt, out_shape: tuple) -> int:

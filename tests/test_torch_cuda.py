@@ -9,10 +9,16 @@ import pytest
 import torch
 
 from repro_torch import engine
-from repro_torch.kernels.event_conv.ops import event_conv, strip_conv_inputs
-from repro_torch.kernels.event_conv.ref import event_conv_ref
-from repro_torch.kernels.event_matmul.ops import event_matmul
-from repro_torch.kernels.event_matmul.ref import event_matmul_ref
+from repro_torch.core import quantize as qz
+from repro_torch.core.fire import FireConfig
+from repro_torch.kernels.event_conv.ops import (event_conv, event_conv_dequant,
+                                                strip_conv_inputs)
+from repro_torch.kernels.event_conv.ref import (event_conv_int8_ref,
+                                                event_conv_ref)
+from repro_torch.kernels.event_matmul.ops import (event_matmul,
+                                                  event_matmul_dequant)
+from repro_torch.kernels.event_matmul.ref import (event_matmul_int8_ref,
+                                                  event_matmul_ref)
 from repro_torch.kernels.event_pool.ops import (event_pool, event_pool_window,
                                                 pool_inputs,
                                                 pool_window_inputs)
@@ -20,7 +26,7 @@ from repro_torch.kernels.event_pool.ref import (event_pool_ref,
                                                 event_pool_window_ref)
 from repro_torch.kernels.fire_compact.ops import fire_compact
 from repro_torch.kernels.fire_compact.ref import fire_compact_ref
-from repro_torch.models import cnn
+from repro_torch.models import cnn, mlp
 
 pytestmark = pytest.mark.cuda
 
@@ -78,6 +84,51 @@ def test_event_conv_matches_plain(dev, shape, k, p, s):
                   event_conv_ref(*args, nkb=nkb, row_stride=s))
 
 
+def _int8(x, zero_point=0):
+    """Codes of ``x`` under its symmetric QParams, with the zero point
+    replaced by ``zero_point`` (the kernels take any)."""
+    qp = qz.calibrate(x)
+    q = qz.quantize(x, qp)
+    return q, qz.QParams(scale=qp.scale, zero_point=torch.full(
+        (), zero_point, dtype=torch.int32, device=x.device))
+
+
+@pytest.mark.parametrize("m,k,n,bm,bk", [(16, 64, 1000, 1, 8),
+                                         (8, 512, 40, 8, 128)])
+def test_event_matmul_int8_matches_plain(dev, m, k, n, bm, bk):
+    q, qp = _int8(_fired(m + 1, (m, k), dev))
+    s = engine.EventStream.encode(q, blk_m=bm, blk_k=bk)
+    assert s.events.values.dtype == torch.int8
+    w = torch.randn((k, n), device=dev)
+    args = (s.events.values, s.events.block_idx, s.events.counts, qp.scale,
+            qp.zero_point, w)
+    launches = event_matmul_dequant.launches
+    y = event_matmul_dequant(*args)
+    assert event_matmul_dequant.launches == launches + 1
+    assert _close(y, event_matmul_int8_ref(*args))
+    # bitwise B2 on the dequantized tiles: the same fmaf walk
+    assert torch.equal(y, event_matmul(qz.dequantize(args[0], qp),
+                                       *args[1:3], w))
+
+
+@pytest.mark.parametrize("shape,k,p,s,zp", [((2, 8, 32, 8), 3, 1, 1, 0),
+                                            ((1, 8, 32, 8), 3, 1, 2, 0),
+                                            ((1, 16, 64, 3), 11, 4, 4, 0),
+                                            ((1, 8, 32, 8), 3, 1, 2, 7)])
+def test_event_conv_int8_matches_plain(dev, shape, k, p, s, zp):
+    """B6 at strides 1, 2, 4, and with a non-zero zero point: codes are
+    dequantized before the row remap, so unsourced rows stay 0."""
+    q, qp = _int8(_fired(k + s, shape, dev), zp)
+    w = torch.randn((k, k, shape[3], 16), device=dev)
+    st = engine.EventStream.encode_nhwc(q, blk_k=8, blk_m=8)
+    args, nkb = strip_conv_inputs(st, w, stride=s, padding=p)
+    a8 = (*args[:6], qp.scale, qp.zero_point, args[6])
+    y = event_conv_dequant(*a8, nkb=nkb, row_stride=s)
+    assert _close(y, event_conv_int8_ref(*a8, nkb=nkb, row_stride=s))
+    assert torch.equal(y, event_conv(qz.dequantize(args[0], qp), *args[1:],
+                                     nkb=nkb, row_stride=s))
+
+
 @pytest.mark.parametrize("shape,bm", [((2, 16, 16, 16), 8),
                                       ((2, 7, 7, 16), 1)])
 def test_event_pools_match_plain(dev, shape, bm):
@@ -100,3 +151,23 @@ def test_mini_chain_bitwise_and_matches_cpu(dev):
     assert torch.equal(yc, yr)
     y_cpu = cnn.cnn_forward(params, x, cnn.MINI, device="cpu")
     torch.testing.assert_close(yc.cpu(), y_cpu, atol=1e-5, rtol=1e-5)
+
+
+def test_int8_mini_and_mlp_chains_bitwise_and_match_cpu(dev):
+    fire_cfg = FireConfig(quantize_to_int8=True)
+    gen = torch.Generator().manual_seed(0)
+    params = cnn.init_cnn_params(cnn.MINI, gen, weight_sparsity=0.5)
+    x = torch.relu(torch.randn((2, 8, 8, 3), generator=gen))
+    yc = cnn.cnn_forward(params, x, cnn.MINI, fire_cfg=fire_cfg)
+    yr = cnn.cnn_forward(params, x, cnn.MINI, fire_cfg=fire_cfg, chain=False)
+    assert torch.equal(yc, yr)
+    y_cpu = cnn.cnn_forward(params, x, cnn.MINI, fire_cfg=fire_cfg,
+                            device="cpu")
+    torch.testing.assert_close(yc.cpu(), y_cpu, atol=1e-5, rtol=1e-5)
+    mp = mlp.init_mlp_params(mlp.MLP_MINI, gen, weight_sparsity=0.5)
+    xm = torch.relu(torch.randn((4, 64), generator=gen))
+    launches = event_matmul_dequant.launches
+    ym = mlp.mlp_forward(mp, xm, mlp.MLP_MINI, fire_cfg=fire_cfg)
+    assert event_matmul_dequant.launches == launches + 2
+    assert torch.equal(ym, mlp.mlp_forward(mp, xm, mlp.MLP_MINI,
+                                           fire_cfg=fire_cfg, chain=False))

@@ -61,8 +61,10 @@ def test_no_jax_or_repro_import(path):
 
 def test_cuda_paths_refuse_cpu_tensors():
     from repro_torch import engine
-    from repro_torch.kernels.event_conv.kernel import event_conv_cuda
-    from repro_torch.kernels.event_matmul.kernel import event_matmul_cuda
+    from repro_torch.kernels.event_conv.kernel import (event_conv_cuda,
+                                                      event_conv_int8_cuda)
+    from repro_torch.kernels.event_matmul.kernel import (
+        event_matmul_cuda, event_matmul_int8_cuda)
     from repro_torch.kernels.event_pool.kernel import (event_pool_cuda,
                                                        event_pool_window_cuda)
     from repro_torch.kernels.fire_compact.kernel import fire_compact_cuda
@@ -79,7 +81,13 @@ def test_cuda_paths_refuse_cpu_tensors():
         engine.maxpool2d(s, 2, 2, cfg=cfg)
     i32 = torch.zeros((1, 1), dtype=torch.int32)
     vals = torch.zeros((1, 1, 8, 8))
+    codes = torch.zeros((1, 1, 8, 8), dtype=torch.int8)
+    scale, zp = torch.ones(()), torch.zeros((), dtype=torch.int32)
     calls = [
+        lambda: event_matmul_int8_cuda(codes, i32, i32[0], scale, zp,
+                                       torch.zeros((8, 8))),
+        lambda: event_conv_int8_cuda(codes, i32, i32[0], i32[0], i32, i32,
+                                     scale, zp, torch.zeros((8, 8)), nkb=1),
         lambda: fire_compact_cuda(torch.zeros((8, 8)), blk_m=8, blk_k=8),
         lambda: event_matmul_cuda(vals, i32, i32[0], torch.zeros((8, 8))),
         lambda: event_conv_cuda(vals, i32, i32[0], i32[0], i32, i32,
@@ -121,11 +129,33 @@ def test_default_device_never_falls_back():
                         cnn.CNNSpec("pool", 2, 3, (cnn.PoolSpec(),)))
 
 
-def test_int8_events_raise_naming_the_roadmap_item():
+def test_int8_configs_construct_and_run_on_cpu_tensors():
+    """``EngineConfig(int8_events=True)`` and
+    ``FireConfig(quantize_to_int8=True)`` build and drive a fire -> linear
+    chain on CPU tensors: int8 codes with QParams between the layers."""
     from repro_torch import engine
-    from repro_torch.core.fire import FireConfig
+    from repro_torch.core.fire import FireConfig, fire
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        engine.EngineConfig(int8_events=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        FireConfig(quantize_to_int8=True)
+    cfg = engine.EngineConfig(int8_events=True, blk_k=8)
+    assert cfg.int8_events and cfg.int8_bits == 8
+    fc = FireConfig(quantize_to_int8=True)
+    gen = torch.Generator().manual_seed(0)
+    acc = torch.randn((16, 32), generator=gen)
+    w = torch.randn((32, 8), generator=gen)
+    s = engine.fire(acc, cfg)
+    assert s.events.values.dtype == torch.int8 and s.qparams is not None
+    y = engine.linear(s, w, cfg=cfg)
+    yt = engine.linear(fire(acc, fc), w, cfg=cfg)
+    assert y.dtype == torch.float32 and torch.equal(y, yt)
+
+
+@pytest.mark.parametrize("bits", [4, 16])
+def test_int8_bits_other_than_8_are_refused(bits):
+    """The int8 kernels take 8-bit codes only, so a config asking for
+    another width is refused when it is built, on every device."""
+    from repro_torch import engine
+
+    with pytest.raises(ValueError, match="8-bit codes only"):
+        engine.EngineConfig(int8_events=True, int8_bits=bits)
+    with pytest.raises(ValueError, match="8-bit codes only"):
+        engine.EngineConfig().replace(int8_bits=bits)
