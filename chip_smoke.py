@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
-3, so that phase 3 can replay what phases 2 and 4 handed the kernels):
+6, 3, so that phase 3 can replay what phases 2, 4, 5 and 6 handed the
+kernels):
 
 1. Probe and build: the card's name and power limit, TF32 off for the dense
-   oracles, the CUDA kernels (B1-B6) built from src/repro_torch/csrc.
+   oracles, the CUDA kernels (B1-B7) built from src/repro_torch/csrc.
 2. VGG16 at 224x224, full widths, batch 4 (four requests), f32 events.
    He weights from a seeded torch.Generator with weight sparsity 0.5,
    inputs relu(normal).  Every kernel's launch counter is set to 0 just
@@ -36,6 +37,22 @@ Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
    dense head, B5 x2), chained == round trip bitwise, the f32 logits
    within 2e-4 of the dense oracle, the int8 ones checked as in phase 4;
    warm forward times.
+6. RWKV6-7B served at its published widths (32 layers, d_model 4096,
+   64x64 heads, d_ff 14336, vocab 65536; random f32 weights from seed 0
+   plus their bf16 copy, ~45 GB) through the port's serve driver
+   (``launch.serve.run_lm``: prefill, then the greedy decode loop), batch
+   4, prompt 32, 16 tokens.  The main path is the config as published:
+   MNF on at θ = 0, bf16.  B7 must launch 32 x 16 times in each gated
+   decode and never in the ungated one, B1-B6 never; every recurrent_step
+   record chained on route "event", no fallback_decode; every B7 launch
+   of the main path and of a θ > 0 run replayed against the plain version
+   (S' bitwise, o within 1e-4 of max|plain|); that θ, picked as the 0.4
+   quantile of the main path's block max|k|, kills at least a quarter of
+   the (row, K-block) pairs; in f32 the gated decode, teacher-forced on
+   the ungated decode's inputs, within 1e-4 of max|logits| at every step.
+   Prints prefill ms, decode tokens/s (gated θ=0, gated θ>0, ungated,
+   bf16), events per token, how many greedy tokens the gated and ungated
+   decodes share, and a profile line.
 3. Kernel checks: each kernel against its plain PyTorch version on the
    inputs the forwards handed it (B1, B2 and B5 at the shapes of both
    VGG16 and LeNet-300-100), plus the strip convs at stride 4 and 2
@@ -46,9 +63,10 @@ Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
    and B5/B6 bitwise B2/B3 fed the dequantized tiles.  The forwards'
    matmuls, strip convs and pools are also held against torch.matmul,
    F.conv2d and F.max_pool2d on the decoded (dequantized) maps (the same
-   tolerance; pools exact).  Prints each kernel's time, the plain
-   version's, one PyTorch library call's on the same function, and the
-   bound.
+   tolerance; pools exact).  B7 at the main path's shapes of phase 6
+   (no single PyTorch call computes the step: its library column is
+   null).  Prints each kernel's time, the plain version's, one PyTorch
+   library call's on the same function, and the bound.
 
 The last lines are the card line, a JSON line of per-kernel numbers, and
 the result line {"ok": true, "device": {...}}.
@@ -85,6 +103,8 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
                           "src/repro/kernels/event_matmul/kernel.py:126"),
     "event_conv_int8": ("src/repro_torch/csrc/event_conv.cu",
                         "src/repro/kernels/event_conv/kernel.py:268"),
+    "wkv6_step": ("src/repro_torch/csrc/wkv6_step.cu",
+                  "src/repro/kernels/wkv6/step.py:150"),
 }
 
 #: Launches per chained forward that the route plan gives (the JAX
@@ -92,16 +112,16 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
 #: that path and must not launch.
 PLAN_F32_VGG = dict(fire_compact=20, event_matmul=57, event_conv=7,
                     event_pool_window=2, event_pool=3, event_matmul_int8=0,
-                    event_conv_int8=0)
+                    event_conv_int8=0, wkv6_step=0)
 PLAN_INT8_VGG = dict(fire_compact=0, event_matmul=0, event_conv=1,
                      event_pool_window=2, event_pool=3, event_matmul_int8=57,
-                     event_conv_int8=6)
+                     event_conv_int8=6, wkv6_step=0)
 PLAN_F32_MLP = dict(fire_compact=2, event_matmul=3, event_conv=0,
                     event_pool_window=0, event_pool=0, event_matmul_int8=0,
-                    event_conv_int8=0)
+                    event_conv_int8=0, wkv6_step=0)
 PLAN_INT8_MLP = dict(fire_compact=0, event_matmul=1, event_conv=0,
                      event_pool_window=0, event_pool=0, event_matmul_int8=2,
-                     event_conv_int8=0)
+                     event_conv_int8=0, wkv6_step=0)
 
 
 class SmokeFailure(Exception):
@@ -134,6 +154,35 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int, reps: int = 3) -> float:
+    """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed ``reps`` times between CUDA events.  The host's launch
+    pace does not enter: a launch from Python costs tens of microseconds on
+    the card's host, more than a small kernel runs, so events around eager
+    launches time the host (about 0.063 ms a call there)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                 # warm: handles, allocations
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * reps)
+    del graph
+    return ms
 
 
 def host_ms(torch, fn, reps: int = 3) -> tuple[float, list]:
@@ -183,6 +232,48 @@ def profile(torch, fn, label: str, steps: int = 3) -> None:
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def drive_counted(torch, engine, wrappers, fn, capture=True):
+    """Run ``fn`` once with every launch count set to 0 just before and read
+    just after; with ``capture`` each wrapper collects its launches' inputs
+    (kernels.note_launch) for a later replay.  Returns (result, trace
+    records, launches, captures, seconds)."""
+    for w in wrappers.values():
+        w.launches = 0
+        w.capture = [] if capture else None
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with engine.trace_dispatch() as recs:
+            y = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+    finally:
+        captured = {name: w.capture or [] for name, w in wrappers.items()}
+        for w in wrappers.values():
+            w.capture = None
+    check(not capture or all(len(captured[n]) == launches[n]
+                             for n in wrappers),
+          "a wrapper's capture list disagrees with its launch count")
+    return y, recs, launches, captured, secs
+
+
+def check_plan(tag, launches, plan):
+    """Every kernel of the path launched, none off it; say whether the
+    counts are the route plan's."""
+    missing = [n for n, want in plan.items() if want and not launches[n]]
+    stray = [n for n, want in plan.items() if not want and launches[n]]
+    check(not missing, f"{tag}: kernels of the path never launched: "
+          f"{missing} ({launches})")
+    check(not stray, f"{tag}: kernels off the path launched: {stray} "
+          f"({launches})")
+    diff = {n: (launches[n], want) for n, want in plan.items()
+            if launches[n] != want}
+    print(f"{tag} launches per kernel: {launches}; route plan "
+          f"{'confirmed' if not diff else f'differs (got, plan): {diff}'}",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -342,6 +433,208 @@ def teacher_forced(torch, F, cnn, layers, params, x, fires, logits):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: RWKV6-7B served at its published widths through the port's
+# serve driver (prefill, then the greedy decode loop).
+# ---------------------------------------------------------------------------
+
+#: The serve driver's defaults (``repro_torch.launch.serve``).
+RWKV_BATCH, RWKV_PROMPT, RWKV_GEN = 4, 32, 16
+
+#: Share of the (row, K-block) pairs of the main path's key drive that the
+#: θ > 0 run's threshold is set to kill (its quantile of block max|k|).
+RWKV_DEAD_TARGET = 0.4
+
+
+def wkv6_work(bev, r):
+    """Bytes and operations one B7 launch needs on these events: the
+    state read and written once, r, v, w, u read and o written, each live
+    event tile and address, counts and the live mask; a multiply per state
+    element (decay), a multiply-add per element for the readout, a
+    multiply and an add per element of each live block (increment)."""
+    g, d = r.shape
+    _, e, _, bk = bev.values.shape
+    slots = int(bev.counts.clamp(max=e).sum())
+    nbytes = 2 * g * d * d * 4 + 5 * g * d * 4 + slots * (bk * 4 + 4) \
+        + g * 4 + g * bev.num_k_blocks * 4
+    return nbytes, 3.0 * g * d * d + 2.0 * slots * bk * d + 5.0 * g * d
+
+
+def serve_rwkv6(torch, engine, wrappers, cfg=None,
+                device: str = "cuda") -> dict:
+    """Phase 6.  RWKV6-7B at full width (32 layers, d_model 4096, 64x64
+    heads, d_ff 14336, vocab 65536; f32 weights from seed 0 plus their bf16
+    copy), batch 4, prompt 32, 16 greedy tokens through
+    ``launch.serve.run_lm``.  Checks: B7 launches 32 x 16 in each gated
+    decode and none in the ungated one, B1-B6 none; every recurrent_step
+    record chained on route "event", no fallback_decode; each B7 launch of
+    the main path and of the θ > 0 run replayed against the plain version
+    (S' bitwise, o within 1e-4 of max); the θ > 0 run kills at least a
+    quarter of the (row, K-block) pairs; in f32, the gated decode
+    (teacher-forced on the ungated one's inputs) within 1e-4 of
+    max|logits| at every step.  Returns the numbers and the main path's
+    B7 captures for phase 3."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import events as ev
+    from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    b7 = wrappers["wkv6_step"]
+    cfg = get_config("rwkv6-7b") if cfg is None else cfg
+    check(cfg.mnf.enabled and cfg.mnf.threshold == 0.0
+          and cfg.compute_dtype == "bfloat16", f"unexpected config {cfg}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    master = tfm.init_params(0, cfg, device)       # f32, the param dtype
+    params = tfm.compute_params(master, cfg)       # + bf16 matmul weights
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in [*master["embed"].values(),
+                                       master["final_norm"],
+                                       *master["layers"].values()])
+    print(f"[6] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}x{cfg.head_dim} heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} G "
+          f"params (f32) + bf16 copies of the matmul weights, made from "
+          f"seed 0 in {time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
+          flush=True)
+    prompts = serve.make_prompts(cfg, RWKV_BATCH, RWKV_PROMPT, 0, device)
+
+    def mnf(c, **kw):
+        return dataclasses.replace(c, mnf=dataclasses.replace(c.mnf, **kw))
+
+    per_decode = cfg.num_layers * RWKV_GEN
+    gated_plan = {n: 0 for n in wrappers} | {"wkv6_step": per_decode}
+    dense_plan = {n: 0 for n in wrappers}
+
+    def served(tag, c, p, plan, capture=False, **kw):
+        run, recs, launches, caps, _ = drive_counted(
+            torch, engine, wrappers,
+            lambda: serve.run_lm(p, c, prompts, RWKV_GEN, **kw), capture)
+        check_plan(tag, launches, plan)
+        check(launches["wkv6_step"] == plan["wkv6_step"],
+              f"{tag}: {launches['wkv6_step']} B7 launches, want "
+              f"{plan['wkv6_step']}")
+        steps = [r for r in recs if r.get("op") == "recurrent_step"]
+        check(len(steps) == launches["wkv6_step"] and all(
+            r.get("chained") and r.get("route") == "event"
+            and r.get("backend") == engine.EngineConfig().resolve_backend(
+                prompts) for r in steps),
+              f"{tag}: recurrent_step records not all chained on route "
+              f"'event': {steps[:2]}")
+        check(not any(r.get("fallback_decode") or r.get("decode")
+                      for r in recs), f"{tag}: fallback_decode")
+        check(run["tokens"].shape == (RWKV_BATCH, RWKV_GEN)
+              and int(run["tokens"].min()) >= 0
+              and int(run["tokens"].max()) < cfg.vocab_size,
+              f"{tag}: tokens {tuple(run['tokens'].shape)} out of range")
+        if run["logits"] is not None:
+            check(run["logits"].shape == (RWKV_GEN, RWKV_BATCH,
+                                          cfg.vocab_size)
+                  and bool(torch.isfinite(run["logits"]).all()),
+                  f"{tag}: logits not finite of the expected shape")
+        return run, caps["wkv6_step"]
+
+    def replay(tag, caps):
+        """Each captured B7 launch against the plain version: S' bitwise,
+        o within 1e-4 of max|plain|.  Returns (worst o ratio, dead share
+        of the (row, K-block) pairs)."""
+        worst, dead, pairs = 0.0, 0, 0
+        for args, kw in caps:
+            o, s_new = b7(*args, **kw)
+            o2, s2 = wkv6_step_events_ref(*args, **kw)
+            check(torch.equal(s_new, s2), f"{tag}: B7's S' is not bitwise "
+                  f"the plain version's")
+            ratio = float((o - o2).abs().max()) / max(
+                float(o2.abs().max()), 1e-30)
+            check(ratio <= 1e-4, f"{tag}: B7's o off the plain version by "
+                  f"{ratio:.3e} of max|plain|")
+            worst = max(worst, ratio)
+            live = ev.live_block_mask(args[0])
+            dead += int((~live).sum())
+            pairs += live.numel()
+        return worst, dead / pairs
+
+    # The main path: the config as published, MNF on at θ = 0, bf16.
+    run_a, caps_a = served("[6] gated θ=0 bf16", cfg, params, gated_plan,
+                           capture=True, keep_logits=True)
+    worst_a, dead_a = replay("[6] gated θ=0", caps_a)
+    ev_a = run_a["events"].sum(1)
+    run_b, _ = served("[6] ungated bf16", mnf(cfg, enabled=False), params,
+                      dense_plan)
+    agree = int((run_a["tokens"] == run_b["tokens"]).sum())
+    # θ > 0: the RWKV_DEAD_TARGET quantile of block max|k| over the main
+    # path's key drive
+    blockmax = torch.cat([args[0].values.abs().amax(dim=(2, 3)).flatten()
+                          for args, _ in caps_a])
+    theta = float(f"{float(torch.quantile(blockmax, RWKV_DEAD_TARGET)):.3g}")
+    cfg_th = mnf(cfg, threshold=theta)
+    run_c, caps_c = served(f"[6] gated θ={theta} bf16", cfg_th, params,
+                           gated_plan, capture=True)
+    worst_c, dead_c = replay(f"[6] gated θ={theta}", caps_c)
+    del caps_c
+    ev_c = run_c["events"].sum(1)
+    print(f"[6] main path (θ=0, bf16): every B7 launch replayed: S' "
+          f"bitwise, o worst {worst_a:.3e} of max|plain|, dead share "
+          f"{dead_a:.4f}; events per token {float(ev_a.mean()):.1f} (min "
+          f"{float(ev_a.min()):.1f}, max {float(ev_a.max()):.1f}); greedy "
+          f"tokens equal to the ungated decode's: {agree} of "
+          f"{RWKV_BATCH * RWKV_GEN}", flush=True)
+    print(f"[6] θ={theta} (the {RWKV_DEAD_TARGET} quantile of block max|k| "
+          f"on the main path): dead share of (row, K-block) pairs "
+          f"{dead_c:.4f} (limit >= 0.25), every B7 launch replayed: S' "
+          f"bitwise, o worst {worst_c:.3e}; events per token "
+          f"{float(ev_c.mean()):.1f} (min {float(ev_c.min()):.1f}, max "
+          f"{float(ev_c.max()):.1f})", flush=True)
+    check(dead_c >= 0.25, f"θ={theta}: dead share {dead_c:.4f} < 0.25")
+
+    # f32: the gated decode against the ungated one, teacher-forced on the
+    # ungated run's inputs, step by step.
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = tfm.compute_params(master, cfg32)       # the f32 tensors as they are
+    ref32, _ = served("[6] ungated f32", mnf(cfg32, enabled=False), p32,
+                      dense_plan, keep_logits=True)
+    gated32, _ = served("[6] gated θ=0 f32", cfg32, p32, gated_plan,
+                        keep_logits=True, teacher=ref32["inputs"])
+    ratios = [float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+              for g, r in zip(gated32["logits"], ref32["logits"])]
+    print(f"[6] f32, gated θ=0 vs ungated, teacher-forced: max|d logits| / "
+          f"max|logits| per step worst {max(ratios):.3e} (limit 1e-4; "
+          f"steps {[f'{x:.1e}' for x in ratios]})", flush=True)
+    check(max(ratios) <= 1e-4, f"f32 gated vs ungated logits ratio "
+          f"{max(ratios):.3e}")
+    del p32, ref32, gated32
+
+    # Warm timings, bf16, in turns.
+    cells = (("gated θ=0", cfg), (f"gated θ={theta}", cfg_th),
+             ("ungated", mnf(cfg, enabled=False)))
+    times = {name: [] for name, _ in cells}
+    for _ in range(2):
+        for name, c in cells:
+            run = serve.run_lm(params, c, prompts, RWKV_GEN)
+            times[name].append((run["prefill_s"] * 1e3,
+                                RWKV_GEN * RWKV_BATCH / run["decode_s"]))
+    tok_s = {name: max(t[1] for t in ts) for name, ts in times.items()}
+    prefill_ms = min(t[0] for ts in times.values() for t in ts)
+    print(f"[6] warm, bf16, batch {RWKV_BATCH}, prompt {RWKV_PROMPT}, "
+          f"{RWKV_GEN} tokens (2 runs each, in turns): prefill "
+          f"{prefill_ms:.3f} ms (best; all "
+          f"{[round(t[0], 3) for ts in times.values() for t in ts]}); "
+          f"decode tokens/s " + "; ".join(
+              f"{n} {max(t[1] for t in ts):.1f} "
+              f"({[round(t[1], 1) for t in ts]})"
+              for n, ts in times.items()), flush=True)
+    profile(torch, lambda: serve.run_lm(params, cfg, prompts, RWKV_GEN),
+            "[6] gated θ=0 bf16 serve (prefill + 16 decode steps)", steps=1)
+    return dict(caps=caps_a[-1:], launches=per_decode, theta=theta,
+                dead=dead_c, tok_s=tok_s, prefill_ms=prefill_ms,
+                events=float(ev_a.mean()), agree=agree,
+                f32_ratio=max(ratios))
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -387,6 +680,9 @@ def run(torch) -> int:
                                                     event_pool_window_ref)
     from repro_torch.kernels.fire_compact import ops as fire_ops
     from repro_torch.kernels.fire_compact.ref import fire_compact_ref
+    from repro_torch.kernels.wkv6_step import ops as wkv6_ops
+    from repro_torch.kernels.wkv6_step.kernel import wkv6_step_cuda
+    from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
     from repro_torch.models import cnn, mlp
 
     t_start = time.perf_counter()
@@ -408,45 +704,11 @@ def run(torch) -> int:
                 "event_pool_window": pool_ops.event_pool_window,
                 "event_pool": pool_ops.event_pool,
                 "event_matmul_int8": mm_ops.event_matmul_dequant,
-                "event_conv_int8": conv_ops.event_conv_dequant}
+                "event_conv_int8": conv_ops.event_conv_dequant,
+                "wkv6_step": wkv6_ops.wkv6_step_events}
 
-    def drive(fn):
-        """Run ``fn`` once with every launch count set to 0 just before and
-        read just after; each wrapper captures its launches' inputs
-        (kernels.note_launch) for phase 3 to replay."""
-        for w in wrappers.values():
-            w.launches = 0
-            w.capture = []
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with engine.trace_dispatch() as recs:
-                y = fn()
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            launches = {name: w.launches for name, w in wrappers.items()}
-        finally:
-            captured = {name: w.capture for name, w in wrappers.items()}
-            for w in wrappers.values():
-                w.capture = None
-        check(all(len(captured[n]) == launches[n] for n in wrappers),
-              "a wrapper's capture list disagrees with its launch count")
-        return y, recs, launches, captured, secs
-
-    def check_plan(tag, launches, plan):
-        """Every kernel of the path launched, none off it; say whether the
-        counts are the route plan's."""
-        missing = [n for n, want in plan.items() if want and not launches[n]]
-        stray = [n for n, want in plan.items() if not want and launches[n]]
-        check(not missing, f"{tag}: kernels of the path never launched: "
-              f"{missing} ({launches})")
-        check(not stray, f"{tag}: kernels off the path launched: {stray} "
-              f"({launches})")
-        diff = {n: (launches[n], want) for n, want in plan.items()
-                if launches[n] != want}
-        print(f"{tag} launches per kernel: {launches}; route plan "
-              f"{'confirmed' if not diff else f'differs (got, plan): {diff}'}",
-              flush=True)
+    def drive(fn, capture=True):
+        return drive_counted(torch, engine, wrappers, fn, capture)
 
     def check_trace(tag, spec, recs, launches, summary):
         check(len(recs) == len(spec.layers),
@@ -640,11 +902,15 @@ def run(torch) -> int:
     profile(torch, lambda: mlp.mlp_forward(mparams, xm, lenet,
                                            fire_cfg=q8), "[5] int8")
 
+    # -- 6. RWKV6-7B at full width, served ----------------------------------
+    rwkv = serve_rwkv6(torch, engine, wrappers)
+
     # -- 3. kernel checks on the captured inputs ------------------------------
     results = []
     launched = {**{n: launches[n] for n in wrappers},
                 "event_matmul_int8": launches8["event_matmul_int8"],
-                "event_conv_int8": launches8["event_conv_int8"]}
+                "event_conv_int8": launches8["event_conv_int8"],
+                "wkv6_step": rwkv["launches"]}
 
     def shapes(args, kw):
         return tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
@@ -688,8 +954,10 @@ def run(torch) -> int:
             launches=launched[name], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
             library_ms=lib_ms))
+        lib = "none (no single PyTorch call computes it)" if lib_ms is None \
+            else f"{lib_ms:.4f} ms"
         print(f"[3] {name}: max_abs_err {err:.3e}, {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, library {lib_ms:.4f} ms, bound "
+              f"{plain_ms:.3f} ms, library {lib}, bound "
               f"{b[0]:.4f} ms ({b[1]}){extra}", flush=True)
 
     def dq(a_vals, scale, zero_point):
@@ -709,9 +977,9 @@ def run(torch) -> int:
                    // (c[1]["blk_m"] * c[1]["blk_k"]) * 4,
                    float(c[0][0].numel())))
     report("fire_compact", 0.0,
-           cuda_ms(torch, lambda: fire_ops.fire_compact(acc, **kw), 20),
+           graph_ms(torch, lambda: fire_ops.fire_compact(acc, **kw), 20),
            cuda_ms(torch, lambda: fire_compact_ref(acc, **kw), 3),
-           cuda_ms(torch, lambda: torch.relu(acc), 20), b,
+           graph_ms(torch, lambda: torch.relu(acc), 20), b,
            f" at acc {tuple(acc.shape)}, "
            f"{len(captured['fire_compact'])} VGG16 + "
            f"{len(captured_mlp['fire_compact'])} LeNet launches checked exact")
@@ -740,9 +1008,9 @@ def run(torch) -> int:
     b, (args, _) = heaviest(mm_calls, lambda c: matmul_work(torch, *c[0]))
     dense_a = decoded(*args)
     report("event_matmul", worst,
-           cuda_ms(torch, lambda: mm_ops.event_matmul(*args), 10),
+           graph_ms(torch, lambda: mm_ops.event_matmul(*args), 10),
            cuda_ms(torch, lambda: event_matmul_ref(*args), 1),
-           cuda_ms(torch, lambda: torch.matmul(dense_a, args[3]), 10), b,
+           graph_ms(torch, lambda: torch.matmul(dense_a, args[3]), 10), b,
            f" at a_vals {tuple(args[0].shape)} x W {tuple(args[3].shape)}, "
            f"{len(mm_calls) - len(mm_mlp)} VGG16 + {len(mm_mlp)} LeNet "
            f"shapes checked")
@@ -768,9 +1036,9 @@ def run(torch) -> int:
         torch, *c[0][:3], c[0][5], qbytes=8))
     dense_a = decoded(dq(*args[:1], *args[3:5]), *args[1:3], args[5])
     report("event_matmul_int8", worst,
-           cuda_ms(torch, lambda: mm_ops.event_matmul_dequant(*args), 10),
+           graph_ms(torch, lambda: mm_ops.event_matmul_dequant(*args), 10),
            cuda_ms(torch, lambda: event_matmul_int8_ref(*args), 1),
-           cuda_ms(torch, lambda: torch.matmul(dense_a, args[5]), 10), b,
+           graph_ms(torch, lambda: torch.matmul(dense_a, args[5]), 10), b,
            f" at codes {tuple(args[0].shape)} x W {tuple(args[5].shape)}, "
            f"{len(mm8_calls) - len(mm8_mlp)} VGG16 + {len(mm8_mlp)} LeNet "
            f"shapes checked")
@@ -831,7 +1099,8 @@ def run(torch) -> int:
             d = close(kern(*args, nkb=nkb, row_stride=s),
                       ref(*args, nkb=nkb, row_stride=s),
                       f"{name} at {shape} k{k}s{s}")
-            ms = cuda_ms(torch, lambda: kern(*args, nkb=nkb, row_stride=s), 5)
+            ms = graph_ms(torch, lambda: kern(*args, nkb=nkb, row_stride=s),
+                          5)
             print(f"[3] {name} stride {s} (k{k}, input {shape}): "
                   f"max_abs_err {d:.3e}, {ms:.4f} ms", flush=True)
 
@@ -844,9 +1113,9 @@ def run(torch) -> int:
     x_nchw = dense_nchw(args[0], args[1], kw["nkb"], shape)
     w_oihw = conv_oihw(args[6], layer.k, shape[3])
     report("event_conv", worst,
-           cuda_ms(torch, lambda: conv_ops.event_conv(*args, **kw), 10),
+           graph_ms(torch, lambda: conv_ops.event_conv(*args, **kw), 10),
            cuda_ms(torch, lambda: event_conv_ref(*args, **kw), 1),
-           cuda_ms(torch, lambda: F.conv2d(x_nchw, w_oihw,
+           graph_ms(torch, lambda: F.conv2d(x_nchw, w_oihw,
                                            stride=layer.stride,
                                            padding=layer.padding), 10), b,
            f" at {shape} -> {layer.out_ch} ch, {len(convs)} layers checked")
@@ -864,10 +1133,10 @@ def run(torch) -> int:
     x_nchw = dense_nchw(dq(args[0], *args[6:8]), args[1], kw["nkb"], shape)
     w_oihw = conv_oihw(args[8], layer.k, shape[3])
     report("event_conv_int8", worst,
-           cuda_ms(torch, lambda: conv_ops.event_conv_dequant(*args, **kw),
+           graph_ms(torch, lambda: conv_ops.event_conv_dequant(*args, **kw),
                    10),
            cuda_ms(torch, lambda: event_conv_int8_ref(*args, **kw), 1),
-           cuda_ms(torch, lambda: F.conv2d(x_nchw, w_oihw,
+           graph_ms(torch, lambda: F.conv2d(x_nchw, w_oihw,
                                            stride=layer.stride,
                                            padding=layer.padding), 10), b,
            f" at {shape} -> {layer.out_ch} ch, {len(convs8)} layers checked")
@@ -894,18 +1163,43 @@ def run(torch) -> int:
             items, lambda c: pool_work(c[1][0][0], c[1][0][4], c[2]))
         x_nchw = dense_nchw(args[0], args[1], kw["nkb"], shape)
         report(name, 0.0,
-               cuda_ms(torch, lambda: kern(*args, **kw), 20),
+               graph_ms(torch, lambda: kern(*args, **kw), 20),
                cuda_ms(torch, lambda: ref(*args, **kw), 2),
-               cuda_ms(torch, lambda: F.max_pool2d(x_nchw, layer.k,
+               graph_ms(torch, lambda: F.max_pool2d(x_nchw, layer.k,
                                                    layer.stride), 20), b,
                f" at {shape}, {len(items)} layers checked exact")
         del x_nchw
+
+    # B7 wkv6_step: the main path's last launch (RWKV6-7B, batch 4, θ=0);
+    # every launch of phase 6 was held against the plain version there
+    (args, kw), = rwkv["caps"]
+    bev, r_, v_, w_, u_, s_ = args
+    live = ev.live_block_mask(bev).to(torch.int32)
+    kargs = (bev.values, bev.block_idx, bev.counts, live, r_, v_, w_, u_, s_)
+    o, s_new = wkv6_step_cuda(*kargs)
+    o2, s2 = wkv6_step_events_ref(*args, **kw)
+    check(torch.equal(s_new, s2), "wkv6_step: S' != plain bitwise")
+    err = close(o, o2, "wkv6_step o")
+    wrapper_ms = graph_ms(torch, lambda: wkv6_ops.wkv6_step_events(*args,
+                                                                   **kw), 50)
+    report("wkv6_step", err, graph_ms(torch, lambda: wkv6_step_cuda(*kargs),
+                                      50),
+           cuda_ms(torch, lambda: wkv6_step_events_ref(*args, **kw), 5),
+           None, bound_ms(*wkv6_work(bev, r_)),
+           f" at rows {tuple(r_.shape)}, state {tuple(s_.shape)}, events "
+           f"{tuple(bev.values.shape)}; the wrapper with its live mask "
+           f"{wrapper_ms:.4f} ms; {rwkv['launches'] // RWKV_GEN} launches "
+           f"per token")
+    del rwkv["caps"], args, kargs
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all; warm "
           f"forwards: VGG16 f32 {fwd_ms:.3f} ms, int8 {fwd8_ms:.3f} ms, "
           f"dense {dense_ms:.3f} ms; LeNet-300-100 f32 "
           f"{ym['f32'][1]:.3f} ms, int8 {ym['int8'][1]:.3f} ms, dense "
-          f"{mlp_dense_ms:.3f} ms", flush=True)
+          f"{mlp_dense_ms:.3f} ms; RWKV6-7B batch {RWKV_BATCH}: prefill "
+          f"{rwkv['prefill_ms']:.3f} ms, decode tokens/s "
+          + ", ".join(f"{n} {t:.1f}" for n, t in rwkv["tok_s"].items()),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {

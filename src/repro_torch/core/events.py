@@ -27,7 +27,8 @@ import torch
 __all__ = [
     "STRIP_CO_MIN", "STRIP_STRIDES", "STRIP_W", "BlockEvents",
     "decode_block_events", "device_plan", "encode_block_events",
-    "gather_row_groups", "gather_row_strips", "pad_to_block_multiple",
+    "gather_row_groups", "gather_row_strips", "live_block_mask",
+    "pad_to_block_multiple",
     "remap_rows",
     "pool_strip_map", "pool_window_ineligible_reason", "pool_window_map",
     "retile_block_events", "retile_fc_addr_offsets",
@@ -201,6 +202,25 @@ def scalar_event_rows(bev: BlockEvents) -> torch.Tensor:
     slot_live = slot[None, :] < bev.counts[:, None]
     nz = (bev.values != 0) & slot_live[:, :, None, None]
     return nz.sum(dim=(1, 3), dtype=torch.float32).reshape(g * bm)
+
+
+def live_block_mask(bev: BlockEvents) -> torch.Tensor:
+    """Per-K-block liveness of an event set, (G, num_k_blocks) bool.
+
+    The compacted slots scattered back onto the block grid.  Padding slots
+    repeat the last live block index, so they are masked out before the
+    scatter: a dead block stays dead even when a padding slot points at
+    it.  The skip mask of the fire-gated recurrent step (DESIGN.md §13).
+    """
+    g, e = bev.block_idx.shape
+    mask = torch.zeros((g, bev.num_k_blocks), dtype=torch.int32,
+                       device=bev.counts.device)
+    if g == 0 or bev.num_k_blocks == 0:
+        return mask > 0
+    slot = torch.arange(e, device=bev.counts.device, dtype=torch.int32)
+    slot_live = (slot[None, :] < bev.counts[:, None]).to(torch.int32)
+    mask.scatter_add_(1, bev.block_idx.long(), slot_live)
+    return mask > 0
 
 
 # ---------------------------------------------------------------------------

@@ -12,10 +12,14 @@ from repro_torch.core.events import (STRIP_CO_MIN, STRIP_STRIDES, STRIP_W,
                                      retile_ineligible_reason, strip_eligible,
                                      strip_ineligible_reason)
 from repro_torch.costmodel.crossover import linear_shape_class
-from repro_torch.engine.api import (conv2d, fire, fire_conv, linear, matmul,
-                                    maxpool2d, pool_ineligible_reason,
-                                    route_conv, route_linear, route_pool)
-from repro_torch.engine.config import BACKENDS, EngineConfig
+from repro_torch.engine.api import (conv2d, fire, fire_conv, fire_delta,
+                                    linear, matmul, maxpool2d,
+                                    pool_ineligible_reason, route_conv,
+                                    route_linear, route_pool,
+                                    route_recurrent,
+                                    recurrent_ineligible_reason,
+                                    recurrent_step, sparsify)
+from repro_torch.engine.config import BACKENDS, RECURRENT_BLK_K, EngineConfig
 from repro_torch.engine.registry import (dispatch, get_backend, list_backends,
                                          register_backend)
 from repro_torch.engine.stream import EventStream
@@ -24,11 +28,14 @@ from repro_torch.engine.trace import trace_dispatch
 import repro_torch.engine.backends  # noqa: F401,E402  (registers backends)
 
 __all__ = [
-    "BACKENDS", "EngineConfig", "EventStream", "STRIP_CO_MIN",
+    "BACKENDS", "RECURRENT_BLK_K", "EngineConfig", "EventStream",
+    "STRIP_CO_MIN",
     "STRIP_STRIDES", "STRIP_W", "strip_eligible", "strip_ineligible_reason",
     "pool_window_ineligible_reason", "retile_ineligible_reason",
     "linear_shape_class", "register_backend", "get_backend", "dispatch",
     "list_backends", "matmul", "linear", "conv2d",
     "maxpool2d", "pool_ineligible_reason", "route_conv", "route_pool",
-    "route_linear", "fire", "fire_conv", "trace_dispatch",
+    "route_linear", "route_recurrent", "fire", "fire_conv", "fire_delta",
+    "recurrent_ineligible_reason", "recurrent_step", "sparsify",
+    "trace_dispatch",
 ]

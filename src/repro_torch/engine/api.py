@@ -25,10 +25,14 @@ from repro_torch.engine import trace
 from repro_torch.engine.config import EngineConfig
 from repro_torch.engine.registry import dispatch, get_backend, list_backends
 from repro_torch.engine.stream import EventStream
+from repro_torch.kernels.event_matmul.ref import mask_dead_blocks
+from repro_torch.kernels.wkv6_step.ref import wkv6_step_ref
 
 __all__ = ["matmul", "linear", "conv2d", "maxpool2d",
            "pool_ineligible_reason", "route_conv", "route_pool",
-           "route_linear", "fire", "fire_conv"]
+           "route_linear", "route_recurrent", "fire", "fire_conv",
+           "fire_delta", "recurrent_ineligible_reason", "recurrent_step",
+           "sparsify"]
 
 _DEFAULT = EngineConfig()
 
@@ -114,6 +118,27 @@ def route_linear(m: int, k: int, n: int, cfg: EngineConfig, *,
         event_route=event_route, dense_macs=float(m * k * n),
         avg_touched=1.0, c_out=n, backend=name,
         shape_class=xover.linear_shape_class(m, k, n))
+    if dec.is_event and dec.route != event_route:
+        dec = dataclasses.replace(dec, route=event_route or "dense")
+    return dec
+
+
+def route_recurrent(kind: str, g: int, d: int, n: int, cfg: EngineConfig, *,
+                    eligible: bool = True,
+                    device=None) -> xover.RouteDecision:
+    """Route a fire-gated recurrent decode step: ``kind`` "wkv6" or
+    "mamba", ``g`` the flattened rows, ``d`` the drive width, ``n`` the
+    state's trailing width.  The dense step's work is decay + increment
+    over the whole (G, D, N) state, 2·G·D·N MACs; ``eligible=False`` forces
+    the visible dense fallback whatever the mode."""
+    name = _resolve(cfg, device)
+    event_route = "event" if (
+        eligible and name in list_backends(f"recurrent_step_{kind}")) \
+        else None
+    dec = xover.decide_route(
+        cfg.route, "recurrent", occupancy=cfg.occupancy_hint,
+        event_route=event_route, dense_macs=float(2 * g * d * n),
+        avg_touched=1.0, c_out=n, backend=name, shape_class=f"{kind}d{d}")
     if dec.is_event and dec.route != event_route:
         dec = dataclasses.replace(dec, route=event_route or "dense")
     return dec
@@ -414,3 +439,123 @@ def fire_conv(acc: torch.Tensor, cfg: EngineConfig = _DEFAULT, *,
                        shape=tuple(acc2.shape), blk_m=c2.blk_m,
                        blk_k=c2.blk_k, logical_shape=(b, h, w, c),
                        signed=signed)
+
+
+# ---------------------------------------------------------------------------
+# Fire-gated recurrent decode (DESIGN.md §13): the per-token increment
+# drive (wkv6's key vector) is thresholded by signed fire and the state
+# update skips dead channel-blocks; the decay applies everywhere.  At
+# threshold 0 the gated step equals the dense step.
+# ---------------------------------------------------------------------------
+
+def recurrent_ineligible_reason(stream: EventStream, kind: str = "wkv6",
+                                cfg: EngineConfig = _DEFAULT) -> str | None:
+    """Why ``recurrent_step`` cannot consume ``stream`` in the event domain
+    (None = it can).  Messages as in the JAX package."""
+    if stream.logical_shape is not None and len(stream.logical_shape) == 4:
+        return ("conv stream (NHWC logical_shape) — the recurrent step "
+                "consumes per-token (G, D) row streams")
+    if stream.blk_m != 1:
+        return (f"recurrent drives are one row per (batch x head): blk_m "
+                f"must be 1, stream has blk_m={stream.blk_m}")
+    if not stream.signed:
+        return ("recurrent deltas are signed; this stream was fired "
+                "unsigned (ReLU fire), so negative deltas were already "
+                "dropped")
+    if stream.qparams is not None:
+        return ("int8 event values are not supported by the recurrent "
+                "step (state updates accumulate in f32)")
+    name = _resolve(cfg, stream.device)
+    if name not in list_backends(f"recurrent_step_{kind}"):
+        return f"backend {name!r} has no recurrent_step_{kind} op"
+    return None
+
+
+def fire_delta(drive: torch.Tensor, cfg: EngineConfig = _DEFAULT, *,
+               keep_dense: bool = True) -> EventStream:
+    """Signed fire over a per-token increment drive (G, D) -> row stream:
+    gates on |delta| > threshold and keeps the sign, at the recurrent tile
+    geometry (``EngineConfig.for_recurrent``), flagged ``signed``.  Plain
+    torch ops (the JAX package's jnp fire and encode): no B1 launch."""
+    c = cfg.for_recurrent(drive.shape[-1]).for_width(*drive.shape)
+    if 0 in drive.shape:
+        s = EventStream.empty(tuple(drive.shape), blk_m=1, blk_k=c.blk_k,
+                              capacity=c.capacity, dtype=drive.dtype,
+                              device=drive.device,
+                              fired=drive if keep_dense else None)
+        return dataclasses.replace(s, signed=True)
+    fired = plain_fire(drive, FireConfig(threshold=c.threshold, signed=True))
+    s = EventStream.encode(fired, blk_m=1, blk_k=c.blk_k,
+                           capacity=c.capacity, threshold=0.0,
+                           keep_dense=keep_dense)
+    return dataclasses.replace(s, signed=True)
+
+
+def _recurrent_dense_step(kind: str, drive: torch.Tensor,
+                          state: torch.Tensor, ops: dict):
+    """The dense oracle of one recurrent step (the fallback path: the
+    arithmetic the event backends run, so the route never changes bits at
+    threshold 0 on the CPU)."""
+    if kind != "wkv6":
+        raise NotImplementedError(
+            f"recurrent kind {kind!r} is not ported yet; see ROADMAP.md "
+            f"queue A: Hymba-1.5B decode with kernel B8")
+    return wkv6_step_ref(ops["r"], drive, ops["v"], ops["w"], ops["u"],
+                         state)
+
+
+def recurrent_step(kind: str, stream: EventStream, state: torch.Tensor,
+                   cfg: EngineConfig = _DEFAULT, **ops):
+    """One fire-gated recurrent decode step (DESIGN.md §13).  kind "wkv6":
+    ops r, v, w, u (G, D), state (G, D, D); returns (o (G, D), S').
+
+    An event-eligible stream dispatches to the backend's gated step, which
+    skips the increment on dead channel-blocks; an ineligible one falls
+    back to the dense oracle on the stream's dense view, visibly, with the
+    named rule on the trace record.  Zero-extent steps short-circuit to the
+    oracle before any dispatch: no kernel sees a 0-extent launch."""
+    assert kind in ("wkv6", "mamba"), kind
+    g, d = stream.shape
+    if g == 0 or d == 0:
+        drive = stream.fired if stream.fired is not None \
+            else torch.zeros(stream.shape, device=state.device)
+        return _recurrent_dense_step(kind, drive, state, ops)
+    name = cfg.resolve_backend(stream.device, state)
+    reason = recurrent_ineligible_reason(stream, kind, cfg)
+    dec = route_recurrent(kind, g, d, state.shape[-1], cfg,
+                          eligible=reason is None, device=stream.device)
+    fields = _route_fields(dec, f"{kind}d{d}")
+    if dec.is_event:
+        trace.record(op="recurrent_step", kind=kind, backend=name,
+                     chained=True, **fields)
+        return get_backend(f"recurrent_step_{kind}", name)(stream, state,
+                                                           ops, cfg)
+    if dec.source == "geometry":
+        if reason is not None:
+            fields["reason"] = reason
+        trace.record(op="recurrent_step", kind=kind, backend=name,
+                     fallback_decode=True, **fields)
+    else:
+        trace.record(op="recurrent_step", kind=kind, backend=name,
+                     routed_dense=True, **fields)
+    return _recurrent_dense_step(kind, stream.dense(), state, ops)
+
+
+def sparsify(h: torch.Tensor, cfg: EngineConfig = _DEFAULT) -> torch.Tensor:
+    """Shape-preserving fire + dead-tile masking on (..., K) activations —
+    the MNF multiply phase's semantics inside LM blocks
+    (``models.layers.mnf_sparsify``): the identity at threshold 0 on a
+    ReLU-family activation; at threshold > 0 whole event-free (blk_m,
+    blk_k) tiles are zeroed, as the event matmul would skip them."""
+    fired = plain_fire(h, FireConfig(threshold=cfg.threshold,
+                                     magnitude=cfg.magnitude))
+    if cfg.threshold <= 0.0:
+        return fired
+    shp = h.shape
+    h2 = fired.reshape(-1, shp[-1])
+    pad_m = (-h2.shape[0]) % cfg.blk_m
+    h2 = ev.pad_to_block_multiple(h2, cfg.blk_m, 0)
+    h2 = ev.pad_to_block_multiple(h2, cfg.blk_k, 1)
+    h2 = mask_dead_blocks(h2, blk_m=cfg.blk_m, blk_k=cfg.blk_k,
+                          threshold=0.0)
+    return h2[:h2.shape[0] - pad_m, :shp[-1]].reshape(shp)

@@ -12,6 +12,7 @@ One uniform signature per op:
   maxpool2d_events     fn(stream, k, stride, cfg) -> (B·OH·OW, C) rows
   maxpool2d_events_window   the same, window-major strip grid
   fire / fire_conv     fn(acc, cfg) -> (fired, BlockEvents)
+  recurrent_step_wkv6  fn(stream, state, ops, cfg) -> (o, S')  row stream
 
 "dense" is the oracle.  "block" and "cuda" are one block-event dataflow
 registered under both names: every callable goes through the kernels'
@@ -19,6 +20,8 @@ wrappers (``kernels/*/ops.py``), which launch the hand-written kernel on a
 CUDA tensor and take the plain version (``ref.py``) on a CPU tensor.  Every
 event multiply gets the stream's ``qparams``: int8 codes go to the
 dequantize-at-load kernels (B5, B6).
+"dense" registers no ``recurrent_step_wkv6``: the API falls back to the
+dense step, visibly.
 ``EngineConfig.resolve_backend`` holds "block" to CPU operands and "cuda"
 to CUDA operands, so the name says which of the two ran.
 """
@@ -45,6 +48,7 @@ from repro_torch.kernels.event_matmul.ops import event_matmul
 from repro_torch.kernels.event_pool.ops import (event_max_pool2d,
                                                 event_max_pool2d_window)
 from repro_torch.kernels.fire_compact.ops import fire_and_encode
+from repro_torch.kernels.wkv6_step.ops import wkv6_step_events
 from repro_torch.models.layers import max_pool_nhwc
 
 __all__ = []  # registration side effects only
@@ -192,6 +196,14 @@ def _fire_events(acc, cfg: EngineConfig):
                            capacity=c.capacity)
 
 
+# -- recurrent_step -----------------------------------------------------------
+
+def _recurrent_wkv6(stream, state, ops, cfg: EngineConfig):
+    """B7: the gated WKV6 step on the fired key's events."""
+    return wkv6_step_events(stream.events, ops["r"], ops["v"], ops["w"],
+                            ops["u"], state, blk_k=stream.blk_k)
+
+
 # -- registration -------------------------------------------------------------
 
 register_backend("linear", "dense",
@@ -210,5 +222,6 @@ for _name in ("block", "cuda"):
                      ("maxpool2d", _maxpool_dense),
                      ("maxpool2d_events", _maxpool2d_events),
                      ("maxpool2d_events_window", _maxpool2d_events_window),
-                     ("fire", _fire_events), ("fire_conv", _fire_events)):
+                     ("fire", _fire_events), ("fire_conv", _fire_events),
+                     ("recurrent_step_wkv6", _recurrent_wkv6)):
         register_backend(_op, _name, _fn)

@@ -14,7 +14,14 @@ import dataclasses
 
 import torch
 
-__all__ = ["BACKENDS", "EngineConfig"]
+__all__ = ["BACKENDS", "RECURRENT_BLK_K", "EngineConfig"]
+
+#: Default K-block width of the fire-gated recurrent decode (DESIGN.md
+#: §13).  A per-token drive is one row (blk_m == 1), so the useful event
+#: granularity is narrow K blocks over the channel axis: 16 channels give a
+#: head_dim-64 wkv6 state four independently skippable row-blocks.
+#: ``for_recurrent`` clamps to min(cfg.blk_k, RECURRENT_BLK_K, D).
+RECURRENT_BLK_K = 16
 
 #: Execution backends (DESIGN.md §4): dense — the oracle (F.conv2d /
 #: torch.matmul); block — the block-event dataflow through the kernels'
@@ -78,6 +85,23 @@ class EngineConfig:
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_mnf(cls, mnf) -> "EngineConfig":
+        """Build from a ``configs.base.MNFConfig`` (the model-stack knobs).
+        The backend is "auto" — the device of the tensors picks it;
+        ``mnf.use_pallas`` has no meaning in the port."""
+        return cls(backend="auto", blk_m=mnf.blk_m, blk_k=mnf.blk_k,
+                   threshold=mnf.threshold, magnitude=mnf.magnitude)
+
+    def for_recurrent(self, k: int) -> "EngineConfig":
+        """The config a fire-gated recurrent decode step runs under: one
+        row per (batch x head) — ``blk_m`` 1 — narrow K blocks
+        (``RECURRENT_BLK_K``, clamped by the drive width and any smaller
+        ``blk_k``), and ``signed`` on: recurrent deltas are two-sided."""
+        return dataclasses.replace(
+            self, blk_m=1,
+            blk_k=min(self.blk_k, RECURRENT_BLK_K, max(k, 1)), signed=True)
 
     def for_width(self, m: int, k: int) -> "EngineConfig":
         """Clamp tile sizes to an (M, K) operand."""

@@ -109,6 +109,12 @@ class EventStream:
         """Non-zero activations per logical row, (M,) f32, twin-free."""
         return ev.scalar_event_rows(self.events)[:self.shape[0]]
 
+    @property
+    def num_scalar_events(self) -> torch.Tensor:
+        """Total non-zero activations (the paper's event count), a 0-d f32
+        tensor on the stream's device, twin-free."""
+        return self.per_row_scalar_events().sum()
+
     def dense(self) -> torch.Tensor:
         """Dense (M, K) view: the kept twin, else a decode visible to
         ``trace_dispatch``."""

@@ -19,7 +19,23 @@ import torch
 
 from repro_torch.core.quantize import QParams, dequantize
 
-__all__ = ["event_matmul_int8_ref", "event_matmul_ref", "tile_dot"]
+__all__ = ["event_matmul_int8_ref", "event_matmul_ref", "mask_dead_blocks",
+           "tile_dot"]
+
+
+def mask_dead_blocks(a: torch.Tensor, *, blk_m: int, blk_k: int,
+                     threshold: float = 0.0) -> torch.Tensor:
+    """Zero the (blk_m, blk_k) tiles of a (M, K) matrix that hold no event
+    (no |value| > threshold) — the dense image of what the multiply
+    skips."""
+    m, k = a.shape
+    assert m % blk_m == 0 and k % blk_k == 0, (m, k, blk_m, blk_k)
+    tiles = a.reshape(m // blk_m, blk_m, k // blk_k, blk_k)
+    live = (tiles.abs() > threshold).any(dim=3, keepdim=True) \
+        .any(dim=1, keepdim=True)
+    return torch.where(live, tiles, torch.zeros((), dtype=a.dtype,
+                                                device=a.device)
+                       ).reshape(m, k)
 
 
 def tile_dot(acc: torch.Tensor, a: torch.Tensor,

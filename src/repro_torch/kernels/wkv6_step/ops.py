@@ -1,0 +1,41 @@
+"""The fire-gated WKV6 decode step of the event backends (B7).
+
+``wkv6_step_events`` is the wrapper of ``csrc/wkv6_step.cu``, which
+replaces ``repro.kernels.wkv6.step.wkv6_step_events_pallas``: a CUDA
+tensor computes the live mask (``core.events.live_block_mask``), launches
+the kernel and counts it (``kernels.note_launch``); a CPU tensor takes the
+plain version (``ref.py``).  Bound on the card: bytes (the f32 state read
+and written once per row).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import events as ev
+from repro_torch.kernels import note_launch
+from repro_torch.kernels.wkv6_step.kernel import wkv6_step_cuda
+from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
+
+__all__ = ["wkv6_step_events"]
+
+
+def wkv6_step_events(bev: ev.BlockEvents, r: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor, s: torch.Tensor, *,
+                     blk_k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One gated step.  bev: blk_m == 1 events of the fired key drive
+    (G, D); r, v, w, u (G, D) f32; s (G, D, D) f32.  Returns (o, s_new):
+    S' bitwise the plain version's, o within f32 summation order."""
+    if r.device.type == "cpu":
+        return wkv6_step_events_ref(bev, r, v, w, u, s, blk_k=blk_k)
+    if bev.values.shape[-1] != blk_k:
+        raise ValueError(f"events of width {bev.values.shape[-1]} handed "
+                         f"with blk_k={blk_k}")
+    live = ev.live_block_mask(bev).to(torch.int32)
+    out = wkv6_step_cuda(*(t.contiguous() for t in (
+        bev.values, bev.block_idx, bev.counts, live, r, v, w, u, s)))
+    note_launch(wkv6_step_events, (bev, r, v, w, u, s), dict(blk_k=blk_k))
+    return out
+
+
+wkv6_step_events.launches = 0
+wkv6_step_events.capture = None

@@ -26,6 +26,8 @@ from repro_torch.kernels.event_pool.ref import (event_pool_ref,
                                                 event_pool_window_ref)
 from repro_torch.kernels.fire_compact.ops import fire_compact
 from repro_torch.kernels.fire_compact.ref import fire_compact_ref
+from repro_torch.kernels.wkv6_step.ops import wkv6_step_events
+from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
 from repro_torch.models import cnn, mlp
 
 pytestmark = pytest.mark.cuda
@@ -171,3 +173,35 @@ def test_int8_mini_and_mlp_chains_bitwise_and_match_cpu(dev):
     assert event_matmul_dequant.launches == launches + 2
     assert torch.equal(ym, mlp.mlp_forward(mp, xm, mlp.MLP_MINI,
                                            fire_cfg=fire_cfg, chain=False))
+
+
+@pytest.mark.parametrize("g,d,threshold,case", [
+    (256, 64, 0.0, "all live"),
+    (12, 64, 1.0, "some dead"),
+    (12, 20, 0.5, "D not a multiple of 16"),
+    (8, 64, 0.5, "zero events in a row"),
+    (8, 64, 1e9, "all blocks dead"),
+])
+def test_wkv6_step_matches_plain(dev, g, d, threshold, case):
+    """B7 against its plain version: S' bitwise (the state update's
+    multiply, multiply, add in round-to-nearest intrinsics), o within
+    1e-4 of max|plain| (a 64-term reduction in another order)."""
+    gen = torch.Generator(device=dev).manual_seed(g + d)
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    r, k, v, u, s = f(g, d), f(g, d), f(g, d), f(g, d), f(g, d, d)
+    w = torch.rand((g, d), generator=gen, device=dev) * 0.9 + 0.05
+    if case == "zero events in a row":
+        k[0] = 0.0
+    st = engine.fire_delta(k, engine.EngineConfig(threshold=threshold))
+    if case == "zero events in a row":
+        assert int(st.events.counts[0]) == 0
+    if case == "all blocks dead":
+        assert int(st.events.counts.sum()) == 0
+    launches = wkv6_step_events.launches
+    o, s_new = wkv6_step_events(st.events, r, v, w, u, s, blk_k=st.blk_k)
+    assert wkv6_step_events.launches == launches + 1
+    o2, s2 = wkv6_step_events_ref(st.events, r, v, w, u, s, blk_k=st.blk_k)
+    assert torch.equal(s_new, s2)
+    assert _close(o, o2)
+    if case == "all blocks dead":
+        assert torch.equal(s_new, w[..., None] * s)

@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Where the host time of repro_torch's RWKV6-7B decode step goes, on one
+NVIDIA GPU.
+
+    python3 tools/torch_decode_profile.py [--layers 4] [--steps 5]
+
+Builds the full-width RWKV6-7B (d_model 4096, 64x64 heads, d_ff 14336,
+vocab 65536) cut to ``--layers`` layers, random weights from seed 0,
+prefills a batch-4, 32-token prompt and then, for the gated decode (MNF on
+at θ = 0, B7) and the ungated one, prints: whether any op of a decode step
+syncs the host (``torch.cuda.set_sync_debug_mode("warn")``), the warm
+host ms per decode step, the CUDA launches per step, and the host ops by
+self CPU time (``torch.profiler``, CPU activity).  Needs a card; exits 2
+without one.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import pathlib
+import subprocess
+import sys
+import time
+import warnings
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+#: The serve driver's batch and prompt (PERF.md §4).
+BATCH, PROMPT = 4, 32
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=5)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_decode_profile: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(serve.lm_config("rwkv6-7b"),
+                              num_layers=args.layers)
+    params = tfm.compute_params(tfm.init_params(0, cfg, "cuda"), cfg)
+    prompts = serve.make_prompts(cfg, BATCH, PROMPT, 0, "cuda")
+    ungated = dataclasses.replace(cfg, mnf=dataclasses.replace(
+        cfg.mnf, enabled=False))
+    for name, c in (("gated θ=0", cfg), ("ungated", ungated)):
+        logits, cache = tfm.prefill(params, prompts, c)
+        tok = logits[:, -1].argmax(-1)[:, None]
+
+        def step():
+            return tfm.decode_step(params, cache, tok, PROMPT, c)
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            step()
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(args.steps):
+                step()
+            torch.cuda.synchronize()
+        avg = prof.key_averages()
+        launches = sum(e.count for e in avg
+                       if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                                    "cuLaunchKernel"))
+        print(f"{name}, {args.layers} layers, batch {BATCH}: {ms:.3f} ms per "
+              f"decode step (host clock, synchronized), "
+              f"{launches / args.steps:.0f} CUDA launches per step, "
+              f"{len(syncs)} host syncs in a step"
+              + (f" ({str(syncs[0].message)[:100]})" if syncs else ""))
+        print(avg.table(sort_by="self_cpu_time_total", row_limit=15))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
