@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
-6, 3, so that phase 3 can replay what phases 2, 4, 5 and 6 handed the
-kernels):
+6, 7, 3, so that phase 3 can replay what phases 2, 4, 5, 6 and 7 handed
+the kernels):
 
 1. Probe and build: the card's name and power limit, TF32 off for the dense
-   oracles, the CUDA kernels (B1-B7) built from src/repro_torch/csrc.
+   oracles, the CUDA kernels (B1-B8) built from src/repro_torch/csrc.
 2. VGG16 at 224x224, full widths, batch 4 (four requests), f32 events.
    He weights from a seeded torch.Generator with weight sparsity 0.5,
    inputs relu(normal).  Every kernel's launch counter is set to 0 just
@@ -43,7 +43,8 @@ kernels):
    (``launch.serve.run_lm``: prefill, then the greedy decode loop), batch
    4, prompt 32, 16 tokens.  The main path is the config as published:
    MNF on at θ = 0, bf16.  B7 must launch 32 x 16 times in each gated
-   decode and never in the ungated one, B1-B6 never; every recurrent_step
+   decode and never in the ungated one, B1-B6 and B8 never, nor in the
+   prefill; every recurrent_step
    record chained on route "event", no fallback_decode; every B7 launch
    of the main path and of a θ > 0 run replayed against the plain version
    (S' bitwise, o within 1e-4 of max|plain|); that θ, picked as the 0.4
@@ -53,6 +54,17 @@ kernels):
    Prints prefill ms, decode tokens/s (gated θ=0, gated θ>0, ungated,
    bf16), events per token, how many greedy tokens the gated and ungated
    decodes share, and a profile line.
+7. Hymba-1.5B served at its published widths (32 layers, d_model 1600, 25
+   query and 5 KV heads of 64, sliding window 1024 but in layers 0, 15 and
+   31, Mamba heads of state 16 over DI 1600, d_ff 5504, vocab 32001;
+   random f32 weights from seed 0 plus their bf16 copies, ~1.4 G params),
+   after phase 6's model is freed, with the same driver, batch, prompt,
+   tokens and checks as phase 6, for B8: 32 x 16 launches per gated
+   decode, none in the prefill or the ungated decode, B1-B7 none; every
+   B8 launch replayed (h' bitwise, y within 1e-4 of max|plain|); a θ > 0
+   run (the 0.4 quantile of block max|g|) with at least a quarter of the
+   (row, DI-block) pairs dead; f32 gated vs ungated within 1e-4 at every
+   step; prefill ms, tokens/s, profile line.
 3. Kernel checks: each kernel against its plain PyTorch version on the
    inputs the forwards handed it (B1, B2 and B5 at the shapes of both
    VGG16 and LeNet-300-100), plus the strip convs at stride 4 and 2
@@ -63,9 +75,9 @@ kernels):
    and B5/B6 bitwise B2/B3 fed the dequantized tiles.  The forwards'
    matmuls, strip convs and pools are also held against torch.matmul,
    F.conv2d and F.max_pool2d on the decoded (dequantized) maps (the same
-   tolerance; pools exact).  B7 at the main path's shapes of phase 6
-   (no single PyTorch call computes the step: its library column is
-   null).  Prints each kernel's time, the plain version's, one PyTorch
+   tolerance; pools exact).  B7 and B8 at the main path's shapes of
+   phases 6 and 7 (no single PyTorch call computes either step: their
+   library columns are null).  Prints each kernel's time, the plain version's, one PyTorch
    library call's on the same function, and the bound.
 
 The last lines are the card line, a JSON line of per-kernel numbers, and
@@ -105,6 +117,8 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
                         "src/repro/kernels/event_conv/kernel.py:268"),
     "wkv6_step": ("src/repro_torch/csrc/wkv6_step.cu",
                   "src/repro/kernels/wkv6/step.py:150"),
+    "mamba_step": ("src/repro_torch/csrc/mamba_step.cu",
+                   "src/repro/kernels/mamba_scan/step.py:124"),
 }
 
 #: Launches per chained forward that the route plan gives (the JAX
@@ -112,16 +126,16 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
 #: that path and must not launch.
 PLAN_F32_VGG = dict(fire_compact=20, event_matmul=57, event_conv=7,
                     event_pool_window=2, event_pool=3, event_matmul_int8=0,
-                    event_conv_int8=0, wkv6_step=0)
+                    event_conv_int8=0, wkv6_step=0, mamba_step=0)
 PLAN_INT8_VGG = dict(fire_compact=0, event_matmul=0, event_conv=1,
                      event_pool_window=2, event_pool=3, event_matmul_int8=57,
-                     event_conv_int8=6, wkv6_step=0)
+                     event_conv_int8=6, wkv6_step=0, mamba_step=0)
 PLAN_F32_MLP = dict(fire_compact=2, event_matmul=3, event_conv=0,
                     event_pool_window=0, event_pool=0, event_matmul_int8=0,
-                    event_conv_int8=0, wkv6_step=0)
+                    event_conv_int8=0, wkv6_step=0, mamba_step=0)
 PLAN_INT8_MLP = dict(fire_compact=0, event_matmul=1, event_conv=0,
                      event_pool_window=0, event_pool=0, event_matmul_int8=2,
-                     event_conv_int8=0, wkv6_step=0)
+                     event_conv_int8=0, wkv6_step=0, mamba_step=0)
 
 
 class SmokeFailure(Exception):
@@ -433,16 +447,27 @@ def teacher_forced(torch, F, cnn, layers, params, x, fires, logits):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: RWKV6-7B served at its published widths through the port's
-# serve driver (prefill, then the greedy decode loop).
+# Phases 6 and 7: RWKV6-7B and Hymba-1.5B served at their published widths
+# through the port's serve driver (prefill, then the greedy decode loop).
 # ---------------------------------------------------------------------------
 
 #: The serve driver's defaults (``repro_torch.launch.serve``).
-RWKV_BATCH, RWKV_PROMPT, RWKV_GEN = 4, 32, 16
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 16
 
-#: Share of the (row, K-block) pairs of the main path's key drive that the
-#: θ > 0 run's threshold is set to kill (its quantile of block max|k|).
-RWKV_DEAD_TARGET = 0.4
+#: Share of the (row, K-block) pairs of the main path's increment drive
+#: that the θ > 0 run's threshold is set to kill (its quantile of block
+#: max|drive|).
+DEAD_TARGET = 0.4
+
+#: Per served model: its phase, the gated step's kernel (wrapper name),
+#: and the names its output lines use for the kernel, the state, the
+#: readout and the drive.
+LM_PHASES = {
+    "rwkv6-7b": dict(tag="[6]", kernel="wkv6_step", label="B7", state="S'",
+                     readout="o", drive="k"),
+    "hymba-1.5b": dict(tag="[7]", kernel="mamba_step", label="B8",
+                       state="h'", readout="y", drive="g"),
+}
 
 
 def wkv6_work(bev, r):
@@ -459,98 +484,132 @@ def wkv6_work(bev, r):
     return nbytes, 3.0 * g * d * d + 2.0 * slots * bk * d + 5.0 * g * d
 
 
-def serve_rwkv6(torch, engine, wrappers, cfg=None,
-                device: str = "cuda") -> dict:
-    """Phase 6.  RWKV6-7B at full width (32 layers, d_model 4096, 64x64
-    heads, d_ff 14336, vocab 65536; f32 weights from seed 0 plus their bf16
-    copy), batch 4, prompt 32, 16 greedy tokens through
-    ``launch.serve.run_lm``.  Checks: B7 launches 32 x 16 in each gated
-    decode and none in the ungated one, B1-B6 none; every recurrent_step
-    record chained on route "event", no fallback_decode; each B7 launch of
-    the main path and of the θ > 0 run replayed against the plain version
-    (S' bitwise, o within 1e-4 of max); the θ > 0 run kills at least a
-    quarter of the (row, K-block) pairs; in f32, the gated decode
-    (teacher-forced on the ungated one's inputs) within 1e-4 of
-    max|logits| at every step.  Returns the numbers and the main path's
-    B7 captures for phase 3."""
+def mamba_work(bev, h):
+    """Bytes and operations one B8 launch needs on these events: h and dA
+    read and h' written once, B and C read and y written, each live event
+    tile and address, counts and the live mask; a multiply per state
+    element (decay), a multiply and an add per element for the readout, a
+    multiply and an add per element of each live block (increment)."""
+    b, di, n = h.shape
+    _, e, _, bk = bev.values.shape
+    slots = int(bev.counts.clamp(max=e).sum())
+    nbytes = 3 * b * di * n * 4 + 2 * b * n * 4 + b * di * 4 \
+        + slots * (bk * 4 + 4) + b * 4 + b * bev.num_k_blocks * 4
+    return nbytes, 3.0 * b * di * n + 2.0 * slots * bk * n
+
+
+def describe(cfg) -> str:
+    ssm = (f", Mamba state {cfg.ssm.state_dim} x DI {cfg.d_model}"
+           if cfg.ssm is not None else "")
+    return (f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.num_heads} heads ({cfg.num_kv_heads} KV) x "
+            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}{ssm}")
+
+
+def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
+             device: str = "cuda") -> dict:
+    """Phase 6 (RWKV6-7B, B7) or 7 (Hymba-1.5B, B8): the model at full
+    width (f32 weights from seed 0 plus the compute-dtype copies of the
+    leaves its blocks cast), batch 4, prompt 32, 16 greedy tokens through
+    ``launch.serve.run_lm``.  Checks: the prefill launches no kernel; the
+    gated step's kernel launches L x 16 times in each gated decode and
+    none in the ungated one, no other kernel launches; every
+    recurrent_step record chained on route "event", no fallback_decode;
+    each launch of the main path and of the θ > 0 run replayed against
+    the plain version ``ref`` (the state bitwise, the readout within 1e-4
+    of max); the θ > 0 run kills at least a quarter of the (row, K-block)
+    pairs; in f32, the gated decode (teacher-forced on the ungated one's
+    inputs) within 1e-4 of max|logits| at every step.  Returns the
+    numbers and the main path's last capture for phase 3."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.core import events as ev
-    from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tfm
 
-    b7 = wrappers["wkv6_step"]
-    cfg = get_config("rwkv6-7b") if cfg is None else cfg
+    spec = LM_PHASES[arch]
+    tag, name, label = spec["tag"], spec["kernel"], spec["label"]
+    st, ro, dr = spec["state"], spec["readout"], spec["drive"]
+    kern = wrappers[name]
+    cfg = get_config(arch) if cfg is None else cfg
     check(cfg.mnf.enabled and cfg.mnf.threshold == 0.0
           and cfg.compute_dtype == "bfloat16", f"unexpected config {cfg}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     master = tfm.init_params(0, cfg, device)       # f32, the param dtype
-    params = tfm.compute_params(master, cfg)       # + bf16 matmul weights
+    params = tfm.compute_params(master, cfg)       # + bf16 copies
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in [*master["embed"].values(),
-                                       master["final_norm"],
-                                       *master["layers"].values()])
-    print(f"[6] {cfg.name}: {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.num_heads}x{cfg.head_dim} heads, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} G "
-          f"params (f32) + bf16 copies of the matmul weights, made from "
-          f"seed 0 in {time.perf_counter() - t0:.2f} s; "
+    leaves, stack = [], [master]
+    while stack:
+        for v in stack.pop().values():
+            (stack if isinstance(v, dict) else leaves).append(v)
+    n_params = sum(t.numel() for t in leaves)
+    print(f"{tag} {cfg.name}: {describe(cfg)}: {n_params / 1e9:.3f} G "
+          f"params (f32) + bf16 copies of the leaves the blocks cast, made "
+          f"from seed 0 in {time.perf_counter() - t0:.2f} s; "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
           flush=True)
-    prompts = serve.make_prompts(cfg, RWKV_BATCH, RWKV_PROMPT, 0, device)
+    prompts = serve.make_prompts(cfg, LM_BATCH, LM_PROMPT, 0, device)
 
     def mnf(c, **kw):
         return dataclasses.replace(c, mnf=dataclasses.replace(c.mnf, **kw))
 
-    per_decode = cfg.num_layers * RWKV_GEN
-    gated_plan = {n: 0 for n in wrappers} | {"wkv6_step": per_decode}
+    per_decode = cfg.num_layers * LM_GEN
+    gated_plan = {n: 0 for n in wrappers} | {name: per_decode}
     dense_plan = {n: 0 for n in wrappers}
 
-    def served(tag, c, p, plan, capture=False, **kw):
+    # The prefill alone launches no kernel of the port: its scans are
+    # plain torch, and the fire-gated step runs only in the decode.
+    _, recs, launches, _, _ = drive_counted(
+        torch, engine, wrappers,
+        lambda: tfm.prefill(params, prompts, cfg,
+                            max_len=LM_PROMPT + LM_GEN), capture=False)
+    check_plan(f"{tag} prefill", launches, dense_plan)
+    check(not any(r.get("op") == "recurrent_step" for r in recs),
+          f"{tag} prefill ran a recurrent_step")
+
+    def served(stag, c, p, plan, capture=False, **kw):
         run, recs, launches, caps, _ = drive_counted(
             torch, engine, wrappers,
-            lambda: serve.run_lm(p, c, prompts, RWKV_GEN, **kw), capture)
-        check_plan(tag, launches, plan)
-        check(launches["wkv6_step"] == plan["wkv6_step"],
-              f"{tag}: {launches['wkv6_step']} B7 launches, want "
-              f"{plan['wkv6_step']}")
+            lambda: serve.run_lm(p, c, prompts, LM_GEN, **kw), capture)
+        check_plan(stag, launches, plan)
+        check(launches[name] == plan[name],
+              f"{stag}: {launches[name]} {label} launches, want "
+              f"{plan[name]}")
         steps = [r for r in recs if r.get("op") == "recurrent_step"]
-        check(len(steps) == launches["wkv6_step"] and all(
+        check(len(steps) == launches[name] and all(
             r.get("chained") and r.get("route") == "event"
             and r.get("backend") == engine.EngineConfig().resolve_backend(
                 prompts) for r in steps),
-              f"{tag}: recurrent_step records not all chained on route "
+              f"{stag}: recurrent_step records not all chained on route "
               f"'event': {steps[:2]}")
         check(not any(r.get("fallback_decode") or r.get("decode")
-                      for r in recs), f"{tag}: fallback_decode")
-        check(run["tokens"].shape == (RWKV_BATCH, RWKV_GEN)
+                      for r in recs), f"{stag}: fallback_decode")
+        check(run["tokens"].shape == (LM_BATCH, LM_GEN)
               and int(run["tokens"].min()) >= 0
               and int(run["tokens"].max()) < cfg.vocab_size,
-              f"{tag}: tokens {tuple(run['tokens'].shape)} out of range")
+              f"{stag}: tokens {tuple(run['tokens'].shape)} out of range")
         if run["logits"] is not None:
-            check(run["logits"].shape == (RWKV_GEN, RWKV_BATCH,
-                                          cfg.vocab_size)
+            check(run["logits"].shape == (LM_GEN, LM_BATCH, cfg.vocab_size)
                   and bool(torch.isfinite(run["logits"]).all()),
-                  f"{tag}: logits not finite of the expected shape")
-        return run, caps["wkv6_step"]
+                  f"{stag}: logits not finite of the expected shape")
+        return run, caps[name]
 
-    def replay(tag, caps):
-        """Each captured B7 launch against the plain version: S' bitwise,
-        o within 1e-4 of max|plain|.  Returns (worst o ratio, dead share
-        of the (row, K-block) pairs)."""
+    def replay(rtag, caps):
+        """Each captured launch against the plain version: the state
+        bitwise, the readout within 1e-4 of max|plain|.  Returns (worst
+        readout ratio, dead share of the (row, K-block) pairs)."""
         worst, dead, pairs = 0.0, 0, 0
         for args, kw in caps:
-            o, s_new = b7(*args, **kw)
-            o2, s2 = wkv6_step_events_ref(*args, **kw)
-            check(torch.equal(s_new, s2), f"{tag}: B7's S' is not bitwise "
-                  f"the plain version's")
-            ratio = float((o - o2).abs().max()) / max(
-                float(o2.abs().max()), 1e-30)
-            check(ratio <= 1e-4, f"{tag}: B7's o off the plain version by "
-                  f"{ratio:.3e} of max|plain|")
+            out, state = kern(*args, **kw)
+            out2, state2 = ref(*args, **kw)
+            check(torch.equal(state, state2), f"{rtag}: {label}'s {st} is "
+                  f"not bitwise the plain version's")
+            ratio = float((out - out2).abs().max()) / max(
+                float(out2.abs().max()), 1e-30)
+            check(ratio <= 1e-4, f"{rtag}: {label}'s {ro} off the plain "
+                  f"version by {ratio:.3e} of max|plain|")
             worst = max(worst, ratio)
             live = ev.live_block_mask(args[0])
             dead += int((~live).sum())
@@ -558,34 +617,34 @@ def serve_rwkv6(torch, engine, wrappers, cfg=None,
         return worst, dead / pairs
 
     # The main path: the config as published, MNF on at θ = 0, bf16.
-    run_a, caps_a = served("[6] gated θ=0 bf16", cfg, params, gated_plan,
+    run_a, caps_a = served(f"{tag} gated θ=0 bf16", cfg, params, gated_plan,
                            capture=True, keep_logits=True)
-    worst_a, dead_a = replay("[6] gated θ=0", caps_a)
+    worst_a, dead_a = replay(f"{tag} gated θ=0", caps_a)
     ev_a = run_a["events"].sum(1)
-    run_b, _ = served("[6] ungated bf16", mnf(cfg, enabled=False), params,
+    run_b, _ = served(f"{tag} ungated bf16", mnf(cfg, enabled=False), params,
                       dense_plan)
     agree = int((run_a["tokens"] == run_b["tokens"]).sum())
-    # θ > 0: the RWKV_DEAD_TARGET quantile of block max|k| over the main
-    # path's key drive
+    # θ > 0: the DEAD_TARGET quantile of block max|drive| over the main
+    # path's drive
     blockmax = torch.cat([args[0].values.abs().amax(dim=(2, 3)).flatten()
                           for args, _ in caps_a])
-    theta = float(f"{float(torch.quantile(blockmax, RWKV_DEAD_TARGET)):.3g}")
+    theta = float(f"{float(torch.quantile(blockmax, DEAD_TARGET)):.3g}")
     cfg_th = mnf(cfg, threshold=theta)
-    run_c, caps_c = served(f"[6] gated θ={theta} bf16", cfg_th, params,
+    run_c, caps_c = served(f"{tag} gated θ={theta} bf16", cfg_th, params,
                            gated_plan, capture=True)
-    worst_c, dead_c = replay(f"[6] gated θ={theta}", caps_c)
+    worst_c, dead_c = replay(f"{tag} gated θ={theta}", caps_c)
     del caps_c
     ev_c = run_c["events"].sum(1)
-    print(f"[6] main path (θ=0, bf16): every B7 launch replayed: S' "
-          f"bitwise, o worst {worst_a:.3e} of max|plain|, dead share "
-          f"{dead_a:.4f}; events per token {float(ev_a.mean()):.1f} (min "
-          f"{float(ev_a.min()):.1f}, max {float(ev_a.max()):.1f}); greedy "
-          f"tokens equal to the ungated decode's: {agree} of "
-          f"{RWKV_BATCH * RWKV_GEN}", flush=True)
-    print(f"[6] θ={theta} (the {RWKV_DEAD_TARGET} quantile of block max|k| "
-          f"on the main path): dead share of (row, K-block) pairs "
-          f"{dead_c:.4f} (limit >= 0.25), every B7 launch replayed: S' "
-          f"bitwise, o worst {worst_c:.3e}; events per token "
+    print(f"{tag} main path (θ=0, bf16): every {label} launch replayed: "
+          f"{st} bitwise, {ro} worst {worst_a:.3e} of max|plain|, dead "
+          f"share {dead_a:.4f}; events per token {float(ev_a.mean()):.1f} "
+          f"(min {float(ev_a.min()):.1f}, max {float(ev_a.max()):.1f}); "
+          f"greedy tokens equal to the ungated decode's: {agree} of "
+          f"{LM_BATCH * LM_GEN}", flush=True)
+    print(f"{tag} θ={theta} (the {DEAD_TARGET} quantile of block "
+          f"max|{dr}| on the main path): dead share of (row, K-block) pairs "
+          f"{dead_c:.4f} (limit >= 0.25), every {label} launch replayed: "
+          f"{st} bitwise, {ro} worst {worst_c:.3e}; events per token "
           f"{float(ev_c.mean()):.1f} (min {float(ev_c.min()):.1f}, max "
           f"{float(ev_c.max()):.1f})", flush=True)
     check(dead_c >= 0.25, f"θ={theta}: dead share {dead_c:.4f} < 0.25")
@@ -594,40 +653,41 @@ def serve_rwkv6(torch, engine, wrappers, cfg=None,
     # ungated run's inputs, step by step.
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     p32 = tfm.compute_params(master, cfg32)       # the f32 tensors as they are
-    ref32, _ = served("[6] ungated f32", mnf(cfg32, enabled=False), p32,
+    ref32, _ = served(f"{tag} ungated f32", mnf(cfg32, enabled=False), p32,
                       dense_plan, keep_logits=True)
-    gated32, _ = served("[6] gated θ=0 f32", cfg32, p32, gated_plan,
+    gated32, _ = served(f"{tag} gated θ=0 f32", cfg32, p32, gated_plan,
                         keep_logits=True, teacher=ref32["inputs"])
     ratios = [float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
               for g, r in zip(gated32["logits"], ref32["logits"])]
-    print(f"[6] f32, gated θ=0 vs ungated, teacher-forced: max|d logits| / "
-          f"max|logits| per step worst {max(ratios):.3e} (limit 1e-4; "
+    print(f"{tag} f32, gated θ=0 vs ungated, teacher-forced: max|d logits| "
+          f"/ max|logits| per step worst {max(ratios):.3e} (limit 1e-4; "
           f"steps {[f'{x:.1e}' for x in ratios]})", flush=True)
-    check(max(ratios) <= 1e-4, f"f32 gated vs ungated logits ratio "
+    check(max(ratios) <= 1e-4, f"{tag} f32 gated vs ungated logits ratio "
           f"{max(ratios):.3e}")
     del p32, ref32, gated32
 
     # Warm timings, bf16, in turns.
     cells = (("gated θ=0", cfg), (f"gated θ={theta}", cfg_th),
              ("ungated", mnf(cfg, enabled=False)))
-    times = {name: [] for name, _ in cells}
+    times = {cname: [] for cname, _ in cells}
     for _ in range(2):
-        for name, c in cells:
-            run = serve.run_lm(params, c, prompts, RWKV_GEN)
-            times[name].append((run["prefill_s"] * 1e3,
-                                RWKV_GEN * RWKV_BATCH / run["decode_s"]))
-    tok_s = {name: max(t[1] for t in ts) for name, ts in times.items()}
+        for cname, c in cells:
+            run = serve.run_lm(params, c, prompts, LM_GEN)
+            times[cname].append((run["prefill_s"] * 1e3,
+                                 LM_GEN * LM_BATCH / run["decode_s"]))
+    tok_s = {cname: max(t[1] for t in ts) for cname, ts in times.items()}
     prefill_ms = min(t[0] for ts in times.values() for t in ts)
-    print(f"[6] warm, bf16, batch {RWKV_BATCH}, prompt {RWKV_PROMPT}, "
-          f"{RWKV_GEN} tokens (2 runs each, in turns): prefill "
+    print(f"{tag} warm, bf16, batch {LM_BATCH}, prompt {LM_PROMPT}, "
+          f"{LM_GEN} tokens (2 runs each, in turns): prefill "
           f"{prefill_ms:.3f} ms (best; all "
           f"{[round(t[0], 3) for ts in times.values() for t in ts]}); "
           f"decode tokens/s " + "; ".join(
               f"{n} {max(t[1] for t in ts):.1f} "
               f"({[round(t[1], 1) for t in ts]})"
               for n, ts in times.items()), flush=True)
-    profile(torch, lambda: serve.run_lm(params, cfg, prompts, RWKV_GEN),
-            "[6] gated θ=0 bf16 serve (prefill + 16 decode steps)", steps=1)
+    profile(torch, lambda: serve.run_lm(params, cfg, prompts, LM_GEN),
+            f"{tag} gated θ=0 bf16 serve (prefill + {LM_GEN} decode steps)",
+            steps=1)
     return dict(caps=caps_a[-1:], launches=per_decode, theta=theta,
                 dead=dead_c, tok_s=tok_s, prefill_ms=prefill_ms,
                 events=float(ev_a.mean()), agree=agree,
@@ -680,6 +740,9 @@ def run(torch) -> int:
                                                     event_pool_window_ref)
     from repro_torch.kernels.fire_compact import ops as fire_ops
     from repro_torch.kernels.fire_compact.ref import fire_compact_ref
+    from repro_torch.kernels.mamba_step import ops as mamba_ops
+    from repro_torch.kernels.mamba_step.kernel import mamba_step_cuda
+    from repro_torch.kernels.mamba_step.ref import mamba_step_events_ref
     from repro_torch.kernels.wkv6_step import ops as wkv6_ops
     from repro_torch.kernels.wkv6_step.kernel import wkv6_step_cuda
     from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
@@ -705,7 +768,8 @@ def run(torch) -> int:
                 "event_pool": pool_ops.event_pool,
                 "event_matmul_int8": mm_ops.event_matmul_dequant,
                 "event_conv_int8": conv_ops.event_conv_dequant,
-                "wkv6_step": wkv6_ops.wkv6_step_events}
+                "wkv6_step": wkv6_ops.wkv6_step_events,
+                "mamba_step": mamba_ops.mamba_step_events}
 
     def drive(fn, capture=True):
         return drive_counted(torch, engine, wrappers, fn, capture)
@@ -903,14 +967,19 @@ def run(torch) -> int:
                                            fire_cfg=q8), "[5] int8")
 
     # -- 6. RWKV6-7B at full width, served ----------------------------------
-    rwkv = serve_rwkv6(torch, engine, wrappers)
+    rwkv = serve_lm(torch, engine, wrappers, "rwkv6-7b", wkv6_step_events_ref)
+
+    # -- 7. Hymba-1.5B at full width, served (RWKV6-7B's weights freed) ------
+    hymba = serve_lm(torch, engine, wrappers, "hymba-1.5b",
+                     mamba_step_events_ref)
 
     # -- 3. kernel checks on the captured inputs ------------------------------
     results = []
     launched = {**{n: launches[n] for n in wrappers},
                 "event_matmul_int8": launches8["event_matmul_int8"],
                 "event_conv_int8": launches8["event_conv_int8"],
-                "wkv6_step": rwkv["launches"]}
+                "wkv6_step": rwkv["launches"],
+                "mamba_step": hymba["launches"]}
 
     def shapes(args, kw):
         return tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
@@ -1188,17 +1257,41 @@ def run(torch) -> int:
            None, bound_ms(*wkv6_work(bev, r_)),
            f" at rows {tuple(r_.shape)}, state {tuple(s_.shape)}, events "
            f"{tuple(bev.values.shape)}; the wrapper with its live mask "
-           f"{wrapper_ms:.4f} ms; {rwkv['launches'] // RWKV_GEN} launches "
+           f"{wrapper_ms:.4f} ms; {rwkv['launches'] // LM_GEN} launches "
            f"per token")
     del rwkv["caps"], args, kargs
+
+    # B8 mamba_step: the main path's last launch (Hymba-1.5B, batch 4,
+    # θ=0); every launch of phase 7 was held against the plain version there
+    (args, kw), = hymba["caps"]
+    bev, da_, bm_, cm_, h_ = args
+    live = ev.live_block_mask(bev).to(torch.int32)
+    kargs = (bev.values, bev.block_idx, bev.counts, live, da_, bm_, cm_, h_)
+    y, h_new = mamba_step_cuda(*kargs)
+    y2, h2 = mamba_step_events_ref(*args, **kw)
+    check(torch.equal(h_new, h2), "mamba_step: h' != plain bitwise")
+    err = close(y, y2, "mamba_step y")
+    wrapper_ms = graph_ms(torch, lambda: mamba_ops.mamba_step_events(
+        *args, **kw), 50)
+    report("mamba_step", err, graph_ms(torch, lambda: mamba_step_cuda(*kargs),
+                                       50),
+           cuda_ms(torch, lambda: mamba_step_events_ref(*args, **kw), 5),
+           None, bound_ms(*mamba_work(bev, h_)),
+           f" at state {tuple(h_.shape)}, B/C {tuple(bm_.shape)}, events "
+           f"{tuple(bev.values.shape)}; the wrapper with its live mask "
+           f"{wrapper_ms:.4f} ms; {hymba['launches'] // LM_GEN} launches "
+           f"per token")
+    del hymba["caps"], args, kargs
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all; warm "
           f"forwards: VGG16 f32 {fwd_ms:.3f} ms, int8 {fwd8_ms:.3f} ms, "
           f"dense {dense_ms:.3f} ms; LeNet-300-100 f32 "
           f"{ym['f32'][1]:.3f} ms, int8 {ym['int8'][1]:.3f} ms, dense "
-          f"{mlp_dense_ms:.3f} ms; RWKV6-7B batch {RWKV_BATCH}: prefill "
-          f"{rwkv['prefill_ms']:.3f} ms, decode tokens/s "
-          + ", ".join(f"{n} {t:.1f}" for n, t in rwkv["tok_s"].items()),
+          f"{mlp_dense_ms:.3f} ms; batch {LM_BATCH}: "
+          + "; ".join(
+              f"{arch} prefill {r['prefill_ms']:.3f} ms, decode tokens/s "
+              + ", ".join(f"{n} {t:.1f}" for n, t in r["tok_s"].items())
+              for arch, r in (("RWKV6-7B", rwkv), ("Hymba-1.5B", hymba))),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": results}), flush=True)

@@ -8,24 +8,24 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (MLAConfig, MNFConfig, ModelConfig,
-                                      MoEConfig, ShapeConfig, SSMConfig)
+from repro_torch.configs.base import (GLOBAL_WINDOW, MLAConfig, MNFConfig,
+                                      ModelConfig, MoEConfig, ShapeConfig,
+                                      SSMConfig)
 
 _REGISTRY = {
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "hymba-1.5b": "repro_torch.configs.hymba_1p5b",
 }
 
 #: Architectures of the JAX package not served here yet, with the
 #: ROADMAP.md item that ports them.
 NOT_YET_PORTED = {
-    "hymba-1.5b": "queue A: Hymba-1.5B decode with kernel B8 (the next "
-                  "slice)",
-    **{arch: "queue A item 12: the LM stack (attention, MLA, MoE, "
-             "encoder-decoder and vision blocks)"
-       for arch in ("qwen2-1.5b", "gemma2-27b", "qwen2-0.5b", "minitron-8b",
-                    "whisper-base", "phi-3-vision-4.2b",
-                    "deepseek-v2-lite-16b", "deepseek-moe-16b")},
-}
+    arch: "queue A item 12: the LM stack (attention, MLA, MoE, "
+          "encoder-decoder and vision blocks)"
+    for arch in ("qwen2-1.5b", "gemma2-27b", "qwen2-0.5b", "minitron-8b",
+                 "whisper-base", "phi-3-vision-4.2b",
+                 "deepseek-v2-lite-16b", "deepseek-moe-16b")}
+
 
 def get_config(arch: str) -> ModelConfig:
     if arch in NOT_YET_PORTED:
@@ -37,5 +37,6 @@ def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(_REGISTRY[arch]).config()
 
 
-__all__ = ["NOT_YET_PORTED", "MLAConfig", "MNFConfig", "ModelConfig",
-           "MoEConfig", "ShapeConfig", "SSMConfig", "get_config"]
+__all__ = ["GLOBAL_WINDOW", "NOT_YET_PORTED", "MLAConfig", "MNFConfig",
+           "ModelConfig", "MoEConfig", "ShapeConfig", "SSMConfig",
+           "get_config"]

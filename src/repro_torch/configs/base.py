@@ -12,7 +12,10 @@ import dataclasses
 from typing import Optional
 
 __all__ = ["MoEConfig", "MLAConfig", "SSMConfig", "MNFConfig", "ModelConfig",
-           "ShapeConfig"]
+           "ShapeConfig", "GLOBAL_WINDOW"]
+
+# Sentinel window meaning "global attention" in per-layer window arrays.
+GLOBAL_WINDOW = 1 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +113,29 @@ class ModelConfig:
     has_decoder: bool = True
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+
+    # ---- derived ----
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    def window_for_layer(self, i: int) -> int:
+        """Per-layer attention window (GLOBAL_WINDOW = full context)."""
+        if self.block_type == "rwkv6":
+            return 0
+        if self.layer_pattern == "all_global" or self.sliding_window is None:
+            return GLOBAL_WINDOW
+        if self.layer_pattern == "alternating":
+            # gemma2: even layers local, odd layers global
+            return self.sliding_window if i % 2 == 0 else GLOBAL_WINDOW
+        if self.layer_pattern == "listed":
+            return (GLOBAL_WINDOW if i in self.global_layer_ids
+                    else self.sliding_window)
+        raise ValueError(self.layer_pattern)
 
     def reduced(self, **overrides) -> "ModelConfig":
         """Tiny same-family variant for CPU smoke tests."""

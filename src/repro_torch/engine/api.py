@@ -26,6 +26,7 @@ from repro_torch.engine.config import EngineConfig
 from repro_torch.engine.registry import dispatch, get_backend, list_backends
 from repro_torch.engine.stream import EventStream
 from repro_torch.kernels.event_matmul.ref import mask_dead_blocks
+from repro_torch.kernels.mamba_step.ref import mamba_step_ref
 from repro_torch.kernels.wkv6_step.ref import wkv6_step_ref
 
 __all__ = ["matmul", "linear", "conv2d", "maxpool2d",
@@ -496,18 +497,19 @@ def _recurrent_dense_step(kind: str, drive: torch.Tensor,
     """The dense oracle of one recurrent step (the fallback path: the
     arithmetic the event backends run, so the route never changes bits at
     threshold 0 on the CPU)."""
-    if kind != "wkv6":
-        raise NotImplementedError(
-            f"recurrent kind {kind!r} is not ported yet; see ROADMAP.md "
-            f"queue A: Hymba-1.5B decode with kernel B8")
-    return wkv6_step_ref(ops["r"], drive, ops["v"], ops["w"], ops["u"],
-                         state)
+    if kind == "wkv6":
+        return wkv6_step_ref(ops["r"], drive, ops["v"], ops["w"], ops["u"],
+                             state)
+    return mamba_step_ref(drive, ops["da"], ops["bmat"], ops["cmat"], state)
 
 
 def recurrent_step(kind: str, stream: EventStream, state: torch.Tensor,
                    cfg: EngineConfig = _DEFAULT, **ops):
     """One fire-gated recurrent decode step (DESIGN.md §13).  kind "wkv6":
-    ops r, v, w, u (G, D), state (G, D, D); returns (o (G, D), S').
+    ops r, v, w, u (G, D), state (G, D, D); returns (o (G, D), S').  kind
+    "mamba": ops da (B, DI, N), bmat, cmat (B, N), state (B, DI, N);
+    returns the state readout y (B, DI) (the skip and gate terms are the
+    model's) and h'.
 
     An event-eligible stream dispatches to the backend's gated step, which
     skips the increment on dead channel-blocks; an ineligible one falls

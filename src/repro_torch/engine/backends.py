@@ -13,6 +13,7 @@ One uniform signature per op:
   maxpool2d_events_window   the same, window-major strip grid
   fire / fire_conv     fn(acc, cfg) -> (fired, BlockEvents)
   recurrent_step_wkv6  fn(stream, state, ops, cfg) -> (o, S')  row stream
+  recurrent_step_mamba fn(stream, state, ops, cfg) -> (y, h')  row stream
 
 "dense" is the oracle.  "block" and "cuda" are one block-event dataflow
 registered under both names: every callable goes through the kernels'
@@ -20,8 +21,8 @@ wrappers (``kernels/*/ops.py``), which launch the hand-written kernel on a
 CUDA tensor and take the plain version (``ref.py``) on a CPU tensor.  Every
 event multiply gets the stream's ``qparams``: int8 codes go to the
 dequantize-at-load kernels (B5, B6).
-"dense" registers no ``recurrent_step_wkv6``: the API falls back to the
-dense step, visibly.
+"dense" registers no ``recurrent_step_wkv6`` or ``recurrent_step_mamba``:
+the API falls back to the dense step, visibly.
 ``EngineConfig.resolve_backend`` holds "block" to CPU operands and "cuda"
 to CUDA operands, so the name says which of the two ran.
 """
@@ -48,6 +49,7 @@ from repro_torch.kernels.event_matmul.ops import event_matmul
 from repro_torch.kernels.event_pool.ops import (event_max_pool2d,
                                                 event_max_pool2d_window)
 from repro_torch.kernels.fire_compact.ops import fire_and_encode
+from repro_torch.kernels.mamba_step.ops import mamba_step_events
 from repro_torch.kernels.wkv6_step.ops import wkv6_step_events
 from repro_torch.models.layers import max_pool_nhwc
 
@@ -204,6 +206,12 @@ def _recurrent_wkv6(stream, state, ops, cfg: EngineConfig):
                             ops["u"], state, blk_k=stream.blk_k)
 
 
+def _recurrent_mamba(stream, state, ops, cfg: EngineConfig):
+    """B8: the gated Mamba step on the fired gate's events."""
+    return mamba_step_events(stream.events, ops["da"], ops["bmat"],
+                             ops["cmat"], state, blk_k=stream.blk_k)
+
+
 # -- registration -------------------------------------------------------------
 
 register_backend("linear", "dense",
@@ -223,5 +231,6 @@ for _name in ("block", "cuda"):
                      ("maxpool2d_events", _maxpool2d_events),
                      ("maxpool2d_events_window", _maxpool2d_events_window),
                      ("fire", _fire_events), ("fire_conv", _fire_events),
-                     ("recurrent_step_wkv6", _recurrent_wkv6)):
+                     ("recurrent_step_wkv6", _recurrent_wkv6),
+                     ("recurrent_step_mamba", _recurrent_mamba)):
         register_backend(_op, _name, _fn)

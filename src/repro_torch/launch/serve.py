@@ -2,14 +2,16 @@
 mode of ``repro.launch.serve`` on one device, no mesh::
 
     python -m repro_torch.launch.serve --arch rwkv6-7b --mnf
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+    python -m repro_torch.launch.serve --arch hymba-1.5b --mnf
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --reduced --device cpu --mnf
 
 Weights are random from ``--seed`` (f32, as the config's param dtype; the
-block matmul weights are cast once to the compute dtype), prompts are
+leaves a block casts are cast once to the compute dtype), prompts are
 random tokens from the same seed.  With MNF on (``--mnf`` or a non-zero
-``--mnf-threshold``; RWKV6-7B has it on by default) every decode step runs
-the fire-gated state update (B7 on the card) and reports its fired events.
+``--mnf-threshold``; RWKV6-7B and Hymba-1.5B have it on by default) every
+decode step runs the fire-gated state update (B7 for RWKV6, B8 for
+Hymba's Mamba heads, on the card) and reports its fired events.
 Prints one stats JSON line: ``prefill_s``, ``decode_tok_per_s``,
 ``events_per_token`` with its min and max, ``events_per_layer``.
 
@@ -146,7 +148,8 @@ def serve_lm(args) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="rwkv6-7b")
+    ap.add_argument("--arch", default="rwkv6-7b",
+                    choices=("rwkv6-7b", "hymba-1.5b"))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,17 +1,22 @@
 """Layer primitives — the parts of ``repro.models.layers`` the port's
 models need: the dense max-pool oracle of the CNN, and the LM's norm,
-embeddings and MNF fire point.
+rotary embedding, MLP, embeddings and MNF fire point.
 
 LM apply-functions take params as dicts of tensors and compute in
 ``cfg.compute_dtype`` with f32 norm internals, as in the JAX package.
 """
 from __future__ import annotations
 
+import math
+from typing import Callable
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.param_utils import Init
 
-__all__ = ["dtype_of", "embed_apply", "embed_init", "max_pool_nhwc",
+__all__ = ["MLP_WEIGHTS", "activation_fn", "apply_rope", "dtype_of", "embed_apply",
+           "embed_init", "is_glu", "max_pool_nhwc", "mlp_apply", "mlp_init",
            "mnf_sparsify", "rms_norm", "unembed_matrix"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -43,6 +48,39 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return ((x * torch.rsqrt(var + eps)) * (1.0 + gamma.float())).to(dt)
 
 
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding, half-split (the first and second halves of D
+    rotate as pairs, not interleaved).  x (..., S, H, D) with D even;
+    positions (..., S).  The rotation runs in f32 and casts back."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.exp(-math.log(theta) * (
+        torch.arange(half, dtype=torch.float32, device=x.device) / half))
+    angles = positions[..., :, None].float() * freqs        # (..S, half)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name in ("silu_glu", "silu"):
+        return F.silu
+    if name in ("gelu_glu", "gelu"):
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu
+    if name == "relu2":
+        return lambda x: torch.square(F.relu(x))
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def is_glu(name: str) -> bool:
+    return name.endswith("_glu")
+
+
 def mnf_sparsify(h: torch.Tensor, cfg) -> torch.Tensor:
     """The MNF fire phase on hidden activations plus block-event masking
     for the down projection (``engine.sparsify``); the identity when MNF
@@ -52,6 +90,38 @@ def mnf_sparsify(h: torch.Tensor, cfg) -> torch.Tensor:
         return h
     from repro_torch import engine
     return engine.sparsify(h, engine.EngineConfig.from_mnf(m))
+
+
+#: The MLP's matmul weights (each cast to the compute dtype where it
+#: multiplies).
+MLP_WEIGHTS = ("w_gate", "w_up", "w_down")
+
+
+def mlp_init(seed: int, cfg, d_ff: int | None = None,
+             d_model: int | None = None, device="cpu") -> dict:
+    d = d_model or cfg.d_model
+    f = d_ff or cfg.d_ff
+    b = Init(seed, dtype_of(cfg.param_dtype), device)
+    if is_glu(cfg.act):
+        b.dense("w_gate", (d, f))
+    b.dense("w_up", (d, f))
+    b.dense("w_down", (f, d))
+    return b.done()
+
+
+def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x (..., d_model) -> (..., d_model): the MNF fire phase
+    (:func:`mnf_sparsify`) sits between the up and down projections."""
+    act = activation_fn(cfg.act)
+    cdt = dtype_of(cfg.compute_dtype)
+    xc = x.to(cdt)
+    up = xc @ p["w_up"].to(cdt)
+    if is_glu(cfg.act):
+        h = act(xc @ p["w_gate"].to(cdt)) * up
+    else:
+        h = act(up)
+    h = mnf_sparsify(h, cfg)
+    return (h @ p["w_down"].to(cdt)).to(x.dtype)
 
 
 def embed_init(seed: int, cfg, device="cpu") -> dict:

@@ -61,24 +61,42 @@ class Init:
         self.params[name] = torch.ones(shape, dtype=self.dtype,
                                        device=self.device)
 
-    def const(self, name: str, shape: tuple, value: float) -> None:
-        self.params[name] = torch.full(shape, value, dtype=self.dtype,
-                                       device=self.device)
+    def const(self, name: str, shape: tuple,
+              value: float | torch.Tensor) -> None:
+        """A constant leaf: ``value`` (a float, or a tensor broadcast to
+        ``shape``)."""
+        if isinstance(value, torch.Tensor):
+            self.params[name] = torch.broadcast_to(
+                value.to(self.dtype), shape).to(self.device).clone()
+        else:
+            self.params[name] = torch.full(shape, value, dtype=self.dtype,
+                                           device=self.device)
 
     def done(self) -> dict:
         return self.params
 
 
 def stack_layer_params(init_layer_fn, seeds: list[int]) -> dict:
-    """Stack per-layer params (``init_layer_fn(seed) -> dict``) along a
-    leading L axis.  Fills a preallocated stack one layer at a time, so the
-    peak is the stack plus one layer (a 7B model's f32 weights do not fit
-    twice on one 80 GB card)."""
+    """Stack per-layer params (``init_layer_fn(seed) -> dict``, nested
+    dicts of tensors) along a leading L axis, leaf by leaf.  Fills a
+    preallocated stack one layer at a time, so the peak is the stack plus
+    one layer (a 7B model's f32 weights do not fit twice on one 80 GB
+    card)."""
+    def alloc(node):
+        if isinstance(node, dict):
+            return {k: alloc(v) for k, v in node.items()}
+        return node.new_empty((len(seeds),) + tuple(node.shape))
+
+    def fill(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                fill(dst[k], v, i)
+            else:
+                dst[k][i].copy_(v)
+
     first = init_layer_fn(seeds[0])
-    out = {k: v.new_empty((len(seeds),) + tuple(v.shape))
-           for k, v in first.items()}
+    out = alloc(first)
     for i, seed in enumerate(seeds):
         layer, first = (first if i == 0 else init_layer_fn(seed)), None
-        for k, v in layer.items():
-            out[k][i].copy_(v)
+        fill(out, layer, i)
     return out

@@ -1,18 +1,21 @@
-"""RWKV6 (Finch) blocks — port of the RWKV6 half of ``repro.models.ssm``.
+"""Recurrent blocks — port of ``repro.models.ssm``: RWKV6 (Finch) and
+Mamba1 (the selective SSM of Hymba's parallel heads).
 
-Prefill runs the chunked matmul form of the WKV6 recurrence
+RWKV6 prefill runs the chunked matmul form of the WKV6 recurrence
 (:func:`wkv6_chunked`, plain torch, f32), exact against the sequential
 recurrence while the per-step log-decay stays above the stability clamp
-``WKV_LOG_DECAY_MIN`` (DESIGN.md §8).  Decode runs one step per token: the
-dense step (:func:`wkv6_step`) or, with MNF on, the fire-gated step
-(:func:`wkv6_step_gated`, DESIGN.md §13), whose state update goes through
-the engine's ``recurrent_step`` — kernel B7 on the card.
+``WKV_LOG_DECAY_MIN`` (DESIGN.md §8).  Mamba prefill
+(:func:`mamba_apply`) runs the selective scan as a sequential loop over
+time in f32: the JAX package's associative scan has no torch counterpart,
+and the two sum in different orders (the tests hold them at 1e-4).
+Decode runs one step per token: the dense step or, with MNF on, the
+fire-gated step (DESIGN.md §13), whose state update goes through the
+engine's ``recurrent_step`` — kernel B7 (RWKV6) or B8 (Mamba) on the card.
 
 Weight casts follow the JAX package: every block matmul multiplies the
 weight cast to the compute dtype (a copy made once at load,
-``models.transformer.compute_params``, gives the same bits), the decay
-LoRA and the WKV state run in f32.  The Mamba half waits for the Hymba
-slice (ROADMAP.md).
+``models.transformer.compute_params``, gives the same bits); the decay
+LoRA, the WKV and SSM states and the Mamba decay run in f32.
 """
 from __future__ import annotations
 
@@ -22,9 +25,10 @@ import torch.nn.functional as F
 from repro_torch.models import layers
 from repro_torch.models.param_utils import Init
 
-__all__ = ["WKV_LOG_DECAY_MIN", "wkv6_chunked", "wkv6_step",
-           "wkv6_step_gated", "rwkv6_block_init", "rwkv6_block_apply",
-           "rwkv6_block_decode"]
+__all__ = ["MAMBA_WEIGHTS", "MATMUL_WEIGHTS", "WKV_LOG_DECAY_MIN",
+           "mamba_apply", "mamba_init", "mamba_step", "rwkv6_block_apply",
+           "rwkv6_block_decode", "rwkv6_block_init", "wkv6_chunked",
+           "wkv6_step", "wkv6_step_gated"]
 
 # Per-step log-decay clamp for the chunked-parallel path: with chunk C the
 # largest inverse-decay exponent is C*|min|; C=32 * 2.5 = 80 < log(f32 max).
@@ -249,3 +253,141 @@ def rwkv6_block_decode(p, x: torch.Tensor, cfg, state: dict):
         new_state["events"] = n_ev if n_ev is not None else torch.zeros(
             (), dtype=torch.float32, device=x.device)
     return x, new_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba1 (selective SSM) — hymba's parallel-SSM heads
+# ---------------------------------------------------------------------------
+
+#: The Mamba leaves each use casts to the compute dtype (the matmul
+#: weights, the conv taps and the biases); a_log and d_skip stay f32.
+MAMBA_WEIGHTS = ("w_in", "conv_w", "conv_b", "w_bcdt", "w_dt", "dt_bias",
+                 "w_out")
+
+
+def _dt_rank(cfg) -> int:
+    return cfg.ssm.dt_rank or -(-cfg.d_model // 16)
+
+
+def mamba_init(seed: int, cfg, d_inner: int | None = None,
+               device="cpu") -> dict:
+    ssm = cfg.ssm
+    d = cfg.d_model
+    di = d_inner or ssm.expand * d
+    n = ssm.state_dim
+    b = Init(seed, layers.dtype_of(cfg.param_dtype), device)
+    b.dense("w_in", (d, 2 * di))                              # x and z
+    b.dense("conv_w", (ssm.conv_dim, di), scale=0.5)
+    b.zeros("conv_b", (di,))
+    b.dense("w_bcdt", (di, 2 * n + _dt_rank(cfg)))
+    b.dense("w_dt", (_dt_rank(cfg), di), scale=1.0)
+    b.zeros("dt_bias", (di,))
+    b.const("a_log", (di, n),
+            torch.log(torch.arange(1, n + 1, dtype=torch.float32)))
+    b.ones("d_skip", (di,))
+    b.dense("w_out", (di, d))
+    return b.done()
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0), with no switch to x at a
+    threshold (``F.softplus`` has one at 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _mamba_bcdt(p, xc, cfg):
+    n = cfg.ssm.state_dim
+    bcdt = xc @ p["w_bcdt"].to(xc.dtype)
+    bmat = bcdt[..., :n]
+    cmat = bcdt[..., n:2 * n]
+    dt = _softplus(bcdt[..., 2 * n:] @ p["w_dt"].to(xc.dtype)
+                   + p["dt_bias"].to(xc.dtype))                # (.., di)
+    return bmat, cmat, dt
+
+
+def mamba_apply(p, x: torch.Tensor, cfg):
+    """Prefill.  x (B, T, d) -> (y (B, T, d), (conv_state, ssm_state)).
+
+    The selective scan runs one step at a time in f32 over chunks of
+    ``cfg.ssm.scan_chunk`` steps (the decay and increment of a chunk are
+    made at once: live memory O(B·C·DI·N))."""
+    ssm = cfg.ssm
+    bsz, t, _ = x.shape
+    cdt = x.dtype
+    f32 = torch.float32
+    xz = x @ p["w_in"].to(cdt)
+    xc, z = xz.chunk(2, dim=-1)                              # (B, T, di)
+    di = xc.shape[-1]
+    n = ssm.state_dim
+    cw = ssm.conv_dim
+    assert cw > 1, "conv width must exceed 1"
+    # causal depthwise conv, width cw: a sum over taps in the compute dtype
+    xpad = F.pad(xc, (0, 0, cw - 1, 0))
+    xconv = sum(xpad[:, i:i + t, :] * p["conv_w"][i].to(cdt)
+                for i in range(cw)) + p["conv_b"].to(cdt)
+    xs = F.silu(xconv)
+    bmat, cmat, dt = _mamba_bcdt(p, xs, cfg)
+    a = -torch.exp(p["a_log"].float())                       # (di, n)
+    h = torch.zeros((bsz, di, n), dtype=f32, device=x.device)
+    ys = []
+    for c0 in range(0, t, ssm.scan_chunk):
+        sl = slice(c0, min(c0 + ssm.scan_chunk, t))
+        dt_c = dt[:, sl].float()
+        da_c = torch.exp(dt_c[..., None] * a)                # (B, C, di, n)
+        dbx_c = (dt_c * xs[:, sl].float())[..., None] \
+            * bmat[:, sl].float()[..., None, :]
+        c_c = cmat[:, sl].float()
+        for i in range(da_c.shape[1]):
+            h = da_c[:, i] * h + dbx_c[:, i]
+            ys.append((h * c_c[:, i, None, :]).sum(-1))
+    y = torch.stack(ys, dim=1)                               # (B, T, di) f32
+    y = y + p["d_skip"].float() * xs.float()
+    y = y.to(cdt) * F.silu(z)
+    out = y @ p["w_out"].to(cdt)
+    conv_state = xpad[:, -(cw - 1):, :]                      # last cw-1 inputs
+    return out, (conv_state, h)
+
+
+def mamba_step(p, x: torch.Tensor, cfg, state):
+    """Decode one token.  x (B, 1, d); state = (conv_state (B, cw-1, di),
+    ssm_state (B, di, n)).  Returns (out (B, 1, d), (conv_state,
+    ssm_state), n_events).
+
+    With MNF on, the state update is fire-gated (DESIGN.md §13): the
+    increment gate g = dt·silu(xconv) is thresholded by signed fire and
+    the update skips dead channel-blocks (``engine.recurrent_step``,
+    kernel B8 on the card); ``n_events`` is its per-token scalar event
+    count (0-d f32, zero with MNF off).  The dense path calls the plain
+    step (``kernels.mamba_step.ref.mamba_step_ref``) that the gated
+    backends run, so at threshold 0 the two agree bit for bit on the
+    CPU."""
+    from repro_torch.kernels.mamba_step.ref import mamba_step_ref
+    conv_state, h = state
+    cdt = x.dtype
+    f32 = torch.float32
+    xz = x[:, 0] @ p["w_in"].to(cdt)
+    xc, z = xz.chunk(2, dim=-1)
+    win = torch.cat([conv_state, xc[:, None, :]], dim=1)     # (B, cw, di)
+    xconv = torch.einsum("bcd,cd->bd", win, p["conv_w"].to(cdt)) \
+        + p["conv_b"].to(cdt)
+    xs = F.silu(xconv)
+    bmat, cmat, dt = _mamba_bcdt(p, xs, cfg)
+    a = -torch.exp(p["a_log"].float())
+    da = torch.exp(dt.float()[..., None] * a)                # (B, di, n)
+    gdrive = dt.float() * xs.float()                         # increment gate
+    ecfg = _decode_engine_cfg(cfg)
+    if ecfg is not None:
+        from repro_torch import engine
+        stream = engine.fire_delta(gdrive, ecfg)
+        y, h = engine.recurrent_step(
+            "mamba", stream, h, ecfg.for_recurrent(gdrive.shape[-1]),
+            da=da, bmat=bmat.float(), cmat=cmat.float())
+        n_ev = stream.num_scalar_events.float()
+    else:
+        y, h = mamba_step_ref(gdrive, da, bmat.float(), cmat.float(), h)
+        n_ev = torch.zeros((), dtype=f32, device=x.device)
+    y = y + p["d_skip"].float() * xs.float()
+    y = y.to(cdt) * F.silu(z)
+    out = (y @ p["w_out"].to(cdt))[:, None, :]
+    return out, (win[:, 1:], h), n_ev

@@ -1,12 +1,13 @@
-"""Decoder-LM assembly — port of the ``block_type == "rwkv6"`` branches of
-``repro.models.transformer``.
+"""Decoder-LM assembly — port of the ``block_type`` "rwkv6" and "hymba"
+branches of ``repro.models.transformer``.
 
 Params are a nested dict: ``embed`` (``tok``, ``unembed``), ``final_norm``
 and ``layers``, whose leaves are stacked along a leading L axis as in the
 JAX package (``params_from_numpy`` takes its ``init_params(...)[0]`` tree
 as numpy arrays).  A Python loop over the layers stands in for
-``lax.scan``.  Every other block type raises and names its ROADMAP.md
-item.  Entry points run on the card unless the caller passes
+``lax.scan``, with each layer's attention window
+(``cfg.window_for_layer``).  Every other block type raises and names its
+ROADMAP.md item.  Entry points run on the card unless the caller passes
 ``device="cpu"``.
 """
 from __future__ import annotations
@@ -15,20 +16,40 @@ import numpy as np
 import torch
 
 from repro_torch.device import default_device
-from repro_torch.models import layers, ssm
-from repro_torch.models.param_utils import fold_in, stack_layer_params
+from repro_torch.models import attention, hymba, layers, ssm
+from repro_torch.models.param_utils import Init, fold_in, stack_layer_params
 
 __all__ = ["cache_specs", "compute_params", "decode_step", "forward",
            "init_cache", "init_params", "params_from_numpy", "prefill"]
 
 
-def _require_rwkv6(cfg) -> None:
-    if cfg.block_type != "rwkv6":
+#: Block types the port serves.
+PORTED_BLOCKS = ("rwkv6", "hymba")
+
+
+def _check_block(cfg) -> None:
+    """Raise for a block type the port does not serve yet, naming the
+    ROADMAP.md item that brings it."""
+    if cfg.block_type not in PORTED_BLOCKS or cfg.qkv_bias:
         raise NotImplementedError(
-            f"block_type {cfg.block_type!r} ({cfg.name}) is not ported to "
-            f"repro_torch yet; see ROADMAP.md queue A: "
-            + ("Hymba-1.5B decode with kernel B8" if cfg.block_type ==
-               "hymba" else "item 12, the LM stack"))
+            f"{cfg.name} (block_type {cfg.block_type!r}"
+            f"{', QKV biases' if cfg.qkv_bias else ''}) is not ported to "
+            f"repro_torch yet; see ROADMAP.md queue A item 12, the LM stack "
+            f"(attention, MLA, MoE, encoder-decoder and vision blocks)")
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every leaf of a nested dict (a tuple is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_stack(trees: list) -> dict:
+    """Stack the leaves of same-structured nested dicts along a new axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def _device(device) -> torch.device:
@@ -39,10 +60,22 @@ def _device(device) -> torch.device:
 # Parameters
 # ---------------------------------------------------------------------------
 
+def _layer_init(seed: int, cfg, device) -> dict:
+    """One decoder layer's params."""
+    if cfg.block_type == "rwkv6":
+        return ssm.rwkv6_block_init(seed, cfg, device)
+    b = Init(seed, layers.dtype_of(cfg.param_dtype), device)
+    b.ones("ln_attn", (cfg.d_model,))
+    b.params["mix"] = hymba.hymba_block_init(fold_in(seed, 1), cfg, device)
+    b.ones("ln_mlp", (cfg.d_model,))
+    b.params["ffn"] = layers.mlp_init(fold_in(seed, 4), cfg, device=device)
+    return b.done()
+
+
 def init_params(seed: int, cfg, device=None) -> dict:
     """Random params from ``seed`` (each leaf its own generator,
     ``param_utils.fold_in``), in ``cfg.param_dtype`` on ``device``."""
-    _require_rwkv6(cfg)
+    _check_block(cfg)
     dev = _device(device)
     lseed = fold_in(seed, 1)
     return dict(
@@ -51,7 +84,7 @@ def init_params(seed: int, cfg, device=None) -> dict:
                               dtype=layers.dtype_of(cfg.param_dtype),
                               device=dev),
         layers=stack_layer_params(
-            lambda s: ssm.rwkv6_block_init(s, cfg, dev),
+            lambda s: _layer_init(s, cfg, dev),
             [fold_in(lseed, i) for i in range(cfg.num_layers)]))
 
 
@@ -59,7 +92,7 @@ def params_from_numpy(tree: dict, cfg, device=None) -> dict:
     """The port's params from the JAX package's ``init_params(key,
     cfg)[0]`` tree, as (nested dicts of) numpy arrays with stacked
     leading-L layer leaves."""
-    _require_rwkv6(cfg)
+    _check_block(cfg)
     dev = _device(device)
     want = init_params(0, cfg.reduced(num_layers=1), "cpu")
 
@@ -74,58 +107,86 @@ def params_from_numpy(tree: dict, cfg, device=None) -> dict:
     return conv(tree, want, "")
 
 
+#: The layer leaves each block casts to the compute dtype where it uses
+#: them (matmul weights, and the Mamba conv taps and biases).
+_CAST_LEAVES = {
+    "rwkv6": frozenset(ssm.MATMUL_WEIGHTS),
+    "hymba": frozenset(attention.ATTN_WEIGHTS + ssm.MAMBA_WEIGHTS
+                       + layers.MLP_WEIGHTS),
+}
+
+
 def compute_params(params: dict, cfg) -> dict:
-    """The params the forward multiplies: each block matmul weight and the
-    unembedding cast once to ``cfg.compute_dtype`` — the bits of the JAX
-    package's per-use ``astype`` — every other leaf as it is (the decay
-    LoRA, norms and lerps stay f32).  At an f32 compute dtype this is
+    """The params the forward multiplies: each leaf a block casts to the
+    compute dtype where it uses it, and the unembedding, cast once to
+    ``cfg.compute_dtype`` — the bits of the JAX package's per-use
+    ``astype`` — every other leaf as it is (norms, lerps, the decay LoRA,
+    a_log and d_skip stay f32).  At an f32 compute dtype this is
     ``params``' own tensors."""
     cdt = layers.dtype_of(cfg.compute_dtype)
-    lay = {k: (v.to(cdt) if k in ssm.MATMUL_WEIGHTS else v)
-           for k, v in params["layers"].items()}
+    cast = _CAST_LEAVES[cfg.block_type]
+
+    def conv(node):
+        return {k: conv(v) if isinstance(v, dict)
+                else (v.to(cdt) if k in cast else v)
+                for k, v in node.items()}
+
     emb = dict(params["embed"])
     if "unembed" in emb:
         emb["unembed"] = emb["unembed"].to(cdt)
-    return dict(params, embed=emb, layers=lay)
+    return dict(params, embed=emb, layers=conv(params["layers"]))
 
 
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
-def _apply_layer(p, x, *, cfg, cache=None, decode_pos=None):
+def _apply_layer(p, x, *, cfg, positions, window, cache=None,
+                 decode_pos=None):
     """Returns (x, new_cache).  A one-token input with a cache takes the
     decode branch (a prompt of length 1 too); longer inputs prefill from a
     zero state."""
-    _require_rwkv6(cfg)
     train_mode = cache is None and decode_pos is None
-    if cache is not None and x.shape[1] == 1:
-        x, new_cache = ssm.rwkv6_block_decode(p, x, cfg, cache)
-    else:
-        x, new_cache = ssm.rwkv6_block_apply(p, x, cfg)
-    if train_mode:
-        new_cache = None
-    return x, new_cache
+    if cfg.block_type == "rwkv6":
+        if cache is not None and x.shape[1] == 1:
+            x, new_cache = ssm.rwkv6_block_decode(p, x, cfg, cache)
+        else:
+            x, new_cache = ssm.rwkv6_block_apply(p, x, cfg)
+        return x, None if train_mode else new_cache
+    h = layers.rms_norm(x, p["ln_attn"] - 1.0, cfg.norm_eps)
+    a, new_cache = hymba.hymba_block_apply(
+        p["mix"], h, cfg=cfg, positions=positions, window=window,
+        cache=cache, decode_pos=decode_pos)
+    x = x + a
+    h2 = layers.rms_norm(x, p["ln_mlp"] - 1.0, cfg.norm_eps)
+    x = x + layers.mlp_apply(p["ffn"], h2, cfg)
+    return x, None if train_mode else new_cache
 
 
 def forward(params, tokens: torch.Tensor, cfg, *, cache=None,
             decode_pos=None):
     """tokens (B, S) -> (hidden (B, S, d), new_cache).  (The JAX
-    package's third output, the MoE auxiliary loss, is 0 for RWKV6.)"""
+    package's third output, the MoE auxiliary loss, is 0 for these
+    blocks.)"""
+    _check_block(cfg)
+    s = tokens.shape[1]
     x = layers.embed_apply(params["embed"], tokens, cfg)
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    if decode_pos is not None:
+        positions = positions + decode_pos
     per_layer = []
     for i in range(cfg.num_layers):
-        p_l = {k: v[i] for k, v in params["layers"].items()}
+        p_l = _tree_map(lambda v: v[i], params["layers"])
         c_l = None if cache is None else \
-            {k: v[i] for k, v in cache["scan"].items()}
-        x, nc = _apply_layer(p_l, x, cfg=cfg, cache=c_l,
+            _tree_map(lambda v: v[i], cache["scan"])
+        x, nc = _apply_layer(p_l, x, cfg=cfg, positions=positions,
+                             window=cfg.window_for_layer(i), cache=c_l,
                              decode_pos=decode_pos)
         per_layer.append(nc)
     x = layers.rms_norm(x, params["final_norm"] - 1.0, cfg.norm_eps)
     new_cache = None
     if cache is not None or decode_pos is not None:
-        new_cache = dict(scan={k: torch.stack([c[k] for c in per_layer])
-                               for k in per_layer[0]})
+        new_cache = dict(scan=_tree_stack(per_layer))
     return x, new_cache
 
 
@@ -135,12 +196,19 @@ def forward(params, tokens: torch.Tensor, cfg, *, cache=None,
 
 def _layer_cache_spec(cfg, bsz: int, max_len: int) -> dict:
     """(shape, dtype) of each leaf of ONE layer's cache."""
-    _require_rwkv6(cfg)
+    _check_block(cfg)
     cdt = layers.dtype_of(cfg.compute_dtype)
-    out = dict(shift_att=((bsz, cfg.d_model), cdt),
-               shift_ffn=((bsz, cfg.d_model), cdt),
-               wkv=((bsz, cfg.num_heads, cfg.head_dim, cfg.head_dim),
-                    torch.float32))
+    if cfg.block_type == "rwkv6":
+        out = dict(shift_att=((bsz, cfg.d_model), cdt),
+                   shift_ffn=((bsz, cfg.d_model), cdt),
+                   wkv=((bsz, cfg.num_heads, cfg.head_dim, cfg.head_dim),
+                        torch.float32))
+    else:
+        di = cfg.d_model
+        kv = ((bsz, max_len, cfg.num_kv_heads, cfg.head_dim), cdt)
+        out = dict(attn=dict(k=kv, v=kv),
+                   conv=((bsz, cfg.ssm.conv_dim - 1, di), cdt),
+                   ssm=((bsz, di, cfg.ssm.state_dim), torch.float32))
     if cfg.mnf.enabled:
         # Per-token fired-event count of the gated decode (DESIGN.md §13).
         out["events"] = ((), torch.float32)
@@ -150,15 +218,14 @@ def _layer_cache_spec(cfg, bsz: int, max_len: int) -> dict:
 def cache_specs(cfg, bsz: int, max_len: int) -> dict:
     """(shape, dtype) of each leaf of the full decode cache (leading L)."""
     one = _layer_cache_spec(cfg, bsz, max_len)
-    return dict(scan={k: ((cfg.num_layers,) + shape, dt)
-                      for k, (shape, dt) in one.items()})
+    return dict(scan=_tree_map(lambda sd: ((cfg.num_layers,) + sd[0], sd[1]),
+                               one))
 
 
 def init_cache(cfg, bsz: int, max_len: int, device=None) -> dict:
     dev = _device(device)
-    return dict(scan={k: torch.zeros(shape, dtype=dt, device=dev)
-                      for k, (shape, dt) in
-                      cache_specs(cfg, bsz, max_len)["scan"].items()})
+    return _tree_map(lambda sd: torch.zeros(sd[0], dtype=sd[1], device=dev),
+                     cache_specs(cfg, bsz, max_len))
 
 
 def _logits(params, h: torch.Tensor, cfg) -> torch.Tensor:

@@ -26,6 +26,8 @@ from repro_torch.kernels.event_pool.ref import (event_pool_ref,
                                                 event_pool_window_ref)
 from repro_torch.kernels.fire_compact.ops import fire_compact
 from repro_torch.kernels.fire_compact.ref import fire_compact_ref
+from repro_torch.kernels.mamba_step.ops import mamba_step_events
+from repro_torch.kernels.mamba_step.ref import mamba_step_events_ref
 from repro_torch.kernels.wkv6_step.ops import wkv6_step_events
 from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
 from repro_torch.models import cnn, mlp
@@ -205,3 +207,33 @@ def test_wkv6_step_matches_plain(dev, g, d, threshold, case):
     assert _close(o, o2)
     if case == "all blocks dead":
         assert torch.equal(s_new, w[..., None] * s)
+
+
+@pytest.mark.parametrize("di", [40, 64, 1600])
+@pytest.mark.parametrize("threshold", [0.0, 0.3])
+def test_mamba_step_matches_plain(dev, di, threshold):
+    """B8 against its plain version on 4 rows: row 0 a zero gate (no
+    events), row 1 a gate below 0.05 (every block dead at θ = 0.3), rows
+    2-3 normal; DI 40 has a ragged last block.  h' bitwise (the multiply,
+    multiply, add in round-to-nearest intrinsics), y within 1e-4 of
+    max|plain| (an N-term sum in another order)."""
+    n = 16
+    gen = torch.Generator(device=dev).manual_seed(di)
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    g, bm, cm, h = f(4, di), f(4, n), f(4, n), f(4, di, n)
+    g[0] = 0.0
+    g[1] = (torch.rand(di, generator=gen, device=dev) - 0.5) * 0.1
+    da = torch.rand((4, di, n), generator=gen, device=dev) * 0.9 + 0.05
+    st = engine.fire_delta(g, engine.EngineConfig(threshold=threshold))
+    assert int(st.events.counts[0]) == 0
+    if threshold > 0:
+        assert int(st.events.counts[1]) == 0
+    launches = mamba_step_events.launches
+    y, h_new = mamba_step_events(st.events, da, bm, cm, h, blk_k=st.blk_k)
+    assert mamba_step_events.launches == launches + 1
+    y2, h2 = mamba_step_events_ref(st.events, da, bm, cm, h, blk_k=st.blk_k)
+    assert torch.equal(h_new, h2)
+    assert _close(y, y2)
+    assert torch.equal(h_new[0], h[0] * da[0])
+    if threshold > 0:
+        assert torch.equal(h_new[1], h[1] * da[1])

@@ -211,15 +211,17 @@ def test_recurrent_step_trace_and_outputs_match_jax(case):
 
 
 def test_get_config_names_the_roadmap_item_of_unported_archs():
-    cfg = get_config("rwkv6-7b")
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(
-        jget_config("rwkv6-7b"))
-    assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(
-        jget_config("rwkv6-7b").reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*B8"):
-        get_config("hymba-1.5b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for arch in ("rwkv6-7b", "hymba-1.5b"):
+        cfg = get_config(arch)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(
+            jget_config(arch))
+        assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(
+            jget_config(arch).reduced())
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue A item 12"):
         get_config("qwen2-0.5b")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        get_config("deepseek-v2-lite-16b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Where the host time of repro_torch's RWKV6-7B decode step goes, on one
-NVIDIA GPU.
+"""Where the host time of repro_torch's LM decode step goes, on one NVIDIA
+GPU.
 
-    python3 tools/torch_decode_profile.py [--layers 4] [--steps 5]
+    python3 tools/torch_decode_profile.py [--arch rwkv6-7b|hymba-1.5b]
+        [--layers 4] [--steps 5]
 
-Builds the full-width RWKV6-7B (d_model 4096, 64x64 heads, d_ff 14336,
-vocab 65536) cut to ``--layers`` layers, random weights from seed 0,
-prefills a batch-4, 32-token prompt and then, for the gated decode (MNF on
-at θ = 0, B7) and the ungated one, prints: whether any op of a decode step
+Builds the full-width model of ``--arch`` (RWKV6-7B: d_model 4096, 64x64
+heads, d_ff 14336, vocab 65536; Hymba-1.5B: d_model 1600, 25 query and 5
+KV heads of 64, Mamba state 16, d_ff 5504, vocab 32001) cut to
+``--layers`` layers, random weights from seed 0, prefills a batch-4,
+32-token prompt and then, for the gated decode (MNF on at θ = 0: B7 or B8)
+and the ungated one, prints: whether any op of a decode step
 syncs the host (``torch.cuda.set_sync_debug_mode("warn")``), the warm
 host ms per decode step, the CUDA launches per step, and the host ops by
 self CPU time (``torch.profiler``, CPU activity).  Needs a card; exits 2
@@ -31,6 +34,8 @@ BATCH, PROMPT = 4, 32
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="rwkv6-7b",
+                    choices=("rwkv6-7b", "hymba-1.5b"))
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
@@ -49,14 +54,14 @@ def main() -> int:
                           text=True).stdout.strip()
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(serve.lm_config("rwkv6-7b"),
+    cfg = dataclasses.replace(serve.lm_config(args.arch),
                               num_layers=args.layers)
     params = tfm.compute_params(tfm.init_params(0, cfg, "cuda"), cfg)
     prompts = serve.make_prompts(cfg, BATCH, PROMPT, 0, "cuda")
     ungated = dataclasses.replace(cfg, mnf=dataclasses.replace(
         cfg.mnf, enabled=False))
     for name, c in (("gated θ=0", cfg), ("ungated", ungated)):
-        logits, cache = tfm.prefill(params, prompts, c)
+        logits, cache = tfm.prefill(params, prompts, c, max_len=PROMPT + 1)
         tok = logits[:, -1].argmax(-1)[:, None]
 
         def step():
