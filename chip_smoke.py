@@ -8,7 +8,7 @@ Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
 the kernels):
 
 1. Probe and build: the card's name and power limit, TF32 off for the dense
-   oracles, the CUDA kernels (B1-B8) built from src/repro_torch/csrc.
+   oracles, the CUDA kernels (B1-B10) built from src/repro_torch/csrc.
 2. VGG16 at 224x224, full widths, batch 4 (four requests), f32 events.
    He weights from a seeded torch.Generator with weight sparsity 0.5,
    inputs relu(normal).  Every kernel's launch counter is set to 0 just
@@ -43,7 +43,7 @@ the kernels):
    (``launch.serve.run_lm``: prefill, then the greedy decode loop), batch
    4, prompt 32, 16 tokens.  The main path is the config as published:
    MNF on at θ = 0, bf16.  B7 must launch 32 x 16 times in each gated
-   decode and never in the ungated one, B1-B6 and B8 never, nor in the
+   decode and never in the ungated one, B1-B6 and B8-B10 never, nor in the
    prefill; every recurrent_step
    record chained on route "event", no fallback_decode; every B7 launch
    of the main path and of a θ > 0 run replayed against the plain version
@@ -53,18 +53,32 @@ the kernels):
    the ungated decode's inputs, within 1e-4 of max|logits| at every step.
    Prints prefill ms, decode tokens/s (gated θ=0, gated θ>0, ungated,
    bf16), events per token, how many greedy tokens the gated and ungated
-   decodes share, and a profile line.
+   decodes share, and a profile line.  The prefill runs the chunked WKV6
+   form (plain torch); the exact recurrence B9/B9' runs as an op on what
+   it computes: the (r, k, v, w, u) that the prefill hands
+   ``ssm.wkv6_chunked`` at every layer at prompt 32, and at layer 0 of one
+   prefill at prompt 2000, are recorded, and B9' runs once on each (33
+   launches, w clamped as the chunked form clamps it), S bitwise and o
+   within 1e-4 of max|plain| against the plain version; B9 once on each
+   head of layer 0 at prompt 32 (64 launches), bitwise B9''s slice.  The
+   gap of B9' to the chunked output is printed, not held.
 7. Hymba-1.5B served at its published widths (32 layers, d_model 1600, 25
    query and 5 KV heads of 64, sliding window 1024 but in layers 0, 15 and
    31, Mamba heads of state 16 over DI 1600, d_ff 5504, vocab 32001;
    random f32 weights from seed 0 plus their bf16 copies, ~1.4 G params),
    after phase 6's model is freed, with the same driver, batch, prompt,
    tokens and checks as phase 6, for B8: 32 x 16 launches per gated
-   decode, none in the prefill or the ungated decode, B1-B7 none; every
-   B8 launch replayed (h' bitwise, y within 1e-4 of max|plain|); a θ > 0
-   run (the 0.4 quantile of block max|g|) with at least a quarter of the
-   (row, DI-block) pairs dead; f32 gated vs ungated within 1e-4 at every
-   step; prefill ms, tokens/s, profile line.
+   decode, none in the prefill or the ungated decode, B1-B7, B9 and B9'
+   none; every B8 launch replayed (h' bitwise, y within 1e-4 of
+   max|plain|); a θ > 0 run (the 0.4 quantile of block max|g|) with at
+   least a quarter of the (row, DI-block) pairs dead; f32 gated vs
+   ungated within 1e-4 at every step; prefill ms, tokens/s, profile line.
+   The prefill's selective scan is B10, one launch a layer and scan chunk
+   (32 per prefill at prompt 32, in every served run); every B10 launch
+   of the main path replayed (h bitwise, y within 1e-4 of max|plain|).
+   One prefill at prompt 2000 (the sliding window of 1024 binds): 128
+   B10 launches (4 chunks a layer, h carried across), layer 0's 4
+   replayed, finite logits, its time (best of 3).
 3. Kernel checks: each kernel against its plain PyTorch version on the
    inputs the forwards handed it (B1, B2 and B5 at the shapes of both
    VGG16 and LeNet-300-100), plus the strip convs at stride 4 and 2
@@ -76,9 +90,11 @@ the kernels):
    matmuls, strip convs and pools are also held against torch.matmul,
    F.conv2d and F.max_pool2d on the decoded (dequantized) maps (the same
    tolerance; pools exact).  B7 and B8 at the main path's shapes of
-   phases 6 and 7 (no single PyTorch call computes either step: their
-   library columns are null).  Prints each kernel's time, the plain version's, one PyTorch
-   library call's on the same function, and the bound.
+   phases 6 and 7, B9, B9' and B10 at prompt 32, B9' and B10 also at
+   prompt 2000 (one layer); no single PyTorch call computes a recurrent
+   step or scan: their library columns are null.  Prints each kernel's
+   time, the plain version's, one PyTorch library call's on the same
+   function, and the bound.
 
 The last lines are the card line, a JSON line of per-kernel numbers, and
 the result line {"ok": true, "device": {...}}.
@@ -119,6 +135,12 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
                   "src/repro/kernels/wkv6/step.py:150"),
     "mamba_step": ("src/repro_torch/csrc/mamba_step.cu",
                    "src/repro/kernels/mamba_scan/step.py:124"),
+    "wkv6_single": ("src/repro_torch/csrc/wkv6.cu",
+                    "src/repro/kernels/wkv6/kernel.py:70"),
+    "wkv6": ("src/repro_torch/csrc/wkv6.cu",
+             "src/repro/kernels/wkv6/ops.py:42"),
+    "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan/kernel.py:70"),
 }
 
 #: Launches per chained forward that the route plan gives (the JAX
@@ -126,16 +148,20 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
 #: that path and must not launch.
 PLAN_F32_VGG = dict(fire_compact=20, event_matmul=57, event_conv=7,
                     event_pool_window=2, event_pool=3, event_matmul_int8=0,
-                    event_conv_int8=0, wkv6_step=0, mamba_step=0)
+                    event_conv_int8=0, wkv6_step=0, mamba_step=0,
+                    wkv6_single=0, wkv6=0, mamba_scan=0)
 PLAN_INT8_VGG = dict(fire_compact=0, event_matmul=0, event_conv=1,
                      event_pool_window=2, event_pool=3, event_matmul_int8=57,
-                     event_conv_int8=6, wkv6_step=0, mamba_step=0)
+                     event_conv_int8=6, wkv6_step=0, mamba_step=0,
+                     wkv6_single=0, wkv6=0, mamba_scan=0)
 PLAN_F32_MLP = dict(fire_compact=2, event_matmul=3, event_conv=0,
                     event_pool_window=0, event_pool=0, event_matmul_int8=0,
-                    event_conv_int8=0, wkv6_step=0, mamba_step=0)
+                    event_conv_int8=0, wkv6_step=0, mamba_step=0,
+                    wkv6_single=0, wkv6=0, mamba_scan=0)
 PLAN_INT8_MLP = dict(fire_compact=0, event_matmul=1, event_conv=0,
                      event_pool_window=0, event_pool=0, event_matmul_int8=2,
-                     event_conv_int8=0, wkv6_step=0, mamba_step=0)
+                     event_conv_int8=0, wkv6_step=0, mamba_step=0,
+                     wkv6_single=0, wkv6=0, mamba_scan=0)
 
 
 class SmokeFailure(Exception):
@@ -454,20 +480,39 @@ def teacher_forced(torch, F, cnn, layers, params, x, fires, logits):
 #: The serve driver's defaults (``repro_torch.launch.serve``).
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 16
 
+#: The long prompt of one prefill-only run per model: past Hymba's
+#: sliding window of 1024, and 4 of Hymba's scan chunks of 512.
+LM_LONG = 2000
+
 #: Share of the (row, K-block) pairs of the main path's increment drive
 #: that the θ > 0 run's threshold is set to kill (its quantile of block
 #: max|drive|).
 DEAD_TARGET = 0.4
 
 #: Per served model: its phase, the gated step's kernel (wrapper name),
+#: the prefill's kernel (or None: RWKV6's prefill scan is plain torch),
 #: and the names its output lines use for the kernel, the state, the
 #: readout and the drive.
 LM_PHASES = {
-    "rwkv6-7b": dict(tag="[6]", kernel="wkv6_step", label="B7", state="S'",
-                     readout="o", drive="k"),
+    "rwkv6-7b": dict(tag="[6]", kernel="wkv6_step", label="B7", scan=None,
+                     state="S'", readout="o", drive="k"),
     "hymba-1.5b": dict(tag="[7]", kernel="mamba_step", label="B8",
-                       state="h'", readout="y", drive="g"),
+                       scan="mamba_scan", state="h'", readout="y",
+                       drive="g"),
 }
+
+
+class FirstCalls(list):
+    """A wrapper's capture list that keeps only its first ``n`` launches
+    (the rest are counted, not kept)."""
+
+    def __init__(self, n: int):
+        super().__init__()
+        self.n = n
+
+    def append(self, item):
+        if len(self) < self.n:
+            super().append(item)
 
 
 def wkv6_work(bev, r):
@@ -498,6 +543,117 @@ def mamba_work(bev, h):
     return nbytes, 3.0 * b * di * n + 2.0 * slots * bk * n
 
 
+def wkv6_scan_work(g, t, d, heads, s0):
+    """Bytes and operations one B9/B9' launch needs: r, k, v, w read and o
+    written once (f32, G x T x D each), u and s0 (when given) read and S
+    written once; per row and token 5 D^2 (the readout's multiply-add, the
+    decay's multiply, the increment's multiply and add) and 5 D (the bonus
+    r u k and o = att v + readout)."""
+    nbytes = 5 * g * t * d * 4 + heads * d * 4 \
+        + (2 if s0 is not None else 1) * g * d * d * 4
+    return nbytes, g * t * (5.0 * d * d + 5.0 * d)
+
+
+def mamba_scan_work(da, h0):
+    """Bytes and operations one B10 launch needs: da and dbx read once
+    (B, T, DI, N) f32, c read and y written, h0 (when given) read and h
+    written once; per state element and step a multiply and an add (the
+    update) and a multiply and an add (the readout)."""
+    b, t, di, n = da.shape
+    nbytes = 2 * b * t * di * n * 4 + b * t * n * 4 + b * t * di * 4 \
+        + (2 if h0 is not None else 1) * b * di * n * 4
+    return nbytes, 4.0 * b * t * di * n
+
+
+def record_wkv(limit=None):
+    """Patch ``models.ssm.wkv6_chunked`` to record, for its first ``limit``
+    calls (all when None), ((r, k, v, w, u), o): what the RWKV6 prefill
+    hands the chunked WKV at each layer and what it returns.  Returns
+    (records, undo)."""
+    from repro_torch.models import ssm
+    orig, records = ssm.wkv6_chunked, []
+
+    def recording(r, k, v, w, u, s0=None, *, chunk=32):
+        o, s = orig(r, k, v, w, u, s0, chunk=chunk)
+        check(s0 is None, "the prefill handed the chunked WKV a state")
+        if limit is None or len(records) < limit:
+            records.append(((r, k, v, w, u), o))
+        return o, s
+
+    ssm.wkv6_chunked = recording
+    return records, lambda: setattr(ssm, "wkv6_chunked", orig)
+
+
+def wkv_ops(torch, engine, wrappers, layers, long) -> dict:
+    """Phase 6's B9/B9' ops on the RWKV6-7B prefill's own inputs: B9' once
+    on each recorded layer (``layers`` at prompt 32, ``long`` layer 0 at
+    prompt 2000), with w clamped as the chunked form clamps it, so that
+    both compute one function; B9 once on each head of layer 0 at prompt
+    32.  Checks: the counts; B9' S bitwise and o within 1e-4 of max|plain|
+    against the plain version; B9 bitwise B9''s slices.  Prints B9''s gap
+    to the chunked output per layer (not held: the chunked form is exact
+    in exact arithmetic only)."""
+    from repro_torch.kernels.wkv6.ref import wkv6_multihead_ref
+    from repro_torch.models import ssm
+    w_min = torch.exp(torch.tensor(ssm.WKV_LOG_DECAY_MIN,
+                                   dtype=torch.float32)).item()
+    recs = layers + long
+    inputs = [(r, k, v, torch.clamp(w.float(), w_min, 1.0), u)
+              for (r, k, v, w, u), _ in recs]
+    clamped = sum(int((w.float() < w_min).sum()) for (_, _, _, w, _), _
+                  in recs) / sum(w.numel() for (_, _, _, w, _), _ in recs)
+    b9, b9p = wrappers["wkv6_single"], wrappers["wkv6"]
+    r, k, v, w, u = inputs[0]
+    heads = r.shape[1]
+
+    def run_ops():
+        return ([b9p(*a) for a in inputs],
+                [b9(r[:, h], k[:, h], v[:, h], w[:, h], u[h])
+                 for h in range(heads)])
+
+    (outs, per_head), _, launches, _, _ = drive_counted(
+        torch, engine, wrappers, run_ops, capture=False)
+    plan = {n: 0 for n in wrappers} | {"wkv6": len(inputs),
+                                       "wkv6_single": heads}
+    check_plan("[6] B9/B9' ops", launches, plan)
+    check(launches["wkv6"] == len(inputs)
+          and launches["wkv6_single"] == heads,
+          f"[6] B9/B9' ops: launches {launches}, want {plan}")
+    worst, gaps = 0.0, []
+    for a, (o, s), (_, o_chunk) in zip(inputs, outs, recs):
+        o2, s2 = wkv6_multihead_ref(*a)
+        check(torch.equal(s, s2), f"[6] B9' at {tuple(a[0].shape)}: S is "
+              f"not bitwise the plain version's")
+        ratio = float((o - o2).abs().max()) / max(float(o2.abs().max()),
+                                                  1e-30)
+        check(ratio <= 1e-4, f"[6] B9' at {tuple(a[0].shape)}: o off the "
+              f"plain version by {ratio:.3e} of max|plain|")
+        worst = max(worst, ratio)
+        gaps.append(float((o - o_chunk).abs().max())
+                    / max(float(o_chunk.abs().max()), 1e-30))
+    o0, s0 = outs[0]
+    for h, (oh, sh) in enumerate(per_head):
+        check(torch.equal(oh, o0[:, h]) and torch.equal(sh, s0[:, h]),
+              f"[6] B9 on head {h} is not bitwise B9''s slice")
+    print(f"[6] B9' on the prefill's WKV inputs (w clamped at "
+          f"{w_min:.6f} as the chunked form clamps it; {clamped:.2e} of "
+          f"the w values lay below): {len(layers)} layers at prompt "
+          f"{LM_PROMPT} {tuple(layers[0][0][0].shape)} and layer 0 at "
+          f"prompt {LM_LONG} {tuple(long[0][0][0].shape)}: {launches['wkv6']}"
+          f" launches, S bitwise the plain version's, o worst {worst:.3e} "
+          f"of max|plain| (limit 1e-4); B9 on each of the {heads} heads "
+          f"of layer 0: {launches['wkv6_single']} launches, bitwise B9''s "
+          f"slices", flush=True)
+    print(f"[6] B9' (exact recurrence) vs the model's chunked WKV output, "
+          f"max|d o| / max|o| per layer (printed, not held): prompt "
+          f"{LM_PROMPT} worst {max(gaps[:-1]):.3e} "
+          f"{[f'{g:.1e}' for g in gaps[:-1]]}; prompt {LM_LONG} layer 0 "
+          f"{gaps[-1]:.3e}", flush=True)
+    return dict(wkv_main=inputs[0], wkv_long=inputs[-1],
+                wkv6_launches=launches["wkv6"],
+                wkv6_single_launches=launches["wkv6_single"])
+
+
 def describe(cfg) -> str:
     ssm = (f", Mamba state {cfg.ssm.state_dim} x DI {cfg.d_model}"
            if cfg.ssm is not None else "")
@@ -511,27 +667,34 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
     """Phase 6 (RWKV6-7B, B7) or 7 (Hymba-1.5B, B8): the model at full
     width (f32 weights from seed 0 plus the compute-dtype copies of the
     leaves its blocks cast), batch 4, prompt 32, 16 greedy tokens through
-    ``launch.serve.run_lm``.  Checks: the prefill launches no kernel; the
-    gated step's kernel launches L x 16 times in each gated decode and
-    none in the ungated one, no other kernel launches; every
+    ``launch.serve.run_lm``.  Checks: the prefill launches the prefill's
+    kernel (B10 for Hymba: L x ceil(prompt / scan chunk) times) and no
+    other; the gated step's kernel launches L x 16 times in each gated
+    decode and none in the ungated one, no other kernel launches; every
     recurrent_step record chained on route "event", no fallback_decode;
     each launch of the main path and of the θ > 0 run replayed against
     the plain version ``ref`` (the state bitwise, the readout within 1e-4
-    of max); the θ > 0 run kills at least a quarter of the (row, K-block)
-    pairs; in f32, the gated decode (teacher-forced on the ungated one's
-    inputs) within 1e-4 of max|logits| at every step.  Returns the
-    numbers and the main path's last capture for phase 3."""
+    of max), and each B10 launch of the main path against its plain
+    version alike; the θ > 0 run kills at least a quarter of the (row,
+    K-block) pairs; in f32, the gated decode (teacher-forced on the
+    ungated one's inputs) within 1e-4 of max|logits| at every step.  A
+    prefill at prompt 2000: the launches, finite logits, its time; for
+    Hymba layer 0's B10 launches replayed, for RWKV6 the B9/B9' ops
+    (``wkv_ops``) on what it and the prompt-32 prefill hand the chunked
+    WKV.  Returns the numbers and the main path's last captures for
+    phase 3."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.core import events as ev
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tfm
 
     spec = LM_PHASES[arch]
     tag, name, label = spec["tag"], spec["kernel"], spec["label"]
     st, ro, dr = spec["state"], spec["readout"], spec["drive"]
-    kern = wrappers[name]
+    kern, scan = wrappers[name], spec["scan"]
     cfg = get_config(arch) if cfg is None else cfg
     check(cfg.mnf.enabled and cfg.mnf.threshold == 0.0
           and cfg.compute_dtype == "bfloat16", f"unexpected config {cfg}")
@@ -555,28 +718,74 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
     def mnf(c, **kw):
         return dataclasses.replace(c, mnf=dataclasses.replace(c.mnf, **kw))
 
-    per_decode = cfg.num_layers * LM_GEN
-    gated_plan = {n: 0 for n in wrappers} | {name: per_decode}
-    dense_plan = {n: 0 for n in wrappers}
+    def prefill_plan(plen):
+        """Launches of a prefill of ``plen`` tokens: B10 once a layer and
+        scan chunk (Hymba), no kernel for RWKV6 (its scan is the chunked
+        form in plain torch); the fire-gated step runs only in decodes."""
+        plan = {n: 0 for n in wrappers}
+        if scan:
+            plan[scan] = cfg.num_layers * -(-plen // cfg.ssm.scan_chunk)
+        return plan
 
-    # The prefill alone launches no kernel of the port: its scans are
-    # plain torch, and the fire-gated step runs only in the decode.
-    _, recs, launches, _, _ = drive_counted(
-        torch, engine, wrappers,
-        lambda: tfm.prefill(params, prompts, cfg,
-                            max_len=LM_PROMPT + LM_GEN), capture=False)
-    check_plan(f"{tag} prefill", launches, dense_plan)
-    check(not any(r.get("op") == "recurrent_step" for r in recs),
-          f"{tag} prefill ran a recurrent_step")
+    def prefill_only(ptag, plen, toks, fn=None):
+        """One prefill of ``toks`` (``fn`` runs first, inside the count):
+        its launches as planned, no recurrent_step, finite logits."""
+        plan = prefill_plan(plen)
+        max_len = max(plen, LM_PROMPT + LM_GEN)
+
+        def go():
+            if fn is not None:
+                fn()
+            return tfm.prefill(params, toks, cfg, max_len=max_len)
+        (logits, _), recs, launches, _, _ = drive_counted(
+            torch, engine, wrappers, go, capture=False)
+        check_plan(ptag, launches, plan)
+        check(launches == plan, f"{ptag}: launches {launches}, want {plan}")
+        check(not any(r.get("op") == "recurrent_step" for r in recs),
+              f"{ptag} ran a recurrent_step")
+        check(logits.shape == (LM_BATCH, 1, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{ptag}: logits {tuple(logits.shape)} not finite")
+
+    def replay_scan(rtag, caps):
+        """Each captured B10 launch against the plain version: h bitwise, y
+        within 1e-4 of max|plain|.  Returns (worst y ratio, the replayed
+        final states)."""
+        worst, hs = 0.0, []
+        for args, _ in caps:
+            y, h = wrappers[scan](*args)
+            y2, h2 = mamba_scan_ref(*args)
+            check(torch.equal(h, h2), f"{rtag}: B10's h is not bitwise the "
+                  f"plain version's")
+            ratio = float((y - y2).abs().max()) / max(
+                float(y2.abs().max()), 1e-30)
+            check(ratio <= 1e-4, f"{rtag}: B10's y off the plain version "
+                  f"by {ratio:.3e} of max|plain|")
+            worst = max(worst, ratio)
+            hs.append(h)
+        return worst, hs
+
+    per_decode = cfg.num_layers * LM_GEN
+    dense_plan = prefill_plan(LM_PROMPT)
+    gated_plan = dense_plan | {name: per_decode}
+
+    # The prefill alone; RWKV6 records what it hands the chunked WKV at
+    # every layer, for the B9/B9' ops.
+    if scan is None:
+        wkv_in, undo = record_wkv()
+    try:
+        prefill_only(f"{tag} prefill", LM_PROMPT, prompts)
+    finally:
+        if scan is None:
+            undo()
 
     def served(stag, c, p, plan, capture=False, **kw):
         run, recs, launches, caps, _ = drive_counted(
             torch, engine, wrappers,
             lambda: serve.run_lm(p, c, prompts, LM_GEN, **kw), capture)
         check_plan(stag, launches, plan)
-        check(launches[name] == plan[name],
-              f"{stag}: {launches[name]} {label} launches, want "
-              f"{plan[name]}")
+        check(all(launches[n] == plan[n] for n in (name, scan) if n),
+              f"{stag}: launches {launches}, want {plan}")
         steps = [r for r in recs if r.get("op") == "recurrent_step"]
         check(len(steps) == launches[name] and all(
             r.get("chained") and r.get("route") == "event"
@@ -594,7 +803,7 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
             check(run["logits"].shape == (LM_GEN, LM_BATCH, cfg.vocab_size)
                   and bool(torch.isfinite(run["logits"]).all()),
                   f"{stag}: logits not finite of the expected shape")
-        return run, caps[name]
+        return run, caps
 
     def replay(rtag, caps):
         """Each captured launch against the plain version: the state
@@ -619,7 +828,13 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
     # The main path: the config as published, MNF on at θ = 0, bf16.
     run_a, caps_a = served(f"{tag} gated θ=0 bf16", cfg, params, gated_plan,
                            capture=True, keep_logits=True)
-    worst_a, dead_a = replay(f"{tag} gated θ=0", caps_a)
+    worst_a, dead_a = replay(f"{tag} gated θ=0", caps_a[name])
+    if scan:
+        worst_s, _ = replay_scan(f"{tag} gated θ=0", caps_a[scan])
+        print(f"{tag} main path: every B10 launch of the prefill replayed "
+              f"({len(caps_a[scan])}, at {tuple(caps_a[scan][0][0][0].shape)}"
+              f"): h bitwise, y worst {worst_s:.3e} of max|plain|",
+              flush=True)
     ev_a = run_a["events"].sum(1)
     run_b, _ = served(f"{tag} ungated bf16", mnf(cfg, enabled=False), params,
                       dense_plan)
@@ -627,12 +842,12 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
     # θ > 0: the DEAD_TARGET quantile of block max|drive| over the main
     # path's drive
     blockmax = torch.cat([args[0].values.abs().amax(dim=(2, 3)).flatten()
-                          for args, _ in caps_a])
+                          for args, _ in caps_a[name]])
     theta = float(f"{float(torch.quantile(blockmax, DEAD_TARGET)):.3g}")
     cfg_th = mnf(cfg, threshold=theta)
     run_c, caps_c = served(f"{tag} gated θ={theta} bf16", cfg_th, params,
                            gated_plan, capture=True)
-    worst_c, dead_c = replay(f"{tag} gated θ={theta}", caps_c)
+    worst_c, dead_c = replay(f"{tag} gated θ={theta}", caps_c[name])
     del caps_c
     ev_c = run_c["events"].sum(1)
     print(f"{tag} main path (θ=0, bf16): every {label} launch replayed: "
@@ -688,10 +903,212 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
     profile(torch, lambda: serve.run_lm(params, cfg, prompts, LM_GEN),
             f"{tag} gated θ=0 bf16 serve (prefill + {LM_GEN} decode steps)",
             steps=1)
-    return dict(caps=caps_a[-1:], launches=per_decode, theta=theta,
-                dead=dead_c, tok_s=tok_s, prefill_ms=prefill_ms,
-                events=float(ev_a.mean()), agree=agree,
-                f32_ratio=max(ratios))
+    out = dict(caps=caps_a[name][-1:], launches=per_decode, theta=theta,
+               dead=dead_c, tok_s=tok_s, prefill_ms=prefill_ms,
+               events=float(ev_a.mean()), agree=agree,
+               f32_ratio=max(ratios))
+    if scan:
+        out.update(scan_caps=caps_a[scan][-1:],
+                   scan_launches=dense_plan[scan])
+    del caps_a
+
+    # One prefill at prompt 2000: Hymba keeps layer 0's B10 launches (4
+    # chunks; da and dbx are ~1.6 GB a layer at this length) and replays
+    # them; RWKV6 records layer 0's chunked-WKV inputs.
+    long = serve.make_prompts(cfg, LM_BATCH, LM_LONG, 0, device)
+    ltag = f"{tag} prefill at prompt {LM_LONG}"
+    if scan:
+        keep = FirstCalls(-(-LM_LONG // cfg.ssm.scan_chunk))
+        prefill_only(ltag, LM_LONG, long,
+                     lambda: setattr(wrappers[scan], "capture", keep))
+        worst_l, hs = replay_scan(ltag, keep)
+        check(keep[0][0][3] is None and all(
+            torch.equal(h, args[3]) for h, (args, _) in zip(hs, keep[1:])),
+              f"{ltag}: layer 0's B10 launches do not carry h")
+        out.update(scan_long=list(keep))
+        detail = (f"B10 x{prefill_plan(LM_LONG)[scan]}; layer 0's "
+                  f"{len(keep)} launches (T {[a[0].shape[1] for a, _ in keep]}"
+                  f", h carried) replayed: h bitwise, y worst {worst_l:.3e} "
+                  f"of max|plain|")
+    else:
+        wkv_long, undo = record_wkv(limit=1)
+        try:
+            prefill_only(ltag, LM_LONG, long)
+        finally:
+            undo()
+        detail = "no kernel"
+    _, times = host_ms(torch, lambda: tfm.prefill(params, long, cfg,
+                                                  max_len=LM_LONG))
+    out["long_ms"] = min(times)
+    print(f"{ltag}, batch {LM_BATCH}, bf16: {detail}; finite logits; "
+          f"{out['long_ms']:.3f} ms (best of 3: "
+          f"{[round(t, 3) for t in times]})", flush=True)
+    if scan is None:
+        out.update(wkv_ops(torch, engine, wrappers, wkv_in, wkv_long))
+    return out
+
+
+def lm_kernels(torch, rwkv, hymba, report, close) -> dict:
+    """Phase 3 for the LM kernels, each at its main-path shape against its
+    plain version: B7 and B8 at the last launch of phases 6 and 7's main
+    paths, B9' and B9 on layer 0's recorded prefill inputs of phase 6, B10
+    at the last B10 launch of phase 7's main path; B9' and B10 also at
+    prompt 2000 (one layer).  Every launch of the phases was held against
+    the plain version there.  Returns the prompt-2000 times (ms)."""
+    from repro_torch.core import events as ev
+    from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    from repro_torch.kernels.mamba_step import ops as mamba_ops
+    from repro_torch.kernels.mamba_step.kernel import mamba_step_cuda
+    from repro_torch.kernels.mamba_step.ref import mamba_step_events_ref
+    from repro_torch.kernels.wkv6 import ops as wkv_scan_ops
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+    from repro_torch.kernels.wkv6.ref import wkv6_multihead_ref, wkv6_ref
+    from repro_torch.kernels.wkv6_step import ops as wkv6_ops
+    from repro_torch.kernels.wkv6_step.kernel import wkv6_step_cuda
+    from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
+
+    # B7 wkv6_step: the main path's last launch (RWKV6-7B, batch 4, θ=0);
+    # every launch of phase 6 was held against the plain version there
+    (args, kw), = rwkv["caps"]
+    bev, r_, v_, w_, u_, s_ = args
+    live = ev.live_block_mask(bev).to(torch.int32)
+    kargs = (bev.values, bev.block_idx, bev.counts, live, r_, v_, w_, u_, s_)
+    o, s_new = wkv6_step_cuda(*kargs)
+    o2, s2 = wkv6_step_events_ref(*args, **kw)
+    check(torch.equal(s_new, s2), "wkv6_step: S' != plain bitwise")
+    err = close(o, o2, "wkv6_step o")
+    wrapper_ms = graph_ms(torch, lambda: wkv6_ops.wkv6_step_events(*args,
+                                                                   **kw), 50)
+    report("wkv6_step", err, graph_ms(torch, lambda: wkv6_step_cuda(*kargs),
+                                      50),
+           cuda_ms(torch, lambda: wkv6_step_events_ref(*args, **kw), 5),
+           None, bound_ms(*wkv6_work(bev, r_)),
+           f" at rows {tuple(r_.shape)}, state {tuple(s_.shape)}, events "
+           f"{tuple(bev.values.shape)}; the wrapper with its live mask "
+           f"{wrapper_ms:.4f} ms; {rwkv['launches'] // LM_GEN} launches "
+           f"per token")
+    del rwkv["caps"], args, kargs
+
+    # B8 mamba_step: the main path's last launch (Hymba-1.5B, batch 4,
+    # θ=0); every launch of phase 7 was held against the plain version there
+    (args, kw), = hymba["caps"]
+    bev, da_, bm_, cm_, h_ = args
+    live = ev.live_block_mask(bev).to(torch.int32)
+    kargs = (bev.values, bev.block_idx, bev.counts, live, da_, bm_, cm_, h_)
+    y, h_new = mamba_step_cuda(*kargs)
+    y2, h2 = mamba_step_events_ref(*args, **kw)
+    check(torch.equal(h_new, h2), "mamba_step: h' != plain bitwise")
+    err = close(y, y2, "mamba_step y")
+    wrapper_ms = graph_ms(torch, lambda: mamba_ops.mamba_step_events(
+        *args, **kw), 50)
+    report("mamba_step", err, graph_ms(torch, lambda: mamba_step_cuda(*kargs),
+                                       50),
+           cuda_ms(torch, lambda: mamba_step_events_ref(*args, **kw), 5),
+           None, bound_ms(*mamba_work(bev, h_)),
+           f" at state {tuple(h_.shape)}, B/C {tuple(bm_.shape)}, events "
+           f"{tuple(bev.values.shape)}; the wrapper with its live mask "
+           f"{wrapper_ms:.4f} ms; {hymba['launches'] // LM_GEN} launches "
+           f"per token")
+    del hymba["caps"], args, kargs
+
+    # B9' (wkv6) and B9 (wkv6_single): layer 0's inputs of phase 6's
+    # prefill at prompt 32 (every launch there was held against the plain
+    # version), B9 on head 0's rows; B9' also at prompt 2000
+    def wkv_rows(a):
+        """B9''s launcher arguments for the op's (B, H, T, D) inputs."""
+        r_, k_, v_, w_, u_ = a
+        b, h, t, d = r_.shape
+        fl = lambda x: x.float().reshape(b * h, t, d).contiguous()
+        return (fl(r_), fl(k_), fl(v_), fl(w_), u_.float().contiguous(),
+                None), h
+
+    kargs, heads = wkv_rows(rwkv["wkv_main"])
+    o, s_new = wkv6_cuda(*kargs, heads=heads)
+    o2, s2 = wkv6_multihead_ref(*rwkv["wkv_main"])
+    check(torch.equal(s_new, s2.reshape(s_new.shape)),
+          "wkv6: S != plain bitwise")
+    err = close(o, o2.reshape(o.shape), "wkv6 o")
+    g, t, d = kargs[0].shape
+    wrapper_ms = graph_ms(torch, lambda: wkv_scan_ops.wkv6(*rwkv["wkv_main"]),
+                          20)
+    report("wkv6", err, graph_ms(torch, lambda: wkv6_cuda(*kargs,
+                                                          heads=heads), 20),
+           cuda_ms(torch, lambda: wkv6_multihead_ref(*rwkv["wkv_main"]), 1),
+           None, bound_ms(*wkv6_scan_work(g, t, d, heads, None)),
+           f" at RWKV6-7B layer 0's prefill rows ({g}, {t}, {d}) = batch "
+           f"{LM_BATCH} x {heads} heads, prompt {LM_PROMPT}; the wrapper "
+           f"with its f32 copies of the bf16 r, k, v {wrapper_ms:.4f} ms; "
+           f"an op: {rwkv['wkv6_launches']} launches on phase 6's "
+           f"recorded inputs, none on the model path")
+    # head 0's rows: row g = b * H + h of the flattened batch
+    head0 = lambda x: x.reshape(LM_BATCH, heads, *x.shape[1:])[:, 0]
+    one = tuple(head0(x).contiguous() for x in kargs[:4]) \
+        + (kargs[4][:1].contiguous(), None)
+    o1, s1 = wkv6_cuda(*one, heads=1)
+    check(torch.equal(o1, head0(o)) and torch.equal(s1, head0(s_new)),
+          "wkv6_single: != B9''s head 0 bitwise")
+    o2, s2 = wkv6_ref(*one[:4], kargs[4][0])
+    check(torch.equal(s1, s2), "wkv6_single: S != plain bitwise")
+    err = close(o1, o2, "wkv6_single o")
+    report("wkv6_single", err, graph_ms(torch, lambda: wkv6_cuda(
+               *one, heads=1), 50),
+           cuda_ms(torch, lambda: wkv6_ref(*one[:4], kargs[4][0]), 2), None,
+           bound_ms(*wkv6_scan_work(LM_BATCH, t, d, 1, None)),
+           f" at head 0's rows ({LM_BATCH}, {t}, {d}), bitwise B9''s slice; "
+           f"an op: {rwkv['wkv6_single_launches']} launches, one per head "
+           f"of layer 0, none on the model path")
+    kargs_l, heads = wkv_rows(rwkv["wkv_long"])
+    g, t, d = kargs_l[0].shape
+    ms_l = graph_ms(torch, lambda: wkv6_cuda(*kargs_l, heads=heads), 3)
+    plain_l = cuda_ms(torch, lambda: wkv6_multihead_ref(*rwkv["wkv_long"]),
+                      1)
+    b_l = bound_ms(*wkv6_scan_work(g, t, d, heads, None))
+    print(f"[3] wkv6 at prompt {LM_LONG} (RWKV6-7B layer 0, rows {(g, t, d)}"
+          f"): {ms_l:.4f} ms, plain {plain_l:.3f} ms, bound {b_l[0]:.4f} ms "
+          f"({b_l[1]})", flush=True)
+    out = dict(wkv_long_ms=ms_l)
+    del rwkv["wkv_main"], rwkv["wkv_long"], kargs, kargs_l, o, o2, one
+
+    # B10 mamba_scan: the main path's last launch (Hymba-1.5B, batch 4,
+    # prompt 32; every launch of phase 7's main path was held against the
+    # plain version there), then one layer at prompt 2000 (4 launches, h
+    # carried)
+    (args, _), = hymba["scan_caps"]
+    kargs = tuple(None if x is None else x.float().contiguous() for x in args)
+    y, h_new = mamba_scan_cuda(*kargs)
+    y2, h2 = mamba_scan_ref(*args)
+    check(torch.equal(h_new, h2), "mamba_scan: h != plain bitwise")
+    err = close(y, y2, "mamba_scan y")
+    report("mamba_scan", err, graph_ms(torch, lambda: mamba_scan_cuda(
+               *kargs), 20),
+           cuda_ms(torch, lambda: mamba_scan_ref(*args), 2), None,
+           bound_ms(*mamba_scan_work(kargs[0], kargs[3])),
+           f" at da/dbx {tuple(kargs[0].shape)}, c {tuple(kargs[2].shape)}"
+           f", h0 {'None' if kargs[3] is None else 'given'}; "
+           f"{hymba['scan_launches']} launches per prefill (one a layer)")
+    largs = [tuple(None if x is None else x.float().contiguous()
+                   for x in a) for a, _ in hymba["scan_long"]]
+
+    def scan_layer(launch):
+        h = None
+        for da, dbx, c, _ in largs:
+            _, h = launch(da, dbx, c, h)
+        return h
+
+    ms_l = graph_ms(torch, lambda: scan_layer(mamba_scan_cuda), 3)
+    plain_l = cuda_ms(torch, lambda: scan_layer(mamba_scan_ref), 1)
+    works = [mamba_scan_work(a[0], a[3] if i else None)
+             for i, a in enumerate(largs)]
+    b_l = bound_ms(sum(w[0] for w in works), sum(w[1] for w in works))
+    print(f"[3] mamba_scan at prompt {LM_LONG} (Hymba-1.5B layer 0: "
+          f"{len(largs)} launches, T {[a[0].shape[1] for a in largs]}, h "
+          f"carried): {ms_l:.4f} ms a layer, plain {plain_l:.3f} ms, bound "
+          f"{b_l[0]:.4f} ms ({b_l[1]})", flush=True)
+    out["scan_long_ms"] = ms_l
+    del hymba["scan_caps"], hymba["scan_long"], args, kargs, largs
+    return out
+
 
 
 # ---------------------------------------------------------------------------
@@ -740,11 +1157,11 @@ def run(torch) -> int:
                                                     event_pool_window_ref)
     from repro_torch.kernels.fire_compact import ops as fire_ops
     from repro_torch.kernels.fire_compact.ref import fire_compact_ref
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.mamba_step import ops as mamba_ops
-    from repro_torch.kernels.mamba_step.kernel import mamba_step_cuda
     from repro_torch.kernels.mamba_step.ref import mamba_step_events_ref
+    from repro_torch.kernels.wkv6 import ops as wkv_scan_ops
     from repro_torch.kernels.wkv6_step import ops as wkv6_ops
-    from repro_torch.kernels.wkv6_step.kernel import wkv6_step_cuda
     from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
     from repro_torch.models import cnn, mlp
 
@@ -769,7 +1186,10 @@ def run(torch) -> int:
                 "event_matmul_int8": mm_ops.event_matmul_dequant,
                 "event_conv_int8": conv_ops.event_conv_dequant,
                 "wkv6_step": wkv6_ops.wkv6_step_events,
-                "mamba_step": mamba_ops.mamba_step_events}
+                "mamba_step": mamba_ops.mamba_step_events,
+                "wkv6_single": wkv_scan_ops.wkv6_single,
+                "wkv6": wkv_scan_ops.wkv6,
+                "mamba_scan": scan_ops.mamba_scan}
 
     def drive(fn, capture=True):
         return drive_counted(torch, engine, wrappers, fn, capture)
@@ -979,7 +1399,10 @@ def run(torch) -> int:
                 "event_matmul_int8": launches8["event_matmul_int8"],
                 "event_conv_int8": launches8["event_conv_int8"],
                 "wkv6_step": rwkv["launches"],
-                "mamba_step": hymba["launches"]}
+                "mamba_step": hymba["launches"],
+                "wkv6_single": rwkv["wkv6_single_launches"],
+                "wkv6": rwkv["wkv6_launches"],
+                "mamba_scan": hymba["scan_launches"]}
 
     def shapes(args, kw):
         return tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
@@ -1239,49 +1662,7 @@ def run(torch) -> int:
                f" at {shape}, {len(items)} layers checked exact")
         del x_nchw
 
-    # B7 wkv6_step: the main path's last launch (RWKV6-7B, batch 4, θ=0);
-    # every launch of phase 6 was held against the plain version there
-    (args, kw), = rwkv["caps"]
-    bev, r_, v_, w_, u_, s_ = args
-    live = ev.live_block_mask(bev).to(torch.int32)
-    kargs = (bev.values, bev.block_idx, bev.counts, live, r_, v_, w_, u_, s_)
-    o, s_new = wkv6_step_cuda(*kargs)
-    o2, s2 = wkv6_step_events_ref(*args, **kw)
-    check(torch.equal(s_new, s2), "wkv6_step: S' != plain bitwise")
-    err = close(o, o2, "wkv6_step o")
-    wrapper_ms = graph_ms(torch, lambda: wkv6_ops.wkv6_step_events(*args,
-                                                                   **kw), 50)
-    report("wkv6_step", err, graph_ms(torch, lambda: wkv6_step_cuda(*kargs),
-                                      50),
-           cuda_ms(torch, lambda: wkv6_step_events_ref(*args, **kw), 5),
-           None, bound_ms(*wkv6_work(bev, r_)),
-           f" at rows {tuple(r_.shape)}, state {tuple(s_.shape)}, events "
-           f"{tuple(bev.values.shape)}; the wrapper with its live mask "
-           f"{wrapper_ms:.4f} ms; {rwkv['launches'] // LM_GEN} launches "
-           f"per token")
-    del rwkv["caps"], args, kargs
-
-    # B8 mamba_step: the main path's last launch (Hymba-1.5B, batch 4,
-    # θ=0); every launch of phase 7 was held against the plain version there
-    (args, kw), = hymba["caps"]
-    bev, da_, bm_, cm_, h_ = args
-    live = ev.live_block_mask(bev).to(torch.int32)
-    kargs = (bev.values, bev.block_idx, bev.counts, live, da_, bm_, cm_, h_)
-    y, h_new = mamba_step_cuda(*kargs)
-    y2, h2 = mamba_step_events_ref(*args, **kw)
-    check(torch.equal(h_new, h2), "mamba_step: h' != plain bitwise")
-    err = close(y, y2, "mamba_step y")
-    wrapper_ms = graph_ms(torch, lambda: mamba_ops.mamba_step_events(
-        *args, **kw), 50)
-    report("mamba_step", err, graph_ms(torch, lambda: mamba_step_cuda(*kargs),
-                                       50),
-           cuda_ms(torch, lambda: mamba_step_events_ref(*args, **kw), 5),
-           None, bound_ms(*mamba_work(bev, h_)),
-           f" at state {tuple(h_.shape)}, B/C {tuple(bm_.shape)}, events "
-           f"{tuple(bev.values.shape)}; the wrapper with its live mask "
-           f"{wrapper_ms:.4f} ms; {hymba['launches'] // LM_GEN} launches "
-           f"per token")
-    del hymba["caps"], args, kargs
+    long_ms = lm_kernels(torch, rwkv, hymba, report, close)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all; warm "
           f"forwards: VGG16 f32 {fwd_ms:.3f} ms, int8 {fwd8_ms:.3f} ms, "
@@ -1291,8 +1672,12 @@ def run(torch) -> int:
           + "; ".join(
               f"{arch} prefill {r['prefill_ms']:.3f} ms, decode tokens/s "
               + ", ".join(f"{n} {t:.1f}" for n, t in r["tok_s"].items())
-              for arch, r in (("RWKV6-7B", rwkv), ("Hymba-1.5B", hymba))),
-          flush=True)
+              for arch, r in (("RWKV6-7B", rwkv), ("Hymba-1.5B", hymba)))
+          + f"; prefill at prompt {LM_LONG}: RWKV6-7B "
+          f"{rwkv['long_ms']:.3f} ms, Hymba-1.5B {hymba['long_ms']:.3f} ms; "
+          f"one layer's scan at prompt {LM_LONG}: B9' "
+          f"{long_ms['wkv_long_ms']:.4f} ms, B10 "
+          f"{long_ms['scan_long_ms']:.4f} ms", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,8 @@ __all__ = ["BUILD_DIR", "CSRC", "SOURCES", "build", "launch", "library",
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("fire_compact.cu", "event_matmul.cu", "event_conv.cu",
-           "event_pool.cu", "wkv6_step.cu", "mamba_step.cu")
+           "event_pool.cu", "wkv6_step.cu", "mamba_step.cu", "wkv6.cu",
+           "mamba_scan.cu")
 _HEADERS = ("mnf_common.cuh",)
 BUILD_DIR = CSRC.parents[2] / "build" / "repro_torch"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "mnf_event_pool_window": [_P] * 6 + [_I] * 6 + [_P],
     "mnf_wkv6_step": [_P] * 11 + [_I] * 5 + [_P],
     "mnf_mamba_step": [_P] * 10 + [_I] * 6 + [_P],
+    "mnf_wkv6": [_P] * 8 + [_I] * 4 + [_P],
+    "mnf_mamba_scan": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 

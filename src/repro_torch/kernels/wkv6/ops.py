@@ -1,0 +1,62 @@
+"""The WKV6 recurrence as ops (B9 single-head, B9' multi-head).
+
+``wkv6_single`` (B9, ``repro.kernels.wkv6.kernel.wkv6_pallas``) and
+``wkv6`` (B9', ``repro.kernels.wkv6.ops.wkv6``) wrap one kernel,
+``csrc/wkv6.cu``; each counts its own launches (``kernels.note_launch``).
+A CPU tensor takes the plain version (``ref.py``).  Inputs of any float
+type are cast to f32, as the TPU kernel casts at load.  T needs no
+padding (the JAX wrapper pads with w = 1 to whole chunks; the kernel
+loops to T).  Bound on the card: bytes at prompt lengths.  No model of
+either package calls these ops: the RWKV6 prefill runs the chunked form
+(``models.ssm.wkv6_chunked``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import note_launch
+from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+from repro_torch.kernels.wkv6.ref import wkv6_multihead_ref, wkv6_ref
+
+__all__ = ["wkv6", "wkv6_single"]
+
+
+def _f32(t):
+    return None if t is None else t.float().contiguous()
+
+
+def wkv6_single(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                w: torch.Tensor, u: torch.Tensor,
+                s0: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B9, one head per row.  r, k, v, w (B, T, D); u (D,); s0 (B, D, D)
+    or None.  Returns (o (B, T, D) f32, s (B, D, D) f32): S bitwise the
+    plain version's, o within f32 summation order."""
+    if r.device.type == "cpu":
+        return wkv6_ref(r, k, v, w, u, s0)
+    out = wkv6_cuda(*map(_f32, (r, k, v, w, u.reshape(1, -1), s0)),
+                    heads=1)
+    note_launch(wkv6_single, (r, k, v, w, u, s0), {})
+    return out
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, s0: torch.Tensor | None = None
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B9', multi-head.  r, k, v, w (B, H, T, D); u (H, D); s0 (B, H, D,
+    D) or None.  Returns (o (B, H, T, D) f32, s (B, H, D, D) f32)."""
+    if r.device.type == "cpu":
+        return wkv6_multihead_ref(r, k, v, w, u, s0)
+    b, h, t, d = r.shape
+    fl = lambda x: _f32(x.reshape(b * h, t, d))
+    o, s = wkv6_cuda(fl(r), fl(k), fl(v), fl(w), _f32(u),
+                     None if s0 is None else _f32(s0.reshape(b * h, d, d)),
+                     heads=h)
+    note_launch(wkv6, (r, k, v, w, u, s0), {})
+    return o.reshape(b, h, t, d), s.reshape(b, h, d, d)
+
+
+wkv6_single.launches = 0
+wkv6_single.capture = None
+wkv6.launches = 0
+wkv6.capture = None

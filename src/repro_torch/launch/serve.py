@@ -11,7 +11,8 @@ leaves a block casts are cast once to the compute dtype), prompts are
 random tokens from the same seed.  With MNF on (``--mnf`` or a non-zero
 ``--mnf-threshold``; RWKV6-7B and Hymba-1.5B have it on by default) every
 decode step runs the fire-gated state update (B7 for RWKV6, B8 for
-Hymba's Mamba heads, on the card) and reports its fired events.
+Hymba's Mamba heads, on the card) and reports its fired events; Hymba's
+prefill runs its selective scan through B10 on the card either way.
 Prints one stats JSON line: ``prefill_s``, ``decode_tok_per_s``,
 ``events_per_token`` with its min and max, ``events_per_layer``.
 

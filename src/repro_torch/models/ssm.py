@@ -4,10 +4,13 @@ Mamba1 (the selective SSM of Hymba's parallel heads).
 RWKV6 prefill runs the chunked matmul form of the WKV6 recurrence
 (:func:`wkv6_chunked`, plain torch, f32), exact against the sequential
 recurrence while the per-step log-decay stays above the stability clamp
-``WKV_LOG_DECAY_MIN`` (DESIGN.md §8).  Mamba prefill
-(:func:`mamba_apply`) runs the selective scan as a sequential loop over
-time in f32: the JAX package's associative scan has no torch counterpart,
-and the two sum in different orders (the tests hold them at 1e-4).
+``WKV_LOG_DECAY_MIN`` (DESIGN.md §8); the exact recurrence is the op B9'
+(``kernels.wkv6``), which no model calls.  Mamba prefill
+(:func:`mamba_apply`) runs the selective scan sequentially over time in
+f32, one call of B10 (``kernels.mamba_scan``) per scan chunk — on the card
+one kernel launch, on the CPU its plain loop: the JAX package's
+associative scan has no torch counterpart, and the two sum in different
+orders (the tests hold them at 1e-4).
 Decode runs one step per token: the dense step or, with MNF on, the
 fire-gated step (DESIGN.md §13), whose state update goes through the
 engine's ``recurrent_step`` — kernel B7 (RWKV6) or B8 (Mamba) on the card.
@@ -22,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.mamba_scan.ops import mamba_scan
 from repro_torch.models import layers
 from repro_torch.models.param_utils import Init
 
@@ -310,16 +314,14 @@ def mamba_apply(p, x: torch.Tensor, cfg):
     """Prefill.  x (B, T, d) -> (y (B, T, d), (conv_state, ssm_state)).
 
     The selective scan runs one step at a time in f32 over chunks of
-    ``cfg.ssm.scan_chunk`` steps (the decay and increment of a chunk are
-    made at once: live memory O(B·C·DI·N))."""
+    ``cfg.ssm.scan_chunk`` steps: the decay and increment of a chunk are
+    made at once (live memory O(B·C·DI·N)) and scanned by one call of
+    :func:`mamba_scan` (B10), whose final state starts the next chunk."""
     ssm = cfg.ssm
-    bsz, t, _ = x.shape
+    t = x.shape[1]
     cdt = x.dtype
-    f32 = torch.float32
     xz = x @ p["w_in"].to(cdt)
     xc, z = xz.chunk(2, dim=-1)                              # (B, T, di)
-    di = xc.shape[-1]
-    n = ssm.state_dim
     cw = ssm.conv_dim
     assert cw > 1, "conv width must exceed 1"
     # causal depthwise conv, width cw: a sum over taps in the compute dtype
@@ -329,7 +331,7 @@ def mamba_apply(p, x: torch.Tensor, cfg):
     xs = F.silu(xconv)
     bmat, cmat, dt = _mamba_bcdt(p, xs, cfg)
     a = -torch.exp(p["a_log"].float())                       # (di, n)
-    h = torch.zeros((bsz, di, n), dtype=f32, device=x.device)
+    h = None                                                 # zeros
     ys = []
     for c0 in range(0, t, ssm.scan_chunk):
         sl = slice(c0, min(c0 + ssm.scan_chunk, t))
@@ -337,11 +339,9 @@ def mamba_apply(p, x: torch.Tensor, cfg):
         da_c = torch.exp(dt_c[..., None] * a)                # (B, C, di, n)
         dbx_c = (dt_c * xs[:, sl].float())[..., None] \
             * bmat[:, sl].float()[..., None, :]
-        c_c = cmat[:, sl].float()
-        for i in range(da_c.shape[1]):
-            h = da_c[:, i] * h + dbx_c[:, i]
-            ys.append((h * c_c[:, i, None, :]).sum(-1))
-    y = torch.stack(ys, dim=1)                               # (B, T, di) f32
+        y_c, h = mamba_scan(da_c, dbx_c, cmat[:, sl].float(), h)
+        ys.append(y_c)
+    y = torch.cat(ys, dim=1)                                 # (B, T, di) f32
     y = y + p["d_skip"].float() * xs.float()
     y = y.to(cdt) * F.silu(z)
     out = y @ p["w_out"].to(cdt)

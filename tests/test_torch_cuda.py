@@ -26,8 +26,14 @@ from repro_torch.kernels.event_pool.ref import (event_pool_ref,
                                                 event_pool_window_ref)
 from repro_torch.kernels.fire_compact.ops import fire_compact
 from repro_torch.kernels.fire_compact.ref import fire_compact_ref
+from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
+from repro_torch.kernels.mamba_scan.ops import mamba_scan
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 from repro_torch.kernels.mamba_step.ops import mamba_step_events
 from repro_torch.kernels.mamba_step.ref import mamba_step_events_ref
+from repro_torch.kernels.wkv6.kernel import MAX_D, wkv6_cuda
+from repro_torch.kernels.wkv6.ops import wkv6, wkv6_single
+from repro_torch.kernels.wkv6.ref import wkv6_multihead_ref
 from repro_torch.kernels.wkv6_step.ops import wkv6_step_events
 from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
 from repro_torch.models import cnn, mlp
@@ -237,3 +243,78 @@ def test_mamba_step_matches_plain(dev, di, threshold):
     assert torch.equal(h_new[0], h[0] * da[0])
     if threshold > 0:
         assert torch.equal(h_new[1], h[1] * da[1])
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("heads", [1, 3])
+def test_wkv6_matches_plain(dev, d, heads):
+    """B9' against its plain version at T 37 (the kernel stages 32 tokens
+    at a time: a ragged last chunk) with a non-zero s0: S bitwise (the
+    multiply, multiply, add in round-to-nearest intrinsics), o within
+    1e-4 of max|plain|; B9 on each head's rows bitwise B9''s slice (the
+    same kernel body), also with s0 None and bf16 inputs (cast to f32)."""
+    b, t = 2, 37
+    gen = torch.Generator(device=dev).manual_seed(d + heads)
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    r, k, v = f(b, heads, t, d), f(b, heads, t, d), f(b, heads, t, d)
+    w = torch.rand((b, heads, t, d), generator=gen, device=dev) * 0.7 + 0.3
+    u, s0 = f(heads, d), f(b, heads, d, d)
+    launches = wkv6.launches
+    o, s = wkv6(r, k, v, w, u, s0)
+    assert wkv6.launches == launches + 1
+    o2, s2 = wkv6_multihead_ref(r, k, v, w, u, s0)
+    assert torch.equal(s, s2)
+    assert _close(o, o2)
+    launches = wkv6_single.launches
+    for h in range(heads):
+        oh, sh = wkv6_single(r[:, h], k[:, h], v[:, h], w[:, h], u[h],
+                             s0[:, h])
+        assert torch.equal(oh, o[:, h]) and torch.equal(sh, s[:, h])
+    assert wkv6_single.launches == launches + heads
+    _, s_zero = wkv6(r, k, v, w, u)
+    assert torch.equal(s_zero, wkv6_multihead_ref(r, k, v, w, u)[1])
+    bf = [x.bfloat16() for x in (r, k, v, w)]
+    assert torch.equal(wkv6(*bf, u)[1], wkv6(*(x.float() for x in bf), u)[1])
+
+
+@pytest.mark.parametrize("di", [40, 1600])
+@pytest.mark.parametrize("n", [4, 16])
+def test_mamba_scan_matches_plain(dev, di, n):
+    """B10 at T 13 (the kernel loads 8 steps ahead: a ragged last group)
+    with a non-zero h0; DI 40 leaves the last CTA's channels partly
+    masked.  h bitwise (the multiply and add in round-to-nearest
+    intrinsics), y within 1e-4 of max|plain| (an N-term sum in another
+    order); two launches with h carried equal one over the whole T."""
+    b, t = 3, 13
+    gen = torch.Generator(device=dev).manual_seed(di + n)
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    da = torch.exp(-2 * torch.rand((b, t, di, n), generator=gen, device=dev))
+    dbx, c, h0 = f(b, t, di, n), f(b, t, n), f(b, di, n)
+    launches = mamba_scan.launches
+    y, h = mamba_scan(da, dbx, c, h0)
+    assert mamba_scan.launches == launches + 1
+    y2, h2 = mamba_scan_ref(da, dbx, c, h0)
+    assert torch.equal(h, h2)
+    assert _close(y, y2)
+    ya, ha = mamba_scan(da[:, :5], dbx[:, :5], c[:, :5], h0)
+    yb, hb = mamba_scan(da[:, 5:], dbx[:, 5:], c[:, 5:], ha)
+    assert mamba_scan.launches == launches + 3
+    assert torch.equal(hb, h) and torch.equal(torch.cat([ya, yb], 1), y)
+    assert torch.equal(mamba_scan(da, dbx, c)[1],
+                       mamba_scan_ref(da, dbx, c)[1])
+
+
+def test_scan_launchers_refuse_other_dtypes_and_wide_heads(dev):
+    """The launchers take f32 only, and B9 no head wider than MAX_D."""
+    z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt,
+                                                     device=dev)
+    bf = torch.bfloat16
+    with pytest.raises(TypeError):
+        wkv6_cuda(z(2, 3, 8, dt=bf), *(z(2, 3, 8) for _ in range(3)),
+                  z(1, 8), None, heads=1)
+    with pytest.raises(TypeError):
+        mamba_scan_cuda(z(1, 3, 4, 2, dt=bf), z(1, 3, 4, 2), z(1, 3, 2),
+                        None)
+    d = MAX_D + 1
+    with pytest.raises(ValueError, match="head_dim"):
+        wkv6_cuda(*(z(2, 3, d) for _ in range(4)), z(1, d), None, heads=1)

@@ -1,0 +1,256 @@
+"""The prefill scans of the port against ``repro`` on the CPU: the same numpy
+inputs through both packages.
+
+- B9 (single-head WKV6) and B9' (multi-head): the port's plain versions,
+  reached through the counting wrappers, against ``wkv6_ref``,
+  ``wkv6_pallas(interpret=True)`` and ``wkv6(interpret=True)`` at 1e-5,
+  with a non-zero initial state and at a T that is not a whole number of
+  the JAX wrapper's chunks (the port does not pad: w = 1 padding leaves S
+  unchanged, so the two agree).
+- B10 (selective scan): the plain version against ``mamba_scan_ref`` and
+  ``mamba_scan(interpret=True)`` at 1e-5, at a ragged T and a DI that is
+  not a whole number of the JAX wrapper's ``d_blk``.
+- The launchers refuse CPU tensors; a CPU call counts no launch.
+- ``mamba_apply`` over three scan chunks (the last ragged) against JAX's
+  at 1e-4, bitwise the sequential loop it ran before B10 took its scan,
+  and the reduced Hymba prefill calls B10 ``layers x ceil(T / chunk)``
+  times.
+"""
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.kernels.mamba_scan import mamba_scan as j_mamba_scan
+from repro.kernels.mamba_scan import mamba_scan_ref as j_mamba_scan_ref
+from repro.kernels.wkv6 import wkv6 as j_wkv6
+from repro.kernels.wkv6 import wkv6_ref as j_wkv6_ref
+from repro.kernels.wkv6.kernel import wkv6_pallas
+from repro.models import ssm as jssm
+from repro_torch.configs import get_config
+from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
+from repro_torch.kernels.mamba_scan.ops import mamba_scan
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+from repro_torch.kernels.wkv6.ops import wkv6, wkv6_single
+from repro_torch.kernels.wkv6.ref import wkv6_multihead_ref, wkv6_ref
+from repro_torch.models import ssm as tssm
+from repro_torch.models import transformer as ttfm
+
+
+def _close(got, want, tol=1e-5):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=tol,
+                               rtol=tol)
+
+
+def _wkv6_inputs(seed, shape, heads_shape):
+    """r, k, v (normal), w in (0.3, 1), u and s0 (normal) as f32 numpy."""
+    r_ = np.random.default_rng(seed)
+    f = lambda *s: r_.normal(size=s).astype(np.float32)
+    d = shape[-1]
+    w = r_.uniform(0.3, 1.0, size=shape).astype(np.float32)
+    s0 = f(*shape[:-2], d, d)
+    return f(*shape), f(*shape), f(*shape), w, f(*heads_shape), s0
+
+
+def test_b9_plain_matches_jax_ref_and_pallas():
+    """B9, one head per row: B 2, T 8 (two chunks of 4), D 16, non-zero
+    s0; o and S within 1e-5 of JAX's oracle and of its Pallas kernel."""
+    r, k, v, w, u, s0 = _wkv6_inputs(9, (2, 8, 16), (16,))
+    jargs = [jnp.asarray(a) for a in (r, k, v, w, u, s0)]
+    want = [j_wkv6_ref(*jargs), wkv6_pallas(*jargs, chunk=4, interpret=True)]
+    targs = [torch.from_numpy(a) for a in (r, k, v, w, u, s0)]
+    launches = wkv6_single.launches
+    o, s = wkv6_single(*targs)
+    assert wkv6_single.launches == launches       # the CPU path counts none
+    o2, s2 = wkv6_ref(*targs)
+    assert torch.equal(o, o2) and torch.equal(s, s2)
+    assert tuple(o.shape) == (2, 8, 16) and tuple(s.shape) == (2, 16, 16)
+    for wo, ws in want:
+        _close(o, wo)
+        _close(s, ws)
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_b9_multihead_plain_matches_jax_wkv6(with_s0):
+    """B9', H 3, T 13 against JAX's chunk 4 (which pads T to 16 with
+    w = 1 and zero r, k, v), s0 None and given; 1e-5."""
+    r, k, v, w, u, s0 = _wkv6_inputs(13 + with_s0, (2, 3, 13, 8), (3, 8))
+    s0 = s0 if with_s0 else None
+    jargs = [None if a is None else jnp.asarray(a)
+             for a in (r, k, v, w, u, s0)]
+    wo, ws = j_wkv6(*jargs, chunk=4, interpret=True)
+    targs = [None if a is None else torch.from_numpy(a)
+             for a in (r, k, v, w, u, s0)]
+    o, s = wkv6(*targs)
+    o2, s2 = wkv6_multihead_ref(*targs)
+    assert torch.equal(o, o2) and torch.equal(s, s2)
+    assert tuple(o.shape) == (2, 3, 13, 8) and tuple(s.shape) == (2, 3, 8, 8)
+    _close(o, wo)
+    _close(s, ws)
+    # each head is the single-head op on its rows with its own bonus row
+    for h in range(3):
+        oh, sh = wkv6_single(*(t[:, h] for t in targs[:4]), targs[4][h],
+                             None if s0 is None else targs[5][:, h])
+        assert torch.equal(oh, o[:, h]) and torch.equal(sh, s[:, h])
+
+
+def _scan_inputs(seed, b, t, di, n):
+    r_ = np.random.default_rng(seed)
+    da = np.exp(-r_.uniform(0.01, 2.0, size=(b, t, di, n))).astype(np.float32)
+    f = lambda *s: r_.normal(size=s).astype(np.float32)
+    return da, f(b, t, di, n), f(b, t, n), f(b, di, n)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_b10_plain_matches_jax_ref_and_pallas(with_h0):
+    """B10 at T 13 (JAX's chunk 4 pads it to 16 with da = 1, dbx = 0) and
+    DI 40 (its d_blk 16 pads it to 48 with zeros), N 4, h0 None and
+    given; y and h within 1e-5 of JAX's oracle and its Pallas kernel."""
+    da, dbx, c, h0 = _scan_inputs(40 + with_h0, 2, 13, 40, 4)
+    h0 = h0 if with_h0 else None
+    jargs = [None if a is None else jnp.asarray(a) for a in (da, dbx, c, h0)]
+    want = [j_mamba_scan_ref(*jargs),
+            j_mamba_scan(*jargs, d_blk=16, chunk=4, interpret=True)]
+    targs = [None if a is None else torch.from_numpy(a)
+             for a in (da, dbx, c, h0)]
+    launches = mamba_scan.launches
+    y, h = mamba_scan(*targs)
+    assert mamba_scan.launches == launches
+    y2, h2 = mamba_scan_ref(*targs)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert tuple(y.shape) == (2, 13, 40) and tuple(h.shape) == (2, 40, 4)
+    for wy, wh in want:
+        _close(y, wy)
+        _close(h, wh)
+
+
+@pytest.mark.parametrize("launcher", ["wkv6", "mamba_scan"])
+def test_scan_launchers_refuse_cpu_tensors(launcher):
+    z = torch.zeros
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        if launcher == "wkv6":
+            wkv6_cuda(*(z((2, 3, 4)) for _ in range(4)), z((1, 4)), None,
+                      heads=1)
+        else:
+            mamba_scan_cuda(z((1, 3, 4, 2)), z((1, 3, 4, 2)), z((1, 3, 2)),
+                            None)
+
+
+# ---------------------------------------------------------------------------
+# mamba_apply: the prefill's scan through B10
+# ---------------------------------------------------------------------------
+
+T_APPLY, CHUNK = 20, 8
+
+
+def _cfg_pair():
+    """The reduced Hymba config of both packages at scan chunk 8."""
+    return [dataclasses.replace(c, ssm=dataclasses.replace(
+        c.ssm, scan_chunk=CHUNK)) for c in (
+            jget_config("hymba-1.5b").reduced(compute_dtype="float32"),
+            get_config("hymba-1.5b").reduced(compute_dtype="float32"))]
+
+
+def _mamba_params(cfg, seed=5):
+    """The JAX package's Mamba weights as numpy, with non-zero conv and dt
+    biases (init leaves them zero)."""
+    p = jax.tree.map(np.array, jssm.mamba_init(
+        jax.random.PRNGKey(seed), cfg, d_inner=cfg.d_model)[0])
+    r_ = np.random.default_rng(seed)
+    for name in ("conv_b", "dt_bias"):
+        p[name] = (0.1 * r_.normal(size=p[name].shape)).astype(np.float32)
+    return p
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def test_mamba_apply_chunked_matches_jax():
+    """T 20 at scan chunk 8: three B10 calls (8, 8 and a ragged 4) with h
+    carried across, against JAX's chunked associative scan at 1e-4 (the
+    two sum in other orders); the conv state exactly."""
+    jcfg, tcfg = _cfg_pair()
+    p = _mamba_params(jcfg)
+    x = np.random.default_rng(20).normal(size=(2, T_APPLY, 64)).astype(
+        np.float32)
+    jy, (jconv, jh) = jssm.mamba_apply(jax.tree.map(jnp.asarray, p),
+                                       jnp.asarray(x), jcfg)
+    ty, (tconv, th) = tssm.mamba_apply(
+        {k: torch.from_numpy(v) for k, v in p.items()}, torch.from_numpy(x),
+        tcfg)
+    assert _rel(ty.numpy(), jy) <= 1e-4
+    assert _rel(th.numpy(), jh) <= 1e-4
+    np.testing.assert_array_equal(tconv.numpy(), np.asarray(jconv))
+
+
+def test_mamba_apply_bitwise_the_sequential_loop():
+    """On the CPU B10 is the sequential loop the prefill ran inline before
+    (h = da h + dbx, y = sum h c, h carried across chunks): mamba_apply's
+    y and h equal it bit for bit."""
+    _, cfg = _cfg_pair()
+    p = {k: torch.from_numpy(v) for k, v in _mamba_params(cfg, 7).items()}
+    x = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(2, T_APPLY, 64)).astype(np.float32))
+    out, (_, h_fin) = tssm.mamba_apply(p, x, cfg)
+    # the inputs of the scan, built as mamba_apply builds them
+    xz = x @ p["w_in"]
+    xc, z = xz.chunk(2, dim=-1)
+    cw = cfg.ssm.conv_dim
+    xpad = torch.nn.functional.pad(xc, (0, 0, cw - 1, 0))
+    xs = torch.nn.functional.silu(
+        sum(xpad[:, i:i + T_APPLY, :] * p["conv_w"][i] for i in range(cw))
+        + p["conv_b"])
+    bmat, cmat, dt = tssm._mamba_bcdt(p, xs, cfg)
+    a = -torch.exp(p["a_log"])
+    h = torch.zeros(h_fin.shape)
+    ys = []
+    for c0 in range(0, T_APPLY, CHUNK):
+        sl = slice(c0, min(c0 + CHUNK, T_APPLY))
+        da = torch.exp(dt[:, sl][..., None] * a)
+        dbx = (dt[:, sl] * xs[:, sl])[..., None] * bmat[:, sl][..., None, :]
+        for i in range(da.shape[1]):
+            h = da[:, i] * h + dbx[:, i]
+            ys.append((h * cmat[:, sl][:, i, None, :]).sum(-1))
+    y = torch.stack(ys, dim=1) + p["d_skip"] * xs
+    want = (y * torch.nn.functional.silu(z)) @ p["w_out"]
+    assert torch.equal(h_fin, h)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("prompt_len", [T_APPLY, CHUNK])
+def test_reduced_hymba_prefill_calls_b10_per_layer_and_chunk(monkeypatch,
+                                                             prompt_len):
+    """A spy on ``mamba_scan`` in the Mamba module: the reduced Hymba's
+    prefill (2 layers, scan chunk 8) calls it layers x ceil(T / 8) times,
+    each chunk's first call with h0 None and the rest with the previous
+    call's final state."""
+    _, cfg = _cfg_pair()
+    calls = []
+
+    def spy(da, dbx, c, h0=None):
+        out = mamba_scan(da, dbx, c, h0)
+        calls.append((da.shape[1], h0, out[1]))
+        return out
+
+    monkeypatch.setattr(tssm, "mamba_scan", spy)
+    params = ttfm.compute_params(ttfm.init_params(0, cfg, "cpu"), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(prompt_len).integers(
+        0, cfg.vocab_size, (2, prompt_len)))
+    logits, _ = ttfm.prefill(params, tokens, cfg)
+    per_layer = math.ceil(prompt_len / CHUNK)
+    assert len(calls) == cfg.num_layers * per_layer
+    assert bool(torch.isfinite(logits).all())
+    for layer in range(cfg.num_layers):
+        mine = calls[layer * per_layer:(layer + 1) * per_layer]
+        assert [t for t, _, _ in mine] == [
+            min(CHUNK, prompt_len - c0) for c0 in range(0, prompt_len, CHUNK)]
+        assert mine[0][1] is None
+        assert all(h0 is prev[2] for (_, h0, _), prev in zip(mine[1:], mine))
