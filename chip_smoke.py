@@ -49,8 +49,11 @@ the kernels):
    of the main path and of a θ > 0 run replayed against the plain version
    (S' bitwise, o within 1e-4 of max|plain|); that θ, picked as the 0.4
    quantile of the main path's block max|k|, kills at least a quarter of
-   the (row, K-block) pairs; in f32 the gated decode, teacher-forced on
-   the ungated decode's inputs, within 1e-4 of max|logits| at every step.
+   the (row, K-block) pairs; the main-path launch with the most dead pairs
+   replayed on the all-live drive of the same values (encode at threshold
+   -1): o and S' bitwise (DESIGN.md §13's within-backend contract); in f32
+   the gated decode, teacher-forced on the ungated decode's inputs, within
+   1e-4 of max|logits| at every step.
    Prints prefill ms, decode tokens/s (gated θ=0, gated θ>0, ungated,
    bf16), events per token, how many greedy tokens the gated and ungated
    decodes share, and a profile line.  The prefill runs the chunked WKV6
@@ -70,8 +73,9 @@ the kernels):
    tokens and checks as phase 6, for B8: 32 x 16 launches per gated
    decode, none in the prefill or the ungated decode, B1-B7, B9 and B9'
    none; every B8 launch replayed (h' bitwise, y within 1e-4 of
-   max|plain|); a θ > 0 run (the 0.4 quantile of block max|g|) with at
-   least a quarter of the (row, DI-block) pairs dead; f32 gated vs
+   max|plain|), one on its all-live drive (h' and y bitwise); a θ > 0
+   run (the 0.4 quantile of block max|g|) with at least a quarter of the
+   (row, DI-block) pairs dead; f32 gated vs
    ungated within 1e-4 at every step; prefill ms, tokens/s, profile line.
    The prefill's selective scan is B10, one launch a layer and scan chunk
    (32 per prefill at prompt 32, in every served run); every B10 launch
@@ -89,7 +93,12 @@ the kernels):
    and B5/B6 bitwise B2/B3 fed the dequantized tiles.  The forwards'
    matmuls, strip convs and pools are also held against torch.matmul,
    F.conv2d and F.max_pool2d on the decoded (dequantized) maps (the same
-   tolerance; pools exact).  B7 and B8 at the main path's shapes of
+   tolerance; pools exact).  B2 and B5 timed at every VGG16 launch shape
+   (graph-timed ms times launches: the sum a forward) and reported at two:
+   FC1 (bytes bound) and the per-tap conv shape with the largest summed
+   ms (operations bound).  Strip == per-tap on the card: conv3_1's input
+   map encoded as strips and as pixels, engine.conv2d through B3 (x1) and
+   through B2 (x9), bitwise equal.  B7 and B8 at the main path's shapes of
    phases 6 and 7, B9, B9' and B10 at prompt 32, B9' and B10 also at
    prompt 2000 (one layer); no single PyTorch call computes a recurrent
    step or scan: their library columns are null.  Prints each kernel's
@@ -129,6 +138,12 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
                    "src/repro/kernels/event_pool/kernel.py:106"),
     "event_matmul_int8": ("src/repro_torch/csrc/event_matmul.cu",
                           "src/repro/kernels/event_matmul/kernel.py:126"),
+    # B2/B5 again at their per-tap conv shape (phase 3 times both shapes)
+    "event_matmul_per_tap": ("src/repro_torch/csrc/event_matmul.cu",
+                             "src/repro/kernels/event_matmul/kernel.py:163"),
+    "event_matmul_int8_per_tap": (
+        "src/repro_torch/csrc/event_matmul.cu",
+        "src/repro/kernels/event_matmul/kernel.py:126"),
     "event_conv_int8": ("src/repro_torch/csrc/event_conv.cu",
                         "src/repro/kernels/event_conv/kernel.py:268"),
     "wkv6_step": ("src/repro_torch/csrc/wkv6_step.cu",
@@ -825,10 +840,37 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
             pairs += live.numel()
         return worst, dead / pairs
 
+    def all_live(rtag, caps):
+        """DESIGN.md §13's within-backend contract: the captured launch
+        with the most dead (row, K-block) pairs, replayed on the all-live
+        drive of the same values (encode at threshold -1), gives the same
+        readout and state bitwise.  Returns (dead pairs, pairs)."""
+        dead = [int((~ev.live_block_mask(a[0])).sum()) for a, _ in caps]
+        args, kw = caps[dead.index(max(dead))]
+        bev = args[0]
+        g, _, _, bk = bev.values.shape
+        drive = ev.decode_block_events(bev, blk_m=1, blk_k=bk, m=g,
+                                       k=bev.num_k_blocks * bk)
+        twin = ev.encode_block_events(drive, blk_m=1, blk_k=bk,
+                                      threshold=-1.0)
+        check(int(twin.counts.sum()) == g * bev.num_k_blocks,
+              f"{rtag}: the threshold -1 encode left a block dead")
+        (out, state), (out2, state2) = (kern(*args, **kw),
+                                        kern(twin, *args[1:], **kw))
+        check(torch.equal(out, out2) and torch.equal(state, state2),
+              f"{rtag}: {label} on the θ=0 drive is not bitwise {label} on "
+              f"its all-live drive")
+        return max(dead), g * bev.num_k_blocks
+
     # The main path: the config as published, MNF on at θ = 0, bf16.
     run_a, caps_a = served(f"{tag} gated θ=0 bf16", cfg, params, gated_plan,
                            capture=True, keep_logits=True)
     worst_a, dead_a = replay(f"{tag} gated θ=0", caps_a[name])
+    dead_n, pairs = all_live(f"{tag} gated θ=0", caps_a[name])
+    print(f"{tag} within-backend (DESIGN.md §13): the main-path {label} "
+          f"launch with the most dead (row, K-block) pairs ({dead_n} of "
+          f"{pairs}) replayed on its all-live drive (threshold -1 encode): "
+          f"{ro} and {st} bitwise equal", flush=True)
     if scan:
         worst_s, _ = replay_scan(f"{tag} gated θ=0", caps_a[scan])
         print(f"{tag} main path: every B10 launch of the prefill replayed "
@@ -1439,13 +1481,15 @@ def run(torch) -> int:
               f"for a {shape} map")
         return rows[:, :c].reshape(shape).permute(0, 3, 1, 2).contiguous()
 
-    def report(name, err, ms, plain_ms, lib_ms, b, extra=""):
+    def report(name, err, ms, plain_ms, lib_ms, b, extra="", launches=None,
+               shape=None):
         src, replaces = KERNELS[name]
         results.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launched[name], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-            library_ms=lib_ms))
+            launches=launched[name] if launches is None else launches,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+            bound_by=b[1], library_ms=lib_ms,
+            **({} if shape is None else {"shape": shape})))
         lib = "none (no single PyTorch call computes it)" if lib_ms is None \
             else f"{lib_ms:.4f} ms"
         print(f"[3] {name}: max_abs_err {err:.3e}, {ms:.4f} ms, plain "
@@ -1480,12 +1524,59 @@ def run(torch) -> int:
     # LeNet-300-100 gave them (LeNet's N = 10 head is narrower than one
     # CTA's columns): against the plain version and against torch.matmul
     # on the decoded (dequantized) map, each within 1e-4 * max|ref|; B5
-    # also bitwise B2 on the dequantized tiles
+    # also bitwise B2 on the dequantized tiles.  Then each at two shapes:
+    # FC1 (the heaviest by its byte bound) and the per-tap conv shape with
+    # the largest summed time a forward (every VGG16 shape graph-timed,
+    # times its launches).
     def decoded(a_vals, a_idx, counts, w):
         g, e, bm, bk = a_vals.shape
         return ev.decode_block_events(
             ev.BlockEvents(a_vals, a_idx, counts, w.shape[0] // bk),
             blk_m=bm, blk_k=bk, m=g * bm, k=w.shape[0])
+
+    def by_shape(calls, trace_recs):
+        """The forward's B2/B5 launches grouped by shape: {shape: [route,
+        launches, args]}, route "per-tap" or "fc" from the trace record
+        each launch belongs to (a per-tap conv launches k*k, an FC one)."""
+        groups, it = {}, iter(calls)
+        for r in trace_recs:
+            if r["op"] == "conv2d" and r.get("chained") \
+                    and not r.get("strip"):
+                route, n = "per-tap", r["launches"]
+            elif r["op"] == "linear":
+                route, n = "fc", 1
+            else:
+                continue
+            for _ in range(n):
+                args, kw = next(it)
+                key = (tuple(args[0].shape), tuple(args[-1].shape))
+                groups.setdefault(key, [route, 0, args])[1] += 1
+        check(next(it, None) is None, "B2/B5 launches the trace does not "
+              "account for")
+        return groups
+
+    def shape_str(args):
+        return f"a_vals {tuple(args[0].shape)} x W {tuple(args[-1].shape)}"
+
+    def matmul_shapes(name, kern, groups, work):
+        """Graph-time ``kern`` at each shape of ``groups``; print ms, ms x
+        launches, the bound and their sum a forward; return the per-tap
+        shape with the largest summed ms (its launches, its inputs)."""
+        rows, total = [], 0.0
+        for key, (route, n, args) in groups.items():
+            ms = graph_ms(torch, lambda: kern(*args), 10)
+            total += ms * n
+            rows.append((ms * n, route, n, ms, args))
+            b = bound_ms(*work(args))
+            print(f"[3] {name} at {shape_str(args)} ({route}, x{n} a "
+                  f"forward): {ms:.4f} ms, x{n} = {ms * n:.4f} ms, bound "
+                  f"{b[0]:.4f} ms ({b[1]})", flush=True)
+        print(f"[3] {name}: {total:.4f} ms a VGG16 forward, summed over its "
+              f"{sum(r[2] for r in rows)} launches (graph-timed)",
+              flush=True)
+        _, _, n, _, args = max((r for r in rows if r[1] == "per-tap"),
+                               key=lambda r: r[0])
+        return n, args
 
     worst = 0.0
     mm_calls = unique(captured["event_matmul"])
@@ -1497,16 +1588,23 @@ def run(torch) -> int:
         worst = max(worst, close(y, event_matmul_ref(*args), what))
         close(y.reshape(-1, y.shape[-1]), decoded(*args) @ args[3],
               what + " vs torch.matmul")
-    b, (args, _) = heaviest(mm_calls, lambda c: matmul_work(torch, *c[0]))
-    dense_a = decoded(*args)
-    report("event_matmul", worst,
-           graph_ms(torch, lambda: mm_ops.event_matmul(*args), 10),
-           cuda_ms(torch, lambda: event_matmul_ref(*args), 1),
-           graph_ms(torch, lambda: torch.matmul(dense_a, args[3]), 10), b,
-           f" at a_vals {tuple(args[0].shape)} x W {tuple(args[3].shape)}, "
-           f"{len(mm_calls) - len(mm_mlp)} VGG16 + {len(mm_mlp)} LeNet "
-           f"shapes checked")
-    del dense_a
+    f32_work = lambda a: matmul_work(torch, *a)  # noqa: E731
+    n_tap, tap_args = matmul_shapes(
+        "event_matmul", mm_ops.event_matmul,
+        by_shape(captured["event_matmul"], recs), f32_work)
+    args = heaviest(mm_calls, lambda c: f32_work(c[0]))[1][0]
+    for name, a, n in (("event_matmul", args, None),
+                       ("event_matmul_per_tap", tap_args, n_tap)):
+        dense_a = decoded(*a)
+        report(name, worst,
+               graph_ms(torch, lambda: mm_ops.event_matmul(*a), 10),
+               cuda_ms(torch, lambda: event_matmul_ref(*a), 1),
+               graph_ms(torch, lambda: torch.matmul(dense_a, a[3]), 10),
+               bound_ms(*f32_work(a)),
+               f" at {shape_str(a)}, {len(mm_calls) - len(mm_mlp)} VGG16 + "
+               f"{len(mm_mlp)} LeNet shapes checked", launches=n,
+               shape=shape_str(a))
+        del dense_a
 
     worst = 0.0
     mm8_calls = unique(captured8["event_matmul_int8"])
@@ -1524,17 +1622,23 @@ def run(torch) -> int:
         close(y.reshape(-1, y.shape[-1]),
               decoded(dq(a_vals, sc, zp), a_idx, counts, w) @ w,
               what + " vs torch.matmul")
-    b, (args, _) = heaviest(mm8_calls, lambda c: matmul_work(
-        torch, *c[0][:3], c[0][5], qbytes=8))
-    dense_a = decoded(dq(*args[:1], *args[3:5]), *args[1:3], args[5])
-    report("event_matmul_int8", worst,
-           graph_ms(torch, lambda: mm_ops.event_matmul_dequant(*args), 10),
-           cuda_ms(torch, lambda: event_matmul_int8_ref(*args), 1),
-           graph_ms(torch, lambda: torch.matmul(dense_a, args[5]), 10), b,
-           f" at codes {tuple(args[0].shape)} x W {tuple(args[5].shape)}, "
-           f"{len(mm8_calls) - len(mm8_mlp)} VGG16 + {len(mm8_mlp)} LeNet "
-           f"shapes checked")
-    del dense_a
+    int8_work = lambda a: matmul_work(torch, *a[:3], a[5], qbytes=8)  # noqa
+    n_tap8, tap8_args = matmul_shapes(
+        "event_matmul_int8", mm_ops.event_matmul_dequant,
+        by_shape(captured8["event_matmul_int8"], recs8), int8_work)
+    args = heaviest(mm8_calls, lambda c: int8_work(c[0]))[1][0]
+    for name, a, n in (("event_matmul_int8", args, None),
+                       ("event_matmul_int8_per_tap", tap8_args, n_tap8)):
+        dense_a = decoded(dq(*a[:1], *a[3:5]), *a[1:3], a[5])
+        report(name, worst,
+               graph_ms(torch, lambda: mm_ops.event_matmul_dequant(*a), 10),
+               cuda_ms(torch, lambda: event_matmul_int8_ref(*a), 1),
+               graph_ms(torch, lambda: torch.matmul(dense_a, a[5]), 10),
+               bound_ms(*int8_work(a)),
+               f" at codes {tuple(a[0].shape)} x W {tuple(a[5].shape)}, "
+               f"{len(mm8_calls) - len(mm8_mlp)} VGG16 + {len(mm8_mlp)} "
+               f"LeNet shapes checked", launches=n, shape=shape_str(a))
+        del dense_a
 
     # B3 event_conv and B6 event_conv_int8: the strip layers against the
     # plain version and F.conv2d, then stride 4 and stride 2
@@ -1612,6 +1716,31 @@ def run(torch) -> int:
                                            padding=layer.padding), 10), b,
            f" at {shape} -> {layer.out_ch} ch, {len(convs)} layers checked")
     del x_nchw
+
+    # strip == per-tap on the card (DESIGN.md §6): conv3_1's input map, as
+    # the forward handed it to B3, encoded as strips and as pixels; the
+    # strip route (B3 x 1) and the per-tap route (B2 x 9) must agree bitwise
+    geometry = layer_inputs(cnn, spec, batch=4)
+    (layer, shape), (args, kw) = next(c for c in convs
+                                      if c[0][1] == (4, 56, 56, 128))
+    x_map = dense_nchw(args[0], args[1], kw["nkb"], shape).permute(0, 2, 3, 1)
+    w_layer = params[geometry.index((layer, shape))]
+    streams = [engine.EventStream.encode_nhwc(x_map.contiguous(), blk_k=8,
+                                              blk_m=bm, keep_dense=False)
+               for bm in (ev.STRIP_W, 1)]
+    counts0 = (conv_ops.event_conv.launches, mm_ops.event_matmul.launches)
+    ys, yp = (engine.conv2d(st, w_layer, cfg=engine.EngineConfig(blk_k=8),
+                            stride=layer.stride, padding=layer.padding)
+              for st in streams)
+    ran = (conv_ops.event_conv.launches - counts0[0],
+           mm_ops.event_matmul.launches - counts0[1])
+    check(ran == (1, layer.k ** 2), f"strip vs per-tap launched {ran}")
+    check(torch.equal(ys, yp), f"strip != per-tap on conv3_1's input "
+          f"{shape}: max|d| {float((ys - yp).abs().max()):.3e}")
+    print(f"[3] strip == per-tap on conv3_1's input {shape} -> "
+          f"{layer.out_ch} ch: B3 x1 and B2 x{layer.k ** 2} bitwise equal",
+          flush=True)
+    del x_map, streams, ys, yp
 
     # B6: the int8 forward's strip convs past conv1_1 (which takes the f32
     # input through B3)

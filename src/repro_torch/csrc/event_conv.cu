@@ -12,8 +12,8 @@
 // matmul; here the thread of output row i loads source row
 // stride*i + shift[t] directly and skips the subtap when it falls outside
 // the tile.  The tap_acc -> acc flush per subtap reproduces the per-tap
-// path's `acc = acc + tap` order, and mnf_tile_dot is shared with B2, so
-// the result is bitwise the per-tap event matmul's.
+// path's `acc = acc + tap` order, and mnf_tile_dot keeps B2's term order
+// (mnf_common.cuh), so the result is bitwise the per-tap event matmul's.
 //
 // B6 is the same body with MnfInt8Tile: each int8 code is dequantized as
 // it is loaded from a sourced row, so the dequantize comes before the

@@ -1,11 +1,13 @@
 // Shared pieces of the MNF event kernels for Hopper (sm_90a).
 //
-// mnf_tile_dot is the one inner tile dot of the event matmul (B2/B5) and the
-// fused strip conv (B3/B6): one output element's sum over the bk columns of
-// an event tile row, j ascending, fmaf into an f32 register.  Both kernels
-// walk their events e ascending and call it per event, so a row that is
-// all zero in a tile adds fmaf(0, w, acc) == acc exactly.  That is what
-// makes strip == per-tap and chained == round-trip bitwise on the card.
+// The order every event kernel keeps: one output element sums its events e
+// ascending, then the bk columns of each event tile row j ascending, each
+// term an fmaf into one f32 register.  mnf_tile_dot is that inner tile dot
+// of the fused strip conv (B3/B6); the event matmul (B2/B5,
+// event_matmul.cu) walks the same terms in the same order from a register
+// tile.  A row that is all zero in a tile adds fmaf(0, w, acc) == acc
+// exactly.  That is what makes strip == per-tap and chained == round-trip
+// bitwise on the card.
 //
 // The tile loader is the one thing the int8 kernels change: MnfF32Tile
 // reads f32 values, MnfInt8Tile dequantizes int8 codes at load as

@@ -3,7 +3,9 @@
 
 Replace ``repro.kernels.event_matmul.kernel.event_matmul_pallas`` and
 ``event_matmul_int8_pallas``.  Take CUDA tensors only; ``ops.py`` holds
-the counting wrappers.
+the counting wrappers.  The C launcher picks the CTA shape from the
+operands' shape: the FC one when G * bm <= 4, the per-tap conv one
+otherwise (``csrc/event_matmul.cu``).
 """
 from __future__ import annotations
 
@@ -32,6 +34,9 @@ def _out(a_vals, a_idx, counts, w, dtype) -> torch.Tensor:
                          "is an invalid configuration")
     if bm > 32:
         raise ValueError(f"blk_m={bm} > 32 rows per CTA")
+    if 64 * e >= 2**31 or 4096 * bk >= 2**31:
+        raise ValueError(f"capacity {e} or blk_k {bk} too large for the "
+                         f"kernel's int32 slot and row indices")
     return torch.empty((g, bm, n), dtype=torch.float32, device=w.device)
 
 

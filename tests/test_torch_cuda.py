@@ -10,7 +10,9 @@ import torch
 
 from repro_torch import engine
 from repro_torch.core import quantize as qz
+from repro_torch.core.events import gather_row_groups
 from repro_torch.core.fire import FireConfig
+from repro_torch.engine.backends import tap_row_map
 from repro_torch.kernels.event_conv.ops import (event_conv, event_conv_dequant,
                                                 strip_conv_inputs)
 from repro_torch.kernels.event_conv.ref import (event_conv_int8_ref,
@@ -73,13 +75,57 @@ def test_fire_compact_matches_plain(dev, m, k, bm, bk, mag):
     assert torch.equal(f1, f2) and torch.equal(o1, o2)
 
 
-@pytest.mark.parametrize("m,k,n,bm,bk", [(16, 64, 1000, 1, 8),
-                                         (8, 512, 40, 8, 128)])
-def test_event_matmul_matches_plain(dev, m, k, n, bm, bk):
-    s = engine.EventStream.encode(_fired(m, (m, k), dev), blk_m=bm, blk_k=bk)
+#: B2/B5 cases: (seed, rows, K, N, bm, bk, capacity, per-tap gather).  The
+#: launcher takes the FC CTA shape where G * bm <= 4 ("fc", "fc_n10") and
+#: the per-tap conv one elsewhere; "n1000" and "fc" leave a ragged last
+#: column tile, "fc_n10" and "pixel" take the 4-byte weight copies (N not a
+#: multiple of 4), "capacity" has counts > E, "per_tap" is tap (0, 0) of a
+#: 3x3 conv over a (4, 10, 10, 64) pixel stream, its border groups with
+#: counts 0.
+MATMUL_CASES = {
+    "pixel": (16, 16, 64, 1002, 1, 8, None, False),
+    "strip": (8, 8, 512, 40, 8, 128, None, False),
+    "n1000": (9, 64, 256, 1000, 1, 8, None, False),
+    "fc": (4, 4, 9600, 1000, 1, 8, None, False),
+    "fc_n10": (5, 4, 64, 10, 1, 8, None, False),
+    "capacity": (6, 64, 256, 96, 1, 8, 8, False),
+    "per_tap": (7, 400, 64, 96, 1, 8, None, True),
+}
+
+
+def _matmul_events(case, dev, int8):
+    """The events (values, block_idx, counts), W and, for ``int8``, the
+    codes' QParams of a MATMUL_CASES case."""
+    seed, m, k, n, bm, bk, cap, per_tap = MATMUL_CASES[case]
+    shape = (4, 10, 10, k) if per_tap else (m, k)
+    x = _fired(seed, shape, dev)
+    qp = None
+    if int8:
+        x, qp = _int8(x)
+    if per_tap:
+        st = engine.EventStream.encode_nhwc(x, blk_k=bk, blk_m=1)
+        idx, live = tap_row_map(shape, 3, 1, 1)
+        bev = gather_row_groups(st.events, torch.from_numpy(idx[0]).to(dev),
+                                torch.from_numpy(live[0]).to(dev))
+        assert bev.values.shape[0] == m and int((bev.counts == 0).sum()) > 0
+    else:
+        bev = engine.EventStream.encode(x, blk_m=bm, blk_k=bk,
+                                        capacity=cap).events
+    if cap is not None:
+        assert int(bev.counts.max()) > bev.values.shape[1]
     w = torch.randn((k, n), device=dev)
-    args = (s.events.values, s.events.block_idx, s.events.counts, w)
-    assert _close(event_matmul(*args), event_matmul_ref(*args))
+    return (bev.values, bev.block_idx, bev.counts), w, qp
+
+
+@pytest.mark.parametrize("case", sorted(MATMUL_CASES))
+def test_event_matmul_matches_plain(dev, case):
+    """B2 against its plain version within 1e-4 of max|plain|."""
+    ev3, w, _ = _matmul_events(case, dev, int8=False)
+    args = (*ev3, w)
+    launches = event_matmul.launches
+    y = event_matmul(*args)
+    assert event_matmul.launches == launches + 1
+    assert _close(y, event_matmul_ref(*args))
 
 
 @pytest.mark.parametrize("shape,k,p,s", [((2, 8, 32, 8), 3, 1, 1),
@@ -103,15 +149,13 @@ def _int8(x, zero_point=0):
         (), zero_point, dtype=torch.int32, device=x.device))
 
 
-@pytest.mark.parametrize("m,k,n,bm,bk", [(16, 64, 1000, 1, 8),
-                                         (8, 512, 40, 8, 128)])
-def test_event_matmul_int8_matches_plain(dev, m, k, n, bm, bk):
-    q, qp = _int8(_fired(m + 1, (m, k), dev))
-    s = engine.EventStream.encode(q, blk_m=bm, blk_k=bk)
-    assert s.events.values.dtype == torch.int8
-    w = torch.randn((k, n), device=dev)
-    args = (s.events.values, s.events.block_idx, s.events.counts, qp.scale,
-            qp.zero_point, w)
+@pytest.mark.parametrize("case", sorted(MATMUL_CASES))
+def test_event_matmul_int8_matches_plain(dev, case):
+    """B5 against its plain version within 1e-4 of max|plain|, and bitwise
+    B2 on the dequantized tiles (the same CTA shape, the same walk)."""
+    (vals, idx, cnt), w, qp = _matmul_events(case, dev, int8=True)
+    assert vals.dtype == torch.int8
+    args = (vals, idx, cnt, qp.scale, qp.zero_point, w)
     launches = event_matmul_dequant.launches
     y = event_matmul_dequant(*args)
     assert event_matmul_dequant.launches == launches + 1
@@ -137,6 +181,74 @@ def test_event_conv_int8_matches_plain(dev, shape, k, p, s, zp):
     assert _close(y, event_conv_int8_ref(*a8, nkb=nkb, row_stride=s))
     assert torch.equal(y, event_conv(qz.dequantize(args[0], qp), *args[1:],
                                      nkb=nkb, row_stride=s))
+
+
+@pytest.mark.parametrize("s", [1, 2])
+def test_strip_equals_per_tap_on_card(dev, s):
+    """DESIGN.md §6 on the card: engine.conv2d on the strip stream (B3, one
+    launch) and on the pixel stream of the same map (B2 x 9, per tap) agree
+    bitwise: both sum each output's terms in the same order."""
+    shape = (2, 8, 32, 8)
+    x = _fired(11 + s, shape, dev)
+    w = torch.randn((3, 3, 8, 16), device=dev)
+    cfg = engine.EngineConfig(blk_k=8)
+    strip = engine.EventStream.encode_nhwc(x, blk_k=8, blk_m=8,
+                                           keep_dense=False)
+    pix = engine.EventStream.encode_nhwc(x, blk_k=8, blk_m=1,
+                                         keep_dense=False)
+    n_conv, n_mm = event_conv.launches, event_matmul.launches
+    ys = engine.conv2d(strip, w, cfg=cfg, stride=s, padding=1)
+    assert (event_conv.launches, event_matmul.launches) == (n_conv + 1,
+                                                            n_mm)
+    yp = engine.conv2d(pix, w, cfg=cfg, stride=s, padding=1)
+    assert (event_conv.launches, event_matmul.launches) == (n_conv + 1,
+                                                            n_mm + 9)
+    assert torch.equal(ys, yp)
+
+
+def _all_live(st):
+    """The drive of a fire_delta stream with every K-block an event (encode
+    at threshold -1, DESIGN.md §13): what the gated kernel consumes when
+    nothing is gated."""
+    return engine.EventStream.encode(st.dense(), blk_m=1, blk_k=st.blk_k,
+                                     threshold=-1.0).events
+
+
+def test_wkv6_step_theta0_equals_all_live(dev):
+    """DESIGN.md §13's within-backend contract for B7: on a θ = 0 drive
+    whose zero blocks are dead, o and S' are bitwise the same kernel's on
+    the all-live drive of the same values (gating changes the work, never
+    the numbers)."""
+    g, d = 12, 64
+    gen = torch.Generator(device=dev).manual_seed(3)
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    r, k, v, u, s = f(g, d), f(g, d), f(g, d), f(g, d), f(g, d, d)
+    w = torch.rand((g, d), generator=gen, device=dev) * 0.9 + 0.05
+    k[:, 16:32] = 0.0
+    k[0] = 0.0
+    st = engine.fire_delta(k, engine.EngineConfig(threshold=0.0))
+    live = _all_live(st)
+    assert int(st.events.counts.sum()) < int(live.counts.sum()) == g * 4
+    o, s_new = wkv6_step_events(st.events, r, v, w, u, s, blk_k=st.blk_k)
+    o2, s2 = wkv6_step_events(live, r, v, w, u, s, blk_k=st.blk_k)
+    assert torch.equal(o, o2) and torch.equal(s_new, s2)
+
+
+def test_mamba_step_theta0_equals_all_live(dev):
+    """The same contract for B8: h' and y bitwise the all-live drive's."""
+    b, di, n = 4, 1600, 16
+    gen = torch.Generator(device=dev).manual_seed(4)
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    g, bm, cm, h = f(b, di), f(b, n), f(b, n), f(b, di, n)
+    da = torch.rand((b, di, n), generator=gen, device=dev) * 0.9 + 0.05
+    g[:, 32:160] = 0.0
+    g[1] = 0.0
+    st = engine.fire_delta(g, engine.EngineConfig(threshold=0.0))
+    live = _all_live(st)
+    assert int(st.events.counts.sum()) < int(live.counts.sum())
+    y, h_new = mamba_step_events(st.events, da, bm, cm, h, blk_k=st.blk_k)
+    y2, h2 = mamba_step_events(live, da, bm, cm, h, blk_k=st.blk_k)
+    assert torch.equal(y, y2) and torch.equal(h_new, h2)
 
 
 @pytest.mark.parametrize("shape,bm", [((2, 16, 16, 16), 8),

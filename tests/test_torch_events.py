@@ -152,3 +152,95 @@ def test_ineligible_reasons_verbatim():
         for bm, bk in ((1, 8), (8, 8), (4, 8), (1, 5)):
             assert tev.retile_ineligible_reason(shape, bm, bk) == \
                 jev.retile_ineligible_reason(shape, bm, bk)
+
+
+# -- the event matmul's precondition: live addresses ascend per group ----------
+# B2/B5 (csrc/event_matmul.cu) walk the ascending union of a CTA's groups'
+# K-blocks, so each group's live a_idx slots must be strictly ascending for
+# the walk to keep the order e ascending.  Every producer hands them so.
+
+def _assert_live_ascending(a_idx, counts):
+    e = a_idx.shape[1]
+    live = torch.arange(e)[None, :] < counts.clamp(max=e)[:, None]
+    pairs = live[:, 1:] & live[:, :-1]
+    assert bool((a_idx[:, 1:] > a_idx[:, :-1])[pairs].all()), \
+        "a group's live block addresses are not strictly ascending"
+    return int(pairs.sum())
+
+
+@pytest.mark.parametrize("producer", ["encode", "encode_capacity",
+                                      "retile_pixel", "retile_strip",
+                                      "gather_padded_taps"])
+def test_producers_hand_ascending_addresses(producer):
+    from repro_torch.engine.backends import tap_row_map
+    shape = (2, 5, 8, 32)
+    x = torch.from_numpy(_fired(11, (2 * 5 * 8, 32), 0.6))
+    bm = 8 if producer == "retile_strip" else 1
+    bev = tev.encode_block_events(
+        x, blk_m=bm, blk_k=8,
+        capacity=2 if producer == "encode_capacity" else None)
+    if producer == "encode_capacity":
+        assert int(bev.counts.max()) > bev.capacity
+    if producer.startswith("retile"):
+        bev = tev.retile_block_events(bev, shape, bm)
+    if producer == "gather_padded_taps":
+        idx, live = tap_row_map(shape, 3, 1, 1)
+        for t in range(9):
+            tap = tev.gather_row_groups(bev, torch.from_numpy(idx[t]),
+                                        torch.from_numpy(live[t]))
+            # every tap but the centre one reads the zero-padding border
+            assert (int((tap.counts == 0).sum()) > 0) == (t != 4)
+            assert _assert_live_ascending(tap.block_idx, tap.counts) > 0
+        return
+    assert _assert_live_ascending(bev.block_idx, bev.counts) > 0
+
+
+def _vgg16_topology():
+    """VGG16's 13 convs, 5 pools and 3 FCs at input 32, channels 8–32:
+    strip convs (widths 32/16/8), per-tap convs (widths 4/2, taps in the
+    padding border), the conv→FC re-tile, event FCs."""
+    from repro_torch.models import cnn
+    conv = lambda co: cnn.ConvSpec(co, 3, 1, 1)  # noqa: E731
+    p = cnn.PoolSpec()
+    layers = (conv(8), conv(8), p, conv(16), conv(16), p,
+              conv(16), conv(16), conv(16), p, conv(32), conv(32), conv(32),
+              p, conv(32), conv(32), conv(32), p, cnn.FCSpec(64),
+              cnn.FCSpec(64), cnn.FCSpec(10))
+    return cnn.CNNSpec("vgg16_topology", 32, 3, layers, num_classes=10)
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+def test_event_matmul_inputs_ascend_on_vgg16_topology(monkeypatch, mode):
+    """Every B2/B5 call of a VGG16-topology forward, chained and round trip,
+    gets strictly ascending live addresses per group: the per-tap gathers
+    (zero-count border taps included), the re-tiled FC1 stream and the
+    encoded FC streams."""
+    from repro_torch.core.fire import FireConfig
+    from repro_torch.kernels.event_matmul import ops
+    from repro_torch.models import cnn
+    seen = []
+
+    def spy(orig):
+        def f(a_vals, a_idx, counts, *rest):
+            seen.append((tuple(a_vals.shape), int((counts == 0).sum()),
+                         _assert_live_ascending(a_idx, counts)))
+            return orig(a_vals, a_idx, counts, *rest)
+        return f
+
+    name = "event_matmul_int8_ref" if mode == "int8" else "event_matmul_ref"
+    monkeypatch.setattr(ops, name, spy(getattr(ops, name)))
+    spec = _vgg16_topology()
+    gen = torch.Generator().manual_seed(5)
+    params = cnn.init_cnn_params(spec, gen, weight_sparsity=0.5)
+    x = torch.relu(torch.randn((2, 32, 32, 3), generator=gen))
+    fire_cfg = FireConfig(quantize_to_int8=mode == "int8")
+    for chain in (True, False):
+        cnn.cnn_forward(params, x, spec, fire_cfg=fire_cfg, chain=chain,
+                        device="cpu")
+    per_tap = [s for s in seen if s[0][0] > 2]
+    fc = [s for s in seen if s[0][0] <= 2]
+    # the chain's 6 per-tap convs and 3 FCs at least (the f32 round trip
+    # also runs its strip layers per tap)
+    assert len(per_tap) >= 6 * 9 and len(fc) >= 3
+    assert any(zeros for _, zeros, _ in per_tap)
+    assert sum(pairs for _, _, pairs in fc) > 0

@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
 """Where the time of repro_torch's VGG16@224 batch-4 chained forward goes,
-on one NVIDIA GPU.
+on one NVIDIA GPU, in f32 and with int8 event values.
 
-    python3 tools/torch_profile.py
+    python3 tools/torch_profile.py [--src DIR]
 
-Runs warm chained forwards under ``torch.profiler`` (CPU + CUDA activity)
-and prints: the card line (name, power limit), the forward's host time,
-the device busy time and idle share over the profiled window, device time
-by kernel name (with launch counts), and device time summed per
-MNF kernel versus everything else (the torch ops around the kernels:
-encode argsorts, gathers, plans).  Needs a card; exits 2 without one.
+For each mode: warm forwards on the host clock (median of 5, each between
+two synchronizes), then 3 forwards under ``torch.profiler`` (CPU + CUDA
+activity).  Prints the card line (name, power limit), the forward's host
+time, the device busy time and idle share over the profiled window, device
+time by kernel name (with launch counts), device time summed per MNF kernel
+versus everything else (the torch ops around the kernels: encode argsorts,
+gathers, plans), and the event matmul's device time by launch shape (B2 in
+f32, B5 in int8): the launch order of one forward, read from the wrapper's
+capture list, is matched against the profiled kernels in start order.
+Ends with one JSON line per mode.  ``--src`` names the directory to import
+``repro_torch`` from (default: this checkout's ``src``), so one call on
+the card can profile two trees in turns.  Needs a card; exits 2 without
+one.
 """
 from __future__ import annotations
 
+import argparse
+import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -26,22 +36,28 @@ MNF_KERNELS = ("mnf_fire_compact_kernel", "mnf_event_matmul_kernel",
 
 
 #: The smoke cell: VGG16@224, batch 4 (PERF.md §4); forwards profiled.
-BATCH, SIZE, STEPS = 4, 224, 3
+BATCH, SIZE, STEPS, REPS = 4, 224, 3, 5
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core.fire import FireConfig
+    from repro_torch.kernels.event_matmul import ops as mm_ops
     from repro_torch.models import cnn
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
+    print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -50,42 +66,92 @@ def main() -> int:
     params = cnn.init_cnn_params(spec, gen, weight_sparsity=0.5)
     x = torch.relu(torch.randn((BATCH, SIZE, SIZE, 3),
                                generator=gen, device=dev))
-    for _ in range(2):                         # build kernels, plans; warm
-        cnn.cnn_forward(params, x, spec)
-    torch.cuda.synchronize()
+    for mode in ("f32", "int8"):
+        fire_cfg = FireConfig(quantize_to_int8=mode == "int8")
+        wrapper = mm_ops.event_matmul_dequant if mode == "int8" \
+            else mm_ops.event_matmul
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(STEPS):
-            cnn.cnn_forward(params, x, spec)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+        def forward():
+            return cnn.cnn_forward(params, x, spec, fire_cfg=fire_cfg)
 
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name: dict[str, list] = {}
-    for e in kernels:
-        dur = e.device_time_total if hasattr(e, "device_time_total") \
-            else e.cuda_time_total
-        rec = by_name.setdefault(e.name, [0.0, 0])
-        rec[0] += dur / 1e3 / STEPS
-        rec[1] += 1
-    busy = sum(v[0] for v in by_name.values())
-    mnf = sum(v[0] for n, v in by_name.items()
-              if any(k in n for k in MNF_KERNELS))
-    lines = [card,
-             f"VGG16@{SIZE} batch {BATCH}, chained forward, "
-             f"{STEPS} profiled steps",
-             f"host time per forward: {wall_ms:.3f} ms",
-             f"device busy per forward: {busy:.3f} ms "
-             f"(idle share {max(0.0, 1 - busy / wall_ms):.3f})",
-             f"MNF kernels: {mnf:.3f} ms; other device work: "
-             f"{busy - mnf:.3f} ms",
-             "device ms/forward  launches/forward  kernel"]
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
-        lines.append(f"{ms:16.4f}  {n // STEPS:16d}  {name[:110]}")
-    print("\n".join(lines))
+        for _ in range(2):                     # build kernels, plans; warm
+            forward()
+        wrapper.capture = []                   # one forward's launch order
+        forward()
+        order = [(tuple(a[0].shape), tuple(a[-1].shape))
+                 for a, _ in wrapper.capture]
+        wrapper.capture = None
+        times = []
+        for _ in range(REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(STEPS):
+                forward()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+
+        def dur(e):
+            return (e.device_time_total if hasattr(e, "device_time_total")
+                    else e.cuda_time_total) / 1e3
+
+        by_name: dict[str, list] = {}
+        for e in kernels:
+            rec = by_name.setdefault(e.name, [0.0, 0])
+            rec[0] += dur(e) / STEPS
+            rec[1] += 1
+        busy = sum(v[0] for v in by_name.values())
+        mnf = sum(v[0] for n, v in by_name.items()
+                  if any(k in n for k in MNF_KERNELS))
+        mm = sorted((e for e in kernels
+                     if "mnf_event_matmul_kernel" in e.name),
+                    key=lambda e: e.time_range.start)
+        if len(mm) != len(order) * STEPS:
+            print(f"torch_profile: {len(mm)} event matmul kernels profiled, "
+                  f"{len(order)} launches a forward", file=sys.stderr)
+            return 1
+        by_shape: dict[tuple, list] = {}
+        for e, key in zip(mm, order * STEPS):
+            rec = by_shape.setdefault(key, [0.0, 0])
+            rec[0] += dur(e) / STEPS
+            rec[1] += 1
+        label = "B5" if mode == "int8" else "B2"
+        lines = [f"== VGG16@{SIZE} batch {BATCH}, {mode} chained forward "
+                 f"(src {args.src})",
+                 f"warm forward: median {statistics.median(times):.3f} ms of "
+                 f"{[round(t, 3) for t in times]} (host clock, synchronized)",
+                 f"host time per forward under the profiler: {wall_ms:.3f} ms",
+                 f"device busy per forward: {busy:.3f} ms "
+                 f"(idle share {max(0.0, 1 - busy / wall_ms):.3f})",
+                 f"MNF kernels: {mnf:.3f} ms; other device work: "
+                 f"{busy - mnf:.3f} ms",
+                 "device ms/forward  launches/forward  kernel"]
+        for name, (ms, n) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0]):
+            lines.append(f"{ms:16.4f}  {n // STEPS:16d}  {name[:110]}")
+        lines.append(f"{label} device ms/forward by launch shape "
+                     f"(a_vals x W):")
+        for (a, w), (ms, n) in sorted(by_shape.items(),
+                                      key=lambda kv: -kv[1][0]):
+            lines.append(f"{ms:16.4f}  {n // STEPS:16d}  {a} x {w}")
+        print("\n".join(lines), flush=True)
+        print(json.dumps(dict(
+            mode=mode, src=args.src, device=torch.cuda.get_device_name(0),
+            forward_ms=round(statistics.median(times), 3),
+            profiled_ms=round(wall_ms, 3), device_busy_ms=round(busy, 3),
+            kernel=label, kernel_ms=round(sum(v[0] for v in
+                                              by_shape.values()), 4),
+            kernel_ms_by_shape={f"{a} x {w}": [round(ms, 4), n // STEPS]
+                                for (a, w), (ms, n) in by_shape.items()})),
+              flush=True)
     return 0
 
 
