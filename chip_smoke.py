@@ -96,7 +96,10 @@ the kernels):
    tolerance; pools exact).  B2 and B5 timed at every VGG16 launch shape
    (graph-timed ms times launches: the sum a forward) and reported at two:
    FC1 (bytes bound) and the per-tap conv shape with the largest summed
-   ms (operations bound).  Strip == per-tap on the card: conv3_1's input
+   ms (operations bound).  B3 and B6 graph-timed at each VGG16 strip
+   layer they ran (B3 x7 in f32, B6 x6 in int8) and summed a forward
+   (``per_forward_ms`` in their JSON entries, which report the heaviest
+   layer).  Strip == per-tap on the card: conv3_1's input
    map encoded as strips and as pixels, engine.conv2d through B3 (x1) and
    through B2 (x9), bitwise equal.  B7 and B8 at the main path's shapes of
    phases 6 and 7, B9, B9' and B10 at prompt 32, B9' and B10 also at
@@ -379,6 +382,37 @@ def pool_work(a_vals, cnt, out_elems):
     slots = int(live_slots(a_vals).sum())
     nbytes = slots * (bm * bk + 1) * 4 + out_elems * 4 + cnt.numel() * 8
     return nbytes, float(cnt.clamp(max=e).sum()) * bm * bk
+
+
+def strided_conv_inputs(torch, gen, int8: bool) -> list:
+    """The strip convs at stride 4 and 2: ALEXNET_FF@256's conv1 (k11 s4)
+    and conv2 (k3 s2, on a (4, 64, 64, 96) map), on relu(normal) inputs
+    with half the values zeroed and He weights from ``gen``.  Returns
+    [(layer, input shape, args, kw)], B6's args on the int8 codes."""
+    from repro_torch import engine
+    from repro_torch.core import quantize as qz
+    from repro_torch.kernels.event_conv import ops as conv_ops
+    from repro_torch.models import cnn
+    ff = cnn.ALEXNET_FF
+    dev = gen.device
+    out = []
+    for layer, shape in ((ff.layers[0], (4, ff.input_size, ff.input_size,
+                                         ff.in_ch)),
+                         (ff.layers[1], (4, 64, 64, ff.layers[0].out_ch))):
+        k, s, p, co = layer.k, layer.stride, layer.padding, layer.out_ch
+        xin = torch.relu(torch.randn(shape, generator=gen, device=dev))
+        xin = xin * (torch.rand(shape, generator=gen, device=dev) > 0.5)
+        wk = torch.randn((k, k, shape[3], co), generator=gen,
+                         device=dev) * (2.0 / (k * k * shape[3])) ** 0.5
+        qp = qz.calibrate(xin)
+        st = engine.EventStream.encode_nhwc(
+            qz.quantize(xin, qp) if int8 else xin,
+            blk_k=min(8, shape[3]), blk_m=8, keep_dense=False)
+        args, nkb = conv_ops.strip_conv_inputs(st, wk, stride=s, padding=p)
+        if int8:
+            args = (*args[:6], qp.scale, qp.zero_point, args[6])
+        out.append((layer, shape, args, dict(nkb=nkb, row_stride=s)))
+    return out
 
 
 def layer_inputs(cnn, spec, batch: int) -> list:
@@ -1482,14 +1516,14 @@ def run(torch) -> int:
         return rows[:, :c].reshape(shape).permute(0, 3, 1, 2).contiguous()
 
     def report(name, err, ms, plain_ms, lib_ms, b, extra="", launches=None,
-               shape=None):
+               shape=None, **keys):
         src, replaces = KERNELS[name]
         results.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launched[name] if launches is None else launches,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
             bound_by=b[1], library_ms=lib_ms,
-            **({} if shape is None else {"shape": shape})))
+            **({} if shape is None else {"shape": shape}), **keys))
         lib = "none (no single PyTorch call computes it)" if lib_ms is None \
             else f"{lib_ms:.4f} ms"
         print(f"[3] {name}: max_abs_err {err:.3e}, {ms:.4f} ms, plain "
@@ -1671,39 +1705,41 @@ def run(torch) -> int:
         return worst, checked
 
     def other_strides(name, int8):
-        ff = cnn.ALEXNET_FF              # conv1 (k11 s4) and conv2 (k3 s2)
-        for layer, shape in ((ff.layers[0], (4, ff.input_size,
-                                             ff.input_size, ff.in_ch)),
-                             (ff.layers[1], (4, 64, 64,
-                                             ff.layers[0].out_ch))):
-            k, s, p, co = layer.k, layer.stride, layer.padding, layer.out_ch
-            xin = torch.relu(torch.randn(shape, generator=gen, device=dev))
-            xin = xin * (torch.rand(shape, generator=gen, device=dev) > 0.5)
-            wk = torch.randn((k, k, shape[3], co), generator=gen,
-                             device=dev) * (2.0 / (k * k * shape[3])) ** 0.5
-            qp = qz.calibrate(xin)
-            st = engine.EventStream.encode_nhwc(
-                qz.quantize(xin, qp) if int8 else xin,
-                blk_k=min(8, shape[3]), blk_m=8, keep_dense=False)
-            args, nkb = conv_ops.strip_conv_inputs(st, wk, stride=s,
-                                                   padding=p)
-            if int8:
-                args = (*args[:6], qp.scale, qp.zero_point, args[6])
-                kern, ref = conv_ops.event_conv_dequant, event_conv_int8_ref
-            else:
-                kern, ref = conv_ops.event_conv, event_conv_ref
-            d = close(kern(*args, nkb=nkb, row_stride=s),
-                      ref(*args, nkb=nkb, row_stride=s),
+        if int8:
+            kern, ref = conv_ops.event_conv_dequant, event_conv_int8_ref
+        else:
+            kern, ref = conv_ops.event_conv, event_conv_ref
+        for layer, shape, args, kw in strided_conv_inputs(
+                torch, gen, int8):
+            k, s = layer.k, layer.stride
+            d = close(kern(*args, **kw), ref(*args, **kw),
                       f"{name} at {shape} k{k}s{s}")
-            ms = graph_ms(torch, lambda: kern(*args, nkb=nkb, row_stride=s),
-                          5)
+            ms = graph_ms(torch, lambda: kern(*args, **kw), 5)
             print(f"[3] {name} stride {s} (k{k}, input {shape}): "
                   f"max_abs_err {d:.3e}, {ms:.4f} ms", flush=True)
+
+    def conv_layers(name, kern, checked, work):
+        """Graph-time ``kern`` at each strip layer of a forward; print ms
+        and the bound a layer and their sum a forward."""
+        total = 0.0
+        for (layer, shape), (args, kw) in checked:
+            ms = graph_ms(torch, lambda: kern(*args, **kw), 10)
+            total += ms
+            b = bound_ms(*work(args, layer.stride))
+            print(f"[3] {name} at {shape} k{layer.k}s{layer.stride} -> "
+                  f"{layer.out_ch}: {ms:.4f} ms, bound {b[0]:.4f} ms "
+                  f"({b[1]})", flush=True)
+        print(f"[3] {name}: {total:.4f} ms a VGG16 forward, summed over "
+              f"its {len(checked)} launches (graph-timed)", flush=True)
+        return total
 
     worst, convs = check_convs("event_conv", conv_ops.event_conv,
                                event_conv_ref, strip_convs,
                                captured["event_conv"])
     other_strides("event_conv", False)
+    conv_forward_ms = conv_layers(
+        "event_conv", conv_ops.event_conv, convs,
+        lambda a, s: conv_work(torch, a, s))
     b, ((layer, shape), (args, kw)) = heaviest(
         convs, lambda c: conv_work(torch, c[1][0], c[0][0].stride))
     x_nchw = dense_nchw(args[0], args[1], kw["nkb"], shape)
@@ -1714,7 +1750,10 @@ def run(torch) -> int:
            graph_ms(torch, lambda: F.conv2d(x_nchw, w_oihw,
                                            stride=layer.stride,
                                            padding=layer.padding), 10), b,
-           f" at {shape} -> {layer.out_ch} ch, {len(convs)} layers checked")
+           f" at {shape} -> {layer.out_ch} ch, {len(convs)} layers "
+           f"checked; {conv_forward_ms:.4f} ms a forward",
+           shape=f"{shape} -> {layer.out_ch}",
+           per_forward_ms=conv_forward_ms)
     del x_nchw
 
     # strip == per-tap on the card (DESIGN.md §6): conv3_1's input map, as
@@ -1748,6 +1787,9 @@ def run(torch) -> int:
                                 event_conv_int8_ref, strip_convs8[1:],
                                 captured8["event_conv_int8"])
     other_strides("event_conv_int8", True)
+    conv8_forward_ms = conv_layers(
+        "event_conv_int8", conv_ops.event_conv_dequant, convs8,
+        lambda a, s: conv_work(torch, (*a[:6], a[8]), s, qbytes=8))
     b, ((layer, shape), (args, kw)) = heaviest(
         convs8, lambda c: conv_work(
             torch, (*c[1][0][:6], c[1][0][8]), c[0][0].stride, qbytes=8))
@@ -1760,7 +1802,10 @@ def run(torch) -> int:
            graph_ms(torch, lambda: F.conv2d(x_nchw, w_oihw,
                                            stride=layer.stride,
                                            padding=layer.padding), 10), b,
-           f" at {shape} -> {layer.out_ch} ch, {len(convs8)} layers checked")
+           f" at {shape} -> {layer.out_ch} ch, {len(convs8)} layers "
+           f"checked; {conv8_forward_ms:.4f} ms a forward",
+           shape=f"{shape} -> {layer.out_ch}",
+           per_forward_ms=conv8_forward_ms)
     del x_nchw
 
     # B4 pools: exact against the plain version and F.max_pool2d

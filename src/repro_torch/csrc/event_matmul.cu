@@ -89,57 +89,6 @@ struct MnfMatmulShape {
 using FcShape = MnfMatmulShape<4, 32, 2, 1, 64, 8, 4, 16, 4096>;
 using ConvShape = MnfMatmulShape<64, 64, 8, 4, 32, 3, 1, 1, 64>;
 
-// p -> p / d, a shift when d is a power of two.
-struct MnfDiv {
-  int d, sh = 0;
-  bool pow2;
-  __device__ __forceinline__ explicit MnfDiv(int d_)
-      : d(d_), pow2((d_ & (d_ - 1)) == 0) {
-    while ((1 << sh) < d) ++sh;
-  }
-  __device__ __forceinline__ int operator()(int p) const {
-    return pow2 ? p >> sh : p / d;
-  }
-};
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(gmem));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                 "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
-}
-
-// K consecutive floats from shared memory, as wide as K allows.
-template <int K>
-__device__ __forceinline__ void lds(const float* p, float (&v)[K]) {
-  if constexpr (K % 4 == 0) {
-#pragma unroll
-    for (int k = 0; k < K; k += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + k);
-      v[k] = t.x, v[k + 1] = t.y, v[k + 2] = t.z, v[k + 3] = t.w;
-    }
-  } else if constexpr (K == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x, v[1] = t.y;
-  } else {
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = p[k];
-  }
-}
-
 // VA consecutive activation values (f32 or int8 codes) from device memory:
 // one 16-byte (f32) or 4-byte (int8) load when VA == 4.
 template <int VA, typename T>

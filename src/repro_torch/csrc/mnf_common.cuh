@@ -2,18 +2,22 @@
 //
 // The order every event kernel keeps: one output element sums its events e
 // ascending, then the bk columns of each event tile row j ascending, each
-// term an fmaf into one f32 register.  mnf_tile_dot is that inner tile dot
-// of the fused strip conv (B3/B6); the event matmul (B2/B5,
-// event_matmul.cu) walks the same terms in the same order from a register
-// tile.  A row that is all zero in a tile adds fmaf(0, w, acc) == acc
-// exactly.  That is what makes strip == per-tap and chained == round-trip
-// bitwise on the card.
+// term an fmaf into one f32 register.  The event matmul (B2/B5,
+// event_matmul.cu) and the strip conv (B3/B6, event_conv.cu) both walk
+// those terms from a register tile of outputs; the strip conv sums each
+// tap into its own register (tap_acc) and adds it to the layer's (acc)
+// once the tap is done, as the per-tap path adds tap after tap.  A kernel
+// that multiplies a block of rows at once gives a row that lacks the block
+// exact zero activations: fmaf(+0, w, acc) == acc for a finite weight (only
+// an exact -0 accumulator would turn +0, and +0 == -0), so every output
+// still sums exactly its own terms.  That is what makes strip == per-tap
+// and chained == round trip bitwise on the card.
 //
 // The tile loader is the one thing the int8 kernels change: MnfF32Tile
-// reads f32 values, MnfInt8Tile dequantizes int8 codes at load as
-// (q - zp) * scale with explicit round-to-nearest intrinsics, which nvcc
-// never contracts.  That is exactly the float quantize.dequantize gives,
-// so an int8 kernel is bitwise its f32 twin fed the dequantized tiles.
+// reads f32 values, MnfInt8Tile dequantizes int8 codes as (q - zp) * scale
+// with explicit round-to-nearest intrinsics, which nvcc never contracts.
+// That is exactly the float quantize.dequantize gives, so an int8 kernel is
+// bitwise its f32 twin fed the dequantized tiles.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,21 +43,56 @@ struct MnfInt8Tile {
   }
 };
 
-template <typename Tile>
-__device__ __forceinline__ float mnf_tile_dot(
-    const typename Tile::T* __restrict__ a_row,
-    const float* __restrict__ w_col, int64_t ldw, int bk, float acc,
-    const Tile& tile) {
-  for (int j = 0; j < bk; ++j) {
-    acc = fmaf(tile(a_row, j), w_col[(int64_t)j * ldw], acc);
+// p -> p / d, a shift when d is a power of two.
+struct MnfDiv {
+  int d, sh = 0;
+  bool pow2;
+  __device__ __forceinline__ explicit MnfDiv(int d_)
+      : d(d_), pow2((d_ & (d_ - 1)) == 0) {
+    while ((1 << sh) < d) ++sh;
   }
-  return acc;
+  __device__ __forceinline__ int operator()(int p) const {
+    return pow2 ? p >> sh : p / d;
+  }
+};
+
+// One asynchronous copy of BYTES (16 or 4) from device to shared memory.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem));
 }
 
-// Columns per CTA for a (row group, N tile) CTA with threads over
-// (column, row): 128 threads for pixel rows, 256 for 8-row strips.
-static inline int mnf_cols_per_cta(int64_t bm) {
-  return bm == 1 ? 128 : 32;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+// K consecutive floats from shared memory, as wide as K allows.
+template <int K>
+__device__ __forceinline__ void lds(const float* p, float (&v)[K]) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + k);
+      v[k] = t.x, v[k + 1] = t.y, v[k + 2] = t.z, v[k + 3] = t.w;
+    }
+  } else if constexpr (K == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = p[k];
+  }
 }
 
 // Threads of a CTA that loops over channel columns (the pools).

@@ -35,8 +35,12 @@ def _out(a_vals, a_idx, tap, shift, src, cnt, ws, nkb, dtype):
     if g_out == 0 or n == 0 or e == 0:
         raise ValueError("zero-extent strip conv: a launch with gridDim 0 "
                          "is an invalid configuration")
-    if bm > 32:
-        raise ValueError(f"blk_m={bm} > 32 rows per CTA")
+    if bm != 8:
+        raise ValueError(f"blk_m={bm}: the strip conv kernel takes 8-pixel "
+                         f"strips only")
+    if max(a_vals.numel(), ws.numel(), g_out * bm * n, src.numel()) >= 2**31:
+        raise ValueError("the strip conv kernel indexes with 32-bit offsets: "
+                         "tensors of 2**31 elements or more are refused")
     return torch.empty((g_out, bm, n), dtype=torch.float32, device=ws.device)
 
 

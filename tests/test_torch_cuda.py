@@ -140,6 +140,72 @@ def test_event_conv_matches_plain(dev, shape, k, p, s):
                   event_conv_ref(*args, nkb=nkb, row_stride=s))
 
 
+#: B3/B6 cases: (seed, (B, H, W, CI), k, padding, stride, CO, blk_k,
+#: capacity, event-free strips).  "ci64_*" are VGG16's conv1_2/conv2_1
+#: widths on small maps (one and two column tiles), "co24" a ragged column
+#: tile, "bk3" the 3-channel first layer (4-byte weight copies, one value a
+#: load), "capacity" counts > E, "empty_strips" whole strips without
+#: events, "stride2_ci64" a k3s2 layer at CI 64.
+CONV_CASES = {
+    "ci64_co64": (21, (2, 8, 32, 64), 3, 1, 1, 64, 8, None, False),
+    "ci64_co128": (22, (1, 8, 64, 64), 3, 1, 1, 128, 8, None, False),
+    "co24": (23, (2, 8, 32, 16), 3, 1, 1, 24, 8, None, False),
+    "bk3": (24, (2, 8, 32, 3), 3, 1, 1, 64, 3, None, False),
+    "capacity": (25, (1, 8, 32, 64), 3, 1, 1, 64, 8, 3, False),
+    "empty_strips": (26, (2, 8, 32, 64), 3, 1, 1, 64, 8, None, True),
+    "stride2_ci64": (27, (1, 16, 64, 64), 3, 1, 2, 64, 8, None, False),
+}
+
+
+def _conv_case(case, dev, zero_point=None):
+    """The strip conv operands of a CONV_CASES case, and the QParams when
+    ``zero_point`` asks for int8 codes."""
+    seed, shape, k, p, s, co, bk, cap, empty = CONV_CASES[case]
+    x = _fired(seed, shape, dev)
+    if empty:                      # strips 1 and 2 of every row: no events
+        x[:, :, 8:24] = 0
+    qp = None
+    if zero_point is not None:
+        x, qp = _int8(x, zero_point)
+    w = torch.randn((k, k, shape[3], co), device=dev)
+    st = engine.EventStream.encode_nhwc(x, blk_k=bk, blk_m=8, capacity=cap,
+                                        keep_dense=False)
+    assert st.blk_k == bk
+    cnt = st.events.counts
+    if cap is not None:
+        assert int(cnt.max()) > st.events.values.shape[1]
+    if empty:
+        assert int((cnt == 0).sum()) >= 2 * shape[0] * shape[1]
+    args, nkb = strip_conv_inputs(st, w, stride=s, padding=p)
+    return args, dict(nkb=nkb, row_stride=s), qp
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_event_conv_cases(dev, case):
+    """B3 against its plain version within 1e-4 of max|plain|."""
+    args, kw, _ = _conv_case(case, dev)
+    launches = event_conv.launches
+    y = event_conv(*args, **kw)
+    assert event_conv.launches == launches + 1
+    assert _close(y, event_conv_ref(*args, **kw))
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_event_conv_int8_cases(dev, case):
+    """B6 with zero point 7 (a live code of 0 is -7 * scale, an unsourced
+    row exact 0) against its plain version, and bitwise B3 on the
+    dequantized tiles."""
+    args, kw, qp = _conv_case(case, dev, zero_point=7)
+    assert bool((args[0] == 0).any())
+    a8 = (*args[:6], qp.scale, qp.zero_point, args[6])
+    launches = event_conv_dequant.launches
+    y = event_conv_dequant(*a8, **kw)
+    assert event_conv_dequant.launches == launches + 1
+    assert _close(y, event_conv_int8_ref(*a8, **kw))
+    assert torch.equal(y, event_conv(qz.dequantize(args[0], qp), *args[1:],
+                                     **kw))
+
+
 def _int8(x, zero_point=0):
     """Codes of ``x`` under its symmetric QParams, with the zero point
     replaced by ``zero_point`` (the kernels take any)."""
@@ -200,6 +266,25 @@ def test_strip_equals_per_tap_on_card(dev, s):
     ys = engine.conv2d(strip, w, cfg=cfg, stride=s, padding=1)
     assert (event_conv.launches, event_matmul.launches) == (n_conv + 1,
                                                             n_mm)
+    yp = engine.conv2d(pix, w, cfg=cfg, stride=s, padding=1)
+    assert (event_conv.launches, event_matmul.launches) == (n_conv + 1,
+                                                            n_mm + 9)
+    assert torch.equal(ys, yp)
+
+
+@pytest.mark.parametrize("s", [1, 2])
+def test_strip_equals_per_tap_ci64_on_card(dev, s):
+    """Strip == per-tap at VGG16's CI 64 (eight K-blocks a strip, the
+    kernel's aligned path): B3 x 1 and B2 x 9 bitwise."""
+    shape = (2, 8, 64, 64)
+    x = _fired(31 + s, shape, dev)
+    w = torch.randn((3, 3, 64, 64), device=dev)
+    cfg = engine.EngineConfig(blk_k=8)
+    strip, pix = (engine.EventStream.encode_nhwc(x, blk_k=8, blk_m=bm,
+                                                 keep_dense=False)
+                  for bm in (8, 1))
+    n_conv, n_mm = event_conv.launches, event_matmul.launches
+    ys = engine.conv2d(strip, w, cfg=cfg, stride=s, padding=1)
     yp = engine.conv2d(pix, w, cfg=cfg, stride=s, padding=1)
     assert (event_conv.launches, event_matmul.launches) == (n_conv + 1,
                                                             n_mm + 9)

@@ -244,3 +244,104 @@ def test_event_matmul_inputs_ascend_on_vgg16_topology(monkeypatch, mode):
     assert len(per_tap) >= 6 * 9 and len(fc) >= 3
     assert any(zeros for _, zeros, _ in per_tap)
     assert sum(pairs for _, _, pairs in fc) > 0
+
+
+# -- the strip conv's per-tap flush (csrc/event_conv.cu) ----------------------
+# B3/B6 sum each tap into one register and flush it once: bitwise the
+# per-subtap flush because the parts of a tap are contiguous in the plan,
+# taps ascend, and a tap's parts source each output row of a strip exactly
+# once (the other parts add an exact 0).  The kernel also walks a source
+# strip's live K-blocks ascending, so its live a_idx must ascend.
+
+def _spec_strip_convs(spec):
+    """(name, (1, H, W, CI), k, padding, stride) of every conv of ``spec``
+    the strip route takes, at batch 1."""
+    from repro_torch.models import cnn
+    h = w = spec.input_size
+    c = spec.in_ch
+    out = []
+    for i, layer in enumerate(spec.layers):
+        if isinstance(layer, cnn.FCSpec):
+            break
+        if isinstance(layer, cnn.PoolSpec):
+            h = (h - layer.k) // layer.stride + 1
+            w = (w - layer.k) // layer.stride + 1
+            continue
+        k, s, p = layer.k, layer.stride, layer.padding
+        if tev.strip_ineligible_reason(w, k, s, p, layer.out_ch) is None:
+            out.append((f"{spec.name}-{i}", (1, h, w, c), k, p, s))
+        h = (h + 2 * p - k) // s + 1
+        w = (w + 2 * p - k) // s + 1
+        c = layer.out_ch
+    return out
+
+
+def _plan_geometries():
+    from repro_torch.models import cnn
+    geoms = [(f"geom{i}", *g) for i, g in enumerate(GEOMS)]
+    return geoms + _spec_strip_convs(cnn.VGG16) \
+        + _spec_strip_convs(cnn.ALEXNET_FF)
+
+
+def _assert_per_tap_flush_holds(tap, shift, stride):
+    """Taps ascend (so a tap's parts are contiguous) and each tap's parts
+    source each of a strip's output rows exactly once."""
+    tap, shift = np.asarray(tap), np.asarray(shift)
+    assert (np.diff(tap) >= 0).all(), "taps do not ascend in the plan"
+    rows = stride * np.arange(tev.STRIP_W)[None, :] + shift[:, None]
+    sourced = (rows >= 0) & (rows < tev.STRIP_W)             # (T, 8)
+    for t in np.unique(tap):
+        per_row = sourced[tap == t].sum(0)
+        assert (per_row == 1).all(), (int(t), per_row.tolist())
+    return len(np.unique(tap))
+
+
+@pytest.mark.parametrize("name,shape,k,p,s", _plan_geometries(),
+                         ids=lambda v: v if isinstance(v, str) else None)
+def test_strip_plan_parts_source_each_row_once(name, shape, k, p, s):
+    """The identity under the strip conv's per-tap flush, for every
+    geometry above and every strip conv of VGG16 and ALEXNET_FF."""
+    src, live, shift, tap = tev.strip_tap_map(shape, k, p, s)
+    assert _assert_per_tap_flush_holds(tap, shift, s) == k * k
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+def test_event_conv_inputs_ascend_on_vgg16_topology(monkeypatch, mode):
+    """Every B3/B6 call of a VGG16-topology chained forward gets strictly
+    ascending live addresses per source strip, and a plan whose per-tap
+    flush is exact."""
+    from repro_torch.core.fire import FireConfig
+    from repro_torch.kernels.event_conv import ops
+    from repro_torch.models import cnn
+    seen = []
+
+    def spy(orig):
+        def f(a_vals, a_idx, tap, shift, src, cnt, *rest, nkb, row_stride):
+            # a source strip's live count: its count wherever the plan
+            # reads it live
+            counts = torch.zeros(a_idx.shape[0], dtype=torch.int32)
+            counts.scatter_reduce_(0, src.flatten().long(), cnt.flatten(),
+                                   "amax")
+            seen.append((a_vals.dtype,
+                         _assert_live_ascending(a_idx, counts),
+                         _assert_per_tap_flush_holds(tap, shift,
+                                                     row_stride)))
+            return orig(a_vals, a_idx, tap, shift, src, cnt, *rest, nkb=nkb,
+                        row_stride=row_stride)
+        return f
+
+    for name in ("event_conv_ref", "event_conv_int8_ref"):
+        monkeypatch.setattr(ops, name, spy(getattr(ops, name)))
+    spec = _vgg16_topology()
+    gen = torch.Generator().manual_seed(6)
+    params = cnn.init_cnn_params(spec, gen, weight_sparsity=0.5)
+    x = torch.relu(torch.randn((2, 32, 32, 3), generator=gen))
+    cnn.cnn_forward(params, x, spec, device="cpu",
+                    fire_cfg=FireConfig(quantize_to_int8=mode == "int8"))
+    # the chain's 7 strip convs (widths 32, 16, 8): B3 x 7 in f32; in
+    # int8 B3 on the f32 input, then B6 x 6 on codes
+    dtypes = [d for d, _, _ in seen]
+    assert len(seen) == 7
+    assert dtypes.count(torch.int8) == (6 if mode == "int8" else 0)
+    # the layers of 16 channels (two K-blocks a strip) have live pairs
+    assert sum(pairs > 0 for _, pairs, _ in seen) >= 4

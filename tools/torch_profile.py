@@ -10,9 +10,10 @@ activity).  Prints the card line (name, power limit), the forward's host
 time, the device busy time and idle share over the profiled window, device
 time by kernel name (with launch counts), device time summed per MNF kernel
 versus everything else (the torch ops around the kernels: encode argsorts,
-gathers, plans), and the event matmul's device time by launch shape (B2 in
-f32, B5 in int8): the launch order of one forward, read from the wrapper's
-capture list, is matched against the profiled kernels in start order.
+gathers, plans), the event matmul's device time by launch shape (B2 in
+f32, B5 in int8) and the strip conv's by layer (B3, and B6 in int8): the
+launch order of one forward, read from the wrappers' capture lists, is
+matched against the profiled kernels in start order.
 Ends with one JSON line per mode.  ``--src`` names the directory to import
 ``repro_torch`` from (default: this checkout's ``src``), so one call on
 the card can profile two trees in turns.  Needs a card; exits 2 without
@@ -51,6 +52,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.fire import FireConfig
+    from repro_torch.kernels.event_conv import ops as conv_ops
     from repro_torch.kernels.event_matmul import ops as mm_ops
     from repro_torch.models import cnn
 
@@ -77,10 +79,17 @@ def main() -> int:
         for _ in range(2):                     # build kernels, plans; warm
             forward()
         wrapper.capture = []                   # one forward's launch order
+        convs = conv_ops.event_conv.capture = \
+            conv_ops.event_conv_dequant.capture = []   # B3, B6 in turn
         forward()
         order = [(tuple(a[0].shape), tuple(a[-1].shape))
                  for a, _ in wrapper.capture]
-        wrapper.capture = None
+        conv_order = [
+            f"#{i} {'B6' if a[0].dtype == torch.int8 else 'B3'} a_vals "
+            f"{tuple(a[0].shape)} x ws {tuple(a[-1].shape)} "
+            f"s{kw['row_stride']}" for i, (a, kw) in enumerate(convs)]
+        wrapper.capture = conv_ops.event_conv.capture = \
+            conv_ops.event_conv_dequant.capture = None
         times = []
         for _ in range(REPS):
             torch.cuda.synchronize()
@@ -123,6 +132,16 @@ def main() -> int:
             rec = by_shape.setdefault(key, [0.0, 0])
             rec[0] += dur(e) / STEPS
             rec[1] += 1
+        cv = sorted((e for e in kernels
+                     if "mnf_event_conv_kernel" in e.name),
+                    key=lambda e: e.time_range.start)
+        if len(cv) != len(conv_order) * STEPS:
+            print(f"torch_profile: {len(cv)} strip conv kernels profiled, "
+                  f"{len(conv_order)} launches a forward", file=sys.stderr)
+            return 1
+        by_layer = {key: 0.0 for key in conv_order}
+        for e, key in zip(cv, conv_order * STEPS):
+            by_layer[key] += dur(e) / STEPS
         label = "B5" if mode == "int8" else "B2"
         lines = [f"== VGG16@{SIZE} batch {BATCH}, {mode} chained forward "
                  f"(src {args.src})",
@@ -142,6 +161,10 @@ def main() -> int:
         for (a, w), (ms, n) in sorted(by_shape.items(),
                                       key=lambda kv: -kv[1][0]):
             lines.append(f"{ms:16.4f}  {n // STEPS:16d}  {a} x {w}")
+        lines.append(f"strip conv device ms/forward by layer, in launch "
+                     f"order ({sum(by_layer.values()):.4f} ms in all):")
+        for key, ms in by_layer.items():
+            lines.append(f"{ms:16.4f}  {key}")
         print("\n".join(lines), flush=True)
         print(json.dumps(dict(
             mode=mode, src=args.src, device=torch.cuda.get_device_name(0),
@@ -150,7 +173,10 @@ def main() -> int:
             kernel=label, kernel_ms=round(sum(v[0] for v in
                                               by_shape.values()), 4),
             kernel_ms_by_shape={f"{a} x {w}": [round(ms, 4), n // STEPS]
-                                for (a, w), (ms, n) in by_shape.items()})),
+                                for (a, w), (ms, n) in by_shape.items()},
+            strip_conv_ms=round(sum(by_layer.values()), 4),
+            strip_conv_ms_by_layer={k: round(v, 4)
+                                    for k, v in by_layer.items()})),
               flush=True)
     return 0
 
