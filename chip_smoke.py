@@ -99,7 +99,10 @@ the kernels):
    ms (operations bound).  B3 and B6 graph-timed at each VGG16 strip
    layer they ran (B3 x7 in f32, B6 x6 in int8) and summed a forward
    (``per_forward_ms`` in their JSON entries, which report the heaviest
-   layer).  Strip == per-tap on the card: conv3_1's input
+   layer).  B1 and both pools likewise graph-timed at every launch of
+   the f32 VGG16 forward (B1 x20, B4a x2, B4b x3) and summed
+   (``per_forward_ms``; the entry's own numbers stay at the heaviest
+   launch).  Strip == per-tap on the card: conv3_1's input
    map encoded as strips and as pixels, engine.conv2d through B3 (x1) and
    through B2 (x9), bitwise equal.  B7 and B8 at the main path's shapes of
    phases 6 and 7, B9, B9' and B10 at prompt 32, B9' and B10 also at
@@ -1533,6 +1536,22 @@ def run(torch) -> int:
     def dq(a_vals, scale, zero_point):
         return qz.dequantize(a_vals, qz.QParams(scale, zero_point))
 
+    def per_launch_ms(name, kern, calls, label):
+        """Graph-time ``kern`` at every launch of one f32 VGG16 forward;
+        print ms a launch shape and the sum a forward."""
+        by_shape: dict[str, list] = {}
+        for args, kw in calls:
+            ms = graph_ms(torch, lambda: kern(*args, **kw), 20)
+            by_shape.setdefault(label(args, kw), []).append(ms)
+        for key, times in by_shape.items():
+            print(f"[3] {name} at {key}: x{len(times)}, "
+                  + ", ".join(f"{t:.4f}" for t in times) + " ms",
+                  flush=True)
+        total = sum(sum(t) for t in by_shape.values())
+        print(f"[3] {name}: {total:.4f} ms a VGG16 forward, summed over "
+              f"its {len(calls)} launches (graph-timed)", flush=True)
+        return total
+
     # B1 fire_compact: fired and occupancy exact, every launch of VGG16 and
     # LeNet-300-100
     fires = captured["fire_compact"] + captured_mlp["fire_compact"]
@@ -1541,6 +1560,10 @@ def run(torch) -> int:
         f2, o2 = fire_compact_ref(acc, **kw)
         check(torch.equal(f1, f2) and torch.equal(o1, o2),
               f"fire_compact != plain at {tuple(acc.shape)} {kw}")
+    fire_forward_ms = per_launch_ms(
+        "fire_compact", fire_ops.fire_compact, captured["fire_compact"],
+        lambda args, kw: f"acc {tuple(args[0].shape)} tile "
+        f"({kw['blk_m']}, {kw['blk_k']})")
     b, ((acc,), kw) = heaviest(
         fires,
         lambda c: (c[0][0].numel() * 8 + c[0][0].numel()
@@ -1552,7 +1575,9 @@ def run(torch) -> int:
            graph_ms(torch, lambda: torch.relu(acc), 20), b,
            f" at acc {tuple(acc.shape)}, "
            f"{len(captured['fire_compact'])} VGG16 + "
-           f"{len(captured_mlp['fire_compact'])} LeNet launches checked exact")
+           f"{len(captured_mlp['fire_compact'])} LeNet launches checked "
+           f"exact; {fire_forward_ms:.4f} ms a forward",
+           per_forward_ms=fire_forward_ms)
 
     # B2 event_matmul and B5 event_matmul_int8, at every shape VGG16 and
     # LeNet-300-100 gave them (LeNet's N = 10 head is narrower than one
@@ -1825,6 +1850,10 @@ def run(torch) -> int:
             check(torch.equal(y.reshape(-1, y.shape[-2] * y.shape[-1])[:, :c],
                               pooled.permute(0, 2, 3, 1).reshape(-1, c)),
                   f"{name} != F.max_pool2d at {shape}")
+        pool_forward_ms = per_launch_ms(
+            name, kern, captured[name],
+            lambda args, kw: f"events {tuple(args[0].shape)} plan "
+            f"{tuple(args[3].shape)}")
         b, ((layer, shape), (args, kw), _) = heaviest(
             items, lambda c: pool_work(c[1][0][0], c[1][0][4], c[2]))
         x_nchw = dense_nchw(args[0], args[1], kw["nkb"], shape)
@@ -1833,7 +1862,9 @@ def run(torch) -> int:
                cuda_ms(torch, lambda: ref(*args, **kw), 2),
                graph_ms(torch, lambda: F.max_pool2d(x_nchw, layer.k,
                                                    layer.stride), 20), b,
-               f" at {shape}, {len(items)} layers checked exact")
+               f" at {shape}, {len(items)} layers checked exact; "
+               f"{pool_forward_ms:.4f} ms a forward",
+               per_forward_ms=pool_forward_ms)
         del x_nchw
 
     long_ms = lm_kernels(torch, rwkv, hymba, report, close)

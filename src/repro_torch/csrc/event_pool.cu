@@ -3,14 +3,28 @@
 // Segment max keyed by each event's K-block address, identity 0: the fire
 // phase emits non-negative values and event-absent positions are exactly
 // 0, so the result is bitwise the dense max-pool of the fired map.  Max is
-// exact and order-free, and each thread owns its output channel column, so
-// no atomics are needed.  Both kernels walk live events only and read the
-// input stream in place through the plan.  Bound on the H100: bytes.
+// exact and order-free, so any thread layout gives the plain version's
+// bits, and no atomics are needed.  Both kernels walk live events only and
+// read the input stream in place through the plan.  Bound on the H100:
+// bytes.
 //
 // B4b replaces src/repro/kernels/event_pool/kernel.py event_pool_pallas
-// (body event_pool_kernel): CTA = one output pixel p; for each window tap
-// t it picks row row[p,t] of tile a[src[p,t], e] (a direct load where the
-// TPU kernel used a 0/1 selection matmul).
+// (body event_pool_kernel), whose grid (P, T, E) visits each live event
+// once and max-accumulates its picked row at its address.  Here a group of
+// threads (32-256, a power of two) takes one output pixel p, several
+// pixels a CTA.  First the group reads the plan of its T taps (source,
+// picked row, clamped count) and then each tap's live a_idx once, into a
+// table slot[t][kb] in shared memory (-1: tap t's source has no event at
+// K-block kb).  That rests on the live addresses of a source group being
+// distinct (they ascend strictly: tests/test_torch_events.py pins it for
+// every B4b call of a VGG16-topology forward).  Then the lanes take the
+// output columns 4 at a time (16-byte loads and stores; 1 at a time where
+// bk % 4 != 0 or a pointer is not 16-byte aligned): for each tap they look
+// the slot up, load row row[p,t] of that live tile (a direct load where
+// the TPU kernel used a 0/1 selection matmul) and take fmaxf from +0 in
+// registers, then store once.  Each live tile row is read once and each
+// output written once.  A table wider than the CTA's share of shared
+// memory is walked in windows of K-blocks.
 //
 // B4a replaces event_pool_window_pallas (body event_pool_window_kernel):
 // CTA = one output strip (8 pooled pixels); for each subtap t every thread
@@ -18,30 +32,96 @@
 // row stride*i + shift[t] where that row lies inside the tile.
 #include "mnf_common.cuh"
 
-__global__ void mnf_event_pool_kernel(const float* __restrict__ a_vals,
-                                      const int32_t* __restrict__ a_idx,
-                                      const int32_t* __restrict__ row,
-                                      const int32_t* __restrict__ src,
-                                      const int32_t* __restrict__ cnt,
-                                      float* __restrict__ out, int64_t E,
-                                      int bm, int bk, int64_t nkb, int64_t T) {
-  const int64_t p = blockIdx.x;
-  const int64_t cols = nkb * bk;
-  for (int64_t col = threadIdx.x; col < cols; col += blockDim.x) {
-    const int64_t kb = col / bk;
-    const int j = (int)(col % bk);
-    float m = 0.f;
-    for (int64_t t = 0; t < T; ++t) {
-      const int c = min((int64_t)cnt[p * T + t], E);
-      const int64_t s = src[p * T + t];
-      const int r = row[p * T + t];
-      for (int e = 0; e < c; ++e) {
-        if (a_idx[s * E + e] == kb) {
-          m = fmaxf(m, a_vals[((s * E + e) * bm + r) * bk + j]);
+namespace {
+
+constexpr int kPoolThreads = 256;      // B4b: threads a CTA
+constexpr int kPoolSmem = 16 << 10;    // B4b: a CTA's plan and slot tables
+
+// V consecutive floats, as one 16-byte access where V is 4.
+template <int V>
+__device__ __forceinline__ void ldv(const float* p, float (&x)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) x[i] = p[i];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void stv(float* p, const float (&x)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = x[i];
+  }
+}
+
+}  // namespace
+
+// Shared memory of a CTA of npix pixels: base[npix][T] (offset of row
+// row[p,t] of slot 0 of tap t's source tile group), aoff[npix][T] (that
+// group's first a_idx), live[npix][T] (its clamped count), then
+// slot[npix][T][kbw].
+template <int V>
+__global__ void __launch_bounds__(kPoolThreads) mnf_event_pool_kernel(
+    const float* __restrict__ a_vals, const int32_t* __restrict__ a_idx,
+    const int32_t* __restrict__ row, const int32_t* __restrict__ src,
+    const int32_t* __restrict__ cnt, float* __restrict__ out, int64_t P,
+    int E, int bm, int bk, int nkb, int T, int gsz, int kbw) {
+  extern __shared__ int64_t pool_smem[];
+  const int npix = blockDim.x / gsz;
+  const int g = threadIdx.x / gsz, lane = threadIdx.x % gsz;
+  int64_t* base = pool_smem + g * T;
+  int64_t* aoff = pool_smem + (npix + g) * T;
+  int* live = reinterpret_cast<int*>(pool_smem + 2 * npix * T) + g * T;
+  int* slot = reinterpret_cast<int*>(pool_smem + 2 * npix * T) + npix * T +
+              g * T * kbw;
+  const int64_t p = (int64_t)blockIdx.x * npix + g;
+  const bool on = p < P;
+  const int64_t tile = (int64_t)bm * bk, cols = (int64_t)nkb * bk;
+  const int vb = bk / V;                 // V-wide chunks a K-block row
+  const MnfDiv per_kb(vb), per_tap(E);
+  if (on)
+    for (int t = lane; t < T; t += gsz) {
+      const int s = src[p * T + t];
+      base[t] = ((int64_t)s * E * bm + row[p * T + t]) * bk;
+      aoff[t] = (int64_t)s * E;
+      live[t] = min(cnt[p * T + t], E);
+    }
+  for (int kb0 = 0; kb0 < nkb; kb0 += kbw) {
+    const int w = min(kbw, nkb - kb0);
+    for (int i = lane; i < T * kbw; i += gsz) slot[i] = -1;
+    __syncthreads();
+    if (on)
+      for (int i = lane; i < T * E; i += gsz) {
+        const int t = per_tap(i), e = i - t * E;
+        if (e < live[t]) {
+          const int k = a_idx[aoff[t] + e] - kb0;
+          if (k >= 0 && k < w) slot[t * kbw + k] = e;
         }
       }
-    }
-    out[p * cols + col] = m;
+    __syncthreads();
+    if (on)
+      for (int c = lane; c < w * vb; c += gsz) {
+        const int k = per_kb(c), j = (c - k * vb) * V;
+        float m[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) m[i] = 0.f;
+#pragma unroll 4
+        for (int t = 0; t < T; ++t) {
+          const int e = slot[t * kbw + k];
+          if (e < 0) continue;
+          float x[V];
+          ldv<V>(a_vals + base[t] + e * tile + j, x);
+#pragma unroll
+          for (int i = 0; i < V; ++i) m[i] = fmaxf(m[i], x[i]);
+        }
+        stv<V>(out + p * cols + (int64_t)(kb0 + k) * bk + j, m);
+      }
+    if (kb0 + kbw < nkb) __syncthreads();   // before the next window's fill
   }
 }
 
@@ -86,11 +166,37 @@ extern "C" int mnf_event_pool(const void* a_vals, const void* a_idx,
                               const void* cnt, void* out, int64_t P,
                               int64_t E, int64_t bm, int64_t bk, int64_t nkb,
                               int64_t T, void* stream) {
-  mnf_event_pool_kernel<<<(unsigned)P, mnf_col_threads(nkb * bk), 0,
-                          (cudaStream_t)stream>>>(
-      (const float*)a_vals, (const int32_t*)a_idx, (const int32_t*)row,
-      (const int32_t*)src, (const int32_t*)cnt, (float*)out, E, (int)bm,
-      (int)bk, nkb, T);
+  const int64_t lim = (int64_t)1 << 31;
+  if (T * E >= lim || nkb * bk >= lim) return (int)cudaErrorInvalidValue;
+  const int V = bk % 4 == 0 && (uintptr_t)a_vals % 16 == 0 &&
+                        (uintptr_t)out % 16 == 0
+                    ? 4
+                    : 1;
+  // a group of threads a pixel, as wide as its chunks (32-256); pixels a
+  // CTA halved while the grid would leave SMs idle (fewer than 2 CTAs an
+  // SM of the H100's 132)
+  int gsz = 32;
+  while (gsz < nkb * bk / V && gsz < kPoolThreads) gsz *= 2;
+  int npix = kPoolThreads / gsz;
+  while (npix > 1 && (P + npix - 1) / npix < 2 * 132) npix /= 2;
+  // slot[T][kbw] in what is left of the CTA's share (20 bytes a tap go
+  // to the plan); at least one K-block a window
+  const int64_t fit = (kPoolSmem / npix - 20 * T) / (4 * T);
+  const int64_t kbw = fit < 1 ? 1 : fit < nkb ? fit : nkb;
+  const size_t smem = (size_t)npix * T * (20 + 4 * kbw);
+  if (smem > 48 << 10) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((P + npix - 1) / npix);
+  cudaStream_t s = (cudaStream_t)stream;
+#define MNF_LAUNCH(V_)                                                       \
+  mnf_event_pool_kernel<V_><<<grid, npix * gsz, smem, s>>>(                 \
+      (const float*)a_vals, (const int32_t*)a_idx, (const int32_t*)row,      \
+      (const int32_t*)src, (const int32_t*)cnt, (float*)out, P, (int)E,      \
+      (int)bm, (int)bk, (int)nkb, (int)T, gsz, (int)kbw)
+  if (V == 4)
+    MNF_LAUNCH(4);
+  else
+    MNF_LAUNCH(1);
+#undef MNF_LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -95,7 +95,7 @@ __device__ __forceinline__ void lds(const float* p, float (&v)[K]) {
   }
 }
 
-// Threads of a CTA that loops over channel columns (the pools).
+// Threads of a CTA that loops over channel columns (the window pool, B4a).
 static inline int mnf_col_threads(int64_t cols) {
   int64_t t = (cols + 31) / 32 * 32;
   return (int)(t < 256 ? t : 256);

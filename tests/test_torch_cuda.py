@@ -10,7 +10,8 @@ import torch
 
 from repro_torch import engine
 from repro_torch.core import quantize as qz
-from repro_torch.core.events import gather_row_groups
+from repro_torch.core.events import (decode_block_events,
+                                     gather_row_groups)
 from repro_torch.core.fire import FireConfig
 from repro_torch.engine.backends import tap_row_map
 from repro_torch.kernels.event_conv.ops import (event_conv, event_conv_dequant,
@@ -73,6 +74,51 @@ def test_fire_compact_matches_plain(dev, m, k, bm, bk, mag):
     f2, o2 = fire_compact_ref(acc, blk_m=bm, blk_k=bk, magnitude=mag)
     assert fire_compact.launches == n + 1
     assert torch.equal(f1, f2) and torch.equal(o1, o2)
+
+
+#: B1 cases: (M, K, bm, bk, threshold, magnitude, qscale).  The VGG-like
+#: pair is the forward's strip and pixel fire (K 64, bk 8: two 16-byte
+#: lanes a tile, reduced by one shuffle); bk 128 is a whole warp a tile;
+#: bk 6 (LeNet's K 300) and an acc 4 bytes off 16-byte alignment take the
+#: scalar path, bk 6 with a shared-memory flag per tile; "ties" puts values
+#: at x.5 * qscale (round half to even); "dead_band" has tile rows with no
+#: live value (occupancy 0).
+FIRE_CASES = {
+    "vgg_strip": (2048, 64, 8, 8, 0.0, False, None),
+    "vgg_pixel": (2048, 64, 1, 8, 0.0, False, None),
+    "bk128": (40, 1024, 8, 128, 0.0, False, None),
+    "lenet_bk6": (128, 300, 1, 6, 0.0, False, None),
+    "unaligned": (96, 64, 8, 8, 0.0, False, None),
+    "theta": (512, 64, 8, 8, 0.5, False, None),
+    "magnitude": (512, 64, 1, 8, 0.3, True, None),
+    "ties": (256, 64, 8, 8, 0.0, False, 0.125),
+    "dead_band": (256, 64, 8, 8, 0.0, False, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FIRE_CASES))
+def test_fire_compact_cases(dev, case):
+    m, k, bm, bk, thr, mag, qscale = FIRE_CASES[case]
+    r = np.random.default_rng(len(case))
+    x = r.normal(size=(m, k)).astype(np.float32)
+    if case == "ties":
+        x = ((np.floor(x * 16) + 0.5) * qscale).astype(np.float32)
+        assert (np.abs(x / qscale - np.round(x / qscale)) == 0.5).all()
+    if case == "dead_band":
+        x[8:24] = -np.abs(x[8:24])
+    acc = torch.from_numpy(x).to(dev)
+    if case == "unaligned":
+        acc = torch.empty(m * k + 1, device=dev)[1:].view(m, k).copy_(acc)
+        assert acc.data_ptr() % 16 == 4
+    kw = dict(blk_m=bm, blk_k=bk, threshold=thr, magnitude=mag,
+              qscale=qscale)
+    n = fire_compact.launches
+    f1, o1 = fire_compact(acc, **kw)
+    assert fire_compact.launches == n + 1
+    f2, o2 = fire_compact_ref(acc, **kw)
+    assert torch.equal(f1, f2) and torch.equal(o1, o2)
+    if case == "dead_band":
+        assert int(o1[1:3].sum()) == 0
 
 
 #: B2/B5 cases: (seed, rows, K, N, bm, bk, capacity, per-tap gather).  The
@@ -347,6 +393,54 @@ def test_event_pools_match_plain(dev, shape, bm):
         args = pool_window_inputs(st, 2, 2)
         assert torch.equal(event_pool_window(*args, nkb=2, row_stride=2),
                            event_pool_window_ref(*args, nkb=2, row_stride=2))
+
+
+#: B4b cases: (NHWC shape, bm, bk, k, stride, capacity).  bm 1 is the
+#: forward's pixel stream, bm 8 a strip stream; k3 s2 has T 9 taps; C 512
+#: at bk 8 is pool4/pool5's 512 columns, C 4096 at k3 a slot table wider
+#: than a CTA's share (two windows of K-blocks); "capacity" has counts > E
+#: (E 2 of nkb 4), "event_free" whole pixels without events, bk 6 the
+#: scalar path.
+POOL_CASES = {
+    "pixel_k2s2": ((2, 8, 8, 16), 1, 8, 2, 2, None),
+    "strip_k2s2": ((2, 8, 16, 32), 8, 8, 2, 2, None),
+    "pixel_k3s2": ((2, 9, 9, 32), 1, 8, 3, 2, None),
+    "strip_k3s2": ((1, 9, 16, 16), 8, 8, 3, 2, None),
+    "c512": ((2, 6, 6, 512), 1, 8, 2, 2, None),
+    "c4096_k3": ((1, 3, 3, 4096), 1, 8, 3, 2, None),
+    "capacity": ((2, 8, 8, 32), 1, 8, 2, 2, 2),
+    "event_free": ((2, 8, 8, 16), 1, 8, 2, 2, None),
+    "bk6": ((2, 8, 8, 12), 1, 6, 2, 2, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
+def test_event_pool_cases(dev, case):
+    """B4b exact against its plain version and F.max_pool2d on the decoded
+    map, one launch a call."""
+    shape, bm, bk, k, s, cap = POOL_CASES[case]
+    x = _fired(len(case), shape, dev, sparsity=0.6)
+    if case == "event_free":
+        x[0, :4] = 0.0
+        x[1, :, 2:6] = 0.0
+    st = engine.EventStream.encode_nhwc(x, blk_k=bk, blk_m=bm, capacity=cap)
+    nkb = st.events.num_k_blocks
+    args = pool_inputs(st, k, s)
+    if cap is not None:
+        assert int(args[4].max()) > args[0].shape[1] and cap < nkb
+    if case == "event_free":
+        assert int((args[4] == 0).all(1).sum()) > 0
+    n = event_pool.launches
+    y = event_pool(*args, nkb=nkb)
+    assert event_pool.launches == n + 1
+    assert torch.equal(y, event_pool_ref(*args, nkb=nkb))
+    b, h, w, c = shape
+    dense = decode_block_events(st.events, blk_m=bm, blk_k=bk,
+                                m=b * h * w, k=nkb * bk)[:, :c]
+    pooled = torch.nn.functional.max_pool2d(
+        dense.reshape(shape).permute(0, 3, 1, 2), k, s)
+    assert torch.equal(y.reshape(y.shape[0], -1)[:, :c],
+                       pooled.permute(0, 2, 3, 1).reshape(-1, c))
 
 
 def test_mini_chain_bitwise_and_matches_cpu(dev):

@@ -345,3 +345,47 @@ def test_event_conv_inputs_ascend_on_vgg16_topology(monkeypatch, mode):
     assert dtypes.count(torch.int8) == (6 if mode == "int8" else 0)
     # the layers of 16 channels (two K-blocks a strip) have live pairs
     assert sum(pairs > 0 for _, pairs, _ in seen) >= 4
+
+
+# -- the event pool's precondition (csrc/event_pool.cu) ------------------------
+# B4b builds a table slot[t][kb] of each tap's live events, one writer a
+# K-block, so a source group's live a_idx must be distinct: they ascend
+# strictly.
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+def test_event_pool_inputs_ascend_on_vgg16_topology(monkeypatch, mode):
+    """Every B4a/B4b call of a VGG16-topology chained forward reads live
+    source groups whose addresses ascend strictly; the forward pools
+    window-major twice (B4a) and per pixel three times (B4b)."""
+    from repro_torch.core.fire import FireConfig
+    from repro_torch.kernels.event_pool import ops
+    from repro_torch.models import cnn
+    seen = []
+
+    def spy(kind, orig):
+        def f(a_vals, a_idx, plan, src, cnt, **kw):
+            # a source group's live count: its count wherever the plan
+            # reads it live
+            counts = torch.zeros(a_idx.shape[0], dtype=torch.int32)
+            counts.scatter_reduce_(0, src.flatten().long(), cnt.flatten(),
+                                   "amax")
+            seen.append((kind, tuple(a_vals.shape),
+                         _assert_live_ascending(a_idx, counts)))
+            return orig(a_vals, a_idx, plan, src, cnt, **kw)
+        return f
+
+    monkeypatch.setattr(ops, "event_pool_ref",
+                        spy("B4b", ops.event_pool_ref))
+    monkeypatch.setattr(ops, "event_pool_window_ref",
+                        spy("B4a", ops.event_pool_window_ref))
+    spec = _vgg16_topology()
+    gen = torch.Generator().manual_seed(6)
+    params = cnn.init_cnn_params(spec, gen, weight_sparsity=0.5)
+    x = torch.relu(torch.randn((2, 32, 32, 3), generator=gen))
+    cnn.cnn_forward(params, x, spec, device="cpu",
+                    fire_cfg=FireConfig(quantize_to_int8=mode == "int8"))
+    kinds = [k for k, _, _ in seen]
+    assert kinds.count("B4a") == 2 and kinds.count("B4b") == 3
+    per_pixel = [(shape, pairs) for k, shape, pairs in seen if k == "B4b"]
+    assert all(shape[2] == 1 for shape, _ in per_pixel)
+    assert all(pairs > 0 for _, pairs in per_pixel), per_pixel
