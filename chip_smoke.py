@@ -570,14 +570,15 @@ class FirstCalls(list):
 def wkv6_work(bev, r):
     """Bytes and operations one B7 launch needs on these events: the
     state read and written once, r, v, w, u read and o written, each live
-    event tile and address, counts and the live mask; a multiply per state
-    element (decay), a multiply-add per element for the readout, a
-    multiply and an add per element of each live block (increment)."""
+    event tile and address, and counts (the kernel derives the live mask
+    itself); a multiply per state element (decay), a multiply-add per
+    element for the readout, a multiply and an add per element of each
+    live block (increment)."""
     g, d = r.shape
     _, e, _, bk = bev.values.shape
     slots = int(bev.counts.clamp(max=e).sum())
     nbytes = 2 * g * d * d * 4 + 5 * g * d * 4 + slots * (bk * 4 + 4) \
-        + g * 4 + g * bev.num_k_blocks * 4
+        + g * 4
     return nbytes, 3.0 * g * d * d + 2.0 * slots * bk * d + 5.0 * g * d
 
 
@@ -1051,22 +1052,23 @@ def lm_kernels(torch, rwkv, hymba, report, close) -> dict:
     # every launch of phase 6 was held against the plain version there
     (args, kw), = rwkv["caps"]
     bev, r_, v_, w_, u_, s_ = args
-    live = ev.live_block_mask(bev).to(torch.int32)
-    kargs = (bev.values, bev.block_idx, bev.counts, live, r_, v_, w_, u_, s_)
-    o, s_new = wkv6_step_cuda(*kargs)
+    kargs = (bev.values, bev.block_idx, bev.counts, r_, v_, w_, u_, s_)
+    o, s_new = wkv6_step_cuda(*kargs, nkb=bev.num_k_blocks)
     o2, s2 = wkv6_step_events_ref(*args, **kw)
     check(torch.equal(s_new, s2), "wkv6_step: S' != plain bitwise")
     err = close(o, o2, "wkv6_step o")
     wrapper_ms = graph_ms(torch, lambda: wkv6_ops.wkv6_step_events(*args,
                                                                    **kw), 50)
-    report("wkv6_step", err, graph_ms(torch, lambda: wkv6_step_cuda(*kargs),
-                                      50),
+    report("wkv6_step", err,
+           graph_ms(torch, lambda: wkv6_step_cuda(
+               *kargs, nkb=bev.num_k_blocks), 50),
            cuda_ms(torch, lambda: wkv6_step_events_ref(*args, **kw), 5),
            None, bound_ms(*wkv6_work(bev, r_)),
            f" at rows {tuple(r_.shape)}, state {tuple(s_.shape)}, events "
-           f"{tuple(bev.values.shape)}; the wrapper with its live mask "
-           f"{wrapper_ms:.4f} ms; {rwkv['launches'] // LM_GEN} launches "
-           f"per token")
+           f"{tuple(bev.values.shape)}; the wrapper (no live mask: the "
+           f"kernel derives it) {wrapper_ms:.4f} ms; "
+           f"{rwkv['launches'] // LM_GEN} launches per token",
+           wrapper_ms=wrapper_ms)
     del rwkv["caps"], args, kargs
 
     # B8 mamba_step: the main path's last launch (Hymba-1.5B, batch 4,

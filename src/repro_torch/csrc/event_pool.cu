@@ -26,37 +26,47 @@
 // output written once.  A table wider than the CTA's share of shared
 // memory is walked in windows of K-blocks.
 //
-// B4a replaces event_pool_window_pallas (body event_pool_window_kernel):
-// CTA = one output strip (8 pooled pixels); for each subtap t every thread
-// keeps the 8 rows of its column in registers and max-accumulates source
-// row stride*i + shift[t] where that row lies inside the tile.
+// B4a replaces event_pool_window_pallas (body event_pool_window_kernel),
+// whose grid (G_out, T, E) remaps each live event tile of subtap t (out
+// row i <- source row stride*i + shift[t], a 0/1 selection matmul) and
+// max-accumulates it at its address.  Here, as in B4b, a group of threads
+// (32-64) takes one output strip g (8 pooled pixels), several strips a
+// CTA: it reads the strip's plan once (source strip, clamped count of each
+// subtap), tables each subtap's live events by address (slot[t][kb], one
+// writer an address: the same distinct-address precondition), then the
+// lanes take (output row i, K-block, 4 columns): for each subtap whose
+// source row stride*i + shift[t] lies in [0, 8) and whose slot is live,
+// one 16-byte load of that tile row (a direct load where the TPU kernel
+// multiplied by a selection matrix), fmaxf from +0 in registers, one
+// 16-byte store.  Each live tile row a window reads is read once.
 #include "mnf_common.cuh"
 
 namespace {
 
-constexpr int kPoolThreads = 256;      // B4b: threads a CTA
-constexpr int kPoolSmem = 16 << 10;    // B4b: a CTA's plan and slot tables
+constexpr int kPoolThreads = 256;      // threads a CTA (B4a and B4b)
+constexpr int kPoolSmem = 16 << 10;    // a CTA's plan and slot tables
+constexpr int kStripRows = 8;          // B4a: STRIP_W, rows of a strip tile
+constexpr int kWindowGroup = 64;       // B4a: threads a strip at most
 
-// V consecutive floats, as one 16-byte access where V is 4.
-template <int V>
-__device__ __forceinline__ void ldv(const float* p, float (&x)[V]) {
-  if constexpr (V == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < V; ++i) x[i] = p[i];
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void stv(float* p, const float (&x)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < V; ++i) p[i] = x[i];
-  }
+// A group's slot table of the K-block window [kb0, kb0 + w): slot[t * kbw
+// + k] = e, the live event of (sub)tap t's source at K-block kb0 + k, or
+// -1.  One writer an address: a source group's live a_idx are distinct.
+// Every thread of the CTA calls it (it holds the CTA's two barriers).
+__device__ __forceinline__ void table_slots(
+    int* slot, const int64_t* aoff, const int* live,
+    const int32_t* __restrict__ a_idx, int T, int E, int kbw, int kb0,
+    int w, int lane, int gsz, bool on, const MnfDiv& per_tap) {
+  for (int i = lane; i < T * kbw; i += gsz) slot[i] = -1;
+  __syncthreads();
+  if (on)
+    for (int i = lane; i < T * E; i += gsz) {
+      const int t = per_tap(i), e = i - t * E;
+      if (e < live[t]) {
+        const int k = a_idx[aoff[t] + e] - kb0;
+        if (k >= 0 && k < w) slot[t * kbw + k] = e;
+      }
+    }
+  __syncthreads();
 }
 
 }  // namespace
@@ -93,17 +103,8 @@ __global__ void __launch_bounds__(kPoolThreads) mnf_event_pool_kernel(
     }
   for (int kb0 = 0; kb0 < nkb; kb0 += kbw) {
     const int w = min(kbw, nkb - kb0);
-    for (int i = lane; i < T * kbw; i += gsz) slot[i] = -1;
-    __syncthreads();
-    if (on)
-      for (int i = lane; i < T * E; i += gsz) {
-        const int t = per_tap(i), e = i - t * E;
-        if (e < live[t]) {
-          const int k = a_idx[aoff[t] + e] - kb0;
-          if (k >= 0 && k < w) slot[t * kbw + k] = e;
-        }
-      }
-    __syncthreads();
+    table_slots(slot, aoff, live, a_idx, T, E, kbw, kb0, w, lane, gsz, on,
+                per_tap);
     if (on)
       for (int c = lane; c < w * vb; c += gsz) {
         const int k = per_kb(c), j = (c - k * vb) * V;
@@ -125,39 +126,62 @@ __global__ void __launch_bounds__(kPoolThreads) mnf_event_pool_kernel(
   }
 }
 
-__global__ void mnf_event_pool_window_kernel(const float* __restrict__ a_vals,
-                                             const int32_t* __restrict__ a_idx,
-                                             const int32_t* __restrict__ shift,
-                                             const int32_t* __restrict__ src,
-                                             const int32_t* __restrict__ cnt,
-                                             float* __restrict__ out,
-                                             int64_t E, int bk, int64_t nkb,
-                                             int64_t T, int row_stride) {
-  constexpr int BM = 8;  // STRIP_W: the window grid takes strip streams only
-  const int64_t g = blockIdx.x;
-  const int64_t cols = nkb * bk;
-  for (int64_t col = threadIdx.x; col < cols; col += blockDim.x) {
-    const int64_t kb = col / bk;
-    const int j = (int)(col % bk);
-    float m[BM];
+// Shared memory of a CTA of nstrip strips: aoff[nstrip][T] (first a_idx
+// of subtap t's source strip), live[nstrip][T] (its clamped count),
+// sh[T] (the plan's row shifts), then slot[nstrip][T][kbw].
+template <int V>
+__global__ void __launch_bounds__(kPoolThreads) mnf_event_pool_window_kernel(
+    const float* __restrict__ a_vals, const int32_t* __restrict__ a_idx,
+    const int32_t* __restrict__ shift, const int32_t* __restrict__ src,
+    const int32_t* __restrict__ cnt, float* __restrict__ out, int64_t G,
+    int E, int bk, int nkb, int T, int row_stride, int gsz, int kbw) {
+  constexpr int BM = kStripRows;
+  extern __shared__ int64_t pool_smem[];
+  const int nstrip = blockDim.x / gsz;
+  const int g = threadIdx.x / gsz, lane = threadIdx.x % gsz;
+  int64_t* aoff = pool_smem + g * T;
+  int* live = reinterpret_cast<int*>(pool_smem + nstrip * T) + g * T;
+  int* sh = reinterpret_cast<int*>(pool_smem + nstrip * T) + nstrip * T;
+  int* slot = sh + T + g * T * kbw;
+  const int64_t strip = (int64_t)blockIdx.x * nstrip + g;
+  const bool on = strip < G;
+  const int64_t tile = (int64_t)BM * bk, cols = (int64_t)nkb * bk;
+  const int vb = bk / V;                 // V-wide chunks a K-block row
+  const MnfDiv per_kb(vb), per_tap(E);
+  for (int t = threadIdx.x; t < T; t += blockDim.x) sh[t] = shift[t];
+  if (on)
+    for (int t = lane; t < T; t += gsz) {
+      aoff[t] = (int64_t)src[strip * T + t] * E;
+      live[t] = min(cnt[strip * T + t], E);
+    }
+  for (int kb0 = 0; kb0 < nkb; kb0 += kbw) {
+    const int w = min(kbw, nkb - kb0);
+    table_slots(slot, aoff, live, a_idx, T, E, kbw, kb0, w, lane, gsz, on,
+                per_tap);
+    if (on) {
+      const int row_chunks = w * vb;     // chunks an output row's window
+      const MnfDiv per_row(row_chunks);
+      for (int c = lane; c < BM * row_chunks; c += gsz) {
+        const int i = per_row(c), q = c - i * row_chunks;
+        const int k = per_kb(q), j = (q - k * vb) * V;
+        float m[V];
 #pragma unroll
-    for (int i = 0; i < BM; ++i) m[i] = 0.f;
-    for (int64_t t = 0; t < T; ++t) {
-      const int c = min((int64_t)cnt[g * T + t], E);
-      const int64_t s = src[g * T + t];
-      const int d = shift[t];
-      for (int e = 0; e < c; ++e) {
-        if (a_idx[s * E + e] != kb) continue;
-        const float* tile = a_vals + (s * E + e) * BM * bk + j;
+        for (int v = 0; v < V; ++v) m[v] = 0.f;
+#pragma unroll 8
+        for (int t = 0; t < T; ++t) {
+          const int sr = row_stride * i + sh[t];
+          const int e = slot[t * kbw + k];
+          if (sr < 0 || sr >= BM || e < 0) continue;
+          float x[V];
+          ldv<V>(a_vals + (aoff[t] + e) * tile + sr * bk + j, x);
 #pragma unroll
-        for (int i = 0; i < BM; ++i) {
-          const int sr = row_stride * i + d;
-          if (sr >= 0 && sr < BM) m[i] = fmaxf(m[i], tile[sr * bk]);
+          for (int v = 0; v < V; ++v) m[v] = fmaxf(m[v], x[v]);
         }
+        stv<V>(out + (strip * BM + i) * cols + (int64_t)(kb0 + k) * bk + j,
+               m);
       }
     }
-#pragma unroll
-    for (int i = 0; i < BM; ++i) out[(g * BM + i) * cols + col] = m[i];
+    if (kb0 + kbw < nkb) __syncthreads();   // before the next window's fill
   }
 }
 
@@ -206,10 +230,36 @@ extern "C" int mnf_event_pool_window(const void* a_vals, const void* a_idx,
                                      int64_t E, int64_t bk, int64_t nkb,
                                      int64_t T, int64_t row_stride,
                                      void* stream) {
-  mnf_event_pool_window_kernel<<<(unsigned)G_out, mnf_col_threads(nkb * bk), 0,
-                                 (cudaStream_t)stream>>>(
-      (const float*)a_vals, (const int32_t*)a_idx, (const int32_t*)shift,
-      (const int32_t*)src, (const int32_t*)cnt, (float*)out, E, (int)bk, nkb,
-      T, (int)row_stride);
+  const int64_t lim = (int64_t)1 << 31;
+  if (T * E >= lim || kStripRows * nkb * bk >= lim)
+    return (int)cudaErrorInvalidValue;
+  const bool wide = bk % 4 == 0 && (uintptr_t)a_vals % 16 == 0 &&
+                    (uintptr_t)out % 16 == 0;
+  const int V = wide ? 4 : 1;
+  // a group of threads a strip, as wide as its chunks (32-64: 2 chunks a
+  // lane at pool1, 4 at pool2); strips a CTA halved while the grid would
+  // leave SMs idle (fewer than 2 CTAs an SM of the H100's 132)
+  int gsz = 32;
+  while (gsz < kStripRows * nkb * bk / V && gsz < kWindowGroup) gsz *= 2;
+  int nstrip = kPoolThreads / gsz;
+  while (nstrip > 1 && (G_out + nstrip - 1) / nstrip < 2 * 132) nstrip /= 2;
+  // slot[T][kbw] in what is left of the CTA's share (12 bytes a subtap go
+  // to the plan, 4 a subtap to the shifts); at least one K-block a window
+  const int64_t fit = ((kPoolSmem - 4 * T) / nstrip - 12 * T) / (4 * T);
+  const int64_t kbw = fit < 1 ? 1 : fit < nkb ? fit : nkb;
+  const size_t smem = (size_t)nstrip * T * (12 + 4 * kbw) + 4 * T;
+  if (smem > 48 << 10) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((G_out + nstrip - 1) / nstrip);
+  cudaStream_t s = (cudaStream_t)stream;
+#define MNF_LAUNCH(V_)                                                       \
+  mnf_event_pool_window_kernel<V_><<<grid, nstrip * gsz, smem, s>>>(        \
+      (const float*)a_vals, (const int32_t*)a_idx, (const int32_t*)shift,    \
+      (const int32_t*)src, (const int32_t*)cnt, (float*)out, G_out, (int)E,  \
+      (int)bk, (int)nkb, (int)T, (int)row_stride, gsz, (int)kbw)
+  if (V == 4)
+    MNF_LAUNCH(4);
+  else
+    MNF_LAUNCH(1);
+#undef MNF_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -77,6 +77,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
 }
 
+// V consecutive floats of device memory, one 16-byte access where V is 4
+// (the pools B4, the gated WKV6 step B7).
+template <int V>
+__device__ __forceinline__ void ldv(const float* p, float (&x)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) x[i] = p[i];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void stv(float* p, const float (&x)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = x[i];
+  }
+}
+
 // K consecutive floats from shared memory, as wide as K allows.
 template <int K>
 __device__ __forceinline__ void lds(const float* p, float (&v)[K]) {
@@ -93,10 +116,4 @@ __device__ __forceinline__ void lds(const float* p, float (&v)[K]) {
 #pragma unroll
     for (int k = 0; k < K; ++k) v[k] = p[k];
   }
-}
-
-// Threads of a CTA that loops over channel columns (the window pool, B4a).
-static inline int mnf_col_threads(int64_t cols) {
-  int64_t t = (cols + 31) / 32 * 32;
-  return (int)(t < 256 ? t : 256);
 }

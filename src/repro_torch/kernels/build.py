@@ -48,7 +48,7 @@ _SIGNATURES = {
     "mnf_event_conv_int8": [_P] * 10 + [_I] * 8 + [_P],
     "mnf_event_pool": [_P] * 6 + [_I] * 6 + [_P],
     "mnf_event_pool_window": [_P] * 6 + [_I] * 6 + [_P],
-    "mnf_wkv6_step": [_P] * 11 + [_I] * 5 + [_P],
+    "mnf_wkv6_step": [_P] * 10 + [_I] * 5 + [_P],
     "mnf_mamba_step": [_P] * 10 + [_I] * 6 + [_P],
     "mnf_wkv6": [_P] * 8 + [_I] * 4 + [_P],
     "mnf_mamba_scan": [_P] * 6 + [_I] * 4 + [_P],

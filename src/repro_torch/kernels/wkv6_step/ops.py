@@ -2,10 +2,10 @@
 
 ``wkv6_step_events`` is the wrapper of ``csrc/wkv6_step.cu``, which
 replaces ``repro.kernels.wkv6.step.wkv6_step_events_pallas``: a CUDA
-tensor computes the live mask (``core.events.live_block_mask``), launches
-the kernel and counts it (``kernels.note_launch``); a CPU tensor takes the
-plain version (``ref.py``).  Bound on the card: bytes (the f32 state read
-and written once per row).
+tensor launches the kernel, which derives the live mask from the events
+itself, and counts it (``kernels.note_launch``): no other op runs; a CPU
+tensor takes the plain version (``ref.py``).  Bound on the card: bytes
+(the f32 state read and written once per row).
 """
 from __future__ import annotations
 
@@ -30,9 +30,9 @@ def wkv6_step_events(bev: ev.BlockEvents, r: torch.Tensor, v: torch.Tensor,
     if bev.values.shape[-1] != blk_k:
         raise ValueError(f"events of width {bev.values.shape[-1]} handed "
                          f"with blk_k={blk_k}")
-    live = ev.live_block_mask(bev).to(torch.int32)
     out = wkv6_step_cuda(*(t.contiguous() for t in (
-        bev.values, bev.block_idx, bev.counts, live, r, v, w, u, s)))
+        bev.values, bev.block_idx, bev.counts, r, v, w, u, s)),
+        nkb=bev.num_k_blocks)
     note_launch(wkv6_step_events, (bev, r, v, w, u, s), dict(blk_k=blk_k))
     return out
 

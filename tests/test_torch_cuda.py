@@ -10,8 +10,8 @@ import torch
 
 from repro_torch import engine
 from repro_torch.core import quantize as qz
-from repro_torch.core.events import (decode_block_events,
-                                     gather_row_groups)
+from repro_torch.core.events import (BlockEvents, decode_block_events,
+                                     gather_row_groups, live_block_mask)
 from repro_torch.core.fire import FireConfig
 from repro_torch.engine.backends import tap_row_map
 from repro_torch.kernels.event_conv.ops import (event_conv, event_conv_dequant,
@@ -443,6 +443,62 @@ def test_event_pool_cases(dev, case):
                        pooled.permute(0, 2, 3, 1).reshape(-1, c))
 
 
+#: B4a cases: (NHWC shape, bk, k, stride, capacity).  The window pool
+#: takes strip streams (bm 8) whose pooled width is a multiple of 8.  C 64
+#: and C 128 at bk 8 are pool1's and pool2's tiles (k2 s2, T 8 subtaps);
+#: k3 s3 has T 27 (a k3 s2 window pool never qualifies: its pooled width
+#: (W - 3)//2 + 1 is odd for every W a multiple of 8); C 4096 has a slot
+#: table wider than a CTA's share (two windows of K-blocks); "capacity" has
+#: counts > E (E 2 of nkb 4), "event_free" whole strips without events,
+#: bk 6 the 4-byte path, "unaligned" a_vals 4 bytes off 16-byte alignment.
+POOL_WINDOW_CASES = {
+    "k2s2_c64": ((2, 4, 32, 64), 8, 2, 2, None),
+    "k2s2_c128": ((2, 4, 32, 128), 8, 2, 2, None),
+    "k3s3": ((1, 6, 24, 32), 8, 3, 3, None),
+    "c4096": ((1, 4, 16, 4096), 8, 2, 2, None),
+    "capacity": ((2, 4, 32, 32), 8, 2, 2, 2),
+    "event_free": ((2, 4, 32, 16), 8, 2, 2, None),
+    "bk6": ((2, 4, 16, 12), 6, 2, 2, None),
+    "unaligned": ((2, 4, 32, 64), 8, 2, 2, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(POOL_WINDOW_CASES))
+def test_event_pool_window_cases(dev, case):
+    """B4a exact against its plain version and F.max_pool2d on the decoded
+    map, one launch a call."""
+    shape, bk, k, s, cap = POOL_WINDOW_CASES[case]
+    x = _fired(len(case) + 100, shape, dev, sparsity=0.6)
+    if case == "event_free":
+        x[0, :2] = 0.0
+        x[1, :, 8:24] = 0.0
+    st = engine.EventStream.encode_nhwc(x, blk_k=bk, blk_m=8, capacity=cap)
+    nkb = st.events.num_k_blocks
+    args = pool_window_inputs(st, k, s)
+    if cap is not None:
+        assert int(args[4].max()) > args[0].shape[1] and cap < nkb
+    if case == "event_free":
+        assert int((args[4] == 0).all(1).sum()) > 0
+    if case == "unaligned":
+        buf = torch.empty(args[0].numel() + 1, device=dev)
+        shifted = buf[1:].view(args[0].shape)
+        shifted.copy_(args[0])
+        assert shifted.data_ptr() % 16 == 4
+        args = (shifted, *args[1:])
+    n = event_pool_window.launches
+    y = event_pool_window(*args, nkb=nkb, row_stride=s)
+    assert event_pool_window.launches == n + 1
+    assert torch.equal(y, event_pool_window_ref(*args, nkb=nkb,
+                                                row_stride=s))
+    b, h, w, c = shape
+    dense = decode_block_events(st.events, blk_m=8, blk_k=bk,
+                                m=b * h * w, k=nkb * bk)[:, :c]
+    pooled = torch.nn.functional.max_pool2d(
+        dense.reshape(shape).permute(0, 3, 1, 2), k, s)
+    assert torch.equal(y.reshape(-1, nkb * bk)[:, :c],
+                       pooled.permute(0, 2, 3, 1).reshape(-1, c))
+
+
 def test_mini_chain_bitwise_and_matches_cpu(dev):
     gen = torch.Generator().manual_seed(0)
     params = cnn.init_cnn_params(cnn.MINI, gen, weight_sparsity=0.5)
@@ -474,36 +530,94 @@ def test_int8_mini_and_mlp_chains_bitwise_and_match_cpu(dev):
                                            fire_cfg=fire_cfg, chain=False))
 
 
+#: B7 cases: (G, D, θ, case).  G 256 x D 64 is the RWKV6-7B batch-4 main
+#: path's shape (events (256, 4, 1, 16)); its θ = 0 twin zeroes whole key
+#: blocks so that some (row, K-block) pairs are dead, as a decode's are.
+#: "padding slots repeat a dead block" points every padding slot at a dead
+#: block of its row and fills it with 7.0: a kernel that visited padding
+#: would mark that block live.  D 20 takes the 4-byte path, D 128 holds a
+#: row in 4 passes of 4 rows a thread.
 @pytest.mark.parametrize("g,d,threshold,case", [
     (256, 64, 0.0, "all live"),
+    (256, 64, 0.0, "main path with dead blocks"),
     (12, 64, 1.0, "some dead"),
+    (12, 64, 0.0, "padding slots repeat a dead block"),
     (12, 20, 0.5, "D not a multiple of 16"),
+    (8, 128, 0.5, "D 128"),
     (8, 64, 0.5, "zero events in a row"),
     (8, 64, 1e9, "all blocks dead"),
 ])
 def test_wkv6_step_matches_plain(dev, g, d, threshold, case):
     """B7 against its plain version: S' bitwise (the state update's
     multiply, multiply, add in round-to-nearest intrinsics), o within
-    1e-4 of max|plain| (a 64-term reduction in another order)."""
+    1e-4 of max|plain| (a D-term reduction in another order)."""
     gen = torch.Generator(device=dev).manual_seed(g + d)
     f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     r, k, v, u, s = f(g, d), f(g, d), f(g, d), f(g, d), f(g, d, d)
     w = torch.rand((g, d), generator=gen, device=dev) * 0.9 + 0.05
     if case == "zero events in a row":
         k[0] = 0.0
+    if case in ("main path with dead blocks",
+                "padding slots repeat a dead block"):
+        k[::2, 16:32] = 0.0
+        k[1::3, 48:64] = 0.0
     st = engine.fire_delta(k, engine.EngineConfig(threshold=threshold))
+    bev = st.events
+    live = live_block_mask(bev)
     if case == "zero events in a row":
-        assert int(st.events.counts[0]) == 0
+        assert int(bev.counts[0]) == 0
     if case == "all blocks dead":
-        assert int(st.events.counts.sum()) == 0
+        assert int(bev.counts.sum()) == 0
+    if case in ("main path with dead blocks",
+                "padding slots repeat a dead block"):
+        assert 0 < int((~live).sum()) < live.numel()
+    if case == "padding slots repeat a dead block":
+        pad = torch.arange(bev.capacity, device=dev)[None, :] \
+            >= bev.counts[:, None]
+        dead = (~live).int().argmax(1).to(torch.int32)   # a dead block
+        rows = (~live).any(1)
+        pad &= rows[:, None]
+        assert int(pad.sum()) > 0
+        bev = BlockEvents(
+            torch.where(pad[:, :, None, None], 7.0, bev.values),
+            torch.where(pad, dead[:, None], bev.block_idx), bev.counts,
+            bev.num_k_blocks)
+        assert torch.equal(live_block_mask(bev), live)
     launches = wkv6_step_events.launches
-    o, s_new = wkv6_step_events(st.events, r, v, w, u, s, blk_k=st.blk_k)
+    o, s_new = wkv6_step_events(bev, r, v, w, u, s, blk_k=st.blk_k)
     assert wkv6_step_events.launches == launches + 1
-    o2, s2 = wkv6_step_events_ref(st.events, r, v, w, u, s, blk_k=st.blk_k)
+    o2, s2 = wkv6_step_events_ref(bev, r, v, w, u, s, blk_k=st.blk_k)
     assert torch.equal(s_new, s2)
     assert _close(o, o2)
     if case == "all blocks dead":
         assert torch.equal(s_new, w[..., None] * s)
+    dead_rows = (~live).repeat_interleave(st.blk_k, 1)[:, :d]
+    assert torch.equal(s_new[dead_rows], (w[..., None] * s)[dead_rows])
+
+
+def test_wkv6_step_wrapper_builds_no_live_mask(dev, monkeypatch):
+    """The B7 wrapper launches the kernel alone: the kernel derives the
+    live mask from the events, so ``live_block_mask`` (patched to raise)
+    is never called, and the result is the plain version's."""
+    from repro_torch.core import events as ev
+    g, d = 256, 64
+    gen = torch.Generator(device=dev).manual_seed(5)
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    r, k, v, u, s = f(g, d), f(g, d), f(g, d), f(g, d), f(g, d, d)
+    w = torch.rand((g, d), generator=gen, device=dev) * 0.9 + 0.05
+    k[::2, 16:32] = 0.0
+    st = engine.fire_delta(k, engine.EngineConfig(threshold=0.0))
+
+    def no_mask(bev):
+        raise AssertionError("the B7 wrapper built a live mask")
+
+    monkeypatch.setattr(ev, "live_block_mask", no_mask)
+    launches = wkv6_step_events.launches
+    o, s_new = wkv6_step_events(st.events, r, v, w, u, s, blk_k=st.blk_k)
+    assert wkv6_step_events.launches == launches + 1
+    monkeypatch.undo()
+    o2, s2 = wkv6_step_events_ref(st.events, r, v, w, u, s, blk_k=st.blk_k)
+    assert torch.equal(s_new, s2) and _close(o, o2)
 
 
 @pytest.mark.parametrize("di", [40, 64, 1600])

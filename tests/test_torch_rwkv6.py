@@ -135,8 +135,46 @@ def test_b7_launcher_refuses_cpu_tensors():
     z = torch.zeros((1, 4))
     i32 = torch.zeros((1, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors only"):
-        wkv6_step_cuda(torch.zeros((1, 1, 1, 4)), i32, i32[0], i32, z, z, z,
-                       z, torch.zeros((1, 4, 4)))
+        wkv6_step_cuda(torch.zeros((1, 1, 1, 4)), i32, i32[0], z, z, z, z,
+                       torch.zeros((1, 4, 4)), nkb=1)
+
+
+@pytest.mark.parametrize("d,nkb", [(64, 4), (20, 3)])
+def test_b7_wrapper_launches_on_the_events_with_no_mask(monkeypatch, d,
+                                                         nkb):
+    """Off the CPU the wrapper hands B7 the events as they are, with their
+    K-block count, counts one launch and builds no live mask (the kernel
+    derives it).  Meta tensors stand in for the card's; the launcher is a
+    stub, and ``live_block_mask`` raises if anything calls it."""
+    from repro_torch.kernels.wkv6_step import ops
+    calls = []
+
+    def kernel(*args, nkb):
+        calls.append((args, nkb))
+        return torch.empty_like(args[3]), torch.empty_like(args[7])
+
+    def no_mask(bev):
+        raise AssertionError("the B7 wrapper built a live mask")
+
+    monkeypatch.setattr(ops, "wkv6_step_cuda", kernel)
+    monkeypatch.setattr(tev, "live_block_mask", no_mask)
+    g, e, bk = 6, 2, 16 if d == 64 else 8
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    bev = tev.BlockEvents(meta(g, e, 1, bk), meta(g, e, dtype=torch.int32),
+                          meta(g, dtype=torch.int32), nkb)
+    rows = [meta(g, d) for _ in range(4)]
+    s = meta(g, d, d)
+    launches = ops.wkv6_step_events.launches
+    o, s_new = ops.wkv6_step_events(bev, *rows, s, blk_k=bk)
+    assert ops.wkv6_step_events.launches == launches + 1
+    (args, got_nkb), = calls
+    want = (bev.values, bev.block_idx, bev.counts, *rows, s)
+    assert got_nkb == nkb and len(args) == len(want)
+    assert all(a is b for a, b in zip(args, want))
+    assert o.shape == (g, d) and s_new.shape == (g, d, d)
 
 
 def _ineligible_streams(pkg_engine, asarray, k):

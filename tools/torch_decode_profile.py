@@ -3,7 +3,7 @@
 GPU.
 
     python3 tools/torch_decode_profile.py [--arch rwkv6-7b|hymba-1.5b]
-        [--layers 4] [--steps 5]
+        [--layers 4] [--steps 5] [--src DIR]
 
 Builds the full-width model of ``--arch`` (RWKV6-7B: d_model 4096, 64x64
 heads, d_ff 14336, vocab 65536; Hymba-1.5B: d_model 1600, 25 query and 5
@@ -12,9 +12,14 @@ KV heads of 64, Mamba state 16, d_ff 5504, vocab 32001) cut to
 32-token prompt and then, for the gated decode (MNF on at θ = 0: B7 or B8)
 and the ungated one, prints: whether any op of a decode step
 syncs the host (``torch.cuda.set_sync_debug_mode("warn")``), the warm
-host ms per decode step, the CUDA launches per step, and the host ops by
-self CPU time (``torch.profiler``, CPU activity).  Needs a card; exits 2
-without one.
+host ms per decode step, the CUDA launches and torch ops (``aten::``
+calls, nested ones included) per step, the device ms per step of each MNF
+kernel (B7 or B8) and of all device work, and the host ops by self CPU
+time (``torch.profiler``, CPU and CUDA activity).  ``--src`` names the
+directory to import ``repro_torch`` from (default: this checkout's
+``src``), so one call on the card can profile two trees in turns (e.g.
+the parent commit unpacked by ``git archive`` under the git-ignored
+``build/``).  Needs a card; exits 2 without one.
 """
 from __future__ import annotations
 
@@ -38,12 +43,13 @@ def main() -> int:
                     choices=("rwkv6-7b", "hymba-1.5b"))
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--src", default=str(ROOT / "src"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("torch_decode_profile: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve
@@ -52,7 +58,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    print(card)
+    print(f"{card}; src {args.src}")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(serve.lm_config(args.arch),
                               num_layers=args.layers)
@@ -81,7 +87,8 @@ def main() -> int:
             step()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / args.steps
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(args.steps):
                 step()
             torch.cuda.synchronize()
@@ -89,9 +96,23 @@ def main() -> int:
         launches = sum(e.count for e in avg
                        if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
                                     "cuLaunchKernel"))
+        ops = sum(e.count for e in avg if e.key.startswith("aten::"))
+        device: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            dur = e.device_time_total if hasattr(e, "device_time_total") \
+                else e.cuda_time_total
+            kernel = e.name.split("(")[0].split("<")[0].replace("void ", "")
+            for key in {"all", kernel} if kernel.startswith("mnf_") \
+                    else {"all"}:
+                device[key] = device.get(key, 0.0) + dur / 1e3 / args.steps
         print(f"{name}, {args.layers} layers, batch {BATCH}: {ms:.3f} ms per "
               f"decode step (host clock, synchronized), "
-              f"{launches / args.steps:.0f} CUDA launches per step, "
+              f"{launches / args.steps:.0f} CUDA launches and "
+              f"{ops / args.steps:.0f} torch ops per step, device ms per "
+              f"step: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                    sorted(device.items())) + ", "
               f"{len(syncs)} host syncs in a step"
               + (f" ({str(syncs[0].message)[:100]})" if syncs else ""))
         print(avg.table(sort_by="self_cpu_time_total", row_limit=15))
