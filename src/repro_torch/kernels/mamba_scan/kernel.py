@@ -2,7 +2,10 @@
 ``csrc/mamba_scan.cu``).
 
 Replaces ``repro.kernels.mamba_scan.kernel.mamba_scan_pallas``.  Takes
-CUDA tensors only; ``ops.py`` holds the counting wrapper.
+CUDA tensors only; ``ops.py`` holds the counting wrappers.
+:func:`mamba_scan_cuda` scans the streams da and dbx as the TPU kernel
+does; :func:`mamba_scan_fused_cuda` runs the same walk on the streams'
+sources (dt, x, A, B, C), forming da and dbx in registers.
 """
 from __future__ import annotations
 
@@ -10,7 +13,7 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["MAX_N", "mamba_scan_cuda"]
+__all__ = ["MAX_N", "mamba_scan_cuda", "mamba_scan_fused_cuda"]
 
 #: Largest state width: a CTA holds at least one channel's N threads.
 MAX_N = 1024
@@ -42,4 +45,55 @@ def mamba_scan_cuda(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
     y = torch.empty((b, t, di), dtype=torch.float32, device=da.device)
     h = torch.empty((b, di, n), dtype=torch.float32, device=da.device)
     build.launch("mnf_mamba_scan", da, dbx, c, h0, y, h, b, t, di, n)
+    return y, h
+
+
+def mamba_scan_fused_cuda(dt: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
+                          bmat: torch.Tensor, cmat: torch.Tensor,
+                          h0: torch.Tensor | None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, T, DI), h (B, DI, N)) of the scan of da = exp(dt A), dbx =
+    (dt x) B.  dt, x (B, T, DI) and bmat, cmat (B, T, N), all f32 or all
+    bf16, each with unit stride in its last dimension (a slice along T or
+    of a wider last dimension is taken as it lies); a (DI, N) f32; h0 (B,
+    DI, N) f32 or None (zeros)."""
+    rows = dict(dt=dt, x=x, bmat=bmat, cmat=cmat)
+    for name, t in rows.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} lies on {t.device}; the CUDA kernel "
+                             f"takes CUDA tensors only")
+        if t.dim() != 3 or (t.shape[-1] > 1 and t.stride(-1) != 1):
+            raise ValueError(f"{name} {tuple(t.shape)} (strides "
+                             f"{t.stride()}) is not (B, T, width) with a "
+                             f"unit stride in its last dimension")
+    build.require_cuda(a=a, **({} if h0 is None else dict(h0=h0)))
+    dtype = dt.dtype
+    if dtype not in (torch.float32, torch.bfloat16) \
+            or any(t.dtype != dtype for t in rows.values()):
+        raise TypeError("mamba_scan_fused takes dt, x, B and C all f32 or "
+                        "all bf16")
+    if a.dtype != torch.float32 or (h0 is not None
+                                    and h0.dtype != torch.float32):
+        raise TypeError("mamba_scan_fused takes f32 A and state")
+    b, t, di = dt.shape
+    n = a.shape[-1]
+    if x.shape != dt.shape or a.shape != (di, n) \
+            or any(m.shape != (b, t, n) for m in (bmat, cmat)) \
+            or (h0 is not None and h0.shape != (b, di, n)):
+        raise ValueError(f"shapes dt {tuple(dt.shape)}, x {tuple(x.shape)}, "
+                         f"A {tuple(a.shape)}, B {tuple(bmat.shape)}, C "
+                         f"{tuple(cmat.shape)}, h0 "
+                         f"{None if h0 is None else tuple(h0.shape)}")
+    if b == 0 or t == 0 or di == 0 or n == 0:
+        raise ValueError("zero-extent mamba scan: a launch with gridDim 0 "
+                         "is an invalid configuration")
+    if b > 65535:
+        raise ValueError(f"batch {b} > 65535 rows of the launch grid")
+    if n > MAX_N:
+        raise ValueError(f"state width {n} > {MAX_N} threads of a CTA")
+    y = torch.empty((b, t, di), dtype=torch.float32, device=dt.device)
+    h = torch.empty((b, di, n), dtype=torch.float32, device=dt.device)
+    strides = [s for m in rows.values() for s in m.stride()[:2]]
+    build.launch("mnf_mamba_scan_fused", dt, x, a, bmat, cmat, h0, y, h, b,
+                 t, di, n, *strides, int(dtype == torch.bfloat16))
     return y, h

@@ -2,10 +2,10 @@
 
 ``mamba_step_events`` is the wrapper of ``csrc/mamba_step.cu``, which
 replaces ``repro.kernels.mamba_scan.step.mamba_step_events_pallas``: a
-CUDA tensor computes the live mask (``core.events.live_block_mask``),
-launches the kernel and counts it (``kernels.note_launch``); a CPU tensor
-takes the plain version (``ref.py``).  Bound on the card: bytes (the f32
-state and decay read and the state written once per row).
+CUDA tensor launches the kernel, which derives the live mask from the
+events itself, and counts it (``kernels.note_launch``): no other op runs;
+a CPU tensor takes the plain version (``ref.py``).  Bound on the card:
+bytes (the f32 state and decay read and the state written once per row).
 """
 from __future__ import annotations
 
@@ -31,9 +31,9 @@ def mamba_step_events(bev: ev.BlockEvents, da: torch.Tensor,
     if bev.values.shape[-1] != blk_k:
         raise ValueError(f"events of width {bev.values.shape[-1]} handed "
                          f"with blk_k={blk_k}")
-    live = ev.live_block_mask(bev).to(torch.int32)
     out = mamba_step_cuda(*(t.contiguous() for t in (
-        bev.values, bev.block_idx, bev.counts, live, da, bmat, cmat, h)))
+        bev.values, bev.block_idx, bev.counts, da, bmat, cmat, h)),
+        nkb=bev.num_k_blocks)
     note_launch(mamba_step_events, (bev, da, bmat, cmat, h),
                 dict(blk_k=blk_k))
     return out

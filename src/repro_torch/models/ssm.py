@@ -7,10 +7,10 @@ recurrence while the per-step log-decay stays above the stability clamp
 ``WKV_LOG_DECAY_MIN`` (DESIGN.md §8); the exact recurrence is the op B9'
 (``kernels.wkv6``), which no model calls.  Mamba prefill
 (:func:`mamba_apply`) runs the selective scan sequentially over time in
-f32, one call of B10 (``kernels.mamba_scan``) per scan chunk — on the card
-one kernel launch, on the CPU its plain loop: the JAX package's
-associative scan has no torch counterpart, and the two sum in different
-orders (the tests hold them at 1e-4).
+f32, one call of B10 (``kernels.mamba_scan.mamba_scan_fused``) per scan
+chunk — on the card one kernel launch, on the CPU its plain loop: the JAX
+package's associative scan has no torch counterpart, and the two sum in
+different orders (the tests hold them at 1e-4).
 Decode runs one step per token: the dense step or, with MNF on, the
 fire-gated step (DESIGN.md §13), whose state update goes through the
 engine's ``recurrent_step`` — kernel B7 (RWKV6) or B8 (Mamba) on the card.
@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.mamba_scan.ops import mamba_scan
+from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused
 from repro_torch.models import layers
 from repro_torch.models.param_utils import Init
 
@@ -314,9 +314,11 @@ def mamba_apply(p, x: torch.Tensor, cfg):
     """Prefill.  x (B, T, d) -> (y (B, T, d), (conv_state, ssm_state)).
 
     The selective scan runs one step at a time in f32 over chunks of
-    ``cfg.ssm.scan_chunk`` steps: the decay and increment of a chunk are
-    made at once (live memory O(B·C·DI·N)) and scanned by one call of
-    :func:`mamba_scan` (B10), whose final state starts the next chunk."""
+    ``cfg.ssm.scan_chunk`` steps, one call of :func:`mamba_scan_fused`
+    (B10) a chunk, whose final state starts the next chunk: it takes dt,
+    x, A, B and C and forms the decay exp(dt A) and increment (dt x) B
+    itself (on the card in registers; the plain version on the CPU builds
+    the chunk's (B, C, DI, N) streams at once)."""
     ssm = cfg.ssm
     t = x.shape[1]
     cdt = x.dtype
@@ -335,11 +337,8 @@ def mamba_apply(p, x: torch.Tensor, cfg):
     ys = []
     for c0 in range(0, t, ssm.scan_chunk):
         sl = slice(c0, min(c0 + ssm.scan_chunk, t))
-        dt_c = dt[:, sl].float()
-        da_c = torch.exp(dt_c[..., None] * a)                # (B, C, di, n)
-        dbx_c = (dt_c * xs[:, sl].float())[..., None] \
-            * bmat[:, sl].float()[..., None, :]
-        y_c, h = mamba_scan(da_c, dbx_c, cmat[:, sl].float(), h)
+        y_c, h = mamba_scan_fused(dt[:, sl], xs[:, sl], a, bmat[:, sl],
+                                  cmat[:, sl], h)
         ys.append(y_c)
     y = torch.cat(ys, dim=1)                                 # (B, T, di) f32
     y = y + p["d_skip"].float() * xs.float()

@@ -29,9 +29,12 @@ from repro_torch.kernels.event_pool.ref import (event_pool_ref,
                                                 event_pool_window_ref)
 from repro_torch.kernels.fire_compact.ops import fire_compact
 from repro_torch.kernels.fire_compact.ref import fire_compact_ref
-from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
-from repro_torch.kernels.mamba_scan.ops import mamba_scan
-from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+from repro_torch.kernels.mamba_scan.kernel import (MAX_N, mamba_scan_cuda,
+                                                   mamba_scan_fused_cuda)
+from repro_torch.kernels.mamba_scan.ops import mamba_scan, mamba_scan_fused
+from repro_torch.kernels.mamba_scan.ref import (mamba_scan_fused_ref,
+                                                mamba_scan_ref,
+                                                mamba_scan_streams)
 from repro_torch.kernels.mamba_step.ops import mamba_step_events
 from repro_torch.kernels.mamba_step.ref import mamba_step_events_ref
 from repro_torch.kernels.wkv6.kernel import MAX_D, wkv6_cuda
@@ -620,34 +623,100 @@ def test_wkv6_step_wrapper_builds_no_live_mask(dev, monkeypatch):
     assert torch.equal(s_new, s2) and _close(o, o2)
 
 
-@pytest.mark.parametrize("di", [40, 64, 1600])
-@pytest.mark.parametrize("threshold", [0.0, 0.3])
-def test_mamba_step_matches_plain(dev, di, threshold):
-    """B8 against its plain version on 4 rows: row 0 a zero gate (no
-    events), row 1 a gate below 0.05 (every block dead at θ = 0.3), rows
-    2-3 normal; DI 40 has a ragged last block.  h' bitwise (the multiply,
+#: B8 cases: (DI, N, θ, case).  "rows": row 0 a zero gate (no events),
+#: row 1 a gate below 0.05 (every block dead at θ = 0.3), rows 2-3 normal;
+#: DI 40 has a ragged last block, DI 1600 is Hymba-1.5B's.  "padding slots
+#: repeat a dead block" points every padding slot at a dead block of its
+#: row and fills it with 7.0: a kernel that visited padding would mark that
+#: block live.  "capacity" keeps 37 of the 100 slots, so counts > E.  N 4
+#: takes one 16-byte chunk a channel, N 6 the 4-byte path (2 lanes of 3
+#: columns), "unaligned" the 4-byte path at N 16 (dA and h 4 bytes off a
+#: 16-byte boundary), N 64 16 lanes a channel.
+@pytest.mark.parametrize("di,n,threshold,case", [
+    (40, 16, 0.0, "rows"), (40, 16, 0.3, "rows"),
+    (64, 16, 0.0, "rows"), (64, 16, 0.3, "rows"),
+    (1600, 16, 0.0, "rows"), (1600, 16, 0.3, "rows"),
+    (64, 16, 0.0, "padding slots repeat a dead block"),
+    (1600, 16, 0.0, "capacity"),
+    (40, 4, 0.3, "rows"), (40, 6, 0.3, "rows"),
+    (1600, 16, 0.3, "unaligned"), (64, 64, 0.3, "rows"),
+])
+def test_mamba_step_matches_plain(dev, di, n, threshold, case):
+    """B8 against its plain version on 4 rows: h' bitwise (the multiply,
     multiply, add in round-to-nearest intrinsics), y within 1e-4 of
-    max|plain| (an N-term sum in another order)."""
-    n = 16
-    gen = torch.Generator(device=dev).manual_seed(di)
+    max|plain| (an N-term sum in another order); a dead block's h' is
+    h dA alone."""
+    seed = di if (n, case) == (16, "rows") else di + n
+    gen = torch.Generator(device=dev).manual_seed(seed)
     f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     g, bm, cm, h = f(4, di), f(4, n), f(4, n), f(4, di, n)
     g[0] = 0.0
     g[1] = (torch.rand(di, generator=gen, device=dev) - 0.5) * 0.1
     da = torch.rand((4, di, n), generator=gen, device=dev) * 0.9 + 0.05
+    if case == "padding slots repeat a dead block":
+        g[2:, 16:32] = 0.0
+    if case == "unaligned":
+        da, h = (torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+                 for x in (da, h))
+        assert da.data_ptr() % 16 and h.data_ptr() % 16
     st = engine.fire_delta(g, engine.EngineConfig(threshold=threshold))
-    assert int(st.events.counts[0]) == 0
+    bev = st.events
+    assert int(bev.counts[0]) == 0
     if threshold > 0:
-        assert int(st.events.counts[1]) == 0
+        assert int(bev.counts[1]) == 0
+    if case == "padding slots repeat a dead block":
+        live = live_block_mask(bev)
+        pad = torch.arange(bev.capacity, device=dev)[None, :] \
+            >= bev.counts[:, None]
+        dead = (~live).int().argmax(1).to(torch.int32)
+        pad &= (~live).any(1)[:, None]
+        assert int(pad.sum()) > 0 and bool((~live[2:, 1]).all())
+        bev = BlockEvents(
+            torch.where(pad[:, :, None, None], 7.0, bev.values),
+            torch.where(pad, dead[:, None], bev.block_idx), bev.counts,
+            bev.num_k_blocks)
+        assert torch.equal(live_block_mask(bev), live)
+    if case == "capacity":
+        bev = BlockEvents(bev.values[:, :37].contiguous(),
+                          bev.block_idx[:, :37].contiguous(), bev.counts,
+                          bev.num_k_blocks)
+        assert int(bev.counts.max()) > 37
     launches = mamba_step_events.launches
-    y, h_new = mamba_step_events(st.events, da, bm, cm, h, blk_k=st.blk_k)
+    y, h_new = mamba_step_events(bev, da, bm, cm, h, blk_k=st.blk_k)
     assert mamba_step_events.launches == launches + 1
-    y2, h2 = mamba_step_events_ref(st.events, da, bm, cm, h, blk_k=st.blk_k)
+    y2, h2 = mamba_step_events_ref(bev, da, bm, cm, h, blk_k=st.blk_k)
     assert torch.equal(h_new, h2)
     assert _close(y, y2)
     assert torch.equal(h_new[0], h[0] * da[0])
     if threshold > 0:
         assert torch.equal(h_new[1], h[1] * da[1])
+    dead = (~live_block_mask(bev)).repeat_interleave(st.blk_k, 1)[:, :di]
+    assert torch.equal(h_new[dead], (h * da)[dead])
+
+
+def test_mamba_step_wrapper_builds_no_live_mask(dev, monkeypatch):
+    """The B8 wrapper launches the kernel alone: the kernel derives the
+    live mask from the events, so ``live_block_mask`` (patched to raise)
+    is never called, and the result is the plain version's."""
+    from repro_torch.core import events as ev
+    b, di, n = 4, 1600, 16
+    gen = torch.Generator(device=dev).manual_seed(6)
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    g, bm, cm, h = f(b, di), f(b, n), f(b, n), f(b, di, n)
+    da = torch.rand((b, di, n), generator=gen, device=dev) * 0.9 + 0.05
+    g[::2, 32:160] = 0.0
+    st = engine.fire_delta(g, engine.EngineConfig(threshold=0.0))
+
+    def no_mask(bev):
+        raise AssertionError("the B8 wrapper built a live mask")
+
+    monkeypatch.setattr(ev, "live_block_mask", no_mask)
+    launches = mamba_step_events.launches
+    y, h_new = mamba_step_events(st.events, da, bm, cm, h, blk_k=st.blk_k)
+    assert mamba_step_events.launches == launches + 1
+    monkeypatch.undo()
+    y2, h2 = mamba_step_events_ref(st.events, da, bm, cm, h, blk_k=st.blk_k)
+    assert torch.equal(h_new, h2) and _close(y, y2)
 
 
 @pytest.mark.parametrize("d", [16, 64])
@@ -682,16 +751,21 @@ def test_wkv6_matches_plain(dev, d, heads):
     assert torch.equal(wkv6(*bf, u)[1], wkv6(*(x.float() for x in bf), u)[1])
 
 
-@pytest.mark.parametrize("di", [40, 1600])
-@pytest.mark.parametrize("n", [4, 16])
-def test_mamba_scan_matches_plain(dev, di, n):
-    """B10 at T 13 (the kernel loads 8 steps ahead: a ragged last group)
-    with a non-zero h0; DI 40 leaves the last CTA's channels partly
-    masked.  h bitwise (the multiply and add in round-to-nearest
-    intrinsics), y within 1e-4 of max|plain| (an N-term sum in another
-    order); two launches with h carried equal one over the whole T."""
-    b, t = 3, 13
-    gen = torch.Generator(device=dev).manual_seed(di + n)
+@pytest.mark.parametrize("di,n,t", [
+    (40, 4, 13), (40, 16, 13), (1600, 4, 13), (1600, 16, 13),
+    (1600, 16, 600), (40, 64, 600), (40, 8, 37), (40, 6, 37),
+])
+def test_mamba_scan_matches_plain(dev, di, n, t):
+    """B10 (the streams entry) at T 13 (the kernel keeps 8 steps' loads in
+    flight: a ragged last group), T 37 and T 600 (many times its pipeline's
+    depth) with a non-zero h0; DI 40 leaves the last CTA's channels partly
+    masked; N 16 reduces y by shuffles, N 4, 6, 8 and 64 in shared memory.
+    h bitwise (the multiply and add in round-to-nearest intrinsics), y
+    within 1e-4 of max|plain| (an N-term sum in another order); two
+    launches with h carried equal one over the whole T."""
+    b = 3
+    gen = torch.Generator(device=dev).manual_seed(
+        di + n if t == 13 else di + n + t)
     f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     da = torch.exp(-2 * torch.rand((b, t, di, n), generator=gen, device=dev))
     dbx, c, h0 = f(b, t, di, n), f(b, t, n), f(b, di, n)
@@ -709,8 +783,63 @@ def test_mamba_scan_matches_plain(dev, di, n):
                        mamba_scan_ref(da, dbx, c)[1])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("di,n", [(40, 4), (40, 16), (1600, 4), (1600, 16)])
+@pytest.mark.parametrize("extra", [3, 100])
+def test_mamba_scan_fused_matches_plain_and_the_streams_entry(dev, dtype,
+                                                              with_h0, di, n,
+                                                              extra):
+    """B10's fused entry on dt, x, A, B and C laid out as the Mamba prefill
+    hands them (a chunk sliced along T; B and C slices of one last
+    dimension 2N + extra wide; dt softplus-positive, A = -exp(log 1..N)),
+    T 37: h bitwise and y within 1e-4 of max|plain| against its plain
+    version, and h and y bitwise the streams entry run on the streams torch
+    builds from the same values (the kernel forms da with the expf
+    torch.exp runs); two launches with h carried equal one.  Extra 100
+    (the prefill's 2N + DT_RANK row) aligns B and C's rows to four
+    elements, so N 16 takes the kernel's 16-byte (8-byte for bf16) loads;
+    extra 3 leaves them unaligned, so it takes the 4-byte path."""
+    b, t_all, t0, t = 3, 50, 6, 37
+    gen = torch.Generator(device=dev).manual_seed(di + n + with_h0)
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    dt_all = torch.nn.functional.softplus(f(b, t_all, di)).to(dtype)
+    x_all = f(b, t_all, di).to(dtype)
+    bc_all = f(b, t_all, 2 * n + extra).to(dtype)
+    sl = slice(t0, t0 + t)
+    dt, x = dt_all[:, sl], x_all[:, sl]
+    bmat, cmat = bc_all[:, sl, :n], bc_all[:, sl, n:2 * n]
+    assert not dt.is_contiguous() and not bmat.is_contiguous()
+    a = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device=dev).repeat(di, 1)
+    # mnf_mamba_scan_fused's condition for the wide loads
+    row = 4 * bmat.element_size()
+    wide = (a.data_ptr() % 16 == 0
+            and all(m.data_ptr() % row == 0 and m.stride(0) % 4 == 0
+                    and m.stride(1) % 4 == 0 for m in (bmat, cmat)))
+    assert wide == (extra == 100)
+    h0 = f(b, di, n) if with_h0 else None
+    launches = mamba_scan_fused.launches
+    y, h = mamba_scan_fused(dt, x, a, bmat, cmat, h0)
+    assert mamba_scan_fused.launches == launches + 1
+    y2, h2 = mamba_scan_fused_ref(dt, x, a, bmat, cmat, h0)
+    assert torch.equal(h, h2)
+    assert _close(y, y2)
+    launches = mamba_scan.launches
+    y3, h3 = mamba_scan(*mamba_scan_streams(dt, x, a, bmat, cmat), h0)
+    assert mamba_scan.launches == launches + 1
+    assert torch.equal(h, h3) and torch.equal(y, y3)
+    ya, ha = mamba_scan_fused(dt[:, :11], x[:, :11], a, bmat[:, :11],
+                              cmat[:, :11], h0)
+    yb, hb = mamba_scan_fused(dt[:, 11:], x[:, 11:], a, bmat[:, 11:],
+                              cmat[:, 11:], ha)
+    assert torch.equal(hb, h) and torch.equal(torch.cat([ya, yb], 1), y)
+
+
 def test_scan_launchers_refuse_other_dtypes_and_wide_heads(dev):
-    """The launchers take f32 only, and B9 no head wider than MAX_D."""
+    """The launchers take f32 only (the fused B10 entry f32 or bf16 rows,
+    all of one type, each with unit stride in its last dimension), B9 no
+    head wider than MAX_D, B10 no state wider than MAX_N."""
     z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt,
                                                      device=dev)
     bf = torch.bfloat16
@@ -720,6 +849,21 @@ def test_scan_launchers_refuse_other_dtypes_and_wide_heads(dev):
     with pytest.raises(TypeError):
         mamba_scan_cuda(z(1, 3, 4, 2, dt=bf), z(1, 3, 4, 2), z(1, 3, 2),
                         None)
+    rows = lambda dt: (z(1, 3, 4, dt=dt), z(1, 3, 4, dt=dt))
+    with pytest.raises(TypeError):                   # f16 rows
+        mamba_scan_fused_cuda(*rows(torch.float16), z(4, 2),
+                              z(1, 3, 2, dt=torch.float16),
+                              z(1, 3, 2, dt=torch.float16), None)
+    with pytest.raises(TypeError):                   # bf16 dt, f32 x
+        mamba_scan_fused_cuda(z(1, 3, 4, dt=bf), z(1, 3, 4), z(4, 2),
+                              z(1, 3, 2, dt=bf), z(1, 3, 2, dt=bf), None)
+    with pytest.raises(ValueError, match="unit stride"):
+        mamba_scan_fused_cuda(z(1, 4, 3).transpose(1, 2), z(1, 3, 4),
+                              z(4, 2), z(1, 3, 2), z(1, 3, 2), None)
+    n = MAX_N + 1
+    with pytest.raises(ValueError, match="state width"):
+        mamba_scan_fused_cuda(*rows(torch.float32), z(4, n), z(1, 3, n),
+                              z(1, 3, n), None)
     d = MAX_D + 1
     with pytest.raises(ValueError, match="head_dim"):
         wkv6_cuda(*(z(2, 3, d) for _ in range(4)), z(1, d), None, heads=1)

@@ -5,7 +5,8 @@ numpy inputs (and the JAX package's own weights, carried across by
 - B8: the port's plain version against ``mamba_step_events_ref`` and
   ``mamba_step_events_pallas(interpret=True)`` at 1e-5, at threshold 0 and
   above, at DI 64 and a ragged 40, with a row with no events and a row
-  whose every block is dead.
+  whose every block is dead; off the CPU the wrapper hands the kernel the
+  events and builds no live mask (meta tensors, a stub launcher).
 - ``recurrent_step("mamba")``: outputs and trace records as JAX's, the
   ``recurrent_ineligible_reason`` messages verbatim.
 - ``apply_rope``, ``mlp_apply``, ``mamba_apply``, ``mamba_step`` and
@@ -115,8 +116,52 @@ def test_b8_launcher_refuses_cpu_tensors():
     z = torch.zeros((1, 4))
     i32 = torch.zeros((1, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors only"):
-        mamba_step_cuda(torch.zeros((1, 1, 1, 4)), i32, i32[0], i32,
-                        torch.zeros((1, 4, 4)), z, z, torch.zeros((1, 4, 4)))
+        mamba_step_cuda(torch.zeros((1, 1, 1, 4)), i32, i32[0],
+                        torch.zeros((1, 4, 4)), z, z, torch.zeros((1, 4, 4)),
+                        nkb=1)
+
+
+@pytest.mark.parametrize("di,nkb,bk", [(1600, 100, 16), (40, 3, 16),
+                                       (20, 3, 8)])
+def test_b8_wrapper_launches_on_the_events_with_no_mask(monkeypatch, di,
+                                                         nkb, bk):
+    """Off the CPU the wrapper hands B8 the events as they are, with their
+    DI-block count, counts one launch and builds no live mask (the kernel
+    derives it).  Meta tensors stand in for the card's; the launcher is a
+    stub, and ``live_block_mask`` raises if anything calls it."""
+    from repro_torch.kernels.mamba_step import ops
+    calls = []
+
+    def kernel(*args, nkb):
+        calls.append((args, nkb))
+        h_ = args[6]
+        return (torch.empty(h_.shape[:2], device="meta"),
+                torch.empty_like(h_))
+
+    def no_mask(bev):
+        raise AssertionError("the B8 wrapper built a live mask")
+
+    monkeypatch.setattr(ops, "mamba_step_cuda", kernel)
+    monkeypatch.setattr(tev, "live_block_mask", no_mask)
+    b, e = 4, nkb
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    bev = tev.BlockEvents(meta(b, e, 1, bk), meta(b, e, dtype=torch.int32),
+                          meta(b, dtype=torch.int32), nkb)
+    da, h = meta(b, di, N_STATE), meta(b, di, N_STATE)
+    bm, cm = meta(b, N_STATE), meta(b, N_STATE)
+    launches = ops.mamba_step_events.launches
+    y, h_new = ops.mamba_step_events(bev, da, bm, cm, h, blk_k=bk)
+    assert ops.mamba_step_events.launches == launches + 1
+    (args, got_nkb), = calls
+    want = (bev.values, bev.block_idx, bev.counts, da, bm, cm, h)
+    assert got_nkb == nkb and len(args) == len(want)
+    assert all(a is b_ for a, b_ in zip(args, want))
+    assert y.shape == (b, di) and h_new.shape == (b, di, N_STATE)
+    with pytest.raises(ValueError, match="blk_k"):
+        ops.mamba_step_events(bev, da, bm, cm, h, blk_k=bk + 1)
 
 
 # ---------------------------------------------------------------------------

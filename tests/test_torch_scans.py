@@ -10,11 +10,15 @@ inputs through both packages.
 - B10 (selective scan): the plain version against ``mamba_scan_ref`` and
   ``mamba_scan(interpret=True)`` at 1e-5, at a ragged T and a DI that is
   not a whole number of the JAX wrapper's ``d_blk``.
+- B10's fused entry (dt, x, A, B, C): its plain version bitwise the scan
+  of the streams the Mamba prefill built inline, and within 1e-5 of JAX's
+  ``mamba_scan_ref`` on streams built alike (f32 and bf16, h0 None and
+  given).
 - The launchers refuse CPU tensors; a CPU call counts no launch.
 - ``mamba_apply`` over three scan chunks (the last ragged) against JAX's
   at 1e-4, bitwise the sequential loop it ran before B10 took its scan,
-  and the reduced Hymba prefill calls B10 ``layers x ceil(T / chunk)``
-  times.
+  and the reduced Hymba prefill calls B10's fused entry ``layers x
+  ceil(T / chunk)`` times.
 """
 import dataclasses
 import math
@@ -33,9 +37,11 @@ from repro.kernels.wkv6 import wkv6_ref as j_wkv6_ref
 from repro.kernels.wkv6.kernel import wkv6_pallas
 from repro.models import ssm as jssm
 from repro_torch.configs import get_config
-from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
-from repro_torch.kernels.mamba_scan.ops import mamba_scan
-from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+from repro_torch.kernels.mamba_scan.kernel import (mamba_scan_cuda,
+                                                   mamba_scan_fused_cuda)
+from repro_torch.kernels.mamba_scan.ops import mamba_scan, mamba_scan_fused
+from repro_torch.kernels.mamba_scan.ref import (mamba_scan_ref,
+                                                mamba_scan_streams)
 from repro_torch.kernels.wkv6.kernel import wkv6_cuda
 from repro_torch.kernels.wkv6.ops import wkv6, wkv6_single
 from repro_torch.kernels.wkv6.ref import wkv6_multihead_ref, wkv6_ref
@@ -130,16 +136,70 @@ def test_b10_plain_matches_jax_ref_and_pallas(with_h0):
         _close(h, wh)
 
 
-@pytest.mark.parametrize("launcher", ["wkv6", "mamba_scan"])
+@pytest.mark.parametrize("launcher", ["wkv6", "mamba_scan",
+                                      "mamba_scan_fused"])
 def test_scan_launchers_refuse_cpu_tensors(launcher):
     z = torch.zeros
     with pytest.raises(ValueError, match="CUDA tensors only"):
         if launcher == "wkv6":
             wkv6_cuda(*(z((2, 3, 4)) for _ in range(4)), z((1, 4)), None,
                       heads=1)
-        else:
+        elif launcher == "mamba_scan":
             mamba_scan_cuda(z((1, 3, 4, 2)), z((1, 3, 4, 2)), z((1, 3, 2)),
                             None)
+        else:
+            mamba_scan_fused_cuda(z((1, 3, 4)), z((1, 3, 4)), z((4, 2)),
+                                  z((1, 3, 2)), z((1, 3, 2)), None)
+
+
+def _fused_inputs(seed, b, t, di, n):
+    """dt (softplus of a normal), x, B, C (normal), A = -exp(log 1..n) as
+    the Mamba init makes it, h0 (normal); f32 numpy."""
+    r_ = np.random.default_rng(seed)
+    f = lambda *s: r_.normal(size=s).astype(np.float32)
+    dt = np.log1p(np.exp(f(b, t, di))).astype(np.float32)
+    a = -np.tile(np.arange(1, n + 1, dtype=np.float32), (di, 1))
+    return dt, f(b, t, di), a, f(b, t, n), f(b, t, n), f(b, di, n)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_b10_fused_plain_is_the_scan_of_the_prefills_streams(dtype,
+                                                             with_h0):
+    """The fused entry's plain version, T 13, DI 40, N 4: bitwise
+    ``mamba_scan_ref`` on the streams built as the Mamba prefill built
+    them inline (da = exp(dt A), dbx = (dt x) B, from the f32 casts of dt,
+    x, B, C), and within 1e-5 of JAX's ``mamba_scan_ref`` on streams built
+    alike in jnp from the same values.  dt, x, B and C are sliced along T
+    as the prefill slices a chunk; bf16 ones are rounded first (both
+    packages then see the same f32 values).  A CPU call counts no
+    launch."""
+    dt, x, a, bm, cm, h0 = _fused_inputs(13 + with_h0, 2, 20, 40, 4)
+    tdt = getattr(torch, dtype)
+    full = [torch.from_numpy(v).to(tdt) for v in (dt, x, bm, cm)]
+    dt_t, x_t, b_t, c_t = (v[:, 4:17] for v in full)     # a chunk of 13
+    a_t = torch.from_numpy(a)
+    h0_t = torch.from_numpy(h0) if with_h0 else None
+    launches = mamba_scan_fused.launches
+    y, h = mamba_scan_fused(dt_t, x_t, a_t, b_t, c_t, h0_t)
+    assert mamba_scan_fused.launches == launches
+    assert tuple(y.shape) == (2, 13, 40) and tuple(h.shape) == (2, 40, 4)
+    assert y.dtype == h.dtype == torch.float32
+    dt_c = dt_t.float()
+    da = torch.exp(dt_c[..., None] * a_t)
+    dbx = (dt_c * x_t.float())[..., None] * b_t.float()[..., None, :]
+    y2, h2 = mamba_scan_ref(da, dbx, c_t.float(), h0_t)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert all(torch.equal(u, v) for u, v in zip(
+        mamba_scan_streams(dt_t, x_t, a_t, b_t, c_t), (da, dbx, c_t.float())))
+    jdt, jx, jb, jc = (jnp.asarray(v.float().numpy())
+                       for v in (dt_t, x_t, b_t, c_t))
+    jda = jnp.exp(jdt[..., None] * jnp.asarray(a))
+    jdbx = (jdt * jx)[..., None] * jb[..., None, :]
+    wy, wh = j_mamba_scan_ref(jda, jdbx, jc,
+                              None if h0_t is None else jnp.asarray(h0))
+    _close(y, wy)
+    _close(h, wh)
 
 
 # ---------------------------------------------------------------------------
@@ -228,19 +288,19 @@ def test_mamba_apply_bitwise_the_sequential_loop():
 @pytest.mark.parametrize("prompt_len", [T_APPLY, CHUNK])
 def test_reduced_hymba_prefill_calls_b10_per_layer_and_chunk(monkeypatch,
                                                              prompt_len):
-    """A spy on ``mamba_scan`` in the Mamba module: the reduced Hymba's
-    prefill (2 layers, scan chunk 8) calls it layers x ceil(T / 8) times,
-    each chunk's first call with h0 None and the rest with the previous
-    call's final state."""
+    """A spy on ``mamba_scan_fused`` in the Mamba module: the reduced
+    Hymba's prefill (2 layers, scan chunk 8) calls it layers x ceil(T / 8)
+    times, each chunk's first call with h0 None and the rest with the
+    previous call's final state."""
     _, cfg = _cfg_pair()
     calls = []
 
-    def spy(da, dbx, c, h0=None):
-        out = mamba_scan(da, dbx, c, h0)
-        calls.append((da.shape[1], h0, out[1]))
+    def spy(dt, x, a, bmat, cmat, h0=None):
+        out = mamba_scan_fused(dt, x, a, bmat, cmat, h0)
+        calls.append((dt.shape[1], h0, out[1]))
         return out
 
-    monkeypatch.setattr(tssm, "mamba_scan", spy)
+    monkeypatch.setattr(tssm, "mamba_scan_fused", spy)
     params = ttfm.compute_params(ttfm.init_params(0, cfg, "cpu"), cfg)
     tokens = torch.from_numpy(np.random.default_rng(prompt_len).integers(
         0, cfg.vocab_size, (2, prompt_len)))

@@ -9,8 +9,9 @@ bf16 compute; random weights from seed 0), makes a batch-4 prompt of
 ``--prompt`` tokens from seed 0, runs one prefill to warm up (kernels
 built, handles made), then ``--reps`` prefills, each between two
 synchronizes on the host clock, and one more under ``torch.profiler``
-(CUDA kernels launched, device busy ms, idle share).  Prints the card's
-name and power limit, then one JSON line.  ``--src`` names the directory
+(CUDA kernels launched, device busy ms, idle share, and device ms with
+launches by kernel name: the top 15, the rest as one line).  Prints the
+card's name and power limit, then one JSON line.  ``--src`` names the directory
 to import ``repro_torch`` from (default: this checkout's ``src``), so one
 call on the card can time two trees in turns.  Needs a card; exits 2
 without one.
@@ -78,7 +79,20 @@ def main() -> int:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(getattr(e, "device_time_total", 0) for e in kernels) / 1e3
-    scan = [e for e in kernels if e.name.startswith("mnf_mamba_scan")]
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        rec = by_name.setdefault(e.name.replace("void ", "", 1), [0.0, 0])
+        rec[0] += getattr(e, "device_time_total", 0) / 1e3
+        rec[1] += 1
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    top = [dict(kernel=n[:160], ms=round(ms, 4), launches=c)
+           for n, (ms, c) in ranked[:15]]
+    rest = ranked[15:]
+    top.append(dict(kernel=f"the other {len(rest)} kernels",
+                    ms=round(sum(ms for _, (ms, _) in rest), 4),
+                    launches=sum(c for _, (_, c) in rest)))
+    scan = [e for e in kernels
+            if e.name.replace("void ", "", 1).startswith("mnf_mamba_scan")]
     print(json.dumps(dict(
         arch=cfg.name, src=args.src, batch=BATCH, prompt=args.prompt,
         layers=cfg.num_layers, device=torch.cuda.get_device_name(0),
@@ -87,7 +101,7 @@ def main() -> int:
         profiled_ms=round(wall, 3), cuda_kernels=len(kernels),
         device_busy_ms=round(busy, 3),
         idle_share=round(max(0.0, 1 - busy / wall), 4),
-        b10_launches=len(scan))), flush=True)
+        b10_launches=len(scan), by_kernel=top)), flush=True)
     return 0
 
 
