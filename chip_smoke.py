@@ -60,11 +60,13 @@ the kernels):
    form (plain torch); the exact recurrence B9/B9' runs as an op on what
    it computes: the (r, k, v, w, u) that the prefill hands
    ``ssm.wkv6_chunked`` at every layer at prompt 32, and at layer 0 of one
-   prefill at prompt 2000, are recorded, and B9' runs once on each (33
-   launches, w clamped as the chunked form clamps it), S bitwise and o
-   within 1e-4 of max|plain| against the plain version; B9 once on each
-   head of layer 0 at prompt 32 (64 launches), bitwise B9''s slice.  The
-   gap of B9' to the chunked output is printed, not held.
+   prefill at prompt 2000, are recorded, and B9' runs once on each as
+   they lie (33 launches: bf16 r, k, v and f32 w, (B, H, T, D) views of
+   (B, T, H, D), w not clamped), S bitwise and o within 1e-4 of
+   max|plain| against the plain version; B9 once on each head of layer 0
+   at prompt 32 (64 launches, the head's strided rows), bitwise B9''s
+   slice.  The gap of B9' to the chunked output (which clamps w) is
+   printed, not held.
 7. Hymba-1.5B served at its published widths (32 layers, d_model 1600, 25
    query and 5 KV heads of 64, sliding window 1024 but in layers 0, 15 and
    31, Mamba heads of state 16 over DI 1600, d_ff 5504, vocab 32001;
@@ -110,7 +112,8 @@ the kernels):
    through B2 (x9), bitwise equal.  B7 and B8 (and their wrappers) at the
    main path's shapes of phases 6 and 7, B9, B9' and both B10 entries at
    prompt 32 (the streams entry on torch's streams of the fused entry's
-   inputs, bitwise it), B9' and both B10 entries also at prompt 2000 (one
+   inputs, bitwise it), B9' also with its inputs cold in L2 and with its
+   wrapper, B9' and both B10 entries also at prompt 2000 (one
    layer, beside the eager building of the streams that the fused entry
    removes); no single PyTorch call computes a recurrent step or scan:
    their library columns are null.  Prints each kernel's
@@ -610,14 +613,17 @@ def mamba_work(bev, h):
     return nbytes, 3.0 * b * di * n + 2.0 * slots * bk * n
 
 
-def wkv6_scan_work(g, t, d, heads, s0):
-    """Bytes and operations one B9/B9' launch needs: r, k, v, w read and o
-    written once (f32, G x T x D each), u and s0 (when given) read and S
-    written once; per row and token 5 D^2 (the readout's multiply-add, the
-    decay's multiply, the increment's multiply and add) and 5 D (the bonus
-    r u k and o = att v + readout)."""
-    nbytes = 5 * g * t * d * 4 + heads * d * 4 \
-        + (2 if s0 is not None else 1) * g * d * d * 4
+def wkv6_scan_work(r, k, v, w, u, s0):
+    """Bytes and operations one B9/B9' launch needs: r, k, v, w and u read
+    once in their own types (G x T x D each), o written once (f32), s0
+    (when given) read and S written once (f32, G x D x D); per row and
+    token 5 D^2 (the readout's multiply-add, the decay's multiply, the
+    increment's multiply and add) and 5 D (the bonus r u k and o = att v +
+    readout)."""
+    t, d = r.shape[-2:]
+    g = r.numel() // (t * d)
+    nbytes = sum(x.numel() * x.element_size() for x in (r, k, v, w, u)) \
+        + g * t * d * 4 + (2 if s0 is not None else 1) * g * d * d * 4
     return nbytes, g * t * (5.0 * d * d + 5.0 * d)
 
 
@@ -667,21 +673,21 @@ def record_wkv(limit=None):
 
 
 def wkv_ops(torch, engine, wrappers, layers, long) -> dict:
-    """Phase 6's B9/B9' ops on the RWKV6-7B prefill's own inputs: B9' once
-    on each recorded layer (``layers`` at prompt 32, ``long`` layer 0 at
-    prompt 2000), with w clamped as the chunked form clamps it, so that
-    both compute one function; B9 once on each head of layer 0 at prompt
-    32.  Checks: the counts; B9' S bitwise and o within 1e-4 of max|plain|
-    against the plain version; B9 bitwise B9''s slices.  Prints B9''s gap
-    to the chunked output per layer (not held: the chunked form is exact
-    in exact arithmetic only)."""
+    """Phase 6's B9/B9' ops on the RWKV6-7B prefill's own inputs, as the
+    prefill hands them (bf16 r, k, v and f32 w, each a (B, H, T, D) view
+    of (B, T, H, D)): B9' once on each recorded layer (``layers`` at
+    prompt 32, ``long`` layer 0 at prompt 2000), B9 once on each head of
+    layer 0 at prompt 32.  Checks: the counts; B9' S bitwise and o within
+    1e-4 of max|plain| against the plain version; B9 bitwise B9''s slices.
+    Prints B9''s gap to the chunked output per layer (not held: the
+    chunked form clamps w at exp(WKV_LOG_DECAY_MIN), and is exact in
+    exact arithmetic only)."""
     from repro_torch.kernels.wkv6.ref import wkv6_multihead_ref
     from repro_torch.models import ssm
     w_min = torch.exp(torch.tensor(ssm.WKV_LOG_DECAY_MIN,
                                    dtype=torch.float32)).item()
     recs = layers + long
-    inputs = [(r, k, v, torch.clamp(w.float(), w_min, 1.0), u)
-              for (r, k, v, w, u), _ in recs]
+    inputs = [a for a, _ in recs]
     clamped = sum(int((w.float() < w_min).sum()) for (_, _, _, w, _), _
                   in recs) / sum(w.numel() for (_, _, _, w, _), _ in recs)
     b9, b9p = wrappers["wkv6_single"], wrappers["wkv6"]
@@ -717,9 +723,10 @@ def wkv_ops(torch, engine, wrappers, layers, long) -> dict:
     for h, (oh, sh) in enumerate(per_head):
         check(torch.equal(oh, o0[:, h]) and torch.equal(sh, s0[:, h]),
               f"[6] B9 on head {h} is not bitwise B9''s slice")
-    print(f"[6] B9' on the prefill's WKV inputs (w clamped at "
-          f"{w_min:.6f} as the chunked form clamps it; {clamped:.2e} of "
-          f"the w values lay below): {len(layers)} layers at prompt "
+    print(f"[6] B9' on the prefill's WKV inputs as they lie (r, k, v "
+          f"{r.dtype}, w {w.dtype}, r's strides {r.stride()}; "
+          f"{clamped:.2e} of the w values lie below the chunked form's "
+          f"clamp {w_min:.6f}): {len(layers)} layers at prompt "
           f"{LM_PROMPT} {tuple(layers[0][0][0].shape)} and layer 0 at "
           f"prompt {LM_LONG} {tuple(long[0][0][0].shape)}: {launches['wkv6']}"
           f" launches, S bitwise the plain version's, o worst {worst:.3e} "
@@ -1074,6 +1081,84 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
     return out
 
 
+def wkv_kernels(torch, rwkv, report, close) -> dict:
+    """Phase 3 for B9' (wkv6) and B9 (wkv6_single) on layer 0's inputs of
+    phase 6's prefill at prompt 32 as the prefill hands them (bf16 r, k, v
+    and f32 w, (B, H, T, D) views of (B, T, H, D); every launch there was
+    held against the plain version): B9' warm, with its inputs cold in L2
+    and through its wrapper, B9 on head 0's rows, B9' at prompt 2000.
+    Returns the prompt-2000 time (ms)."""
+    from repro_torch.kernels.wkv6 import ops as wkv_scan_ops
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+    from repro_torch.kernels.wkv6.ref import wkv6_multihead_ref, wkv6_ref
+
+    def wkv_args(a):
+        """The launcher's arguments: r, k, v, w as they lie, u f32."""
+        r_, k_, v_, w_, u_ = a
+        return r_, k_, v_, w_, u_.float().contiguous(), None
+
+    main = rwkv["wkv_main"]
+    kargs = wkv_args(main)
+    o, s_new = wkv6_cuda(*kargs)
+    o2, s2 = wkv6_multihead_ref(*main)
+    check(torch.equal(s_new, s2), "wkv6: S != plain bitwise")
+    err = close(o, o2, "wkv6 o")
+    b, heads, t, d = kargs[0].shape
+    ms = graph_ms(torch, lambda: wkv6_cuda(*kargs), 20)
+    wrapper_ms = graph_ms(torch, lambda: wkv_scan_ops.wkv6(*main), 20)
+    # Inputs cold in L2: 16 copies (~84 MB of r, k, v, w at prompt 32,
+    # past the H100's 50 MB L2) taken in turn, so each launch reads its
+    # inputs from DRAM, as the byte bound counts them; the graph of 20
+    # launches above replays on inputs that stay in L2.
+    rot, turn = [tuple(x.clone() for x in kargs[:4]) + kargs[4:]
+                 for _ in range(16)], [0]
+
+    def rotated():
+        turn[0] += 1
+        return wkv6_cuda(*rot[turn[0] % len(rot)])
+    cold_ms = graph_ms(torch, rotated, 20)
+    check(all(x.stride() == y.stride() for x, y in zip(rot[0], kargs[:4])),
+          "wkv6: the L2-cold copies do not keep the inputs' strides")
+    del rot
+    long = rwkv["wkv_long"]
+    kargs_l = wkv_args(long)
+    g_l, t_l = kargs_l[0].shape[0] * kargs_l[0].shape[1], kargs_l[0].shape[2]
+    ms_l = graph_ms(torch, lambda: wkv6_cuda(*kargs_l), 3)
+    plain_l = cuda_ms(torch, lambda: wkv6_multihead_ref(*long), 1)
+    b_l = bound_ms(*wkv6_scan_work(*kargs_l))
+    report("wkv6", err, ms, cuda_ms(torch, lambda: wkv6_multihead_ref(*main),
+                                    1),
+           None, bound_ms(*wkv6_scan_work(*kargs)),
+           f" at RWKV6-7B layer 0's prefill rows ({b * heads}, {t}, {d}) = "
+           f"batch {b} x {heads} heads, prompt {LM_PROMPT}, r, k, v "
+           f"{kargs[0].dtype} and w {kargs[3].dtype} as they lie (r's "
+           f"strides {kargs[0].stride()}); its wrapper {wrapper_ms:.4f} ms; "
+           f"{cold_ms:.4f} ms with its inputs cold in L2 (16 copies in "
+           f"turn); an op: {rwkv['wkv6_launches']} launches on phase 6's "
+           f"recorded inputs, none on the model path",
+           wrapper_ms=wrapper_ms, l2_cold_ms=cold_ms, prompt_2000_ms=ms_l,
+           prompt_2000_bound_ms=b_l[0])
+    print(f"[3] wkv6 at prompt {LM_LONG} (RWKV6-7B layer 0, rows "
+          f"{(g_l, t_l, d)}, as they lie): {ms_l:.4f} ms, plain "
+          f"{plain_l:.3f} ms, bound {b_l[0]:.4f} ms ({b_l[1]})", flush=True)
+    # head 0's rows: the (B, T, D) views r[:, 0], ..., bonus row u[0]
+    one = tuple(x[:, 0] for x in kargs[:4]) + (kargs[4][0], None)
+    o1, s1 = wkv6_cuda(*one)
+    check(torch.equal(o1, o[:, 0]) and torch.equal(s1, s_new[:, 0]),
+          "wkv6_single: != B9''s head 0 bitwise")
+    o2, s2 = wkv6_ref(*one[:5])
+    check(torch.equal(s1, s2), "wkv6_single: S != plain bitwise")
+    err = close(o1, o2, "wkv6_single o")
+    report("wkv6_single", err, graph_ms(torch, lambda: wkv6_cuda(*one), 50),
+           cuda_ms(torch, lambda: wkv6_ref(*one[:5]), 2), None,
+           bound_ms(*wkv6_scan_work(*one)),
+           f" at head 0's rows ({b}, {t}, {d}) as they lie, bitwise B9''s "
+           f"slice; an op: {rwkv['wkv6_single_launches']} launches, one "
+           f"per head of layer 0, none on the model path")
+    del rwkv["wkv_main"], rwkv["wkv_long"]
+    return dict(wkv_long_ms=ms_l)
+
+
 def lm_kernels(torch, rwkv, hymba, report, close) -> dict:
     """Phase 3 for the LM kernels, each at its main-path shape against its
     plain version: B7 and B8 at the last launch of phases 6 and 7's main
@@ -1091,9 +1176,6 @@ def lm_kernels(torch, rwkv, hymba, report, close) -> dict:
     from repro_torch.kernels.mamba_step import ops as mamba_ops
     from repro_torch.kernels.mamba_step.kernel import mamba_step_cuda
     from repro_torch.kernels.mamba_step.ref import mamba_step_events_ref
-    from repro_torch.kernels.wkv6 import ops as wkv_scan_ops
-    from repro_torch.kernels.wkv6.kernel import wkv6_cuda
-    from repro_torch.kernels.wkv6.ref import wkv6_multihead_ref, wkv6_ref
     from repro_torch.kernels.wkv6_step import ops as wkv6_ops
     from repro_torch.kernels.wkv6_step.kernel import wkv6_step_cuda
     from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
@@ -1143,63 +1225,7 @@ def lm_kernels(torch, rwkv, hymba, report, close) -> dict:
            wrapper_ms=wrapper_ms)
     del hymba["caps"], args, kargs
 
-    # B9' (wkv6) and B9 (wkv6_single): layer 0's inputs of phase 6's
-    # prefill at prompt 32 (every launch there was held against the plain
-    # version), B9 on head 0's rows; B9' also at prompt 2000
-    def wkv_rows(a):
-        """B9''s launcher arguments for the op's (B, H, T, D) inputs."""
-        r_, k_, v_, w_, u_ = a
-        b, h, t, d = r_.shape
-        fl = lambda x: x.float().reshape(b * h, t, d).contiguous()
-        return (fl(r_), fl(k_), fl(v_), fl(w_), u_.float().contiguous(),
-                None), h
-
-    kargs, heads = wkv_rows(rwkv["wkv_main"])
-    o, s_new = wkv6_cuda(*kargs, heads=heads)
-    o2, s2 = wkv6_multihead_ref(*rwkv["wkv_main"])
-    check(torch.equal(s_new, s2.reshape(s_new.shape)),
-          "wkv6: S != plain bitwise")
-    err = close(o, o2.reshape(o.shape), "wkv6 o")
-    g, t, d = kargs[0].shape
-    wrapper_ms = graph_ms(torch, lambda: wkv_scan_ops.wkv6(*rwkv["wkv_main"]),
-                          20)
-    report("wkv6", err, graph_ms(torch, lambda: wkv6_cuda(*kargs,
-                                                          heads=heads), 20),
-           cuda_ms(torch, lambda: wkv6_multihead_ref(*rwkv["wkv_main"]), 1),
-           None, bound_ms(*wkv6_scan_work(g, t, d, heads, None)),
-           f" at RWKV6-7B layer 0's prefill rows ({g}, {t}, {d}) = batch "
-           f"{LM_BATCH} x {heads} heads, prompt {LM_PROMPT}; the wrapper "
-           f"with its f32 copies of the bf16 r, k, v {wrapper_ms:.4f} ms; "
-           f"an op: {rwkv['wkv6_launches']} launches on phase 6's "
-           f"recorded inputs, none on the model path")
-    # head 0's rows: row g = b * H + h of the flattened batch
-    head0 = lambda x: x.reshape(LM_BATCH, heads, *x.shape[1:])[:, 0]
-    one = tuple(head0(x).contiguous() for x in kargs[:4]) \
-        + (kargs[4][:1].contiguous(), None)
-    o1, s1 = wkv6_cuda(*one, heads=1)
-    check(torch.equal(o1, head0(o)) and torch.equal(s1, head0(s_new)),
-          "wkv6_single: != B9''s head 0 bitwise")
-    o2, s2 = wkv6_ref(*one[:4], kargs[4][0])
-    check(torch.equal(s1, s2), "wkv6_single: S != plain bitwise")
-    err = close(o1, o2, "wkv6_single o")
-    report("wkv6_single", err, graph_ms(torch, lambda: wkv6_cuda(
-               *one, heads=1), 50),
-           cuda_ms(torch, lambda: wkv6_ref(*one[:4], kargs[4][0]), 2), None,
-           bound_ms(*wkv6_scan_work(LM_BATCH, t, d, 1, None)),
-           f" at head 0's rows ({LM_BATCH}, {t}, {d}), bitwise B9''s slice; "
-           f"an op: {rwkv['wkv6_single_launches']} launches, one per head "
-           f"of layer 0, none on the model path")
-    kargs_l, heads = wkv_rows(rwkv["wkv_long"])
-    g, t, d = kargs_l[0].shape
-    ms_l = graph_ms(torch, lambda: wkv6_cuda(*kargs_l, heads=heads), 3)
-    plain_l = cuda_ms(torch, lambda: wkv6_multihead_ref(*rwkv["wkv_long"]),
-                      1)
-    b_l = bound_ms(*wkv6_scan_work(g, t, d, heads, None))
-    print(f"[3] wkv6 at prompt {LM_LONG} (RWKV6-7B layer 0, rows {(g, t, d)}"
-          f"): {ms_l:.4f} ms, plain {plain_l:.3f} ms, bound {b_l[0]:.4f} ms "
-          f"({b_l[1]})", flush=True)
-    out = dict(wkv_long_ms=ms_l)
-    del rwkv["wkv_main"], rwkv["wkv_long"], kargs, kargs_l, o, o2, one
+    out = wkv_kernels(torch, rwkv, report, close)
 
     # B10: the main path's last launch of the fused entry (Hymba-1.5B,
     # batch 4, prompt 32; every launch of phase 7's main path was held

@@ -100,32 +100,6 @@ struct Vec<__nv_bfloat16, 4, true> {
   }
 };
 
-// The K products v[s] of K steps in each of a channel's K lanes (lane q of
-// the channel, K a power of two <= 16) reduced over the lanes at once: at
-// each level m = K/2, ..., 1 a lane keeps half its values and adds the
-// partner lane q ^ m's other half, so lane q ends with step q's sum in
-// v[0].  Each step's sum pairs the lanes as the butterfly xor m = K/2,
-// ..., 1 does, and an add does not depend on the order of its two
-// operands: bitwise that butterfly's, with K - 1 shuffles for K steps.
-template <int K>
-__device__ __forceinline__ void reduce_steps(float (&v)[K], int q) {
-#pragma unroll
-  for (int m = K / 2; m >= 1; m >>= 1) {
-    const bool upper = (q & m) != 0;
-#pragma unroll
-    for (int i = 0; i < m; ++i) {
-      const float send = upper ? v[i] : v[i + m];
-      const float keep = upper ? v[i + m] : v[i];
-      v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, m));
-    }
-  }
-}
-
-template <bool B>
-struct Checked {
-  static constexpr bool value = B;
-};
-
 }  // namespace
 
 struct MambaScanStreamArgs {

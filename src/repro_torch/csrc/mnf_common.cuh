@@ -56,16 +56,16 @@ struct MnfDiv {
   }
 };
 
-// One asynchronous copy of BYTES (16 or 4) from device to shared memory.
+// One asynchronous copy of BYTES (16, 8 or 4) from device to shared memory.
 template <int BYTES>
-__device__ __forceinline__ void cp_async(float* smem, const float* gmem) {
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   if constexpr (BYTES == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                  "l"(gmem));
   else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                 "l"(gmem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(gmem), "n"(BYTES));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -117,3 +117,32 @@ __device__ __forceinline__ void lds(const float* p, float (&v)[K]) {
     for (int k = 0; k < K; ++k) v[k] = p[k];
   }
 }
+
+// The K products v[s] of K steps in each of a group's K lanes (lane q of
+// the group: K consecutive lanes of a warp, K a power of two <= 16; the
+// selective scan B10, the WKV6 recurrence B9) reduced over the lanes at
+// once: at each level m = K/2, ..., 1 a lane keeps half its values and
+// adds the partner lane q ^ m's other half, so lane q ends with step q's
+// sum in v[0].  Each step's sum pairs the lanes as the butterfly xor m = K/2,
+// ..., 1 does, and an add does not depend on the order of its two
+// operands: bitwise that butterfly's, with K - 1 shuffles for K steps.
+template <int K>
+__device__ __forceinline__ void reduce_steps(float (&v)[K], int q) {
+#pragma unroll
+  for (int m = K / 2; m >= 1; m >>= 1) {
+    const bool upper = (q & m) != 0;
+#pragma unroll
+    for (int i = 0; i < m; ++i) {
+      const float send = upper ? v[i] : v[i + m];
+      const float keep = upper ? v[i + m] : v[i];
+      v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, m));
+    }
+  }
+}
+
+// A compile-time flag for a generic lambda's tag argument: whether a walk
+// of steps checks each against T (the scans B9, B10).
+template <bool B>
+struct Checked {
+  static constexpr bool value = B;
+};

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "mnf_event_pool_window": [_P] * 6 + [_I] * 6 + [_P],
     "mnf_wkv6_step": [_P] * 10 + [_I] * 5 + [_P],
     "mnf_mamba_step": [_P] * 9 + [_I] * 6 + [_P],
-    "mnf_wkv6": [_P] * 8 + [_I] * 4 + [_P],
+    "mnf_wkv6": [_P] * 8 + [_I] * 17 + [_P],
     "mnf_mamba_scan": [_P] * 6 + [_I] * 4 + [_P],
     "mnf_mamba_scan_fused": [_P] * 8 + [_I] * 13 + [_P],
 }

@@ -3,11 +3,13 @@
 ``wkv6_single`` (B9, ``repro.kernels.wkv6.kernel.wkv6_pallas``) and
 ``wkv6`` (B9', ``repro.kernels.wkv6.ops.wkv6``) wrap one kernel,
 ``csrc/wkv6.cu``; each counts its own launches (``kernels.note_launch``).
-A CPU tensor takes the plain version (``ref.py``).  Inputs of any float
-type are cast to f32, as the TPU kernel casts at load.  T needs no
-padding (the JAX wrapper pads with w = 1 to whole chunks; the kernel
-loops to T).  Bound on the card: bytes at prompt lengths.  No model of
-either package calls these ops: the RWKV6 prefill runs the chunked form
+A CPU tensor takes the plain version (``ref.py``); any other device
+launches the kernel, which raises off the card.  r, k, v and w go to the
+kernel as they lie where they are f32 or bf16, strided views included
+(the kernel casts at load, as the TPU kernel does); any other float type
+is cast to f32 first.  T needs no padding (the JAX wrapper pads with w = 1
+to whole chunks; the kernel loops to T).  No model of either package
+calls these ops: the RWKV6 prefill runs the chunked form
 (``models.ssm.wkv6_chunked``).
 """
 from __future__ import annotations
@@ -21,8 +23,13 @@ from repro_torch.kernels.wkv6.ref import wkv6_multihead_ref, wkv6_ref
 __all__ = ["wkv6", "wkv6_single"]
 
 
-def _f32(t):
-    return None if t is None else t.float().contiguous()
+def _kernel_args(r, k, v, w, u, s0):
+    """The launcher's arguments: r, k, v, w as they lie where f32 or bf16,
+    else f32; u and s0 f32 and contiguous."""
+    row = lambda x: x if x.dtype in (torch.float32, torch.bfloat16) \
+        else x.float()
+    f32 = lambda x: None if x is None else x.float().contiguous()
+    return row(r), row(k), row(v), row(w), f32(u), f32(s0)
 
 
 def wkv6_single(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -34,8 +41,7 @@ def wkv6_single(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plain version's, o within f32 summation order."""
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, w, u, s0)
-    out = wkv6_cuda(*map(_f32, (r, k, v, w, u.reshape(1, -1), s0)),
-                    heads=1)
+    out = wkv6_cuda(*_kernel_args(r, k, v, w, u, s0))
     note_launch(wkv6_single, (r, k, v, w, u, s0), {})
     return out
 
@@ -47,13 +53,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     D) or None.  Returns (o (B, H, T, D) f32, s (B, H, D, D) f32)."""
     if r.device.type == "cpu":
         return wkv6_multihead_ref(r, k, v, w, u, s0)
-    b, h, t, d = r.shape
-    fl = lambda x: _f32(x.reshape(b * h, t, d))
-    o, s = wkv6_cuda(fl(r), fl(k), fl(v), fl(w), _f32(u),
-                     None if s0 is None else _f32(s0.reshape(b * h, d, d)),
-                     heads=h)
+    out = wkv6_cuda(*_kernel_args(r, k, v, w, u, s0))
     note_launch(wkv6, (r, k, v, w, u, s0), {})
-    return o.reshape(b, h, t, d), s.reshape(b, h, d, d)
+    return out
 
 
 wkv6_single.launches = 0

@@ -751,6 +751,78 @@ def test_wkv6_matches_plain(dev, d, heads):
     assert torch.equal(wkv6(*bf, u)[1], wkv6(*(x.float() for x in bf), u)[1])
 
 
+#: (D, heads, batch): G = batch x heads rows.  G 4 at D 64 splits each
+#: row's columns over 4 CTAs (too few rows for the card), G 256 takes a
+#: CTA a row.  D 20 stages a bf16 row in 8-byte copies (40 bytes); D 18
+#: zero-pads its last granule, in 8-byte (f32) or 4-byte (bf16) copies;
+#: D 13 takes 4-byte (f32) or 2-byte plain (bf16) copies.
+WKV6_SHAPES = [(64, 1, 4), (64, 64, 4), (16, 3, 2), (20, 3, 2), (18, 1, 3),
+               (13, 3, 2)]
+
+
+def _wkv6_rows(gen, b, h, t, d, layout, dev):
+    """r, k, v, w (B, H, T, D) in ``layout``: "f32" contiguous, "f32_t" f32
+    (B, T, H, D).transpose(1, 2) views, "bf16" bf16 r, k, v and f32 w
+    contiguous, "prefill" those as (B, T, H, D).transpose(1, 2) views (the
+    RWKV6 prefill's)."""
+    strided = layout in ("f32_t", "prefill")
+    low = torch.bfloat16 if layout in ("bf16", "prefill") else torch.float32
+
+    def make(x, dtype):
+        x = x.to(dtype)
+        return x.transpose(1, 2).contiguous().transpose(1, 2) if strided \
+            else x.contiguous()
+    f = lambda: torch.randn((b, h, t, d), generator=gen, device=dev)
+    w = torch.rand((b, h, t, d), generator=gen, device=dev) * 0.7 + 0.3
+    return [make(f(), low) for _ in range(3)] + [make(w, torch.float32)]
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("layout", ["f32", "f32_t", "bf16", "prefill"])
+@pytest.mark.parametrize("d,heads,b", WKV6_SHAPES)
+@pytest.mark.parametrize("t", [1, 31, 32, 33, 37, 200, 600])
+def test_wkv6_cases(dev, t, d, heads, b, layout, with_s0):
+    """B9' across the kernel's edges: T 1, 31, 32, 33, 37, 200 and 600
+    against its 32-token chunks, 8-token readout groups and the 128 tokens
+    from which a thread takes 4 columns in place of 2 (T 200 split in two
+    runs both); the shapes of
+    ``WKV6_SHAPES`` (both grid splits, every copy width); r, k, v, w f32
+    or bf16 r, k, v with f32 w, contiguous or strided as the prefill lays
+    them; s0 None or given.  S bitwise the plain version's, o within 1e-4
+    of max|plain|; o and S bitwise the kernel's on contiguous f32 copies
+    of the same values (no order depends on a row's type, strides or
+    alignment), and bitwise two launches over T split in two with S
+    carried (none on T); B9 on each head's rows bitwise B9''s slice."""
+    gen = torch.Generator(device=dev).manual_seed(1000 * d + t + heads)
+    rows = _wkv6_rows(gen, b, heads, t, d, layout, dev)
+    if heads > 1 and t > 1:
+        assert all(x.is_contiguous() == (layout in ("f32", "bf16"))
+                   for x in rows)
+    u = torch.randn((heads, d), generator=gen, device=dev)
+    s0 = torch.randn((b, heads, d, d), generator=gen, device=dev) \
+        if with_s0 else None
+    launches = wkv6.launches
+    o, s = wkv6(*rows, u, s0)
+    assert wkv6.launches == launches + 1
+    o2, s2 = wkv6_multihead_ref(*rows, u, s0)
+    assert torch.equal(s, s2)
+    assert _close(o, o2)
+    plain = [x.float().contiguous() for x in rows]
+    o3, s3 = wkv6(*plain, u, s0)
+    assert torch.equal(o3, o) and torch.equal(s3, s)
+    if t > 1:
+        cut = t // 2
+        oa, sa = wkv6(*(x[:, :, :cut] for x in rows), u, s0)
+        ob, sb = wkv6(*(x[:, :, cut:] for x in rows), u, sa)
+        assert torch.equal(torch.cat([oa, ob], 2), o) and torch.equal(sb, s)
+    launches = wkv6_single.launches
+    for h in range(heads):
+        oh, sh = wkv6_single(*(x[:, h] for x in rows), u[h],
+                             None if s0 is None else s0[:, h])
+        assert torch.equal(oh, o[:, h]) and torch.equal(sh, s[:, h])
+    assert wkv6_single.launches == launches + heads
+
+
 @pytest.mark.parametrize("di,n,t", [
     (40, 4, 13), (40, 16, 13), (1600, 4, 13), (1600, 16, 13),
     (1600, 16, 600), (40, 64, 600), (40, 8, 37), (40, 6, 37),
@@ -838,14 +910,18 @@ def test_mamba_scan_fused_matches_plain_and_the_streams_entry(dev, dtype,
 
 def test_scan_launchers_refuse_other_dtypes_and_wide_heads(dev):
     """The launchers take f32 only (the fused B10 entry f32 or bf16 rows,
-    all of one type, each with unit stride in its last dimension), B9 no
-    head wider than MAX_D, B10 no state wider than MAX_N."""
+    all of one type, each with unit stride in its last dimension; B9 f32
+    or bf16 rows, each of its own type), B9 no head wider than MAX_D, B10
+    no state wider than MAX_N."""
     z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt,
                                                      device=dev)
     bf = torch.bfloat16
-    with pytest.raises(TypeError):
-        wkv6_cuda(z(2, 3, 8, dt=bf), *(z(2, 3, 8) for _ in range(3)),
-                  z(1, 8), None, heads=1)
+    with pytest.raises(TypeError):                   # f16 r
+        wkv6_cuda(z(2, 3, 8, dt=torch.float16),
+                  *(z(2, 3, 8) for _ in range(3)), z(8), None)
+    with pytest.raises(ValueError, match="unit stride"):
+        wkv6_cuda(z(2, 8, 3).transpose(1, 2), *(z(2, 3, 8) for _ in range(3)),
+                  z(8), None)
     with pytest.raises(TypeError):
         mamba_scan_cuda(z(1, 3, 4, 2, dt=bf), z(1, 3, 4, 2), z(1, 3, 2),
                         None)
@@ -866,4 +942,7 @@ def test_scan_launchers_refuse_other_dtypes_and_wide_heads(dev):
                               z(1, 3, n), None)
     d = MAX_D + 1
     with pytest.raises(ValueError, match="head_dim"):
-        wkv6_cuda(*(z(2, 3, d) for _ in range(4)), z(1, d), None, heads=1)
+        wkv6_cuda(*(z(2, 3, d) for _ in range(4)), z(d), None)
+    with pytest.raises(ValueError, match="head_dim"):
+        wkv6_cuda(*(z(2, 3, 4, d, dt=bf) for _ in range(3)), z(2, 3, 4, d),
+                  z(3, d), None)

@@ -6,7 +6,11 @@ inputs through both packages.
   ``wkv6_pallas(interpret=True)`` and ``wkv6(interpret=True)`` at 1e-5,
   with a non-zero initial state and at a T that is not a whole number of
   the JAX wrapper's chunks (the port does not pad: w = 1 padding leaves S
-  unchanged, so the two agree).
+  unchanged, so the two agree); B9' also on the prefill's layout (bf16 r,
+  k, v and f32 w, (B, H, T, D) views of (B, T, H, D)) against JAX on the
+  same values in f32.  Off the CPU both wrappers hand the launcher the
+  caller's own tensors (meta tensors, a stub launcher): no copy but the
+  f32 cast of another float type.
 - B10 (selective scan): the plain version against ``mamba_scan_ref`` and
   ``mamba_scan(interpret=True)`` at 1e-5, at a ragged T and a DI that is
   not a whole number of the JAX wrapper's ``d_blk``.
@@ -106,6 +110,84 @@ def test_b9_multihead_plain_matches_jax_wkv6(with_s0):
         assert torch.equal(oh, o[:, h]) and torch.equal(sh, s[:, h])
 
 
+def _prefill_layout(x, dtype):
+    """(B, H, T, D) numpy as the RWKV6 prefill hands it to the WKV: a
+    (B, H, T, D) view (``transpose(1, 2)``) of a (B, T, H, D) tensor."""
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+                            ).to(dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_b9_multihead_on_the_prefill_layout_matches_jax_wkv6(with_s0):
+    """B9' as the prefill hands it its inputs: bf16 r, k, v and f32 w,
+    each a (B, H, T, D) view of a (B, T, H, D) tensor (strided, not
+    contiguous), against JAX's ``wkv6(interpret=True)`` on the same values
+    in f32 (bf16 -> f32 is exact) at 1e-5; T 11 against JAX's chunk 4."""
+    r, k, v, w, u, s0 = _wkv6_inputs(21 + with_s0, (2, 3, 11, 8), (3, 8))
+    s0 = s0 if with_s0 else None
+    rows = [_prefill_layout(x, torch.bfloat16) for x in (r, k, v)] \
+        + [_prefill_layout(w, torch.float32)]
+    assert not any(x.is_contiguous() for x in rows)
+    assert [x.dtype for x in rows] == [torch.bfloat16] * 3 + [torch.float32]
+    targs = rows + [torch.from_numpy(u),
+                    None if s0 is None else torch.from_numpy(s0)]
+    jargs = [None if a is None else jnp.asarray(a.float().numpy())
+             for a in targs]
+    wo, ws = j_wkv6(*jargs, chunk=4, interpret=True)
+    o, s = wkv6(*targs)
+    assert o.dtype == s.dtype == torch.float32
+    assert tuple(o.shape) == (2, 3, 11, 8) and tuple(s.shape) == (2, 3, 8, 8)
+    _close(o, wo)
+    _close(s, ws)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("single", [False, True])
+def test_b9_wrappers_hand_the_launcher_the_callers_tensors(monkeypatch,
+                                                           dtype, single):
+    """Off the CPU, ``wkv6`` and ``wkv6_single`` hand the launcher the
+    caller's own r, k, v and w (the same objects: the prefill's bf16 (B,
+    T, H, D).transpose(1, 2) views and its f32 w, no ``.float()`` and no
+    ``.contiguous()`` copy), u and s0 as they are where f32 and
+    contiguous, and count one launch; rows of another float type (f16)
+    reach it cast to f32.  Meta tensors stand in for the card's; the
+    launcher is a stub."""
+    from repro_torch.kernels.wkv6 import ops
+    calls = []
+
+    def kernel(*args):
+        calls.append(args)
+        r = args[0]
+        return (torch.empty(r.shape, device="meta"),
+                torch.empty((*r.shape[:-2], r.shape[-1], r.shape[-1]),
+                            device="meta"))
+
+    monkeypatch.setattr(ops, "wkv6_cuda", kernel)
+    b, t, h, d = 2, 5, 3, 8
+
+    def view(dt):
+        x = torch.empty((b, t, h, d), dtype=dt, device="meta").transpose(1, 2)
+        return x[:, 0] if single else x
+
+    rows = [view(dtype) for _ in range(3)] + [view(torch.float32)]
+    u = torch.empty((d,) if single else (h, d), device="meta")
+    s0 = torch.empty((b, d, d) if single else (b, h, d, d), device="meta")
+    wrapper = ops.wkv6_single if single else ops.wkv6
+    launches = wrapper.launches
+    o, s = wrapper(*rows, u, s0)
+    assert wrapper.launches == launches + 1
+    (args,) = calls
+    assert len(args) == 6 and args[4] is u and args[5] is s0
+    assert args[3] is rows[3]
+    for got, x in zip(args[:3], rows[:3]):
+        if dtype == torch.bfloat16:
+            assert got is x
+        else:
+            assert got.dtype == torch.float32 and got.shape == x.shape
+    assert o.shape == rows[0].shape
+    assert s.shape == (*rows[0].shape[:-2], d, d)
+
+
 def _scan_inputs(seed, b, t, di, n):
     r_ = np.random.default_rng(seed)
     da = np.exp(-r_.uniform(0.01, 2.0, size=(b, t, di, n))).astype(np.float32)
@@ -142,8 +224,7 @@ def test_scan_launchers_refuse_cpu_tensors(launcher):
     z = torch.zeros
     with pytest.raises(ValueError, match="CUDA tensors only"):
         if launcher == "wkv6":
-            wkv6_cuda(*(z((2, 3, 4)) for _ in range(4)), z((1, 4)), None,
-                      heads=1)
+            wkv6_cuda(*(z((2, 3, 4)) for _ in range(4)), z((4,)), None)
         elif launcher == "mamba_scan":
             mamba_scan_cuda(z((1, 3, 4, 2)), z((1, 3, 4, 2)), z((1, 3, 2)),
                             None)

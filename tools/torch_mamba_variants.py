@@ -109,8 +109,7 @@ SCAN_EDITS = {
                      "constexpr int kThreads4 = 128;")],
     "narrow": [("if (wide && (uintptr_t)h0 % 16 == 0",
                 "if (false && (uintptr_t)h0 % 16 == 0")],
-    "no_shfl": [("for (int m = K / 2; m >= 1; m >>= 1) {",
-                 "for (int m = 0; m >= 1; m >>= 1) {")],
+    "no_shfl": [("reduce_steps<kBatch>(pv, q);", "(void)q;")],
     "no_store": [("if (valid && ts < T) y[(b * T + ts) * DI + d] = pv[0];",
                   "if (valid && ts < T && pv[0] == 1234.5f) "
                   "y[(b * T + ts) * DI + d] = pv[0];")],
