@@ -19,6 +19,15 @@ the kernels):
    chained == round-trip bitwise; logits within 5e-3 of the dense oracle
    and within 1e-4 of its largest magnitude.  Prints the warm forward time
    (median of 3) and a device profile (busy, idle share, ms by kernel).
+   Then the main path: the same forward as one CUDA graph
+   (``models.cnn.make_cnn_pipeline``), counts set to 0 just before its
+   first call (warm-up, capture, one replay) and read just after: the
+   launches the capture saw, times the replays, are the route plan's (the
+   kernels line reports them), the trace records the capture saw pass the
+   same checks, the replay is bitwise the eager forward, and a replay on
+   a second input (made under set_sync_debug_mode("error")) is bitwise
+   the eager forward on it.  Prints the warm replay time (median of 5)
+   and its profile.
 4. The same VGG16@224 batch 4 with int8 event values
    (FireConfig(quantize_to_int8=True)): counts as in phase 2, the path is
    B3 (conv1_1, f32 input), B6, B5 (per-tap convs and FCs) and B4; the
@@ -30,13 +39,15 @@ the kernels):
    and the logits against the free-running dense int8 oracle, whose codes
    rounding ties move (allclose 5e-3; the ratio printed beside how far
    noise of 1e-7 of each input value moves the oracle itself).  Prints
-   the gap to the f32 logits, the warm forward time and a profile.
+   the gap to the f32 logits, the warm forward time and a profile; then
+   its pipeline, checked and timed as in phase 2.
 5. LeNet-300-100 (784-300-100-10) at batch 128, weight sparsity 0.5,
    seeded non-negative inputs with a fifth of them non-zero, in f32 and in
    int8: launch counts per mode (f32: B2 x3, B1 x2; int8: B2 x1 for the
    dense head, B5 x2), chained == round trip bitwise, the f32 logits
    within 2e-4 of the dense oracle, the int8 ones checked as in phase 4;
-   warm forward times.
+   warm forward times; each mode's pipeline checked and timed as in phase
+   2 (``models.mlp.make_mlp_pipeline``).
 6. RWKV6-7B served at its published widths (32 layers, d_model 4096,
    64x64 heads, d_ff 14336, vocab 65536; random f32 weights from seed 0
    plus their bf16 copy, ~45 GB) through the port's serve driver
@@ -56,7 +67,18 @@ the kernels):
    1e-4 of max|logits| at every step.
    Prints prefill ms, decode tokens/s (gated θ=0, gated θ>0, ungated,
    bf16), events per token, how many greedy tokens the gated and ungated
-   decodes share, and a profile line.  The prefill runs the chunked WKV6
+   decodes share, and a profile line.  The per-launch checks run on eager
+   serves (``run_lm(graph=False)``); the main path is the graphed serve
+   (``run_lm``: the prefill and the decode step as CUDA graphs sharing a
+   pool), counts set to 0 just before and read just after: B7 counts 32
+   at capture x 16 replays = 512, the kernels line reports that; the
+   graphed serves at θ = 0, θ > 0 and ungated each give their eager
+   serve's tokens, events, prefill and step logits and final cache
+   bitwise, with no host sync in the decode loop (``run_lm`` holds it
+   under set_sync_debug_mode("error")).  Prints prefill ms and tokens/s
+   eager and graphed (2 runs each, in turns), the warm-up and capture
+   seconds, the graphs' peak memory above the model, and the gated /
+   ungated tokens/s ratio on graphs.  The prefill runs the chunked WKV6
    form (plain torch); the exact recurrence B9/B9' runs as an op on what
    it computes: the (r, k, v, w, u) that the prefill hands
    ``ssm.wkv6_chunked`` at every layer at prompt 32, and at layer 0 of one
@@ -78,7 +100,9 @@ the kernels):
    max|plain|), one on its all-live drive (h' and y bitwise); a θ > 0
    run (the 0.4 quantile of block max|g|) with at least a quarter of the
    (row, DI-block) pairs dead; f32 gated vs
-   ungated within 1e-4 at every step; prefill ms, tokens/s, profile line.
+   ungated within 1e-4 at every step; prefill ms, tokens/s, profile line;
+   the graphed serves checked and timed as in phase 6 (B8 32 x 16 = 512
+   and B10's 32 counted at capture).
    The prefill's selective scan is B10's fused entry (dt, x, A, B, C in,
    the streams formed in registers), one launch a layer and scan chunk
    (32 per prefill at prompt 32, in every served run; B10's streams entry
@@ -87,7 +111,9 @@ the kernels):
    streams torch builds from the same inputs).  One prefill at prompt
    2000 (the sliding window of 1024 binds): 128 B10 launches (4 chunks a
    layer, h carried across), layer 0's 4 replayed alike, finite logits,
-   its time (best of 3).
+   its time (best of 3).  In phases 6 and 7 the prompt-2000 prefill also
+   runs as a CUDA graph (``launch.steps.make_prefill_step``): logits and
+   cache bitwise the eager prefill's, its time (best of 3).
 3. Kernel checks: each kernel against its plain PyTorch version on the
    inputs the forwards handed it (B1, B2 and B5 at the shapes of both
    VGG16 and LeNet-300-100), plus the strip convs at stride 4 and 2
@@ -778,7 +804,10 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
     from repro_torch.core import events as ev
     from repro_torch.kernels.mamba_scan.ref import (mamba_scan_fused_ref,
                                                     mamba_scan_streams)
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import serve
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.launch.graphs import leaves as tree_leaves
     from repro_torch.models import transformer as tfm
 
     spec = LM_PHASES[arch]
@@ -883,7 +912,8 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
     def served(stag, c, p, plan, capture=False, **kw):
         run, recs, launches, caps, _ = drive_counted(
             torch, engine, wrappers,
-            lambda: serve.run_lm(p, c, prompts, LM_GEN, **kw), capture)
+            lambda: serve.run_lm(p, c, prompts, LM_GEN, graph=False, **kw),
+            capture)
         check_plan(stag, launches, plan)
         check(all(launches[n] == plan[n] for n in (name, scan) if n),
               f"{stag}: launches {launches}, want {plan}")
@@ -949,6 +979,52 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
               f"its all-live drive")
         return max(dead), g * bev.num_k_blocks
 
+    def graphed(gtag, c, ref, plan):
+        """The graphed serve of config ``c`` (``run_lm`` on CUDA graphs of
+        the prefill and the decode step, one memory pool) against its eager
+        run ``ref``, every launch count set to 0 just before and read just
+        after: the kernels of the path launched (at the warm-ups and
+        captures) and none off it; the launches the captures saw, times
+        their replays, are ``plan``'s; tokens, inputs, events, the
+        prefill's and every step's logits and every leaf of the final
+        cache bitwise ``ref``'s.  ``run_lm`` runs the decode loop under
+        set_sync_debug_mode("error"): it made no host sync.  Returns (the
+        run, its launches captured x replayed)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run, _, raw, _, _ = drive_counted(
+            torch, engine, wrappers,
+            lambda: serve.run_lm(params, c, prompts, LM_GEN,
+                                 keep_logits=True), capture=False)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        got = {n: run["launches"].get(w, 0) for n, w in wrappers.items()}
+        missing = [n for n, want in plan.items() if want and not raw[n]]
+        stray = [n for n, want in plan.items() if not want and raw[n]]
+        check(not missing and not stray, f"{gtag}: kernels of the path "
+              f"never launched {missing}, off it launched {stray}")
+        check_plan(f"{gtag} (captured x replayed)", got, plan)
+        check(got == plan, f"{gtag}: launches captured x replayed {got}, "
+              f"want {plan}")
+        for key in ("tokens", "inputs", "prefill_logits", "logits",
+                    "events"):
+            same = run[key] is None and ref[key] is None or torch.equal(
+                run[key], ref[key])
+            check(same, f"{gtag}: {key} not bitwise the eager serve's")
+        mine, theirs = tree_leaves(run["cache"]), tree_leaves(ref["cache"])
+        check(len(mine) == len(theirs) and all(
+            torch.equal(a, b) for a, b in zip(mine, theirs)),
+              f"{gtag}: the final cache is not bitwise the eager serve's")
+        print(f"{gtag}: tokens, events, the prefill's and every step's "
+              f"logits and all {len(mine)} cache leaves bitwise the eager "
+              f"serve's; no host sync in the decode loop (run_lm holds it "
+              f"under set_sync_debug_mode('error')); warm-ups and captures "
+              f"{run['capture_s']:.3f} s, peak memory above the model "
+              f"{peak:.3f} GiB; prefill {run['prefill_s'] * 1e3:.3f} ms, "
+              f"decode {LM_GEN * LM_BATCH / run['decode_s']:.1f} tokens/s",
+              flush=True)
+        return run, got
+
     # The main path: the config as published, MNF on at θ = 0, bf16.
     run_a, caps_a = served(f"{tag} gated θ=0 bf16", cfg, params, gated_plan,
                            capture=True, keep_logits=True)
@@ -968,7 +1044,7 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
               f"bitwise the streams entry on torch's streams", flush=True)
     ev_a = run_a["events"].sum(1)
     run_b, _ = served(f"{tag} ungated bf16", mnf(cfg, enabled=False), params,
-                      dense_plan)
+                      dense_plan, keep_logits=True)
     agree = int((run_a["tokens"] == run_b["tokens"]).sum())
     # θ > 0: the DEAD_TARGET quantile of block max|drive| over the main
     # path's drive
@@ -977,7 +1053,7 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
     theta = float(f"{float(torch.quantile(blockmax, DEAD_TARGET)):.3g}")
     cfg_th = mnf(cfg, threshold=theta)
     run_c, caps_c = served(f"{tag} gated θ={theta} bf16", cfg_th, params,
-                           gated_plan, capture=True)
+                           gated_plan, capture=True, keep_logits=True)
     worst_c, dead_c = replay(f"{tag} gated θ={theta}", caps_c[name])
     del caps_c
     ev_c = run_c["events"].sum(1)
@@ -994,6 +1070,14 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
           f"{float(ev_c.mean()):.1f} (min {float(ev_c.min()):.1f}, max "
           f"{float(ev_c.max()):.1f})", flush=True)
     check(dead_c >= 0.25, f"θ={theta}: dead share {dead_c:.4f} < 0.25")
+
+    # The same three decodes on CUDA graphs, the main path (θ = 0) first,
+    # each held bitwise against its eager run above.
+    _, got_a = graphed(f"{tag} graphed gated θ=0 bf16", cfg, run_a,
+                       gated_plan)
+    graphed(f"{tag} graphed ungated bf16", mnf(cfg, enabled=False), run_b,
+            dense_plan)
+    graphed(f"{tag} graphed gated θ={theta} bf16", cfg_th, run_c, gated_plan)
 
     # f32: the gated decode against the ungated one, teacher-forced on the
     # ungated run's inputs, step by step.
@@ -1012,32 +1096,47 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
           f"{max(ratios):.3e}")
     del p32, ref32, gated32
 
-    # Warm timings, bf16, in turns.
+    # Warm timings, bf16, eager and graphed in turns.
     cells = (("gated θ=0", cfg), (f"gated θ={theta}", cfg_th),
              ("ungated", mnf(cfg, enabled=False)))
-    times = {cname: [] for cname, _ in cells}
+    times = {(cname, g): [] for cname, _ in cells for g in (False, True)}
     for _ in range(2):
         for cname, c in cells:
-            run = serve.run_lm(params, c, prompts, LM_GEN)
-            times[cname].append((run["prefill_s"] * 1e3,
-                                 LM_GEN * LM_BATCH / run["decode_s"]))
-    tok_s = {cname: max(t[1] for t in ts) for cname, ts in times.items()}
-    prefill_ms = min(t[0] for ts in times.values() for t in ts)
-    print(f"{tag} warm, bf16, batch {LM_BATCH}, prompt {LM_PROMPT}, "
-          f"{LM_GEN} tokens (2 runs each, in turns): prefill "
-          f"{prefill_ms:.3f} ms (best; all "
-          f"{[round(t[0], 3) for ts in times.values() for t in ts]}); "
-          f"decode tokens/s " + "; ".join(
-              f"{n} {max(t[1] for t in ts):.1f} "
-              f"({[round(t[1], 1) for t in ts]})"
-              for n, ts in times.items()), flush=True)
-    profile(torch, lambda: serve.run_lm(params, cfg, prompts, LM_GEN),
+            for g in (False, True):
+                run = serve.run_lm(params, c, prompts, LM_GEN, graph=g)
+                times[(cname, g)].append((
+                    run["prefill_s"] * 1e3,
+                    LM_GEN * LM_BATCH / run["decode_s"], run["capture_s"]))
+    tok_s, tok_s_graph = ({n: max(t[1] for t in times[(n, g)])
+                           for n, _ in cells} for g in (False, True))
+    prefill_ms, prefill_ms_graph = (
+        min(t[0] for (_, g2), ts in times.items() if g2 == g for t in ts)
+        for g in (False, True))
+    for g, label_ in ((False, "eager"), (True, "graphed")):
+        print(f"{tag} warm, bf16, batch {LM_BATCH}, prompt {LM_PROMPT}, "
+              f"{LM_GEN} tokens, {label_} (2 runs each, eager and graphed in "
+              f"turns): prefill "
+              f"{prefill_ms_graph if g else prefill_ms:.3f} ms (best; all "
+              f"{[round(t[0], 3) for (_, g2), ts in times.items() if g2 == g for t in ts]}); "
+              f"decode tokens/s " + "; ".join(
+                  f"{n} {max(t[1] for t in times[(n, g)]):.1f} "
+                  f"({[round(t[1], 1) for t in times[(n, g)]]})"
+                  for n, _ in cells)
+              + ("; warm-ups and captures s "
+                 f"{[round(t[2], 3) for (_, g2), ts in times.items() if g2 for t in ts]}"
+                 if g else ""), flush=True)
+    print(f"{tag} on graphs, gated θ=0 / ungated decode tokens/s: "
+          f"{tok_s_graph['gated θ=0'] / tok_s_graph['ungated']:.3f} "
+          f"(eager {tok_s['gated θ=0'] / tok_s['ungated']:.3f})", flush=True)
+    profile(torch, lambda: serve.run_lm(params, cfg, prompts, LM_GEN,
+                                        graph=False),
             f"{tag} gated θ=0 bf16 serve (prefill + {LM_GEN} decode steps)",
             steps=1)
-    # the main path's counts, as drive_counted read them
-    main = run_a["launches"]
+    # the main path's counts: the graphed serve's, captured x replayed
+    main = got_a
     out = dict(caps=caps_a[name][-1:], launches=main[name], theta=theta,
-               dead=dead_c, tok_s=tok_s, prefill_ms=prefill_ms,
+               dead=dead_c, tok_s=tok_s, tok_s_graph=tok_s_graph,
+               prefill_ms=prefill_ms, prefill_ms_graph=prefill_ms_graph,
                events=float(ev_a.mean()), agree=agree,
                f32_ratio=max(ratios))
     if scan:
@@ -1076,6 +1175,26 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
     print(f"{ltag}, batch {LM_BATCH}, bf16: {detail}; finite logits; "
           f"{out['long_ms']:.3f} ms (best of 3: "
           f"{[round(t, 3) for t in times]})", flush=True)
+    # the same prefill as a CUDA graph: bitwise the eager prefill, timed
+    pre = lm_steps.make_prefill_step(
+        cfg, ShapeConfig("pf", LM_LONG, LM_BATCH, "prefill"))
+    g = pre.fn.capture(params, long)
+    want = tfm.prefill(params, long, cfg, max_len=LM_LONG)
+    got = pre.fn(params, dict(tokens=long))
+    mine, theirs = tree_leaves(got), tree_leaves(want)
+    check(len(mine) == len(theirs) and all(
+        torch.equal(a, b) for a, b in zip(mine, theirs)),
+          f"{ltag}: the graph's logits or cache not bitwise the eager "
+          f"prefill's")
+    del want, got, mine, theirs
+    _, times = host_ms(torch, lambda: pre.fn(params, dict(tokens=long)))
+    out["long_ms_graph"] = min(times)
+    print(f"{ltag}, graphed: warm-up and capture {g.capture_s:.3f} s, "
+          f"logits and cache bitwise the eager prefill's; "
+          f"{out['long_ms_graph']:.3f} ms (best of 3: "
+          f"{[round(t, 3) for t in times]})", flush=True)
+    del pre, g
+    torch.cuda.empty_cache()
     if scan is None:
         out.update(wkv_ops(torch, engine, wrappers, wkv_in, wkv_long))
     return out
@@ -1482,6 +1601,54 @@ def run(torch) -> int:
         check(bool(torch.allclose(y, y_dense, atol=5e-3, rtol=5e-3)),
               f"{tag}: int8 logits off the dense int8 oracle by {d:.3e}")
 
+    def graphed_forward(tag, pipe, p, x, y_eager, x2, eager, plan,
+                        trace=None):
+        """The main path: ``pipe``'s first call on ``x`` (warm-up, capture,
+        one replay), every launch count set to 0 just before it and read
+        just after.  Checks: the kernels of the path launched (at warm-up
+        and capture) and none off it; the launches the capture saw, times
+        the replays, are the route plan's; the trace records the capture
+        saw (``trace``: (spec, boundary summary)); the replay is bitwise
+        the eager forward ``y_eager``; a replay on a second input ``x2``
+        is bitwise ``eager(x2)``, with no host sync.  Prints the capture
+        seconds and the warm replay's host ms, then a profile of it.
+        Returns (launches captured × replayed, warm replay ms)."""
+        y, _, raw, _, first_s = drive(lambda: pipe(p, x).clone(),
+                                      capture=False)
+        g = pipe.graph
+        got = {n: g.launches.get(w, 0) * g.replays
+               for n, w in wrappers.items()}
+        missing = [n for n, want in plan.items() if want and not raw[n]]
+        stray = [n for n, want in plan.items() if not want and raw[n]]
+        check(not missing and not stray, f"{tag} graphed: kernels of the "
+              f"path never launched {missing}, off it launched {stray}")
+        check_plan(f"{tag} graphed (captured x replayed)", got, plan)
+        check(got == plan, f"{tag} graphed: launches at capture {got} are "
+              f"not the route plan's {plan}")
+        if trace is not None:
+            check_trace(f"{tag} capture", trace[0], g.records, got, trace[1])
+        check(torch.equal(y, y_eager), f"{tag}: the graph's replay is not "
+              f"bitwise the eager forward (max|d| "
+              f"{float((y - y_eager).abs().max()):.3e})")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y2 = pipe(p, x2).clone()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        y2_eager = eager(x2)
+        check(torch.equal(y2, y2_eager) and not torch.equal(y2, y),
+              f"{tag}: the replay on a second input is not bitwise the "
+              f"eager forward on it")
+        ms, times = host_ms(torch, lambda: pipe(p, x), reps=5)
+        print(f"{tag} pipeline (one CUDA graph): first call {first_s:.3f} s "
+              f"(warm-up and capture {g.capture_s:.3f} s); the replay "
+              f"bitwise the eager forward on two inputs (the second with "
+              f"no host sync: set_sync_debug_mode('error')); warm replay "
+              f"median {ms:.3f} ms of {[round(t, 3) for t in times]} (host "
+              f"clock, synchronized)", flush=True)
+        profile(torch, lambda: pipe(p, x), f"{tag} graphed")
+        return got, ms
+
     # -- 2. VGG16@224, batch 4, f32 events -----------------------------------
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1529,6 +1696,14 @@ def run(torch) -> int:
           f"{dense_ms:.3f} ms", flush=True)
     profile(torch, lambda: cnn.cnn_forward(params, x, spec), "[2]")
     del y_rt, y_dense
+    x2 = torch.relu(torch.randn(x.shape, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(1)))
+    pipe = cnn.make_cnn_pipeline(spec, batch=4, device=dev)
+    launches_g, fwd_g_ms = graphed_forward(
+        "[2]", pipe, params, x, y_chain, x2,
+        lambda xin: cnn.cnn_forward(params, xin, spec), PLAN_F32_VGG,
+        trace=(spec, cnn.chain_boundary_summary(spec, batch=4, device=dev)))
+    del pipe
 
     # -- 4. VGG16@224, batch 4, int8 events -----------------------------------
     q8 = FireConfig(quantize_to_int8=True)
@@ -1565,6 +1740,13 @@ def run(torch) -> int:
           f"dense {dense_ms:.3f} ms", flush=True)
     profile(torch, lambda: cnn.cnn_forward(params, x, spec, fire_cfg=q8),
             "[4]")
+    pipe = cnn.make_cnn_pipeline(spec, batch=4, fire_cfg=q8, device=dev)
+    launches8_g, fwd8_g_ms = graphed_forward(
+        "[4]", pipe, params, x, y8, x2,
+        lambda xin: cnn.cnn_forward(params, xin, spec, fire_cfg=q8),
+        PLAN_INT8_VGG, trace=(spec, cnn.chain_boundary_summary(
+            spec, batch=4, fire_cfg=q8, device=dev)))
+    del pipe
 
     # -- 5. LeNet-300-100, batch 128, f32 and int8 ----------------------------
     lenet = mlp.LENET_300_100
@@ -1572,6 +1754,9 @@ def run(torch) -> int:
     xm = torch.randn((128, lenet.in_features), generator=gen,
                      device=dev).abs()
     xm = xm * (torch.rand(xm.shape, generator=gen, device=dev) > 0.8)
+    gen2 = torch.Generator(device=dev).manual_seed(1)
+    xm2 = torch.randn(xm.shape, generator=gen2, device=dev).abs() \
+        * (torch.rand(xm.shape, generator=gen2, device=dev) > 0.8)
     ym_dense = mlp.mlp_forward(mparams, xm, lenet, mnf=False)
     ym = {}
     captured_mlp = {name: [] for name in wrappers}
@@ -1602,11 +1787,18 @@ def run(torch) -> int:
                                   mnf=False))
         ms, _ = host_ms(torch, lambda: mlp.mlp_forward(
             mparams, xm, lenet, fire_cfg=fire_cfg), reps=5)
-        ym[mode] = (y, ms)
         print(f"{tag}: {lenet.name} batch 128 chained == round trip "
               f"bitwise: True; max|chained - f32 dense| {d:.3e} (max|dense| "
               f"{float(ym_dense.abs().max()):.3e}); warm forward median "
               f"{ms:.3f} ms", flush=True)
+        pipe = mlp.make_mlp_pipeline(lenet, batch=128, fire_cfg=fire_cfg,
+                                     device=dev)
+        _, ms_g = graphed_forward(
+            tag, pipe, mparams, xm, y, xm2,
+            lambda xin: mlp.mlp_forward(mparams, xin, lenet,
+                                        fire_cfg=fire_cfg), plan)
+        ym[mode] = (y, ms, ms_g)
+        del pipe
     mlp_dense_ms, _ = host_ms(torch, lambda: mlp.mlp_forward(
         mparams, xm, lenet, mnf=False), reps=5)
     print(f"[5] dense oracle forward {mlp_dense_ms:.3f} ms; max|int8 - f32 "
@@ -1624,9 +1816,11 @@ def run(torch) -> int:
 
     # -- 3. kernel checks on the captured inputs ------------------------------
     results = []
-    launched = {**{n: launches[n] for n in wrappers},
-                "event_matmul_int8": launches8["event_matmul_int8"],
-                "event_conv_int8": launches8["event_conv_int8"],
+    # the main paths' counts: captured x replayed (the graphed forwards'
+    # first calls; phases 6 and 7's graphed serves)
+    launched = {**{n: launches_g[n] for n in wrappers},
+                "event_matmul_int8": launches8_g["event_matmul_int8"],
+                "event_conv_int8": launches8_g["event_conv_int8"],
                 "wkv6_step": rwkv["launches"],
                 "mamba_step": hymba["launches"],
                 "wkv6_single": rwkv["wkv6_single_launches"],
@@ -2021,16 +2215,22 @@ def run(torch) -> int:
     long_ms = lm_kernels(torch, rwkv, hymba, report, close)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all; warm "
-          f"forwards: VGG16 f32 {fwd_ms:.3f} ms, int8 {fwd8_ms:.3f} ms, "
-          f"dense {dense_ms:.3f} ms; LeNet-300-100 f32 "
-          f"{ym['f32'][1]:.3f} ms, int8 {ym['int8'][1]:.3f} ms, dense "
-          f"{mlp_dense_ms:.3f} ms; batch {LM_BATCH}: "
+          f"forwards eager (graphed): VGG16 f32 {fwd_ms:.3f} ({fwd_g_ms:.3f})"
+          f" ms, int8 {fwd8_ms:.3f} ({fwd8_g_ms:.3f}) ms, dense "
+          f"{dense_ms:.3f} ms; LeNet-300-100 f32 {ym['f32'][1]:.3f} "
+          f"({ym['f32'][2]:.3f}) ms, int8 {ym['int8'][1]:.3f} "
+          f"({ym['int8'][2]:.3f}) ms, dense {mlp_dense_ms:.3f} ms; batch "
+          f"{LM_BATCH}, eager (graphed): "
           + "; ".join(
-              f"{arch} prefill {r['prefill_ms']:.3f} ms, decode tokens/s "
-              + ", ".join(f"{n} {t:.1f}" for n, t in r["tok_s"].items())
+              f"{arch} prefill {r['prefill_ms']:.3f} "
+              f"({r['prefill_ms_graph']:.3f}) ms, decode tokens/s "
+              + ", ".join(f"{n} {t:.1f} ({r['tok_s_graph'][n]:.1f})"
+                          for n, t in r["tok_s"].items())
               for arch, r in (("RWKV6-7B", rwkv), ("Hymba-1.5B", hymba)))
           + f"; prefill at prompt {LM_LONG}: RWKV6-7B "
-          f"{rwkv['long_ms']:.3f} ms, Hymba-1.5B {hymba['long_ms']:.3f} ms; "
+          f"{rwkv['long_ms']:.3f} ({rwkv['long_ms_graph']:.3f}) ms, "
+          f"Hymba-1.5B {hymba['long_ms']:.3f} ({hymba['long_ms_graph']:.3f})"
+          f" ms; "
           f"one layer's scan at prompt {LM_LONG}: B9' "
           f"{long_ms['wkv_long_ms']:.4f} ms, B10 "
           f"{long_ms['scan_long_ms']:.4f} ms (its streams entry "

@@ -33,4 +33,6 @@ def trace_dispatch():
     try:
         yield sink
     finally:
-        _SINKS.remove(sink)
+        # by identity: a nested sink can hold the same records (list.remove
+        # compares by value and would drop the outer one)
+        _SINKS[:] = [s for s in _SINKS if s is not sink]

@@ -13,8 +13,11 @@ random tokens from the same seed.  With MNF on (``--mnf`` or a non-zero
 decode step runs the fire-gated state update (B7 for RWKV6, B8 for
 Hymba's Mamba heads, on the card) and reports its fired events; Hymba's
 prefill runs its selective scan through B10 on the card either way.
-Prints one stats JSON line: ``prefill_s``, ``decode_tok_per_s``,
-``events_per_token`` with its min and max, ``events_per_layer``.
+On the card the prefill and the decode step run as CUDA graphs
+(``launch.steps``), captured before the timed runs.  Prints one stats
+JSON line: ``prefill_s`` and ``decode_tok_per_s`` (warm replays),
+``capture_s``, ``events_per_token`` with its min and max,
+``events_per_layer``.
 
 The prompt is ``--prompt-len`` tokens.  (The JAX driver prefills
 ``prompt-len + gen`` tokens under the same flag; ROADMAP.md queue C.)
@@ -65,51 +68,83 @@ def _sync(device: torch.device) -> None:
 
 
 def run_lm(params, cfg, prompts: torch.Tensor, gen: int, *,
-           teacher: torch.Tensor | None = None,
-           keep_logits: bool = False) -> dict:
+           teacher: torch.Tensor | None = None, keep_logits: bool = False,
+           graph: bool = True) -> dict:
     """Prefill ``prompts`` (B, P), then ``gen`` greedy decode steps.
 
     Each step feeds the previous step's argmax (the first the prefill's),
-    or with ``teacher`` (B, gen) its column i.  Returns ``tokens`` (B, gen)
-    (each step's argmax), ``inputs`` (B, gen) (what each step was fed),
-    ``events`` (gen, L) per-layer fired events or None (MNF off),
-    ``logits`` (gen, B, V) when ``keep_logits``, ``prefill_logits``,
-    ``prefill_s`` and ``decode_s`` (host clock, ending in a synchronize).
+    or with ``teacher`` (B, gen) its column i.  On the card the prefill
+    and the decode step are CUDA graphs (``launch.steps``; ``graph=False``
+    runs them eagerly), captured first into one memory pool; the position
+    stays on the device and advances in the decode graph, and the decode
+    loop makes no host sync (``torch.cuda.set_sync_debug_mode("error")``
+    holds it so).  Returns ``tokens`` (B, gen) (each step's argmax),
+    ``inputs`` (B, gen) (what each step was fed), ``events`` (gen, L)
+    per-layer fired events or None (MNF off), ``logits`` (gen, B, V) when
+    ``keep_logits``, ``prefill_logits``, the final ``cache`` (on the card
+    the decode graph's own), ``prefill_s`` and ``decode_s`` (host clock,
+    ending in a synchronize; warm replays on the card),
+    ``capture_s`` (the graphs' warm-up and capture) and ``launches``
+    ({kernel wrapper: launches}, captured × replayed; None when eager).
     """
     bsz, plen = prompts.shape
     dev = prompts.device
     max_len = plen + gen
+    graph = graph and dev.type == "cuda"
+    pool = torch.cuda.graph_pool_handle() if graph else None
     pre = steps.make_prefill_step(cfg, ShapeConfig("pf", max_len, bsz,
-                                                   "prefill"))
+                                                   "prefill"),
+                                  graph=graph, pool=pool)
     srv = steps.make_serve_step(cfg, ShapeConfig("serve", max_len, bsz,
-                                                 "decode"))
+                                                 "decode"),
+                                graph=graph, pool=pool)
+    captured = [pre.fn.capture(params, prompts),
+                srv.fn.capture(params, dev)] if graph else []
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = pre.fn(params, dict(tokens=prompts))
     _sync(dev)
     t_prefill = time.perf_counter() - t0
-    prefill_logits = logits
+    prefill_logits = logits.clone()
     track = cfg.mnf.enabled and "events" in cache["scan"]
     cur = logits[:, -1].argmax(-1)[:, None]
+    pos = torch.full((), plen, dtype=torch.int64, device=dev)
     inputs, out, ev_steps, kept = [], [], [], []
+    debug = torch.cuda.get_sync_debug_mode() if dev.type == "cuda" else None
     t0 = time.perf_counter()
-    for i in range(gen):
-        tok = cur if teacher is None else teacher[:, i:i + 1]
-        inputs.append(tok)
-        logits, cache = srv.fn(params, cache, dict(tokens=tok), plen + i)
-        cur = logits[:, -1].argmax(-1)[:, None]
-        out.append(cur)
-        if keep_logits:
-            kept.append(logits[:, -1])
-        if track:
-            ev_steps.append(cache["scan"]["events"])
+    try:
+        if debug is not None:
+            torch.cuda.set_sync_debug_mode("error")
+        for i in range(gen):
+            tok = cur if teacher is None else teacher[:, i:i + 1]
+            inputs.append(tok)
+            logits, cache = srv.fn(params, cache, dict(tokens=tok), pos)
+            # the graph advanced its own position; the eager step did not
+            pos = srv.fn.position if graph else pos + 1
+            cur = logits[:, -1].argmax(-1)[:, None]
+            out.append(cur)
+            if keep_logits:
+                kept.append(logits[:, -1].clone())
+            if track:
+                ev_steps.append(cache["scan"]["events"].clone())
+    finally:
+        if debug is not None:
+            torch.cuda.set_sync_debug_mode(debug)
     _sync(dev)
     t_decode = time.perf_counter() - t0
+    launches = None
+    if graph:
+        launches = {}
+        for g in captured:
+            for w, n in g.launches.items():
+                launches[w] = launches.get(w, 0) + n * g.replays
     return dict(tokens=torch.cat(out, 1), inputs=torch.cat(inputs, 1),
                 events=torch.stack(ev_steps) if track else None,
                 logits=torch.stack(kept) if keep_logits else None,
-                prefill_logits=prefill_logits, prefill_s=t_prefill,
-                decode_s=t_decode, engine=srv.engine)
+                prefill_logits=prefill_logits, cache=cache,
+                prefill_s=t_prefill, decode_s=t_decode,
+                capture_s=sum(g.capture_s for g in captured),
+                launches=launches, engine=srv.engine)
 
 
 def lm_stats(cfg, run: dict, batch: int, prompt_len: int, gen: int,
@@ -118,6 +153,7 @@ def lm_stats(cfg, run: dict, batch: int, prompt_len: int, gen: int,
     stats = dict(
         arch=cfg.name, batch=batch, prompt_len=prompt_len, generated=gen,
         prefill_s=round(run["prefill_s"], 3),
+        capture_s=round(run["capture_s"], 3),
         decode_tok_per_s=round(gen * batch / run["decode_s"], 1),
         mnf=cfg.mnf.enabled, engine=dataclasses.asdict(run["engine"]),
         device=(torch.cuda.get_device_name(device) if device.type == "cuda"

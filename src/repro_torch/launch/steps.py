@@ -1,13 +1,30 @@
 """Step factories — port of ``repro.launch.steps.make_prefill_step`` and
-``make_serve_step``.  PyTorch runs eagerly on one device, so a step is a
-plain callable: no jit, no mesh, no shardings, no donation."""
+``make_serve_step`` on one device: no mesh, no shardings.
+
+On CUDA tensors a step is compiled as the JAX package's is under
+``jax.jit``, here as a CUDA graph (``launch.graphs``): one graph per
+prompt length for the prefill, one per (batch, max_len) for the decode,
+captured at the first call (or by ``fn.capture``) with the parameter
+tensors of that call; a call with other parameter tensors raises.  Each
+call copies the caller's tensors into the graph's static buffers —
+skipping any that already are those buffers — and replays.  The decode
+graph owns its cache (updated in place, the counterpart of the JAX serve
+step's donated cache) and its position, a 0-d device integer that each
+replay advances by one: a caller that hands back ``fn.position`` and the
+returned cache copies nothing but the new tokens.  What a step returns
+is rewritten by its next replay.  On CPU tensors, or with ``graph=False``,
+``fn`` is the eager callable.
+"""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
+import torch
+
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.engine.config import EngineConfig
+from repro_torch.launch import graphs
 from repro_torch.models import transformer as tfm
 
 __all__ = ["StepPlan", "cell_engine_config", "make_prefill_step",
@@ -28,18 +45,116 @@ class StepPlan:
     engine: EngineConfig
 
 
-def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig) -> StepPlan:
+def _require_bound(g: graphs.Graph, params) -> None:
+    if params is not g.static[0] and not graphs.same_tensors(g.static[0],
+                                                             params):
+        raise ValueError("this step's graph reads the parameter tensors it "
+                         "was captured with; make a new step for others")
+
+
+class _GraphedPrefill:
     """fn(params, batch) -> (last-position logits, filled cache)."""
-    def prefill_step(params, batch):
-        return tfm.prefill(params, batch["tokens"], cfg,
-                           max_len=shape.seq_len)
-    return StepPlan(cfg, shape, prefill_step, cell_engine_config(cfg))
+
+    def __init__(self, cfg, shape, pool):
+        self.cfg, self.shape, self.pool = cfg, shape, pool
+        self.graphs: dict[tuple, graphs.Graph] = {}
+
+    def _prefill(self, params, tokens):
+        return tfm.prefill(params, tokens, self.cfg,
+                           max_len=self.shape.seq_len)
+
+    def capture(self, params, tokens: torch.Tensor) -> graphs.Graph:
+        """The graph of a prefill of ``tokens``' shape (captured once)."""
+        key = tuple(tokens.shape)
+        if key not in self.graphs:
+            static = torch.zeros(key, dtype=torch.int64, device=tokens.device)
+            self.graphs[key] = graphs.capture(self._prefill, params, static,
+                                              pool=self.pool)
+        return self.graphs[key]
+
+    def __call__(self, params, batch):
+        tokens = batch["tokens"]
+        if tokens.device.type == "cpu":
+            return self._prefill(params, tokens)
+        g = self.capture(params, tokens)
+        _require_bound(g, params)
+        g.static[1].copy_(tokens)
+        return g.replay()
 
 
-def make_serve_step(cfg: ModelConfig, shape: ShapeConfig) -> StepPlan:
+class _GraphedServe:
+    """fn(params, cache, batch, decode_pos) -> (logits, the graph's cache);
+    ``decode_pos`` a 0-d integer tensor."""
+
+    def __init__(self, cfg, shape, pool):
+        self.cfg, self.shape, self.pool = cfg, shape, pool
+        self.graph: graphs.Graph | None = None
+
+    def _step(self, params, cache, tokens, pos):
+        logits, _ = tfm.decode_step(params, cache, tokens, pos, self.cfg,
+                                    in_place=True)
+        pos.add_(1)
+        return logits
+
+    @property
+    def position(self) -> torch.Tensor | None:
+        """The graph's position (None before the capture)."""
+        return None if self.graph is None else self.graph.static[3]
+
+    def capture(self, params, device) -> graphs.Graph:
+        """The decode graph, over a zero cache (captured once)."""
+        if self.graph is None:
+            bsz, max_len = self.shape.global_batch, self.shape.seq_len
+            self.graph = graphs.capture(
+                self._step, params,
+                tfm.init_cache(self.cfg, bsz, max_len, device),
+                torch.zeros((bsz, 1), dtype=torch.int64, device=device),
+                torch.zeros((), dtype=torch.int64, device=device),
+                pool=self.pool)
+        return self.graph
+
+    def __call__(self, params, cache, batch, decode_pos):
+        tokens = batch["tokens"]
+        if tokens.device.type == "cpu":
+            return tfm.decode_step(params, cache, tokens, decode_pos,
+                                   self.cfg)
+        if not isinstance(decode_pos, torch.Tensor):
+            raise TypeError("the graphed decode step takes its position as "
+                            "a 0-d integer tensor on the device")
+        g = self.capture(params, tokens.device)
+        _require_bound(g, params)
+        _, s_cache, s_tokens, s_pos = g.static
+        if cache is not s_cache:
+            tfm.copy_cache(s_cache, cache)
+        if tokens is not s_tokens:
+            s_tokens.copy_(tokens)
+        if decode_pos is not s_pos:
+            s_pos.copy_(decode_pos)
+        return g.replay(), s_cache
+
+
+def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, *,
+                      graph: bool = True, pool=None) -> StepPlan:
+    """fn(params, batch) -> (last-position logits, filled cache), the cache
+    ``shape.seq_len`` long.  ``pool``: a graph memory pool to share."""
+    if graph:
+        fn = _GraphedPrefill(cfg, shape, pool)
+    else:
+        def fn(params, batch):
+            return tfm.prefill(params, batch["tokens"], cfg,
+                               max_len=shape.seq_len)
+    return StepPlan(cfg, shape, fn, cell_engine_config(cfg))
+
+
+def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, *,
+                    graph: bool = True, pool=None) -> StepPlan:
     """fn(params, cache, batch, decode_pos) -> (logits, new cache): one new
-    token against the cache."""
-    def serve_step(params, cache, batch, decode_pos):
-        return tfm.decode_step(params, cache, batch["tokens"], decode_pos,
-                               cfg)
-    return StepPlan(cfg, shape, serve_step, cell_engine_config(cfg))
+    token against a cache of ``shape.global_batch`` rows ``shape.seq_len``
+    long.  ``pool``: a graph memory pool to share."""
+    if graph:
+        fn = _GraphedServe(cfg, shape, pool)
+    else:
+        def fn(params, cache, batch, decode_pos):
+            return tfm.decode_step(params, cache, batch["tokens"],
+                                   decode_pos, cfg)
+    return StepPlan(cfg, shape, fn, cell_engine_config(cfg))

@@ -36,8 +36,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q_positions (Sq,): the queries' global positions (KV positions are
     0..Skv-1).  window: attend iff 0 <= q_pos - kv_pos < window.  kv_len:
-    KV slots >= kv_len are invalid (decode caches).  Returns (B, Sq, H,
-    Dv) in q's dtype; softmax math in f32."""
+    KV slots >= kv_len are invalid (decode caches); an int or a 0-d
+    integer tensor (a CUDA graph's decode reads it on the device).
+    Returns (B, Sq, H, Dv) in q's dtype; softmax math in f32."""
     b, sq, h, dk = q.shape
     _, skv, kh, _ = k.shape
     dv = v.shape[-1]
@@ -51,7 +52,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     nkc = (skv + pad) // chunk
-    kv_len = skv if kv_len is None else int(kv_len)
+    kv_len = skv if kv_len is None else kv_len
     window = int(window)
 
     qr = (q.float() * scale).reshape(b, sq, kh, g, dk)
@@ -105,13 +106,17 @@ def attn_init(seed: int, cfg, device="cpu") -> dict:
 
 
 def attn_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
-               cache=None, decode_pos=None):
+               cache=None, decode_pos=None, in_place: bool = False):
     """x (B, S, d).  Returns (out (B, S, d), new cache or (k, v)).
 
     Without a cache (train): returns the computed (k, v).  With one —
-    dict(k=(B, Smax, KH, D), v=...) — writes k and v at ``decode_pos``
-    into a copy of each (the JAX package's functional update) and
-    attends over the whole cache below ``kv_len = decode_pos + S``."""
+    dict(k=(B, Smax, KH, D), v=...) — writes k and v at rows
+    ``decode_pos + arange(S)`` (``decode_pos`` an int or a 0-d integer
+    tensor) and attends over the whole cache below ``kv_len = decode_pos
+    + S``.  The write goes into a copy of each (the JAX package's
+    functional update) or, with ``in_place``, into the cache's own
+    tensors: the port's counterpart of the JAX serve step's donated
+    cache, for a step that owns its cache (a CUDA graph's)."""
     bsz, s, _ = x.shape
     cdt = x.dtype
     q = x @ p["wq"].to(cdt)
@@ -126,9 +131,12 @@ def attn_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
     new_cache = (k, v)
     kv_len = None
     if cache is not None:
-        ck, cv = cache["k"].clone(), cache["v"].clone()
-        ck[:, decode_pos:decode_pos + s] = k.to(ck.dtype)
-        cv[:, decode_pos:decode_pos + s] = v.to(cv.dtype)
+        ck, cv = cache["k"], cache["v"]
+        if not in_place:
+            ck, cv = ck.clone(), cv.clone()
+        rows = decode_pos + torch.arange(s, device=x.device)
+        ck.index_copy_(1, rows, k.to(ck.dtype))
+        cv.index_copy_(1, rows, v.to(cv.dtype))
         k, v = ck, cv
         kv_len = decode_pos + s
         new_cache = dict(k=ck, v=cv)

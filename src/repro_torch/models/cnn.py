@@ -31,12 +31,14 @@ from repro_torch import engine
 from repro_torch.core.fire import FireConfig, fire
 from repro_torch.core.mnf_conv import conv_out_size
 from repro_torch.device import default_device
+from repro_torch.launch import graphs
 from repro_torch.models.layers import max_pool_nhwc
 
 __all__ = ["ConvSpec", "FCSpec", "PoolSpec", "CNNSpec", "ALEXNET", "VGG16",
            "ALEXNET_DS", "ALEXNET_FF", "VGG16_DS", "MINI", "MINI_S4",
-           "conv_downsampled", "init_cnn_params", "params_from_numpy",
-           "cnn_forward", "chain_boundary_summary"]
+           "Pipeline", "conv_downsampled", "init_cnn_params",
+           "params_from_numpy", "cnn_forward", "chain_boundary_summary",
+           "make_cnn_forward", "make_cnn_pipeline"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -443,6 +445,76 @@ def _forward(params, x, spec: CNNSpec, *, fire_cfg: FireConfig,
     return x
 
 
+def make_cnn_forward(spec: CNNSpec, *, mnf: bool = True,
+                     fire_cfg: FireConfig = FireConfig(),
+                     engine_cfg: engine.EngineConfig | None = None,
+                     chain: bool | None = None):
+    """The whole-network closure ``fwd(params, x) -> logits`` on tensors
+    already on their device: the seam a pipeline captures
+    (:func:`make_cnn_pipeline`) and :func:`cnn_forward` runs."""
+    cfg = _layer_cfg(engine_cfg, mnf=mnf, fire_cfg=fire_cfg)
+    chain = mnf if chain is None else chain and mnf
+
+    def fwd(params, x):
+        return _forward(params, x, spec, fire_cfg=fire_cfg, cfg=cfg,
+                        chain=chain)
+
+    return fwd
+
+
+class Pipeline:
+    """``fn(params, x) -> logits`` for one input shape: on the card, one
+    CUDA graph of ``fwd`` (``launch.graphs``), captured at the first call;
+    each call copies ``x`` into the graph's static input (the caller never
+    reuses it in place, as JAX's donated image) and replays, and the
+    logits it returns are the graph's, rewritten by the next call.  On the
+    CPU (``device="cpu"``) the eager ``fwd``.  Either way the pipeline is
+    bound to the parameter tensors of its first call: a call with others
+    raises, so it never replays stale weights."""
+
+    def __init__(self, fwd, shape: tuple, device):
+        self.fwd, self.shape = fwd, tuple(shape)
+        self.device = torch.device(device)
+        self.graph: graphs.Graph | None = None
+        self.params = None
+
+    def __call__(self, params, x: torch.Tensor) -> torch.Tensor:
+        if tuple(x.shape) != self.shape:
+            raise ValueError(f"input {tuple(x.shape)}: this pipeline takes "
+                             f"{self.shape}")
+        if self.params is not None and params is not self.params \
+                and not graphs.same_tensors(self.params, params):
+            raise ValueError("this pipeline reads the parameter tensors of "
+                             "its first call; make a new one for others")
+        if self.device.type == "cpu":
+            self.params = params
+            return self.fwd(params, x)
+        if self.graph is None:
+            self.graph = graphs.capture(
+                self.fwd, params,
+                torch.zeros(self.shape, dtype=torch.float32,
+                            device=self.device))
+            self.params = params
+        self.graph.static[1].copy_(x)
+        return self.graph.replay()
+
+
+def make_cnn_pipeline(spec: CNNSpec, *, batch: int, mnf: bool = True,
+                      fire_cfg: FireConfig = FireConfig(),
+                      engine_cfg: engine.EngineConfig | None = None,
+                      chain: bool | None = None, device=None) -> Pipeline:
+    """One compiled forward per (network, batch, event type):
+    ``fn(params, x) -> logits`` for x (batch, H, W, C), a CUDA graph of
+    :func:`make_cnn_forward` on the card (:class:`Pipeline`) — the JAX
+    package's single ``jax.jit`` of the whole pipeline.  Runs on the card
+    (``default_device()``) unless ``device`` says otherwise."""
+    dev = default_device() if device is None else torch.device(device)
+    fwd = make_cnn_forward(spec, mnf=mnf, fire_cfg=fire_cfg,
+                           engine_cfg=engine_cfg, chain=chain)
+    return Pipeline(fwd, (batch, spec.input_size, spec.input_size,
+                          spec.in_ch), dev)
+
+
 def cnn_forward(params, x, spec: CNNSpec, *, mnf: bool = True,
                 fire_cfg: FireConfig = FireConfig(),
                 engine_cfg: engine.EngineConfig | None = None,
@@ -454,8 +526,6 @@ def cnn_forward(params, x, spec: CNNSpec, *, mnf: bool = True,
     dev = default_device() if device is None else torch.device(device)
     x = torch.as_tensor(x, dtype=torch.float32).to(dev)
     params = [None if p is None else p.to(dev) for p in params]
-    cfg = _layer_cfg(engine_cfg, mnf=mnf, fire_cfg=fire_cfg)
-    if chain is None:
-        chain = mnf
-    return _forward(params, x, spec, fire_cfg=fire_cfg, cfg=cfg,
-                    chain=chain and mnf)
+    fwd = make_cnn_forward(spec, mnf=mnf, fire_cfg=fire_cfg,
+                           engine_cfg=engine_cfg, chain=chain)
+    return fwd(params, x)

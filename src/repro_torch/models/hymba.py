@@ -28,13 +28,16 @@ def hymba_block_init(seed: int, cfg, device="cpu") -> dict:
 
 
 def hymba_block_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor,
-                      window, cache=None, decode_pos=None):
+                      window, cache=None, decode_pos=None,
+                      in_place: bool = False):
     """x (B, S, d) pre-normed.  cache: dict(attn=..., conv=..., ssm=...).
     A one-token input with a cache takes the Mamba decode step; longer
-    inputs run the prefill scan."""
+    inputs run the prefill scan.  ``in_place``: the KV write goes into
+    the cache's own tensors (``attention.attn_apply``)."""
     a_out, a_cache = attention.attn_apply(
         p["attn"], x, cfg=cfg, positions=positions, window=window,
-        cache=cache.get("attn") if cache else None, decode_pos=decode_pos)
+        cache=cache.get("attn") if cache else None, decode_pos=decode_pos,
+        in_place=in_place)
     if cache is not None and x.shape[1] == 1:
         m_out, m_state, m_events = ssm.mamba_step(
             p["mamba"], x, cfg, (cache["conv"], cache["ssm"]))

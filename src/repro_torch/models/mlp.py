@@ -22,11 +22,11 @@ import torch
 from repro_torch import engine
 from repro_torch.core.fire import FireConfig, fire
 from repro_torch.device import default_device
-from repro_torch.models.cnn import FCSpec
+from repro_torch.models.cnn import FCSpec, Pipeline
 
 __all__ = ["MLPSpec", "LENET_300_100", "MLP_MINI", "init_mlp_params",
-           "make_mlp_forward", "mlp_boundary_summary", "mlp_forward",
-           "mlp_layer_dense_macs"]
+           "make_mlp_forward", "make_mlp_pipeline", "mlp_boundary_summary",
+           "mlp_forward", "mlp_layer_dense_macs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +149,22 @@ def make_mlp_forward(spec: MLPSpec, *, mnf: bool = True,
                         chain=chain)
 
     return fwd
+
+
+def make_mlp_pipeline(spec: MLPSpec, *, batch: int, mnf: bool = True,
+                      fire_cfg: FireConfig = FireConfig(),
+                      engine_cfg: engine.EngineConfig | None = None,
+                      chain: bool | None = None, device=None) -> Pipeline:
+    """One compiled forward per (network, batch, event type):
+    ``fn(params, x) -> logits`` for x (batch, in_features), a CUDA graph of
+    :func:`make_mlp_forward` on the card (``models.cnn.Pipeline``: bound
+    to the parameter tensors of its first call, logits rewritten by the
+    next call).  Runs on the card (``default_device()``) unless ``device``
+    says otherwise."""
+    dev = default_device() if device is None else torch.device(device)
+    fwd = make_mlp_forward(spec, mnf=mnf, fire_cfg=fire_cfg,
+                           engine_cfg=engine_cfg, chain=chain)
+    return Pipeline(fwd, (batch, spec.in_features), dev)
 
 
 def mlp_forward(params, x, spec: MLPSpec, *, mnf: bool = True,

@@ -19,8 +19,9 @@ from repro_torch.device import default_device
 from repro_torch.models import attention, hymba, layers, ssm
 from repro_torch.models.param_utils import Init, fold_in, stack_layer_params
 
-__all__ = ["cache_specs", "compute_params", "decode_step", "forward",
-           "init_cache", "init_params", "params_from_numpy", "prefill"]
+__all__ = ["cache_specs", "compute_params", "copy_cache", "decode_step",
+           "forward", "init_cache", "init_params", "params_from_numpy",
+           "prefill"]
 
 
 #: Block types the port serves.
@@ -43,6 +44,16 @@ def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def copy_cache(dst, src) -> None:
+    """Copy each leaf of cache (or cache part) ``src`` over the same leaf
+    of ``dst``, skipping a leaf that already is ``dst``'s tensor."""
+    if isinstance(dst, dict):
+        for k in dst:
+            copy_cache(dst[k], src[k])
+    elif src is not dst:
+        dst.copy_(src)
 
 
 def _tree_stack(trees: list) -> dict:
@@ -142,7 +153,7 @@ def compute_params(params: dict, cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 def _apply_layer(p, x, *, cfg, positions, window, cache=None,
-                 decode_pos=None):
+                 decode_pos=None, in_place=False):
     """Returns (x, new_cache).  A one-token input with a cache takes the
     decode branch (a prompt of length 1 too); longer inputs prefill from a
     zero state."""
@@ -156,7 +167,7 @@ def _apply_layer(p, x, *, cfg, positions, window, cache=None,
     h = layers.rms_norm(x, p["ln_attn"] - 1.0, cfg.norm_eps)
     a, new_cache = hymba.hymba_block_apply(
         p["mix"], h, cfg=cfg, positions=positions, window=window,
-        cache=cache, decode_pos=decode_pos)
+        cache=cache, decode_pos=decode_pos, in_place=in_place)
     x = x + a
     h2 = layers.rms_norm(x, p["ln_mlp"] - 1.0, cfg.norm_eps)
     x = x + layers.mlp_apply(p["ffn"], h2, cfg)
@@ -164,11 +175,19 @@ def _apply_layer(p, x, *, cfg, positions, window, cache=None,
 
 
 def forward(params, tokens: torch.Tensor, cfg, *, cache=None,
-            decode_pos=None):
-    """tokens (B, S) -> (hidden (B, S, d), new_cache).  (The JAX
-    package's third output, the MoE auxiliary loss, is 0 for these
-    blocks.)"""
+            decode_pos=None, in_place: bool = False):
+    """tokens (B, S) -> (hidden (B, S, d), new_cache).  ``decode_pos``:
+    an int or a 0-d integer tensor (a CUDA graph's step reads it on the
+    device).  The new cache is stacked from the layers' new leaves (the
+    JAX package's functional update) or, with ``in_place``, written into
+    ``cache``'s own tensors — the KV rows in place, every other leaf
+    copied once over its layer's slice — and ``cache`` is returned: the
+    counterpart of the JAX serve step's donated cache, for a step that
+    owns its cache.  (The JAX package's third output, the MoE auxiliary
+    loss, is 0 for these blocks.)"""
     _check_block(cfg)
+    if in_place and cache is None:
+        raise ValueError("an in-place step needs the cache it writes")
     s = tokens.shape[1]
     x = layers.embed_apply(params["embed"], tokens, cfg)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
@@ -181,9 +200,14 @@ def forward(params, tokens: torch.Tensor, cfg, *, cache=None,
             _tree_map(lambda v: v[i], cache["scan"])
         x, nc = _apply_layer(p_l, x, cfg=cfg, positions=positions,
                              window=cfg.window_for_layer(i), cache=c_l,
-                             decode_pos=decode_pos)
-        per_layer.append(nc)
+                             decode_pos=decode_pos, in_place=in_place)
+        if in_place:
+            copy_cache(c_l, nc)
+        else:
+            per_layer.append(nc)
     x = layers.rms_norm(x, params["final_norm"] - 1.0, cfg.norm_eps)
+    if in_place:
+        return x, cache
     new_cache = None
     if cache is not None or decode_pos is not None:
         new_cache = dict(scan=_tree_stack(per_layer))
@@ -239,11 +263,13 @@ def _logits(params, h: torch.Tensor, cfg) -> torch.Tensor:
     return logits
 
 
-def decode_step(params, cache, tokens: torch.Tensor, decode_pos, cfg):
-    """One new token per sequence against a filled cache.  tokens (B, 1).
-    Returns (logits (B, 1, V) f32, new_cache)."""
+def decode_step(params, cache, tokens: torch.Tensor, decode_pos, cfg, *,
+                in_place: bool = False):
+    """One new token per sequence against a filled cache.  tokens (B, 1);
+    ``decode_pos`` an int or a 0-d integer tensor; ``in_place`` as in
+    :func:`forward`.  Returns (logits (B, 1, V) f32, new_cache)."""
     h, new_cache = forward(params, tokens, cfg, cache=cache,
-                           decode_pos=decode_pos)
+                           decode_pos=decode_pos, in_place=in_place)
     return _logits(params, h, cfg), new_cache
 
 

@@ -1,14 +1,18 @@
-"""The CUDA kernels against their plain versions, on the card, at small
-shapes.  Marked ``cuda``: each test skips where there is no GPU (decided
-inside the fixture, never at import).  On a machine with a card:
+"""The CUDA kernels against their plain versions, and the compiled steps
+(CUDA graphs) against the eager runs, on the card, at small shapes.
+Marked ``cuda``: each test skips where there is no GPU (decided inside
+the fixture, never at import).  On a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import engine
+from repro_torch import engine, kernels
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import quantize as qz
 from repro_torch.core.events import (BlockEvents, decode_block_events,
                                      gather_row_groups, live_block_mask)
@@ -42,7 +46,9 @@ from repro_torch.kernels.wkv6.ops import wkv6, wkv6_single
 from repro_torch.kernels.wkv6.ref import wkv6_multihead_ref
 from repro_torch.kernels.wkv6_step.ops import wkv6_step_events
 from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
+from repro_torch.launch import graphs, serve, steps
 from repro_torch.models import cnn, mlp
+from repro_torch.models import transformer as tfm
 
 pytestmark = pytest.mark.cuda
 
@@ -946,3 +952,90 @@ def test_scan_launchers_refuse_other_dtypes_and_wide_heads(dev):
     with pytest.raises(ValueError, match="head_dim"):
         wkv6_cuda(*(z(2, 3, 4, d, dt=bf) for _ in range(3)), z(2, 3, 4, d),
                   z(3, d), None)
+
+
+# -- compiled steps: CUDA graphs replayed against the eager runs ------------
+
+def _counted(fn):
+    with kernels.count_launches() as seen:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, seen
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("net", ["mini", "mini_s4", "mlp_mini"])
+def test_pipeline_replay_bitwise_eager(dev, net, int8):
+    """A pipeline's replay is bitwise the eager forward on two inputs (the
+    second replayed with no host sync); the capture saw the eager run's
+    launches; other parameter tensors are refused."""
+    fire_cfg = FireConfig(quantize_to_int8=int8)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if net == "mlp_mini":
+        spec = mlp.MLP_MINI
+        params = mlp.init_mlp_params(spec, gen, weight_sparsity=0.5)
+        xs = [torch.relu(torch.randn((4, 64), generator=gen, device=dev))
+              for _ in range(2)]
+        pipe = mlp.make_mlp_pipeline(spec, batch=4, fire_cfg=fire_cfg)
+        fwd = mlp.make_mlp_forward(spec, fire_cfg=fire_cfg)
+    else:
+        spec = cnn.MINI if net == "mini" else cnn.MINI_S4
+        params = cnn.init_cnn_params(spec, gen, weight_sparsity=0.5)
+        size = spec.input_size
+        xs = [torch.relu(torch.randn((2, size, size, 3), generator=gen,
+                                     device=dev)) for _ in range(2)]
+        pipe = cnn.make_cnn_pipeline(spec, batch=2, fire_cfg=fire_cfg)
+        fwd = cnn.make_cnn_forward(spec, fire_cfg=fire_cfg)
+    y_eager, eager = _counted(lambda: fwd(params, xs[0]))
+    y = pipe(params, xs[0]).clone()
+    assert pipe.graph.launches == eager and sum(eager.values()) > 0
+    assert torch.equal(y, y_eager)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y2 = pipe(params, xs[1]).clone()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(y2, fwd(params, xs[1])) and not torch.equal(y2, y)
+    with pytest.raises(ValueError, match="parameter tensors"):
+        pipe([None if p is None else p.clone() for p in params], xs[0])
+
+
+def _cache_equal(a, b):
+    la, lb = graphs.leaves(a), graphs.leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "hymba-1.5b"])
+def test_lm_graphs_replay_bitwise_eager(dev, arch, gated):
+    """The reduced model's graphed serve (prefill plus 4 decode steps) is
+    bitwise the eager serve: tokens, events, logits and the final cache;
+    the captures saw the eager run's launches (the decode's once a step);
+    the decode loop makes no host sync (``run_lm`` runs it under
+    set_sync_debug_mode("error")); a graphed step refuses a Python-int
+    position and other parameter tensors."""
+    cfg = serve.lm_config(arch, reduced=True)
+    cfg = dataclasses.replace(cfg, mnf=dataclasses.replace(cfg.mnf,
+                                                           enabled=gated))
+    params = tfm.compute_params(tfm.init_params(0, cfg, dev), cfg)
+    prompts = serve.make_prompts(cfg, 2, 12, 0, dev)
+    ref, eager = _counted(lambda: serve.run_lm(
+        params, cfg, prompts, 4, keep_logits=True, graph=False))
+    run = serve.run_lm(params, cfg, prompts, 4, keep_logits=True)
+    assert run["launches"] == eager
+    for key in ("tokens", "inputs", "prefill_logits", "logits"):
+        assert torch.equal(run[key], ref[key]), key
+    assert (run["events"] is None) == (not gated)
+    if gated:
+        assert torch.equal(run["events"], ref["events"])
+    assert _cache_equal(run["cache"], ref["cache"])
+    srv = steps.make_serve_step(cfg, ShapeConfig("s", 16, 2, "decode"))
+    tok = prompts[:, :1]
+    with pytest.raises(TypeError, match="0-d integer tensor"):
+        srv.fn(params, run["cache"], dict(tokens=tok), 12)
+    pos = torch.full((), 12, dtype=torch.int64, device=dev)
+    srv.fn(params, run["cache"], dict(tokens=tok), pos)
+    other = tfm.compute_params(tfm.init_params(1, cfg, dev), cfg)
+    with pytest.raises(ValueError, match="parameter tensors"):
+        srv.fn(other, run["cache"], dict(tokens=tok), pos)

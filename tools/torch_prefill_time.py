@@ -2,7 +2,7 @@
 """Warm prefill time of repro_torch's full-width LM on one NVIDIA GPU.
 
     python3 tools/torch_prefill_time.py [--arch hymba-1.5b|rwkv6-7b]
-        [--prompt 32] [--reps 5] [--src DIR]
+        [--prompt 32] [--reps 5] [--graph] [--src DIR]
 
 Builds the full-width model of ``--arch`` as the config ships it (MNF on,
 bf16 compute; random weights from seed 0), makes a batch-4 prompt of
@@ -10,8 +10,12 @@ bf16 compute; random weights from seed 0), makes a batch-4 prompt of
 built, handles made), then ``--reps`` prefills, each between two
 synchronizes on the host clock, and one more under ``torch.profiler``
 (CUDA kernels launched, device busy ms, idle share, and device ms with
-launches by kernel name: the top 15, the rest as one line).  Prints the
-card's name and power limit, then one JSON line.  ``--src`` names the directory
+launches by kernel name: the top 15, the rest as one line), and the host
+syncs of one prefill (``torch.cuda.set_sync_debug_mode("warn")``).  With
+``--graph`` the prefill is the graphed prefill step of ``launch.steps``
+(a CUDA graph, captured before the timed runs; its capture seconds and
+graph launches are reported); without it, the eager ``prefill``.  Prints
+the card's name and power limit, then one JSON line.  ``--src`` names the directory
 to import ``repro_torch`` from (default: this checkout's ``src``), so one
 call on the card can time two trees in turns.  Needs a card; exits 2
 without one.
@@ -25,6 +29,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -38,6 +43,8 @@ def main() -> int:
                     choices=("rwkv6-7b", "hymba-1.5b"))
     ap.add_argument("--prompt", type=int, default=32)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--graph", action="store_true",
+                    help="replay the prefill as a CUDA graph")
     ap.add_argument("--src", default=str(ROOT / "src"))
     args = ap.parse_args()
     import torch
@@ -59,10 +66,28 @@ def main() -> int:
     params = tfm.compute_params(tfm.init_params(0, cfg, "cuda"), cfg)
     prompts = serve.make_prompts(cfg, BATCH, args.prompt, 0, "cuda")
 
-    def prefill():
-        return tfm.prefill(params, prompts, cfg, max_len=args.prompt)
+    capture_s = None
+    if args.graph:
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import steps
+        pre = steps.make_prefill_step(cfg, ShapeConfig(
+            "prefill", args.prompt, BATCH, "prefill"))
+        capture_s = pre.fn.capture(params, prompts).capture_s
+        batch = dict(tokens=prompts)
+
+        def prefill():
+            return pre.fn(params, batch)
+    else:
+        def prefill():
+            return tfm.prefill(params, prompts, cfg, max_len=args.prompt)
 
     prefill()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        prefill()
+    torch.cuda.set_sync_debug_mode(0)
     times = []
     for _ in range(args.reps):
         torch.cuda.synchronize()
@@ -84,6 +109,8 @@ def main() -> int:
         rec = by_name.setdefault(e.name.replace("void ", "", 1), [0.0, 0])
         rec[0] += getattr(e, "device_time_total", 0) / 1e3
         rec[1] += 1
+    graph_launches = sum(e.count for e in prof.key_averages()
+                         if e.key == "cudaGraphLaunch")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     top = [dict(kernel=n[:160], ms=round(ms, 4), launches=c)
            for n, (ms, c) in ranked[:15]]
@@ -94,11 +121,13 @@ def main() -> int:
     scan = [e for e in kernels
             if e.name.replace("void ", "", 1).startswith("mnf_mamba_scan")]
     print(json.dumps(dict(
-        arch=cfg.name, src=args.src, batch=BATCH, prompt=args.prompt,
+        arch=cfg.name, src=args.src, graph=args.graph, capture_s=capture_s,
+        batch=BATCH, prompt=args.prompt,
         layers=cfg.num_layers, device=torch.cuda.get_device_name(0),
         ms=[round(t, 3) for t in times], best_ms=round(min(times), 3),
         median_ms=round(statistics.median(times), 3),
         profiled_ms=round(wall, 3), cuda_kernels=len(kernels),
+        graph_launches=graph_launches, host_syncs=len(syncs),
         device_busy_ms=round(busy, 3),
         idle_share=round(max(0.0, 1 - busy / wall), 4),
         b10_launches=len(scan), by_kernel=top)), flush=True)

@@ -2,7 +2,7 @@
 """Where the time of repro_torch's VGG16@224 batch-4 chained forward goes,
 on one NVIDIA GPU, in f32 and with int8 event values.
 
-    python3 tools/torch_profile.py [--src DIR]
+    python3 tools/torch_profile.py [--graph] [--src DIR]
 
 For each mode: warm forwards on the host clock (median of 5, each between
 two synchronizes), then 3 forwards under ``torch.profiler`` (CPU + CUDA
@@ -13,8 +13,12 @@ versus everything else (the torch ops around the kernels: encode argsorts,
 gathers, plans), the event matmul's device time by launch shape (B2 in
 f32, B5 in int8) and the strip conv's by layer (B3, and B6 in int8): the
 launch order of one forward, read from the wrappers' capture lists, is
-matched against the profiled kernels in start order.
-Ends with one JSON line per mode.  ``--src`` names the directory to import
+matched against the profiled kernels in start order.  With ``--graph``
+the timed and profiled forwards are replays of the network's pipeline
+(``models.cnn.make_cnn_pipeline``: one CUDA graph, captured first; the
+launch order still read from an eager forward), and the host syncs of
+one forward (``torch.cuda.set_sync_debug_mode("warn")``) are counted
+either way.  Ends with one JSON line per mode.  ``--src`` names the directory to import
 ``repro_torch`` from (default: this checkout's ``src``), so one call on
 the card can profile two trees in turns.  Needs a card; exits 2 without
 one.
@@ -28,6 +32,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -42,6 +47,8 @@ BATCH, SIZE, STEPS, REPS = 4, 224, 3, 5
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--graph", action="store_true",
+                    help="time and profile the pipeline's CUDA graph")
     ap.add_argument("--src", default=str(ROOT / "src"))
     args = ap.parse_args()
     import torch
@@ -73,15 +80,26 @@ def main() -> int:
         wrapper = mm_ops.event_matmul_dequant if mode == "int8" \
             else mm_ops.event_matmul
 
-        def forward():
+        def eager():
             return cnn.cnn_forward(params, x, spec, fire_cfg=fire_cfg)
 
         for _ in range(2):                     # build kernels, plans; warm
-            forward()
+            eager()
+        capture_s = None
+        if args.graph:
+            pipe = cnn.make_cnn_pipeline(spec, batch=BATCH,
+                                         fire_cfg=fire_cfg, device=dev)
+            pipe(params, x)
+            capture_s = pipe.graph.capture_s
+
+            def forward():
+                return pipe(params, x)
+        else:
+            forward = eager
         wrapper.capture = []                   # one forward's launch order
         convs = conv_ops.event_conv.capture = \
             conv_ops.event_conv_dequant.capture = []   # B3, B6 in turn
-        forward()
+        eager()
         order = [(tuple(a[0].shape), tuple(a[-1].shape))
                  for a, _ in wrapper.capture]
         conv_order = [
@@ -90,6 +108,12 @@ def main() -> int:
             f"s{kw['row_stride']}" for i, (a, kw) in enumerate(convs)]
         wrapper.capture = conv_ops.event_conv.capture = \
             conv_ops.event_conv_dequant.capture = None
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            forward()
+        torch.cuda.set_sync_debug_mode(0)
         times = []
         for _ in range(REPS):
             torch.cuda.synchronize()
@@ -143,8 +167,10 @@ def main() -> int:
         for e, key in zip(cv, conv_order * STEPS):
             by_layer[key] += dur(e) / STEPS
         label = "B5" if mode == "int8" else "B2"
-        lines = [f"== VGG16@{SIZE} batch {BATCH}, {mode} chained forward "
-                 f"(src {args.src})",
+        graph_launches = sum(e.count for e in prof.key_averages()
+                             if e.key == "cudaGraphLaunch") // STEPS
+        lines = [f"== VGG16@{SIZE} batch {BATCH}, {mode} chained forward, "
+                 f"{'graphed' if args.graph else 'eager'} (src {args.src})",
                  f"warm forward: median {statistics.median(times):.3f} ms of "
                  f"{[round(t, 3) for t in times]} (host clock, synchronized)",
                  f"host time per forward under the profiler: {wall_ms:.3f} ms",
@@ -152,6 +178,9 @@ def main() -> int:
                  f"(idle share {max(0.0, 1 - busy / wall_ms):.3f})",
                  f"MNF kernels: {mnf:.3f} ms; other device work: "
                  f"{busy - mnf:.3f} ms",
+                 f"host syncs in a forward: {len(syncs)}; graph launches "
+                 f"a forward: {graph_launches}; warm-up and capture: "
+                 f"{capture_s} s",
                  "device ms/forward  launches/forward  kernel"]
         for name, (ms, n) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0]):
@@ -167,7 +196,9 @@ def main() -> int:
             lines.append(f"{ms:16.4f}  {key}")
         print("\n".join(lines), flush=True)
         print(json.dumps(dict(
-            mode=mode, src=args.src, device=torch.cuda.get_device_name(0),
+            mode=mode, src=args.src, graph=args.graph, capture_s=capture_s,
+            host_syncs=len(syncs), graph_launches=graph_launches,
+            device=torch.cuda.get_device_name(0),
             forward_ms=round(statistics.median(times), 3),
             profiled_ms=round(wall_ms, 3), device_busy_ms=round(busy, 3),
             kernel=label, kernel_ms=round(sum(v[0] for v in
