@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
-6, 7, 3, so that phase 3 can replay what phases 2, 4, 5, 6 and 7 handed
-the kernels):
+8, 6, 7, 3, so that phase 3 can replay what phases 2, 4, 5, 6 and 7 handed
+the kernels, and phase 8's graphs are freed before phase 6 loads its
+model):
 
 1. Probe and build: the card's name and power limit, TF32 off for the dense
    oracles, the CUDA kernels (B1-B10) built from src/repro_torch/csrc.
@@ -48,6 +49,32 @@ the kernels):
    within 2e-4 of the dense oracle, the int8 ones checked as in phase 4;
    warm forward times; each mode's pipeline checked and timed as in phase
    2 (``models.mlp.make_mlp_pipeline``).
+8. The serving tier (``repro_torch.serving.ServeEngine``), VGG16@224 f32
+   with phase 2's weights and LeNet-300-100 with phase 5's, each through
+   the default buckets (1, 8, 32, 128), one CUDA graph a bucket captured
+   at startup.  Requests relu(normal) from a seed, arriving (1, 3, 0, 8,
+   20, 33, 200) a tick: every bucket, an idle tick, 33 padded into 128, a
+   tick larger than the largest bucket.  Counts set to 0 just before the
+   engine is built and read just after the last tick: the path's kernels
+   launched and none off it, and each bucket's capture saw the route plan
+   (the kernels line reports the traffic's launches captured x replayed,
+   the warm-up's replays not counted, as ``serve_launches``).  4 captures
+   after the warm-up, flat over every tick; every request served FIFO in
+   the tick it arrived, through the batches ``plan_tick`` names; zero
+   fallback_decodes and densify points in every bucket's boundary report
+   (LeNet: no re-tile either); within every bucket, n real rows plus zeros
+   bitwise the rows of a bucket full of real requests; every served
+   request's logits bitwise its own bucket-1 replay; every served batch,
+   in every bucket, within 5e-3 and 1e-4 of max|dense| of the dense oracle
+   on the same rows.  VGG16: the eager forward of the first full bucket
+   of 128 bitwise its served rows, its heaviest launch of B1, B2 (FC1),
+   B3 and both pools kept for phase 3.  Prints requests/s,
+   p50/p99 overall and per bucket, time to first response, warm-up and
+   capture seconds and graph memory per bucket, per full bucket the host
+   staging, the host-to-device copy, the replay and the whole forward,
+   and a profile of the bucket-128 replay.  ``run_with_stats`` on the
+   first VGG16 request and ``run_mlp_with_stats`` on the first LeNet one:
+   logits bitwise the eager forward's, per-layer event and dense MACs.
 6. RWKV6-7B served at its published widths (32 layers, d_model 4096,
    64x64 heads, d_ff 14336, vocab 65536; random f32 weights from seed 0
    plus their bf16 copy, ~45 GB) through the port's serve driver
@@ -142,7 +169,10 @@ the kernels):
    wrapper, B9' and both B10 entries also at prompt 2000 (one
    layer, beside the eager building of the streams that the fused entry
    removes); no single PyTorch call computes a recurrent step or scan:
-   their library columns are null.  Prints each kernel's
+   their library columns are null.  B1, B2, B3 and both pools also at
+   phase 8's bucket-128 launches (B2 at FC1), against the plain version
+   as above, timed beside their bound (``serve128`` in their JSON
+   entries).  Prints each kernel's
    time, the plain version's, one PyTorch library call's on the same
    function, and the bound.
 
@@ -151,6 +181,7 @@ the result line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import statistics
@@ -564,6 +595,274 @@ def teacher_forced(torch, F, cnn, layers, params, x, fires, logits):
         cur = out_t
     check(fi == len(fires), f"{len(fires)} fires recorded, {fi} replayed")
     return worst, ties
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the serving tier (repro_torch.serving): VGG16@224 and
+# LeNet-300-100 continuously batched through one CUDA graph a bucket.
+# ---------------------------------------------------------------------------
+
+#: Requests arriving at each tick of phase 8: buckets 1, 8 (3 padded to 8,
+#: then 8 full), an idle tick, 32 (20 padded), 128 (33 padded), and a tick
+#: larger than the largest bucket (128 + 72 padded to 128).
+SERVE_ARRIVALS = (1, 3, 0, 8, 20, 33, 200)
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Bitwise equality of two f32 tensors (a signed zero differs)."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+class Heaviest(list):
+    """A wrapper's capture list that keeps only the launch with the largest
+    ``score(args, kwargs)`` (the rest are counted, not kept)."""
+
+    def __init__(self, score):
+        super().__init__()
+        self.score, self.best = score, None
+
+    def append(self, item):
+        s = self.score(*item)
+        if self.best is None or s > self.best:
+            self[:] = [item]
+            self.best = s
+
+
+#: Phase 8's bucket-128 launches that phase 3 replays: for each kernel of
+#: the f32 VGG16 path, the launch of an eager forward of a full bucket of
+#: 128 that scores largest (B2: the largest weight, FC1's).
+SERVE_KEEP = {
+    "fire_compact": lambda a, kw: a[0].numel(),
+    "event_matmul": lambda a, kw: a[3].numel(),
+    "event_conv": lambda a, kw: a[0].numel() * a[6].shape[1],
+    "event_pool_window": lambda a, kw: a[0].numel(),
+    "event_pool": lambda a, kw: a[0].numel(),
+}
+
+
+def serve_net(torch, drive, wrappers, tag, spec, params, plan, dense, seed,
+              eager=None):
+    """Phase 8 for one net: a ``serving.ServeEngine`` on the card with the
+    default buckets (1, 8, 32, 128), warmed (one capture a bucket) and fed
+    ``SERVE_ARRIVALS`` requests (``launch.serve.make_requests`` from
+    ``seed``, made ahead of the loop) through ``launch.serve.
+    serve_arrivals``, every launch count set to 0 just before the engine
+    is built and read just after the last tick.  Checks: the kernels of
+    the path launched and none off it; each bucket's capture saw the route
+    plan ``plan``; 4 captures after the warm-up and no more after any
+    tick; every request served in the tick it arrived, FIFO, through the
+    batches ``plan_tick`` names; zero fallback_decodes and densify points
+    (no re-tile either for an MLP) in every bucket's boundary report;
+    within every bucket, n real rows plus zero rows bitwise the same rows
+    of a bucket full of real requests; every served request's logits
+    bitwise its own bucket-1 replay; every served batch, in every bucket,
+    within 5e-3 and 1e-4·max|dense| of the dense oracle ``dense`` on the
+    same rows.  With ``eager``, the eager forward of the first full
+    bucket of 128 is bitwise its served rows, and its heaviest launch of
+    each ``SERVE_KEEP`` kernel is kept (on the host) for phase 3.  Prints
+    requests/s, p50/p99 overall and per bucket, time to first response,
+    warm-up and capture seconds and graph memory per bucket, and per full
+    bucket the host staging, the host-to-device copy, the replay and the
+    whole forward; profiles the bucket-128 replay.  Keeps no reference to
+    the engine, so its graphs and their pools go when it returns.
+    Returns the numbers and the launches captured x replayed by the
+    traffic (the warm-up's replays not counted)."""
+    from repro_torch import serving
+    from repro_torch.launch.serve import make_requests, serve_arrivals
+    from repro_torch.models import mlp
+
+    dev = torch.device("cuda")
+    is_mlp = isinstance(spec, mlp.MLPSpec)
+    n_req = sum(SERVE_ARRIVALS)
+    images = make_requests(spec, n_req, seed)
+    buckets = serving.DEFAULT_BUCKETS
+    batches = []                # (bucket, requests) as served
+    warm_replays = {}
+
+    def serve():
+        eng = serving.ServeEngine(spec, params)
+        check(eng.recompiles == len(buckets), f"{tag}: {eng.recompiles} "
+              f"captures at the warm-up, not {len(buckets)}")
+        warm_replays.update({b: eng.plans[b].fn.graph.replays
+                             for b in buckets})
+
+        def on_tick(n, done):
+            check(eng.recompiles == len(buckets), f"{tag}: a tick of {n} "
+                  f"requests captured ({eng.recompiles} captures)")
+            # each tick drains the queue: its batches are the plan for n
+            want = serving.ContinuousBatcher(buckets).plan_tick(n)
+            check(len(done) == n, f"{tag}: a tick of {n} served "
+                  f"{len(done)}")
+            i = 0
+            for bucket, take in want:
+                reqs = done[i:i + take]
+                check(all(r.bucket == bucket for r in reqs), f"{tag}: a "
+                      f"tick of {n} served {[r.bucket for r in reqs]}, "
+                      f"the plan says {want}")
+                batches.append((bucket, reqs))
+                i += take
+
+        serve_arrivals(eng, images, SERVE_ARRIVALS, on_tick)
+        return eng
+
+    eng, _, raw, _, serve_s = drive(serve, capture=False)
+    launches = {n: 0 for n in wrappers}
+    for b in buckets:
+        g = eng.plans[b].fn.graph
+        got = {n: g.launches.get(w, 0) for n, w in wrappers.items()}
+        check_plan(f"{tag} bucket {b} capture", got, plan)
+        check(got == plan, f"{tag} bucket {b}: the capture saw {got}, not "
+              f"the route plan {plan}")
+        for n in wrappers:
+            launches[n] += got[n] * (g.replays - warm_replays[b])
+    missing = [n for n, want in plan.items() if want and not raw[n]]
+    stray = [n for n, want in plan.items() if not want and raw[n]]
+    check(not missing and not stray, f"{tag}: kernels of the path never "
+          f"launched {missing}, off it launched {stray}")
+    done = eng.completed
+    check([r.rid for r in done] == list(range(n_req))
+          and all(r.completion_tick == r.arrival_tick for r in done),
+          f"{tag}: not every request served FIFO in its own tick")
+    for b in buckets:
+        rep = eng.boundary_report(b)
+        check(rep["fallback_decodes"] == 0
+              and rep["boundaries"]["densify"] == 0
+              and not (is_mlp and rep["boundaries"]["retile"]),
+              f"{tag} bucket {b}: boundary report {rep}")
+    print(f"{tag} {spec.name}: {n_req} requests in ticks of "
+          f"{list(SERVE_ARRIVALS)} served FIFO as batches (bucket, real "
+          f"rows) {[(b, len(r)) for b, r in batches]} in {serve_s:.3f} s "
+          f"(warm-up included); captures {eng.recompiles}, flat over every "
+          f"tick; each bucket's capture saw the route plan; zero "
+          f"fallback_decodes and densify points"
+          f"{', retiles' if is_mlp else ''}; launches captured x replayed "
+          f"by the traffic {launches}", flush=True)
+
+    # padding within a bucket, and against each request's bucket-1 replay
+    for b in buckets:
+        full = eng.forward(b, list(images[:b]))
+        for n in sorted({1, b // 2 + 1} - {b}):
+            check(bits_equal(torch, eng.forward(b, list(images[:n])),
+                             full[:n]),
+                  f"{tag} bucket {b}: {n} real rows plus zeros not bitwise "
+                  f"the rows of a full bucket")
+    off = [r.rid for r in done
+           if not bits_equal(torch, eng.forward(1, [r.image])[0], r.result)]
+    check(not off, f"{tag}: {len(off)} served logits not bitwise their "
+          f"bucket-1 replay (first {off[:8]})")
+    # every served batch against the dense oracle on the same rows
+    worst = {}
+    for b, reqs in batches:
+        got = torch.stack([r.result for r in reqs]).to(dev)
+        y_dense = dense(torch.stack([r.image for r in reqs]).to(dev))
+        d = float((got - y_dense).abs().max())
+        ratio = d / max(float(y_dense.abs().max()), 1e-30)
+        check(bool(torch.allclose(got, y_dense, atol=5e-3, rtol=5e-3))
+              and ratio <= 1e-4, f"{tag}: a batch of {len(reqs)} in "
+              f"bucket {b} off the dense oracle by {d:.3e} (ratio "
+              f"{ratio:.3e})")
+        worst[b] = max(worst.get(b, (0.0, 0.0)), (ratio, d))
+    del got, y_dense
+    print(f"{tag} padding: within every bucket n real rows plus zeros "
+          f"bitwise a full bucket's rows; all {n_req} served logits bitwise "
+          f"their own bucket-1 replay; every served batch vs the dense "
+          f"oracle, worst by bucket (ratio to max|dense|, max|d|): "
+          + ", ".join(f"{b}: {r:.3e}, {d:.3e}"
+                      for b, (r, d) in sorted(worst.items()))
+          + " (limits 1e-4, 5e-3)", flush=True)
+
+    kept = None
+    if eager is not None:
+        # the eager forward of the first full bucket of 128, its heaviest
+        # launch of each kernel kept for phase 3
+        reqs = next(r for b, r in batches
+                    if b == buckets[-1] and len(r) == b)
+        lists = {n: Heaviest(score) for n, score in SERVE_KEEP.items()}
+        for n, lst in lists.items():
+            wrappers[n].capture = lst
+        try:
+            y128 = eager(torch.stack([r.image for r in reqs]).to(dev))
+        finally:
+            for n in lists:
+                wrappers[n].capture = None
+        check(bits_equal(torch, y128.cpu(),
+                         torch.stack([r.result for r in reqs])),
+              f"{tag}: the eager forward of a full bucket of 128 is not "
+              f"bitwise its served rows")
+        kept = {n: (tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                          for a in lst[0][0]), lst[0][1])
+                for n, lst in lists.items()}
+        del y128, lists
+        print(f"{tag} the eager forward of a full bucket of 128 (requests "
+              f"{reqs[0].rid}-{reqs[-1].rid}) is bitwise its served rows; "
+              f"kept for phase 3 the launches "
+              + ", ".join(f"{n} {tuple(a[0].shape)}"
+                          for n, (a, _) in kept.items()), flush=True)
+
+    stats = eng.stats()
+    per_bucket = {}
+    for b in buckets:
+        g = eng.plans[b].fn.graph
+        buf = eng.stage(b, list(images[:b]))
+        stage_ms, _ = host_ms(torch, lambda: eng.stage(b, list(images[:b])))
+        copy_ms = cuda_ms(torch, lambda: g.static[1].copy_(
+            buf, non_blocking=True), 5)
+        # the replay alone and the whole forward, in turns
+        turns = [(host_ms(torch, g.replay, reps=1)[0],
+                  host_ms(torch, lambda: eng.forward(b, list(images[:b])),
+                          reps=1)[0]) for _ in range(5)]
+        replay_ms = statistics.median(t[0] for t in turns)
+        fwd_ms = statistics.median(t[1] for t in turns)
+        per_bucket[b] = dict(
+            **stats["per_bucket"][b], **eng.warmup_s[b], **eng.graph_gib[b],
+            stage_ms=stage_ms, copy_ms=copy_ms, replay_ms=replay_ms,
+            forward_ms=fwd_ms, full_requests_s=b / fwd_ms * 1e3)
+        print(f"{tag} bucket {b}: {per_bucket[b]['requests']} requests, "
+              f"p50 {per_bucket[b]['p50_ms']:.3f} ms, p99 "
+              f"{per_bucket[b]['p99_ms']:.3f} ms; warm-up "
+              f"{eng.warmup_s[b]['warmup_s']:.3f} s, capture "
+              f"{eng.warmup_s[b]['capture_s']:.3f} s, graph pool "
+              f"{eng.graph_gib[b]['pool_gib']:.3f} GiB (peak "
+              f"{eng.graph_gib[b]['peak_gib']:.3f} GiB at warm-up and "
+              f"capture); a full bucket: host staging {stage_ms:.3f} ms, "
+              f"host-to-device copy {copy_ms:.3f} ms "
+              f"({buf.numel() * 4 / 1e6:.1f} MB), replay {replay_ms:.3f} "
+              f"ms, forward (staging, copy, replay, logits read) "
+              f"{fwd_ms:.3f} ms = {b / fwd_ms * 1e3:.1f} requests/s "
+              f"(host clock; staging median of 3, replay and forward "
+              f"medians of 5 in turns)", flush=True)
+    print(f"{tag} served: {stats['requests']} requests, "
+          f"{stats['requests_s']} requests/s, p50 {stats['p50_ms']} ms, "
+          f"p99 {stats['p99_ms']} ms, time to first response "
+          f"{stats['ttfr_s']} s (warm-up of 4 buckets included)",
+          flush=True)
+    profile(torch, eng.plans[buckets[-1]].fn.graph.replay,
+            f"{tag} bucket {buckets[-1]} graphed")
+    out = dict(stats=stats, per_bucket=per_bucket, launches=launches,
+               first=done[0].image, bucket128=kept, oracle=worst)
+    # the graphs and their pools go with the engine
+    del eng, done, g, buf
+    return out
+
+
+def serve_stats(torch, tag, run, params, x, eager):
+    """``run_with_stats`` (or ``run_mlp_with_stats``) on one request on the
+    card: its logits bitwise the eager forward's; prints each compute
+    layer's event and dense MACs and the whole net's ratio."""
+    y, st = run(params, x)
+    check(bits_equal(torch, y, eager(x)), f"{tag}: run_with_stats logits "
+          f"not bitwise the eager forward's")
+    ev_macs = sum(d["event_macs"] for d in st)
+    dn_macs = sum(d["dense_macs"] for d in st)
+    print(f"{tag} run_with_stats on the first request: logits bitwise the "
+          f"eager forward's; per layer event/dense MACs "
+          + ", ".join(f"{d['kind']}{i} {d['event_macs']:.0f}/"
+                      f"{d['dense_macs']:.0f}" for i, d in enumerate(st))
+          + f"; the net {ev_macs:.0f}/{dn_macs:.0f} = "
+          f"{ev_macs / dn_macs:.4f}", flush=True)
+    return dict(event_macs=ev_macs, dense_macs=dn_macs,
+                ratio=ev_macs / dn_macs)
 
 
 # ---------------------------------------------------------------------------
@@ -1189,7 +1488,8 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
     del want, got, mine, theirs
     _, times = host_ms(torch, lambda: pre.fn(params, dict(tokens=long)))
     out["long_ms_graph"] = min(times)
-    print(f"{ltag}, graphed: warm-up and capture {g.capture_s:.3f} s, "
+    print(f"{ltag}, graphed: warm-up {g.warmup_s:.3f} s and capture "
+          f"{g.capture_s:.3f} s, "
           f"logits and cache bitwise the eager prefill's; "
           f"{out['long_ms_graph']:.3f} ms (best of 3: "
           f"{[round(t, 3) for t in times]})", flush=True)
@@ -1641,7 +1941,8 @@ def run(torch) -> int:
               f"eager forward on it")
         ms, times = host_ms(torch, lambda: pipe(p, x), reps=5)
         print(f"{tag} pipeline (one CUDA graph): first call {first_s:.3f} s "
-              f"(warm-up and capture {g.capture_s:.3f} s); the replay "
+              f"(warm-up {g.warmup_s:.3f} s and capture {g.capture_s:.3f} "
+              f"s); the replay "
               f"bitwise the eager forward on two inputs (the second with "
               f"no host sync: set_sync_debug_mode('error')); warm replay "
               f"median {ms:.3f} ms of {[round(t, 3) for t in times]} (host "
@@ -1806,6 +2107,31 @@ def run(torch) -> int:
           flush=True)
     profile(torch, lambda: mlp.mlp_forward(mparams, xm, lenet,
                                            fire_cfg=q8), "[5] int8")
+
+    # -- 8. the serving tier: VGG16@224 and LeNet-300-100 --------------------
+    served = dict(
+        vgg16=serve_net(torch, drive, wrappers, "[8] vgg16@224", spec, params,
+                        PLAN_F32_VGG, lambda xin: cnn.cnn_forward(
+                            params, xin, spec, mnf=False), seed=8,
+                        eager=lambda xin: cnn.cnn_forward(params, xin, spec)),
+        lenet=serve_net(torch, drive, wrappers, "[8] lenet", lenet, mparams,
+                        PLAN_F32_MLP, lambda xin: mlp.mlp_forward(
+                            mparams, xin, lenet, mnf=False), seed=9))
+    served["vgg16"]["run_stats"] = serve_stats(
+        torch, "[8] vgg16@224",
+        lambda p, xin: cnn.run_with_stats(p, xin, spec), params,
+        served["vgg16"]["first"][None].to(dev),
+        lambda xin: cnn.cnn_forward(params, xin, spec))
+    served["lenet"]["run_stats"] = serve_stats(
+        torch, "[8] lenet",
+        lambda p, xin: mlp.run_mlp_with_stats(p, xin, lenet), mparams,
+        served["lenet"]["first"][None].to(dev),
+        lambda xin: mlp.mlp_forward(mparams, xin, lenet))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[8] engines freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+          f"reserved on the card", flush=True)
 
     # -- 6. RWKV6-7B at full width, served ----------------------------------
     rwkv = serve_lm(torch, engine, wrappers, "rwkv6-7b", wkv6_step_events_ref)
@@ -2212,6 +2538,53 @@ def run(torch) -> int:
                per_forward_ms=pool_forward_ms)
         del x_nchw
 
+    # phase 8's bucket-128 launches (served VGG16@224, a full bucket of
+    # 128): each kernel of the path at its heaviest launch there, against
+    # its plain version, timed beside its bound
+    def fire_work(a, kw, y):
+        n = a[0].numel()
+        return n * 8 + n // (kw["blk_m"] * kw["blk_k"]) * 4, float(n)
+
+    for name, kern, ref, exact, work in (
+            ("fire_compact", fire_ops.fire_compact, fire_compact_ref, True,
+             fire_work),
+            ("event_matmul", mm_ops.event_matmul, event_matmul_ref, False,
+             lambda a, kw, y: matmul_work(torch, *a)),
+            ("event_conv", conv_ops.event_conv, event_conv_ref, False,
+             lambda a, kw, y: conv_work(torch, a, kw["row_stride"])),
+            ("event_pool_window", pool_ops.event_pool_window,
+             event_pool_window_ref, True,
+             lambda a, kw, y: pool_work(a[0], a[4], y.numel())),
+            ("event_pool", pool_ops.event_pool, event_pool_ref, True,
+             lambda a, kw, y: pool_work(a[0], a[4], y.numel()))):
+        args, kw = served["vgg16"]["bucket128"][name]
+        args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                     for a in args)
+        what = f"{name} at bucket 128, {tuple(args[0].shape)}"
+        y, want = kern(*args, **kw), ref(*args, **kw)
+        if exact:
+            check(all(torch.equal(u, v) for u, v in zip(
+                y if isinstance(y, tuple) else (y,),
+                want if isinstance(want, tuple) else (want,))),
+                  f"{what}: != plain")
+            err = 0.0
+        else:
+            err = close(y, want, what)
+        b = bound_ms(*work(args, kw, y[0] if isinstance(y, tuple) else y))
+        ms = graph_ms(torch, lambda: kern(*args, **kw), 10)
+        plain_ms = cuda_ms(torch, lambda: ref(*args, **kw), 1)
+        shape = shape_str(args) if name == "event_matmul" \
+            else str(tuple(args[0].shape))
+        entry = next(e for e in results if e["name"] == name)
+        entry["serve128"] = dict(
+            shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b[0], bound_by=b[1])
+        print(f"[3] {what} (phase 8's full bucket of 128, its heaviest "
+              f"launch): max_abs_err {err:.3e}{' (exact)' if exact else ''}"
+              f", {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} "
+              f"ms ({b[1]})", flush=True)
+        del args, y, want
+
     long_ms = lm_kernels(torch, rwkv, hymba, report, close)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all; warm "
@@ -2234,7 +2607,18 @@ def run(torch) -> int:
           f"one layer's scan at prompt {LM_LONG}: B9' "
           f"{long_ms['wkv_long_ms']:.4f} ms, B10 "
           f"{long_ms['scan_long_ms']:.4f} ms (its streams entry "
-          f"{long_ms['scan_streams_long_ms']:.4f} ms)", flush=True)
+          f"{long_ms['scan_streams_long_ms']:.4f} ms); served (phase 8): "
+          + "; ".join(
+              f"{net} {r['stats']['requests_s']} requests/s, p50 "
+              f"{r['stats']['p50_ms']} ms, p99 {r['stats']['p99_ms']} ms, "
+              f"a full bucket of 128 {r['per_bucket'][128]['forward_ms']:.3f}"
+              f" ms" for net, r in served.items()), flush=True)
+    for entry in results:
+        # the serving tier's launches (captured x replayed), beside the
+        # main paths' of phases 2-7
+        name = entry["name"].replace("_per_tap", "")
+        entry["serve_launches"] = {net: r["launches"][name]
+                                   for net, r in served.items()}
     print(card, flush=True)
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,9 @@ import torch
 
 __all__ = [
     "STRIP_CO_MIN", "STRIP_STRIDES", "STRIP_W", "BlockEvents",
+    "ScalarEvents", "block_occupancy", "count_nonzero_events",
     "decode_block_events", "device_plan", "encode_block_events",
+    "encode_scalar_events",
     "gather_row_groups", "gather_row_strips", "live_block_mask",
     "pad_to_block_multiple",
     "remap_rows",
@@ -46,6 +48,62 @@ STRIP_CO_MIN = 8
 
 #: Strides the strip plan covers, each validated bitwise strip == per-tap.
 STRIP_STRIDES = (1, 2, 4)
+
+
+# ---------------------------------------------------------------------------
+# Scalar events (the paper's Algorithm 1 / 2 inputs) and event counting
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ScalarEvents:
+    """Padded list of scalar events of one feature map or activation vector.
+
+    values:  (capacity,)       event values (0 in padding slots)
+    indices: (capacity,) int32 flat position of each event (0 in padding)
+    count:   () int32          live events (<= capacity)
+    """
+
+    values: torch.Tensor
+    indices: torch.Tensor
+    count: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.values.shape[0]
+
+
+def encode_scalar_events(x: torch.Tensor, capacity: int | None = None,
+                         threshold: float = 0.0) -> ScalarEvents:
+    """Compact the |x| > threshold entries of ``x`` into (value, address)
+    events in ascending address order (the paper's raster event stream);
+    ``capacity`` defaults to x.numel() (lossless)."""
+    flat = x.reshape(-1)
+    capacity = flat.shape[0] if capacity is None else capacity
+    live = flat.abs() > threshold
+    count = live.sum(dtype=torch.int32)
+    order = torch.argsort((~live).to(torch.int32), stable=True)
+    idx = order[:capacity].to(torch.int32)
+    slot_live = torch.arange(idx.shape[0], dtype=torch.int32,
+                             device=x.device) < count
+    vals = torch.where(slot_live, flat[idx.long()], _zero(flat))
+    idx = torch.where(slot_live, idx, torch.zeros_like(idx))
+    return ScalarEvents(values=vals, indices=idx, count=count)
+
+
+def count_nonzero_events(x: torch.Tensor,
+                         threshold: float = 0.0) -> torch.Tensor:
+    """Scalar events a tensor would fire (|x| > threshold), a 0-d int64
+    tensor on its device (cost-model instrumentation)."""
+    return (x.abs() > threshold).sum(dtype=torch.int64)
+
+
+def block_occupancy(x: torch.Tensor, blk_k: int,
+                    threshold: float = 0.0) -> torch.Tensor:
+    """Per-K-block liveness: any |x| > threshold inside the block.
+    x (..., K) -> bool (..., K // blk_k); K a multiple of blk_k."""
+    *lead, k = x.shape
+    assert k % blk_k == 0, f"K={k} not a multiple of blk_k={blk_k}"
+    return (x.reshape(*lead, k // blk_k, blk_k).abs() > threshold).any(-1)
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,10 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import events as ev
 from repro_torch.core import quantize as qz
 
-__all__ = ["FireConfig", "fire"]
+__all__ = ["FireConfig", "fire", "fire_stats", "fire_to_block_events"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,3 +44,24 @@ def fire(acc: torch.Tensor, cfg: FireConfig = FireConfig(),
         qp = out_qp if out_qp is not None else qz.calibrate(fired)
         fired = qz.fake_quant(fired, qp)
     return fired
+
+
+def fire_stats(acc: torch.Tensor, cfg: FireConfig = FireConfig()):
+    """(fired tensor, events fired (0-d int64), density (0-d f32)) — cost
+    model instrumentation."""
+    fired = fire(acc, cfg)
+    n = ev.count_nonzero_events(fired)
+    return fired, n, n / acc.numel()
+
+
+def fire_to_block_events(acc: torch.Tensor, *, blk_m: int, blk_k: int,
+                         cfg: FireConfig = FireConfig(),
+                         capacity: int | None = None
+                         ) -> tuple[torch.Tensor, ev.BlockEvents]:
+    """Fire an (M, K_next) accumulator laid out as the next layer's input
+    and re-encode it as that layer's block events: (dense fired tensor,
+    BlockEvents)."""
+    fired = fire(acc, cfg)
+    bev = ev.encode_block_events(fired, blk_m=blk_m, blk_k=blk_k,
+                                 capacity=capacity, threshold=0.0)
+    return fired, bev

@@ -110,6 +110,20 @@ class EventStream:
         return ev.scalar_event_rows(self.events)[:self.shape[0]]
 
     @property
+    def num_events(self) -> torch.Tensor:
+        """Total live block events (the quantity the cost model prices), a
+        0-d int64 tensor on the stream's device."""
+        return self.events.counts.sum()
+
+    def occupancy(self) -> torch.Tensor:
+        """Live fraction of the (row group x K-block) event grid, 0-d f32;
+        0.0 for a degenerate stream (an empty grid), not 0/0."""
+        denom = self.events.block_idx.shape[0] * self.events.num_k_blocks
+        if denom == 0:
+            return torch.zeros((), dtype=torch.float32, device=self.device)
+        return self.num_events / denom
+
+    @property
     def num_scalar_events(self) -> torch.Tensor:
         """Total non-zero activations (the paper's event count), a 0-d f32
         tensor on the stream's device, twin-free."""

@@ -55,14 +55,15 @@ class Graph:
     """One captured call: ``static`` the inputs it reads, ``outputs`` what
     it returned (rewritten by each replay), ``launches`` {wrapper:
     launches} and ``records`` (trace records) as the capture saw them,
-    ``capture_s`` the warm-up and capture's host seconds, ``replays`` the
-    replays so far."""
+    ``warmup_s`` the eager warm-up's and ``capture_s`` the capture's host
+    seconds, ``replays`` the replays so far."""
 
     graph: torch.cuda.CUDAGraph
     static: tuple
     outputs: Any
     launches: dict
     records: list
+    warmup_s: float
     capture_s: float
     replays: int = 0
 
@@ -84,6 +85,7 @@ def capture(fn, *static, pool=None) -> Graph:
     with torch.cuda.stream(side):
         fn(*static)
     side.synchronize()
+    t1 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
     with kernels.count_launches() as launches, \
             trace.trace_dispatch() as records, \
@@ -91,5 +93,5 @@ def capture(fn, *static, pool=None) -> Graph:
         outputs = fn(*static)
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    return Graph(graph, static, outputs, dict(launches), records,
-                 time.perf_counter() - t0)
+    return Graph(graph, static, outputs, dict(launches), records, t1 - t0,
+                 time.perf_counter() - t1)

@@ -1,32 +1,60 @@
-"""LM serving driver: prefill, then the greedy decode loop — port of the LM
-mode of ``repro.launch.serve`` on one device, no mesh::
+"""Serving driver: an LM prefill + greedy decode loop, or the event-resident
+CNN/MLP serving tier — port of ``repro.launch.serve`` on one device, no
+mesh::
 
     python -m repro_torch.launch.serve --arch rwkv6-7b --mnf
     python -m repro_torch.launch.serve --arch hymba-1.5b --mnf
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --reduced --device cpu --mnf
 
-Weights are random from ``--seed`` (f32, as the config's param dtype; the
-leaves a block casts are cast once to the compute dtype), prompts are
-random tokens from the same seed.  With MNF on (``--mnf`` or a non-zero
-``--mnf-threshold``; RWKV6-7B and Hymba-1.5B have it on by default) every
-decode step runs the fire-gated state update (B7 for RWKV6, B8 for
-Hymba's Mamba heads, on the card) and reports its fired events; Hymba's
-prefill runs its selective scan through B10 on the card either way.
-On the card the prefill and the decode step run as CUDA graphs
-(``launch.steps``), captured before the timed runs.  Prints one stats
-JSON line: ``prefill_s`` and ``decode_tok_per_s`` (warm replays),
+LM mode.  Weights are random from ``--seed`` (f32, as the config's param
+dtype; the leaves a block casts are cast once to the compute dtype),
+prompts are random tokens from the same seed.  With MNF on (``--mnf`` or
+a non-zero ``--mnf-threshold``; RWKV6-7B and Hymba-1.5B have it on by
+default) every decode step runs the fire-gated state update (B7 for
+RWKV6, B8 for Hymba's Mamba heads, on the card) and reports its fired
+events; Hymba's prefill runs its selective scan through B10 on the card
+either way.  On the card the prefill and the decode step run as CUDA
+graphs (``launch.steps``), captured before the timed runs.  Prints one
+stats JSON line: ``prefill_s`` and ``decode_tok_per_s`` (warm replays),
 ``capture_s``, ``events_per_token`` with its min and max,
-``events_per_layer``.
+``events_per_layer``.  The prompt is ``--prompt-len`` tokens.  (The JAX
+driver prefills ``prompt-len + gen`` tokens under the same flag;
+ROADMAP.md queue C.)
 
-The prompt is ``--prompt-len`` tokens.  (The JAX driver prefills
-``prompt-len + gen`` tokens under the same flag; ROADMAP.md queue C.)
+CNN mode (``--cnn`` or ``--mlp``) runs a serving replica
+(``repro_torch.serving``, DESIGN.md §10): a FIFO request queue
+continuously batched into padded buckets, one CUDA graph per bucket
+captured at startup.  MNF is the default; ``--dense`` serves the oracle
+path instead.  Requests are relu(normal) images (or vectors) made from
+``--seed`` ahead of the loop, ``--rate`` a tick for ``--ticks`` ticks::
+
+    python -m repro_torch.launch.serve --cnn vgg16 --cnn-size 224 \
+        --rate 32 --ticks 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --mlp mini \
+        --device cpu
+
+``--smoke`` serves the mini networks through buckets (1, 2, 4) and fails
+(exit 1) on a steady-state capture, an eligible boundary reporting
+fallback_decode, padded-bucket logits that are not bitwise the unpadded
+forward's, a re-captured replica whose routes differ, or an MLP densify
+or re-tile point::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+
+Left out of CNN mode: ``--cache-dir`` (a CUDA graph cannot be written to
+disk, and the kernel library is already cached per source hash:
+``repro_torch.serving``), ``--mnf-pallas`` (there is no Pallas backend:
+the device picks ``cuda`` or ``block``), ``--route adaptive`` and
+``--bench`` (they need a measured crossover table and
+``load_crossover_table``, ROADMAP item 8).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import sys
 import time
 
 import torch
@@ -37,7 +65,8 @@ from repro_torch.device import default_device
 from repro_torch.launch import steps
 from repro_torch.models import transformer as tfm
 
-__all__ = ["lm_config", "main", "make_prompts", "run_lm", "serve_lm"]
+__all__ = ["lm_config", "main", "make_prompts", "make_requests", "run_lm",
+           "serve_arrivals", "serve_cnn", "serve_lm", "serve_smoke"]
 
 
 def lm_config(arch: str, *, reduced: bool = False, mnf: bool = False,
@@ -143,7 +172,7 @@ def run_lm(params, cfg, prompts: torch.Tensor, gen: int, *,
                 logits=torch.stack(kept) if keep_logits else None,
                 prefill_logits=prefill_logits, cache=cache,
                 prefill_s=t_prefill, decode_s=t_decode,
-                capture_s=sum(g.capture_s for g in captured),
+                capture_s=sum(g.warmup_s + g.capture_s for g in captured),
                 launches=launches, engine=srv.engine)
 
 
@@ -183,6 +212,205 @@ def serve_lm(args) -> dict:
     return lm_stats(cfg, run, args.batch, args.prompt_len, args.gen, dev)
 
 
+def _cnn_spec(name: str, size: int):
+    from repro_torch.models.cnn import (ALEXNET, ALEXNET_DS, MINI, VGG16,
+                                        VGG16_DS)
+    return {"alexnet": ALEXNET, "vgg16": VGG16, "alexnet_ds": ALEXNET_DS,
+            "vgg16_ds": VGG16_DS, "mini": MINI}[name].scaled(size)
+
+
+def _mlp_spec(name: str):
+    from repro_torch.models.mlp import LENET_300_100, MLP_MINI
+    return {"lenet": LENET_300_100, "mini": MLP_MINI}[name]
+
+
+def _init_params(spec, seed: int, device, weight_sparsity: float) -> list:
+    from repro_torch.models import cnn, mlp
+    gen = torch.Generator(device=device).manual_seed(seed)
+    init = mlp.init_mlp_params if isinstance(spec, mlp.MLPSpec) \
+        else cnn.init_cnn_params
+    return init(spec, gen, weight_sparsity=weight_sparsity)
+
+
+def make_requests(spec, n: int, seed: int) -> torch.Tensor:
+    """``n`` relu(normal) requests on the host, made from ``seed``: images
+    (n, H, W, C) for a CNN, vectors (n, in_features) for an MLP."""
+    from repro_torch.models.mlp import MLPSpec
+    shape = (spec.in_features,) if isinstance(spec, MLPSpec) else \
+        (spec.input_size, spec.input_size, spec.in_ch)
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((n,) + shape, generator=gen).clamp_(min=0.0)
+
+
+def _fail(failures: list) -> None:
+    if failures:
+        print("serve smoke FAILED:\n  " + "\n  ".join(failures),
+              file=sys.stderr)
+        raise SystemExit(1)
+
+
+def serve_cnn(args) -> dict:
+    """Continuously batched CNN/MLP serving through the bucketed replica.
+    ``--mlp`` serves an FC network through the same tier — flat request
+    vectors; every boundary is FC→FC, so its report must state zero
+    densify points (DESIGN.md §12).  Fails (exit 1) on a steady-state
+    capture, a fallback_decode at an eligible boundary, or MLP densify
+    points; prints the stats JSON line either way."""
+    from repro_torch import engine, serving
+
+    dev = default_device() if args.device is None \
+        else torch.device(args.device)
+    spec = _mlp_spec(args.mlp) if args.mlp \
+        else _cnn_spec(args.cnn, args.cnn_size)
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
+    torch.backends.cudnn.allow_tf32 = False
+    ecfg = engine.EngineConfig(threshold=args.mnf_threshold,
+                               route=args.route,
+                               occupancy_hint=args.occupancy_hint)
+    params = _init_params(spec, args.seed, dev, args.weight_sparsity)
+    eng = serving.ServeEngine(
+        spec, params,
+        serving.ServeEngineConfig(buckets=buckets, mnf=not args.dense),
+        engine_cfg=ecfg, device=dev)
+
+    # made ahead of the loop: requests/s measures the pipeline, not the
+    # host's random number generator
+    images = make_requests(spec, args.rate * args.ticks, args.seed)
+    warm = eng.recompiles
+    with torch.inference_mode():
+        serve_arrivals(eng, images, [args.rate] * args.ticks)
+    stats = eng.stats()
+    report = eng.boundary_report()
+
+    failures = []
+    if eng.recompiles != warm:
+        failures.append(f"steady-state recompiles: {eng.recompiles - warm} "
+                        f"captures after the warm-up (the count must stay "
+                        f"flat)")
+    if not args.dense and report["fallback_decodes"]:
+        failures.append(f"eligible boundary reported fallback_decode: "
+                        f"{report}")
+    if args.mlp and eng.plans[buckets[0]].boundaries.get("densify", 0):
+        failures.append(f"MLP replica reports densify points: "
+                        f"{eng.plans[buckets[0]].boundaries}")
+    out = dict(
+        net=spec.name,
+        input_size=spec.in_features if args.mlp else spec.input_size,
+        buckets=list(buckets), mnf=not args.dense,
+        engine=dataclasses.asdict(eng.engine_cfg), boundaries=report,
+        device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                else "cpu"), **stats)
+    print(json.dumps(out), flush=True)
+    _fail(failures)
+    return out
+
+
+def serve_arrivals(eng, requests, arrivals, on_tick=None) -> None:
+    """Submit ``requests`` in order, ``arrivals[i]`` of them before tick
+    i, and run each tick; ``on_tick(n, done)``, when given, sees each
+    tick's arrivals and completions."""
+    it = iter(requests)
+    for n in arrivals:
+        for _ in range(n):
+            eng.submit(next(it))
+        done = eng.run_tick()
+        if on_tick is not None:
+            on_tick(n, done)
+
+
+def serve_smoke(args) -> None:
+    """The serving tier's gate: the mini CNN (MINI@8) and MLP (MLP_MINI)
+    through buckets (1, 2, 4), exit 1 on any broken invariant — served
+    count and FIFO order, no steady-state capture, no fallback_decode,
+    padded-bucket logits bitwise the unpadded forward at n = 1, 3, 9, a
+    second (re-captured) replica reporting identical routes, an MLP
+    replica with no densify or re-tile point."""
+    from repro_torch import serving
+    from repro_torch.models import cnn, mlp
+
+    dev = default_device() if args.device is None \
+        else torch.device(args.device)
+    buckets = (1, 2, 4)
+    cfg = serving.ServeEngineConfig(buckets=buckets)
+    spec = _cnn_spec("mini", 8)
+    params = _init_params(spec, 0, dev, 0.5)
+    failures = []
+    with torch.inference_mode():
+        eng = serving.ServeEngine(spec, params, cfg, device=dev)
+        warm = eng.recompiles
+        images = make_requests(spec, 9, 0)
+        # buckets 1, 4, (idle), 4 + 1
+        serve_arrivals(eng, images, (1, 3, 0, 5))
+        if len(eng.completed) != 9:
+            failures.append(f"served {len(eng.completed)}/9 requests")
+        rids = [r.rid for r in eng.completed]
+        if rids != sorted(rids):
+            failures.append("completion order is not FIFO")
+        if eng.recompiles != warm:
+            failures.append(f"{eng.recompiles - warm} steady-state "
+                            f"captures (the count must stay flat after the "
+                            f"warm-up)")
+        report = eng.boundary_report()
+        if report["fallback_decodes"]:
+            failures.append(f"eligible boundary reported fallback_decode: "
+                            f"{report}")
+        # real rows of every padded bucket == the unpadded forward
+        for n in (1, 3, 9):
+            ref = cnn.make_cnn_pipeline(spec, batch=n, device=dev)(
+                eng.params, images[:n].to(dev)).cpu()
+            got = torch.stack([r.result for r in eng.completed[:n]])
+            if not torch.equal(ref, got):
+                failures.append(f"padded-bucket logits not bitwise the "
+                                f"unpadded forward at n={n}")
+        # a second replica re-captures every bucket; its routes are static
+        # per shape, so they must be the first one's
+        eng2 = serving.ServeEngine(spec, params, cfg, device=dev)
+        if eng2.recompiles != len(buckets):
+            failures.append(f"second replica captured {eng2.recompiles} "
+                            f"buckets, not {len(buckets)}")
+        report2 = eng2.boundary_report()
+        if report2["routes"] != report["routes"]:
+            failures.append(f"second replica reports other routes: "
+                            f"{report2['routes']} != {report['routes']}")
+        del eng2
+
+        # the FC family through the same tier: every boundary FC→FC
+        mspec = _mlp_spec("mini")
+        meng = serving.ServeEngine(mspec, _init_params(mspec, 0, dev, 0.5),
+                                   cfg, device=dev)
+        mwarm = meng.recompiles
+        vecs = make_requests(mspec, 7, 1)
+        serve_arrivals(meng, vecs, (1, 2, 4))
+        mreport = meng.boundary_report()
+        if len(meng.completed) != 7:
+            failures.append(f"MLP tier served {len(meng.completed)}/7 "
+                            f"requests")
+        if meng.recompiles != mwarm:
+            failures.append(f"MLP tier: {meng.recompiles - mwarm} "
+                            f"steady-state captures")
+        if mreport["fallback_decodes"]:
+            failures.append(f"MLP tier: eligible FC boundary reported "
+                            f"fallback_decode: {mreport}")
+        if mreport["boundaries"].get("densify", 0) or \
+                mreport["boundaries"].get("retile", 0):
+            failures.append(f"MLP tier: FC→FC chain reports densify/retile "
+                            f"points: {mreport['boundaries']}")
+        mref = mlp.make_mlp_pipeline(mspec, batch=7, device=dev)(
+            meng.params, vecs.to(dev)).cpu()
+        if not torch.equal(mref, torch.stack([r.result
+                                              for r in meng.completed])):
+            failures.append("MLP tier: padded-bucket logits not bitwise the "
+                            "unpadded forward")
+    print(json.dumps(dict(smoke="serve", boundaries=report,
+                          mlp_boundaries=mreport, **eng.stats())),
+          flush=True)
+    _fail(failures)
+    print("serve smoke OK: no steady-state captures, no fallback_decode, "
+          "padding bitwise-exact, re-captured routes identical, MLP tier "
+          "densify-free", flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="rwkv6-7b",
@@ -198,7 +426,54 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain versions)")
+    ap.add_argument("--cnn", choices=("alexnet", "vgg16", "alexnet_ds",
+                                      "vgg16_ds", "mini"),
+                    help="serve a CNN through the bucketed serving replica "
+                         "instead of an LM (the _ds variants downsample "
+                         "with stride-2 convs)")
+    ap.add_argument("--cnn-size", type=int, default=64,
+                    help="CNN input resolution (224 = paper scale)")
+    ap.add_argument("--mlp", choices=("lenet", "mini"),
+                    help="serve an FC network (lenet = LeNet-300-100) "
+                         "through the same bucketed replica: flat request "
+                         "vectors, zero densify points (DESIGN.md §12)")
+    ap.add_argument("--buckets", default="1,8,32,128",
+                    help="CNN mode: captured batch bucket sizes, ascending")
+    ap.add_argument("--rate", type=int, default=8,
+                    help="CNN mode: synthetic request arrivals per tick")
+    ap.add_argument("--ticks", type=int, default=8,
+                    help="CNN mode: serving ticks to run")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the serving tier's gate: mini nets through "
+                         "buckets (1, 2, 4); exit 1 on a steady-state "
+                         "capture, fallback_decode or padding drift")
+    ap.add_argument("--dense", action="store_true",
+                    help="CNN mode: serve the dense oracle path instead of "
+                         "MNF events (the default)")
+    ap.add_argument("--weight-sparsity", type=float, default=0.5,
+                    help="CNN mode: unstructured weight pruning density")
+    ap.add_argument("--route", default="auto",
+                    choices=("auto", "dense", "event", "strip", "pixel",
+                             "window"),
+                    help="CNN mode: per-boundary routing policy: auto "
+                         "(geometry, event-first) or a forced route "
+                         "(DESIGN.md §11)")
+    ap.add_argument("--occupancy-hint", type=float, default=None,
+                    help="CNN mode: static occupancy recorded with each "
+                         "routing decision")
     args = ap.parse_args(argv)
+
+    if args.smoke:
+        serve_smoke(args)
+        return
+    if args.cnn and args.mlp:
+        ap.error("--cnn and --mlp are mutually exclusive")
+    if args.cnn or args.mlp:
+        if args.dense and (args.mnf or args.mnf_threshold != 0.0):
+            ap.error("--dense conflicts with --mnf/--mnf-threshold (CNN/MLP "
+                     "mode serves MNF by default)")
+        serve_cnn(args)
+        return
     print(json.dumps(serve_lm(args)), flush=True)
 
 

@@ -14,11 +14,15 @@ replay advances by one: a caller that hands back ``fn.position`` and the
 returned cache copies nothing but the new tokens.  What a step returns
 is rewritten by its next replay.  On CPU tensors, or with ``graph=False``,
 ``fn`` is the eager callable.
+
+:func:`make_cnn_serve_step` is the CNN/MLP serving plan of one batch
+bucket (``repro_torch.serving``): the whole network as one pipeline, a
+CUDA graph on the card.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -27,8 +31,8 @@ from repro_torch.engine.config import EngineConfig
 from repro_torch.launch import graphs
 from repro_torch.models import transformer as tfm
 
-__all__ = ["StepPlan", "cell_engine_config", "make_prefill_step",
-           "make_serve_step"]
+__all__ = ["CNNCellPlan", "StepPlan", "cell_engine_config",
+           "make_cnn_serve_step", "make_prefill_step", "make_serve_step"]
 
 
 def cell_engine_config(cfg: ModelConfig) -> EngineConfig:
@@ -158,3 +162,62 @@ def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, *,
             return tfm.decode_step(params, cache, batch["tokens"],
                                    decode_pos, cfg)
     return StepPlan(cfg, shape, fn, cell_engine_config(cfg))
+
+
+@dataclasses.dataclass
+class CNNCellPlan:
+    """Serving plan of a CNN or MLP at one batch: ``fn(params, images) ->
+    logits``, the whole network as one pipeline (``models.cnn.Pipeline``,
+    a CUDA graph on the card).  ``boundaries``: the static chain
+    accounting (``chain_boundary_summary`` / ``mlp_boundary_summary``;
+    pool boundaries on the event path, densify points left).  One device:
+    ``data_shards`` is 1 and ``mesh`` / ``input_sharding`` None (sharding
+    over a mesh is ROADMAP item 13)."""
+
+    spec: Any
+    batch: int
+    fn: Callable
+    input_shape: tuple
+    engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
+    boundaries: dict = dataclasses.field(default_factory=dict)
+    mesh: Any = None
+    data_shards: int = 1
+    input_sharding: Any = None
+
+
+def make_cnn_serve_step(spec, batch: int, *, mnf: bool = True,
+                        engine_cfg: EngineConfig | None = None,
+                        fire_cfg=None, device=None) -> CNNCellPlan:
+    """The event-resident CNN/MLP pipeline for batched serving at
+    ``batch``: ``models.cnn.make_cnn_pipeline`` for a ``CNNSpec`` (already
+    ``.scaled`` to the serving resolution), ``models.mlp.
+    make_mlp_pipeline`` for an ``MLPSpec`` (a flat ``(batch,
+    in_features)`` input).  On the card (``default_device()`` unless
+    ``device`` says otherwise) ``fn`` captures one CUDA graph at its first
+    call and replays it; a capture that fails raises.  One device: the
+    JAX package's batch-parallel ``shard_map`` over a mesh is left to
+    ROADMAP item 13."""
+    from repro_torch.core.fire import FireConfig
+    from repro_torch.device import default_device
+    from repro_torch.models import cnn as cnn_mod
+    from repro_torch.models import mlp as mlp_mod
+
+    dev = default_device() if device is None else torch.device(device)
+    fire_cfg = fire_cfg or FireConfig()
+    ecfg = engine_cfg or EngineConfig(backend="auto")
+    if isinstance(spec, mlp_mod.MLPSpec):
+        fn = mlp_mod.make_mlp_pipeline(spec, batch=batch, mnf=mnf,
+                                       fire_cfg=fire_cfg, engine_cfg=ecfg,
+                                       device=dev)
+        boundaries = mlp_mod.mlp_boundary_summary(
+            spec, batch=batch, fire_cfg=fire_cfg, engine_cfg=ecfg,
+            device=dev) if mnf else {}
+    else:
+        fn = cnn_mod.make_cnn_pipeline(spec, batch=batch, mnf=mnf,
+                                       fire_cfg=fire_cfg, engine_cfg=ecfg,
+                                       device=dev)
+        boundaries = cnn_mod.chain_boundary_summary(
+            spec, batch=batch, fire_cfg=fire_cfg, engine_cfg=ecfg,
+            device=dev) if mnf else {}
+    return CNNCellPlan(spec=spec, batch=batch, fn=fn, input_shape=fn.shape,
+                       engine=ecfg, boundaries=boundaries)

@@ -19,6 +19,9 @@ makes every fire emit int8 event values; the round-trip twin is then the
 fake-quant forward, and the chain stays bitwise equal to it.
 
 The forward runs on the card unless the caller passes ``device="cpu"``.
+
+``run_with_stats`` is the forward with the per-layer event accounting of
+the paper's cost model (events in, event and dense MACs, fired density).
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ __all__ = ["ConvSpec", "FCSpec", "PoolSpec", "CNNSpec", "ALEXNET", "VGG16",
            "ALEXNET_DS", "ALEXNET_FF", "VGG16_DS", "MINI", "MINI_S4",
            "Pipeline", "conv_downsampled", "init_cnn_params",
            "params_from_numpy", "cnn_forward", "chain_boundary_summary",
-           "make_cnn_forward", "make_cnn_pipeline"]
+           "fc_in_events", "layer_dense_macs", "make_cnn_forward",
+           "make_cnn_pipeline", "run_with_stats"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,6 +190,70 @@ def params_from_numpy(params: list, device=None) -> list:
     return [None if p is None
             else torch.from_numpy(np.array(p, np.float32)).to(device or "cpu")
             for p in params]
+
+
+def _touched_outputs(h: int, w: int, k: int, stride: int,
+                     padding: int) -> np.ndarray:
+    """(H, W) map: output positions each input pixel contributes to."""
+    oy = conv_out_size(h, k, stride, padding)
+    ox = conv_out_size(w, k, stride, padding)
+
+    def jumps(i, osz):
+        lo = np.maximum(0, -(-(i + padding - k + 1) // stride))
+        hi = np.minimum(osz - 1, (i + padding) // stride)
+        return np.maximum(hi - lo + 1, 0)
+
+    return jumps(np.arange(h)[:, None], oy) * jumps(np.arange(w)[None, :],
+                                                    ox)
+
+
+def layer_dense_macs(spec: CNNSpec) -> list:
+    """Per-compute-layer dense MAC counts (what a dense accelerator does)."""
+    out = []
+    for layer, (h, w, c) in zip(spec.layers, _trace_shapes(spec)):
+        if isinstance(layer, ConvSpec):
+            oy = conv_out_size(h, layer.k, layer.stride, layer.padding)
+            ox = conv_out_size(w, layer.k, layer.stride, layer.padding)
+            out.append(oy * ox * layer.k * layer.k * c * layer.out_ch)
+        elif isinstance(layer, FCSpec):
+            out.append(h * w * c * layer.out)
+    return out
+
+
+def _pixel_events(x):
+    """(B, H, W) fired activations per pixel, f64, and the NHWC shape:
+    from a stream's compacted event values (twin-free), or the non-zeros
+    of a dense map."""
+    if isinstance(x, engine.EventStream):
+        b, h, w, c = x.logical_shape
+        return (x.per_row_scalar_events().double().reshape(b, h, w),
+                (b, h, w, c))
+    return (x.abs() > 0).sum(-1, dtype=torch.float64), tuple(x.shape)
+
+
+def fc_in_events(x, threshold: float = 0.0) -> torch.Tensor:
+    """Events entering an FC boundary (Algorithm 2 charges ``in_events *
+    out`` MACs), a 0-d f64 tensor on ``x``'s device: a stream's non-zero
+    event values (twin-free; int8 streams count quantized events), a
+    dense input's activations above the fire ``threshold``.  Summed in
+    f64, so the count is exact where the JAX package's f32 sum is (below
+    2^24) and beyond."""
+    if isinstance(x, engine.EventStream):
+        return x.per_row_scalar_events().double().sum()
+    return (x.abs() > threshold).sum(dtype=torch.float64)
+
+
+def _density(x) -> torch.Tensor:
+    """Fired fraction of an activation, 0-d f32 (a stream: its twin-free
+    event count); 0 for an empty one, not 0/0."""
+    if isinstance(x, engine.EventStream):
+        m, k = x.shape
+        if m * k == 0:
+            return torch.zeros((), dtype=torch.float32, device=x.device)
+        return x.num_scalar_events / (m * k)
+    if x.numel() == 0:
+        return torch.zeros((), dtype=torch.float32, device=x.device)
+    return (x.abs() > 0).sum(dtype=torch.float32) / x.numel()
 
 
 def _layer_cfg(base: engine.EngineConfig | None, *, mnf: bool,
@@ -350,11 +418,16 @@ def chain_boundary_summary(spec: CNNSpec, *, batch: int = 1,
 
 
 def _forward(params, x, spec: CNNSpec, *, fire_cfg: FireConfig,
-             cfg: engine.EngineConfig, chain: bool):
+             cfg: engine.EngineConfig, chain: bool,
+             stats: list | None = None):
     """The one forward body.  ``chain=True`` threads an EventStream through
     conv→fire→conv→…→FC; ``chain=False`` is the round-trip twin.  The conv
     dispatch config stays pixel-granular (blk_m 1, blk_k ≤ 8) so the twin
-    multiplies the same tiles in the same order as the chained path."""
+    multiplies the same tiles in the same order as the chained path.
+    ``stats`` (a list to append to) asks for each compute layer's event
+    accounting as device tensors (``event_macs``, ``in_events``,
+    ``out_density``), read from the compacted event values on the chained
+    path; with None the forward runs nothing for it."""
     layers = spec.layers
     dev = x.device
     conv_base = cfg.replace(blk_m=1, blk_k=min(8, cfg.blk_k))
@@ -371,6 +444,13 @@ def _forward(params, x, spec: CNNSpec, *, fire_cfg: FireConfig,
             ci = x.logical_shape[-1] if isinstance(x, engine.EventStream) \
                 else x.shape[-1]
             ccfg = conv_base.replace(threshold=0.0).for_conv(ci)
+            if stats is not None:
+                nzmap, (_, h, w, _) = _pixel_events(x)
+                touched = torch.from_numpy(_touched_outputs(
+                    h, w, layer.k, layer.stride, layer.padding)).to(nzmap)
+                stats.append(dict(
+                    event_macs=(nzmap * touched).sum() * layer.out_ch,
+                    in_events=nzmap.sum()))
             acc = engine.conv2d(x, wgt, cfg=ccfg, stride=layer.stride,
                                 padding=layer.padding)
             if chain:
@@ -389,6 +469,8 @@ def _forward(params, x, spec: CNNSpec, *, fire_cfg: FireConfig,
                                      blk_m=bm_next)
             else:
                 x = fire(acc, fire_cfg)
+            if stats is not None:
+                stats[-1]["out_density"] = _density(x)
         elif isinstance(layer, PoolSpec):
             if chain and isinstance(x, engine.EventStream) \
                     and engine.pool_ineligible_reason(
@@ -433,6 +515,10 @@ def _forward(params, x, spec: CNNSpec, *, fire_cfg: FireConfig,
                 fcfg = cfg.replace(threshold=0.0)
             flat = x if isinstance(x, engine.EventStream) \
                 else x.reshape(x.shape[0], -1)
+            if stats is not None:
+                in_ev = fc_in_events(flat, fire_cfg.threshold)
+                stats.append(dict(event_macs=in_ev * layer.out,
+                                  in_events=in_ev))
             acc = engine.linear(flat, wgt, cfg=fcfg)
             if layer is layers[-1]:
                 x = acc
@@ -440,6 +526,8 @@ def _forward(params, x, spec: CNNSpec, *, fire_cfg: FireConfig,
                 x = engine.fire(acc, cfg, keep_dense=False)
             else:
                 x = fire(acc, fire_cfg)
+            if stats is not None:
+                stats[-1]["out_density"] = _density(x)
     if isinstance(x, engine.EventStream):
         return x.dense_nhwc() if x.logical_shape is not None else x.dense()
     return x
@@ -466,17 +554,21 @@ class Pipeline:
     """``fn(params, x) -> logits`` for one input shape: on the card, one
     CUDA graph of ``fwd`` (``launch.graphs``), captured at the first call;
     each call copies ``x`` into the graph's static input (the caller never
-    reuses it in place, as JAX's donated image) and replays, and the
-    logits it returns are the graph's, rewritten by the next call.  On the
-    CPU (``device="cpu"``) the eager ``fwd``.  Either way the pipeline is
-    bound to the parameter tensors of its first call: a call with others
-    raises, so it never replays stale weights."""
+    reuses it in place, as JAX's donated image; from pinned host memory
+    the copy is asynchronous, so the caller keeps ``x`` unchanged until it
+    has read the logits) and replays, and the logits it returns are the
+    graph's, rewritten by the next call.  On the CPU (``device="cpu"``)
+    the eager ``fwd``.  Either way the pipeline is bound to the parameter
+    tensors of its first call: a call with others raises, so it never
+    replays stale weights.  ``captures`` counts the graphs it captured (on
+    the CPU its first calls): one, after the first call, for good."""
 
     def __init__(self, fwd, shape: tuple, device):
         self.fwd, self.shape = fwd, tuple(shape)
         self.device = torch.device(device)
         self.graph: graphs.Graph | None = None
         self.params = None
+        self.captures = 0
 
     def __call__(self, params, x: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape) != self.shape:
@@ -487,7 +579,9 @@ class Pipeline:
             raise ValueError("this pipeline reads the parameter tensors of "
                              "its first call; make a new one for others")
         if self.device.type == "cpu":
-            self.params = params
+            if self.params is None:
+                self.params = params
+                self.captures += 1
             return self.fwd(params, x)
         if self.graph is None:
             self.graph = graphs.capture(
@@ -495,7 +589,8 @@ class Pipeline:
                 torch.zeros(self.shape, dtype=torch.float32,
                             device=self.device))
             self.params = params
-        self.graph.static[1].copy_(x)
+            self.captures += 1
+        self.graph.static[1].copy_(x, non_blocking=True)
         return self.graph.replay()
 
 
@@ -529,3 +624,63 @@ def cnn_forward(params, x, spec: CNNSpec, *, mnf: bool = True,
     fwd = make_cnn_forward(spec, mnf=mnf, fire_cfg=fire_cfg,
                            engine_cfg=engine_cfg, chain=chain)
     return fwd(params, x)
+
+
+def _static_layer_stats(spec: CNNSpec, batch: int) -> list:
+    """Shape-derived stats fields of each compute layer: kind, ``c_out``,
+    ``dense_macs`` (:func:`layer_dense_macs` times the batch) and
+    ``in_elems``."""
+    macs = iter(layer_dense_macs(spec))
+    out = []
+    for layer, (h, w, c) in zip(spec.layers, _trace_shapes(spec)):
+        if isinstance(layer, (ConvSpec, FCSpec)):
+            out.append(dict(
+                kind="conv" if isinstance(layer, ConvSpec) else "fc",
+                c_out=layer.out_ch if isinstance(layer, ConvSpec)
+                else layer.out,
+                dense_macs=float(batch * next(macs)),
+                in_elems=float(batch * h * w * c)))
+    return out
+
+
+def _read_stats(static: list, traced: list) -> list:
+    """Join the static fields with the traced device counts, read to the
+    host in one copy (each value a Python float)."""
+    keys = [sorted(tr) for tr in traced]
+    flat = [tr[k].double() for tr, ks in zip(traced, keys) for k in ks]
+    vals = iter(torch.stack(flat).tolist() if flat else [])
+    out = []
+    for st, ks in zip(static, keys):
+        d = dict(st)
+        d.update({k: next(vals) for k in ks})
+        out.append(d)
+    return out
+
+
+def run_with_stats(params, x, spec: CNNSpec,
+                   fire_cfg: FireConfig = FireConfig(),
+                   engine_cfg: engine.EngineConfig | None = None, *,
+                   device=None):
+    """The chained MNF forward plus per-layer event accounting: (logits,
+    stats list).  One eager forward (the logits are ``cnn_forward``'s,
+    bitwise), its counts kept on the device and read in one copy at the
+    end.  Each compute layer's stats: ``dense_macs`` (the dense
+    dataflow's MACs), ``event_macs`` (the MACs the multiply phase
+    performs, Algorithm 1's walk), ``in_events`` (events fired into the
+    layer), ``in_elems`` (dense input elements), ``out_density`` (the
+    fraction of outputs that fire), ``avg_touched`` (event MACs per input
+    event and output channel).  Runs on the card unless ``device`` says
+    otherwise."""
+    dev = default_device() if device is None else torch.device(device)
+    x = torch.as_tensor(x, dtype=torch.float32).to(dev)
+    params = [None if p is None else p.to(dev) for p in params]
+    cfg = _layer_cfg(engine_cfg, mnf=True, fire_cfg=fire_cfg)
+    traced: list = []
+    logits = _forward(params, x, spec, fire_cfg=fire_cfg, cfg=cfg,
+                      chain=True, stats=traced)
+    stats = _read_stats(_static_layer_stats(spec, x.shape[0]), traced)
+    for d in stats:
+        d["avg_touched"] = (
+            d["event_macs"] / max(d["in_events"] * d["c_out"], 1.0)
+            if d["kind"] == "conv" else 1.0)
+    return logits, stats

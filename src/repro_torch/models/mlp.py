@@ -22,11 +22,12 @@ import torch
 from repro_torch import engine
 from repro_torch.core.fire import FireConfig, fire
 from repro_torch.device import default_device
-from repro_torch.models.cnn import FCSpec, Pipeline
+from repro_torch.models.cnn import (FCSpec, Pipeline, _read_stats,
+                                    fc_in_events)
 
 __all__ = ["MLPSpec", "LENET_300_100", "MLP_MINI", "init_mlp_params",
            "make_mlp_forward", "make_mlp_pipeline", "mlp_boundary_summary",
-           "mlp_forward", "mlp_layer_dense_macs"]
+           "mlp_forward", "mlp_layer_dense_macs", "run_mlp_with_stats"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,15 +117,22 @@ def mlp_boundary_summary(spec: MLPSpec, *, batch: int = 1,
 
 
 def _forward(params, x, spec: MLPSpec, *, fire_cfg: FireConfig,
-             cfg: engine.EngineConfig, chain: bool):
+             cfg: engine.EngineConfig, chain: bool,
+             stats: list | None = None):
     """The one forward body.  ``chain=True`` threads one EventStream through
     fire→linear→fire→…; the head passes the dense input straight into
     ``engine.linear``, whose event backends encode it at threshold 0 — the
     encode the twin's first layer runs, so both multiply the same tiles.
-    ``chain=False`` is the per-layer round-trip twin."""
+    ``chain=False`` is the per-layer round-trip twin.  ``stats`` (a list
+    to append to) asks for each layer's ``in_events`` and ``event_macs``
+    as device tensors; with None the forward runs nothing for it."""
     fcfg = cfg.replace(threshold=0.0)
     layers = spec.layers
-    for i, wgt in enumerate(params):
+    for i, (layer, wgt) in enumerate(zip(layers, params)):
+        if stats is not None:
+            in_ev = fc_in_events(x, fire_cfg.threshold)
+            stats.append(dict(event_macs=in_ev * layer.out,  # Algorithm 2
+                              in_events=in_ev))
         acc = engine.linear(x, wgt, cfg=fcfg)
         if i == len(layers) - 1:
             x = acc
@@ -181,3 +189,24 @@ def mlp_forward(params, x, spec: MLPSpec, *, mnf: bool = True,
     fwd = make_mlp_forward(spec, mnf=mnf, fire_cfg=fire_cfg,
                            engine_cfg=engine_cfg, chain=chain)
     return fwd(params, x)
+
+
+def run_mlp_with_stats(params, x, spec: MLPSpec,
+                       fire_cfg: FireConfig = FireConfig(),
+                       engine_cfg: engine.EngineConfig | None = None, *,
+                       device=None):
+    """The chained MNF forward plus per-layer event accounting: (logits,
+    stats list), each layer's ``dense_macs`` (static), ``event_macs``
+    (Algorithm 2: in_events × out) and ``in_events``; one eager forward,
+    its counts read from the device in one copy.  Runs on the card unless
+    ``device`` says otherwise."""
+    dev = default_device() if device is None else torch.device(device)
+    x = torch.as_tensor(x, dtype=torch.float32).to(dev)
+    params = [p.to(dev) for p in params]
+    cfg = _mlp_cfg(engine_cfg, mnf=True, fire_cfg=fire_cfg)
+    traced: list = []
+    logits = _forward(params, x, spec, fire_cfg=fire_cfg, cfg=cfg,
+                      chain=True, stats=traced)
+    static = [dict(kind="fc", dense_macs=float(x.shape[0] * macs))
+              for macs in mlp_layer_dense_macs(spec)]
+    return logits, _read_stats(static, traced)

@@ -1,5 +1,6 @@
-"""The CUDA kernels against their plain versions, and the compiled steps
-(CUDA graphs) against the eager runs, on the card, at small shapes.
+"""The CUDA kernels against their plain versions, the compiled steps
+(CUDA graphs) against the eager runs, and the serving tier's engine, on
+the card, at small shapes.
 Marked ``cuda``: each test skips where there is no GPU (decided inside
 the fixture, never at import).  On a machine with a card:
 
@@ -46,8 +47,10 @@ from repro_torch.kernels.wkv6.ops import wkv6, wkv6_single
 from repro_torch.kernels.wkv6.ref import wkv6_multihead_ref
 from repro_torch.kernels.wkv6_step.ops import wkv6_step_events
 from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
+from repro_torch import serving
 from repro_torch.launch import graphs, serve, steps
 from repro_torch.models import cnn, mlp
+from repro_torch.serving import server
 from repro_torch.models import transformer as tfm
 
 pytestmark = pytest.mark.cuda
@@ -1039,3 +1042,52 @@ def test_lm_graphs_replay_bitwise_eager(dev, arch, gated):
     other = tfm.compute_params(tfm.init_params(1, cfg, dev), cfg)
     with pytest.raises(ValueError, match="parameter tensors"):
         srv.fn(other, run["cache"], dict(tokens=tok), pos)
+
+
+@pytest.mark.parametrize("net", ["mini", "mlp_mini"])
+def test_serve_engine_on_card(dev, net):
+    """``ServeEngine`` on the card, buckets (1, 2, 4): one capture a bucket
+    at the warm-up and none over ticks (1, 3, 0, 4, 2); every request
+    served FIFO; within a bucket a real row bitwise the same row of a
+    full bucket; every served logit row bitwise the unpadded graphed
+    forward's; each replay runs under the engine's no-host-sync guard,
+    which raises at a sync."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if net == "mlp_mini":
+        spec = mlp.MLP_MINI
+        params = mlp.init_mlp_params(spec, gen, weight_sparsity=0.5)
+        shape = (spec.in_features,)
+        make = mlp.make_mlp_pipeline
+    else:
+        spec = cnn.MINI
+        params = cnn.init_cnn_params(spec, gen, weight_sparsity=0.5)
+        shape = (8, 8, 3)
+        make = cnn.make_cnn_pipeline
+    buckets = (1, 2, 4)
+    images = torch.relu(torch.randn((10,) + shape,
+                                    generator=torch.Generator()
+                                    .manual_seed(1)))
+    eng = serving.ServeEngine(spec, params,
+                              serving.ServeEngineConfig(buckets=buckets))
+    assert eng.device.type == "cuda" and eng.recompiles == len(buckets)
+    assert all(p.fn.graph is not None for p in eng.plans.values())
+    it = iter(images)
+    for n in (1, 3, 0, 4, 2):
+        for _ in range(n):
+            eng.submit(next(it))
+        eng.run_tick()
+        assert eng.recompiles == len(buckets)
+    assert [r.rid for r in eng.completed] == list(range(10))
+    bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
+    for b in buckets[1:]:
+        full = eng.forward(b, list(images[:b]))
+        assert torch.equal(bits(eng.forward(b, [images[0]])[0]),
+                           bits(full[0]))
+    ref = make(spec, batch=10)(eng.params, images.to(dev)).cpu()
+    got = torch.stack([r.result for r in eng.completed])
+    assert torch.equal(bits(got), bits(ref))
+    assert eng.boundary_report(4)["fallback_decodes"] == 0
+    assert all(g["pool_gib"] >= 0 for g in eng.graph_gib.values())
+    with pytest.raises(RuntimeError):
+        with server._no_host_sync(dev):
+            torch.ones(1, device=dev).item()

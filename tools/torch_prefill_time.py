@@ -72,7 +72,8 @@ def main() -> int:
         from repro_torch.launch import steps
         pre = steps.make_prefill_step(cfg, ShapeConfig(
             "prefill", args.prompt, BATCH, "prefill"))
-        capture_s = pre.fn.capture(params, prompts).capture_s
+        g = pre.fn.capture(params, prompts)
+        capture_s = getattr(g, "warmup_s", 0.0) + g.capture_s
         batch = dict(tokens=prompts)
 
         def prefill():

@@ -90,7 +90,8 @@ def main() -> int:
             pipe = cnn.make_cnn_pipeline(spec, batch=BATCH,
                                          fire_cfg=fire_cfg, device=dev)
             pipe(params, x)
-            capture_s = pipe.graph.capture_s
+            g = pipe.graph              # a parent tree's has no warmup_s
+            capture_s = getattr(g, "warmup_s", 0.0) + g.capture_s
 
             def forward():
                 return pipe(params, x)
