@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
-8, 6, 7, 3, so that phase 3 can replay what phases 2, 4, 5, 6 and 7 handed
-the kernels, and phase 8's graphs are freed before phase 6 loads its
-model):
+8, 6, 7, 9, 3, so that phase 3 can replay what phases 2, 4, 5, 6 and 7
+handed the kernels, phase 8's graphs are freed before phase 6 loads its
+model, and each LM's weights before the next LM's):
 
 1. Probe and build: the card's name and power limit, TF32 off for the dense
    oracles, the CUDA kernels (B1-B10) built from src/repro_torch/csrc.
@@ -141,6 +141,34 @@ model):
    its time (best of 3).  In phases 6 and 7 the prompt-2000 prefill also
    runs as a CUDA graph (``launch.steps.make_prefill_step``): logits and
    cache bitwise the eager prefill's, its time (best of 3).
+9. The attention decoder stack, after phase 7's model is freed and the
+   allocator's cache emptied: DeepSeek-V2-Lite-16B (MLA, 64 routed
+   experts top-6 plus 2 shared, a dense first layer; ~31 GB) and
+   Gemma-2-27B (softcaps, alternating windows of 4096, post-block norms,
+   a tied 256k vocabulary; ~54 GB) at full width, their weights random
+   from seed 0 and built one layer at a time in bf16 (the norms and the
+   MoE router in f32: ``transformer.init_compute_params``), batch 4,
+   prompt 32, 16 greedy tokens through ``run_lm``.  No B1-B10 kernel is
+   on this path (the MNF fire here is ``engine.sparsify``, plain torch):
+   every count is set to 0 before each serve and must read 0 after.  MNF
+   on at θ = 0 bitwise ungated (tokens, prefill and step logits); the
+   graphed serve bitwise the eager one, gated and ungated (tokens, every
+   step's logits, the final cache); each decode step's logits against an
+   uncached forward over the prompt and the tokens so far (its MoE at a
+   capacity that cannot bind, and dropping nothing): Gemma-2 within 3e-2
+   of max|logit|; DeepSeek-V2's absorbed MLA decode against the expanded
+   form in f32 within 1e-4 (a second build of ~59 GiB of f32 weights,
+   teacher-forced on the bf16 run's inputs), and in bf16 no further from
+   that f32 forward (worst step) than 3e-2 or the bf16 forward is;
+   DeepSeek: no assignment dropped in any decode step, the expert loads
+   summing to tokens x top_k.  Prints parameters and active parameters,
+   weight GiB, peak memory, the graphed serve's memory above the weights,
+   prefill ms and tokens/s eager and graphed, gated and ungated (best of 2
+   warm runs in turns), capture seconds, and a graphed decode step's
+   profile (idle share, top kernels).  Then qwen2-0.5b, qwen2-1.5b (QKV
+   biases set to seeded values), minitron-8b and deepseek-moe-16b at their
+   published widths with num_layers cut to 2: a prefill and 4 decode
+   steps, graphed bitwise eager.  Prints the phase's seconds.
 3. Kernel checks: each kernel against its plain PyTorch version on the
    inputs the forwards handed it (B1, B2 and B5 at the shapes of both
    VGG16 and LeNet-300-100), plus the strip convs at stride 4 and 2
@@ -331,9 +359,12 @@ def host_ms(torch, fn, reps: int = 3) -> tuple[float, list]:
     return statistics.median(times), times
 
 
-def profile(torch, fn, label: str, steps: int = 3) -> None:
+def profile(torch, fn, label: str, steps: int = 3, top: int = 0) -> dict:
     """Print the device busy time, idle share and ms by kernel of ``fn``
-    (warm, ``steps`` calls under torch.profiler, per-call averages)."""
+    (warm, ``steps`` calls under torch.profiler, per-call averages): the
+    MNF kernels by name and the rest as "other", or with ``top`` the
+    ``top`` kernels that take most device time, whatever their names.
+    Returns host ms, device busy ms and the idle share."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
@@ -351,16 +382,21 @@ def profile(torch, fn, label: str, steps: int = 3) -> None:
         dur = e.device_time_total if hasattr(e, "device_time_total") \
             else e.cuda_time_total
         name = e.name.split("(")[0].replace("void ", "")
-        rec = by_name.setdefault(name if name.startswith("mnf_") else "other",
-                                 [0.0, 0])
+        if not top and not name.startswith("mnf_"):
+            name = "other"
+        rec = by_name.setdefault(name[:64], [0.0, 0])
         rec[0] += dur / 1e3 / steps
         rec[1] += 1
     busy = sum(v[0] for v in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     parts = ", ".join(f"{n} {ms:.4f} ms x{c // steps}" for n, (ms, c) in
-                      sorted(by_name.items(), key=lambda kv: -kv[1][0]))
+                      (ranked[:top] if top else ranked))
+    idle = max(0.0, 1 - busy / wall)
     print(f"{label} profile ({steps} warm calls): host {wall:.3f} ms/call "
           f"under the profiler, device busy {busy:.3f} ms (idle share "
-          f"{max(0.0, 1 - busy / wall):.3f}); {parts}", flush=True)
+          f"{idle:.3f}); {f'top {top} kernels: ' if top else ''}{parts}",
+          flush=True)
+    return dict(host_ms=wall, busy_ms=busy, idle=idle)
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -1759,6 +1795,409 @@ def lm_kernels(torch, rwkv, hymba, report, close) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the attention decoder stack (GQA with QKV biases, Gemma-2's
+# softcaps and windows, MLA, the sort-dispatched MoE) through the same
+# serve driver.  No B1-B10 kernel is on this path: the MNF fire inside
+# these blocks is engine.sparsify, plain torch, as in the JAX package.
+# ---------------------------------------------------------------------------
+
+#: Served at full width (batch 4, prompt 32, 16 greedy tokens).
+STACK_FULL = ("deepseek-v2-lite-16b", "gemma2-27b")
+#: Served at their published widths with num_layers cut to 2 (a prefill
+#: and STACK_CUT_GEN decode steps), so that every config's widths,
+#: biases and activation run on the card.
+STACK_CUT = ("qwen2-0.5b", "qwen2-1.5b", "minitron-8b", "deepseek-moe-16b")
+STACK_CUT_GEN = 4
+#: Each decode step's logits against the uncached forward: the CPU bf16
+#: test's tolerance (tests/test_torch_lm_stack.py), of max|logit|.
+STACK_TOL = 3e-2
+#: The same in f32 for MLA (whose absorbed decode and expanded forward
+#: round differently in bf16): the CPU f32 tests' tolerance.
+STACK_TOL_F32 = 1e-4
+
+
+def stack_describe(cfg) -> str:
+    out = describe(cfg)
+    if cfg.mla is not None:
+        m = cfg.mla
+        out += (f", MLA (kv_lora {m.kv_lora_rank}, rope {m.qk_rope_dim}, "
+                f"nope {m.qk_nope_dim}, v {m.v_head_dim})")
+    if cfg.moe is not None:
+        m = cfg.moe
+        out += (f", MoE {m.num_experts} routed top-{m.top_k} + "
+                f"{m.num_shared} shared of {m.expert_ff}, "
+                f"{m.first_dense_layers} dense layer of {m.dense_ff}")
+    if cfg.final_logit_softcap:
+        out += (f", softcaps {cfg.attn_logit_softcap}/"
+                f"{cfg.final_logit_softcap}, windows "
+                f"{cfg.sliding_window}/global alternating, post-block "
+                f"norms")
+    if cfg.qkv_bias:
+        out += ", QKV biases"
+    return out + (", tied embeddings" if cfg.tie_embeddings else "")
+
+
+def stack_weights(torch, cfg, device):
+    """The served weights, built one layer at a time on the card
+    (``init_compute_params``: drawn in f32 from seed 0, the leaves the
+    blocks cast cast to bf16, the f32 freed): with QKV biases, those set
+    to seeded normal values (the init makes them zeros, which would
+    leave the bias adds unexercised).  Returns (params, GiB)."""
+    from repro_torch.models import transformer as tfm
+    params = tfm.init_compute_params(0, cfg, device)
+    if cfg.qkv_bias:
+        gen = torch.Generator(device=device).manual_seed(1)
+        mix = params["layers"]["mix"]
+        for name in ("bq", "bk", "bv"):
+            mix[name].copy_(0.5 * torch.randn(
+                mix[name].shape, generator=gen, device=device))
+    torch.cuda.synchronize()
+    leaves, stack = [], [params]
+    while stack:
+        for v in stack.pop().values():
+            (stack if isinstance(v, dict) else leaves).append(v)
+    return params, sum(t.numel() * t.element_size() for t in leaves) / 2**30
+
+
+def record_moe():
+    """Keep each ``moe.moe_apply`` call's input, router and aux (the calls
+    a run makes eagerly; a graph's replays make none).  Returns (records,
+    undo)."""
+    from repro_torch.models import moe
+    orig, rec = moe.moe_apply, []
+
+    def spy(p, x, cfg):
+        y, aux = orig(p, x, cfg)
+        rec.append((x, p["router"], aux))
+        return y, aux
+    moe.moe_apply = spy
+    return rec, lambda: setattr(moe, "moe_apply", orig)
+
+
+def same_run(torch, a, b) -> bool:
+    """Tokens, inputs, the prefill's and every step's logits and every
+    cache leaf bitwise equal."""
+    from repro_torch.launch.graphs import leaves
+    la, lb = leaves(a["cache"]), leaves(b["cache"])
+    return all(torch.equal(a[k], b[k]) for k in (
+        "tokens", "inputs", "prefill_logits", "logits")) \
+        and len(la) == len(lb) and all(torch.equal(x, y)
+                                       for x, y in zip(la, lb))
+
+
+def serve_stack(torch, engine, wrappers, arch, device="cuda") -> dict:
+    """Phase 9 at full width: ``arch``'s weights from seed 0 (bf16 where
+    the blocks cast, ~31 GB for DeepSeek-V2-Lite, ~54 GB for Gemma-2-27B),
+    batch 4, prompt 32, 16 greedy tokens through ``run_lm``, every count
+    set to 0 before each serve and read after (no B1-B10 kernel on this
+    path).  Checks: MNF on at θ = 0 bitwise ungated (tokens, logits); the
+    graphed serve bitwise the eager one (tokens, every step's logits, the
+    final cache), gated and ungated; each decode step's logits within
+    STACK_TOL of max|logit| of an uncached forward over the prompt and
+    the tokens so far — for MLA (the absorbed decode against the expanded
+    form) in f32 within STACK_TOL_F32, and in bf16 no further from that
+    f32 forward than the bf16 forward is; for an MoE no assignment
+    dropped in any decode step and the expert loads summing to tokens x
+    top_k.  Prints parameters, weight
+    GiB, peak memory, prefill ms and tokens/s eager and graphed (best of 2
+    warm runs in turns), capture s, a graphed step's profile."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.launch.graphs import leaves as tree_leaves
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    tag = "[9]"
+    cfg = get_config(arch)
+    check(cfg.mnf.enabled and cfg.mnf.threshold == 0.0
+          and cfg.compute_dtype == "bfloat16", f"unexpected config {cfg}")
+    off = dataclasses.replace(cfg, mnf=dataclasses.replace(cfg.mnf,
+                                                           enabled=False))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, gib = stack_weights(torch, cfg, device)
+    n_params, n_active = tfm.count_params(cfg), tfm.active_params(cfg)
+    print(f"{tag} {cfg.name}: {stack_describe(cfg)}: {n_params / 1e9:.3f} "
+          f"G params, {n_active / 1e9:.3f} G active a token; weights "
+          f"{gib:.2f} GiB on the card (bf16 but the norms"
+          f"{' and routers' if cfg.moe else ''}), built layer by layer from "
+          f"seed 0 in {time.perf_counter() - t0:.2f} s", flush=True)
+    prompts = serve.make_prompts(cfg, LM_BATCH, LM_PROMPT, 0, device)
+    zero = {n: 0 for n in wrappers}
+
+    def served(stag, c, graph):
+        run, recs, launches, _, _ = drive_counted(
+            torch, engine, wrappers, lambda: serve.run_lm(
+                params, c, prompts, LM_GEN, keep_logits=True, graph=graph),
+            capture=False)
+        check(launches == zero, f"{stag}: B1-B10 launched {launches}")
+        check(not any(r.get("op") == "recurrent_step" for r in recs),
+              f"{stag} ran a recurrent_step")
+        check(run["tokens"].shape == (LM_BATCH, LM_GEN)
+              and run["logits"].shape == (LM_GEN, LM_BATCH, cfg.vocab_size)
+              and bool(torch.isfinite(run["logits"]).all())
+              and run["events"] is None,
+              f"{stag}: tokens or logits not of the expected shape, or "
+              f"not finite")
+        return run
+
+    # the main path, eager: MNF on at θ = 0, bf16 (an MoE's calls kept)
+    moe_rec, undo = record_moe()
+    try:
+        run_a = served(f"{tag} {arch} eager gated θ=0", cfg, False)
+    finally:
+        undo()
+    run_b = served(f"{tag} {arch} eager ungated", off, False)
+    check(all(torch.equal(run_a[k], run_b[k]) for k in (
+        "tokens", "prefill_logits", "logits")),
+          f"{tag} {arch}: θ = 0 not bitwise the ungated serve")
+    if cfg.moe is not None:
+        n_moe = cfg.num_layers - cfg.moe.first_dense_layers
+        steps_ = [(x, r, a) for x, r, a in moe_rec if x.shape[1] == 1]
+        check(len(steps_) == n_moe * LM_GEN, f"{tag} {arch}: "
+              f"{len(steps_)} MoE calls in the decode steps, want "
+              f"{n_moe * LM_GEN}")
+        drops = torch.stack([a["drop_fraction"] for _, _, a in steps_])
+        loads = torch.stack([torch.zeros(cfg.moe.num_experts,
+                                         device=device).scatter_add_(
+            0, moe.route(r, x, cfg)[2].reshape(-1),
+            torch.ones(x.shape[0] * cfg.moe.top_k, device=device))
+            for x, r, _ in steps_])
+        check(bool((drops == 0).all()), f"{tag} {arch}: a decode step "
+              f"dropped assignments: {drops.max().item()}")
+        check(bool((loads.sum(1) == LM_BATCH * cfg.moe.top_k).all()),
+              f"{tag} {arch}: expert loads do not sum to tokens x top_k")
+        pre = [a["drop_fraction"] for x, _, a in moe_rec if x.shape[1] > 1]
+        print(f"{tag} {arch} MoE: {len(steps_)} decode-step calls, "
+              f"drop_fraction 0 in each, expert loads summing to "
+              f"{LM_BATCH} x {cfg.moe.top_k} in each (busiest expert "
+              f"{int(loads.max())} of {LM_BATCH} tokens); prefill "
+              f"drop_fraction max {float(torch.stack(pre).max()):.4f} over "
+              f"{len(pre)} calls", flush=True)
+        del moe_rec, steps_, loads
+
+    # the main path on CUDA graphs, gated and ungated, each bitwise its
+    # eager serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run_g = served(f"{tag} {arch} graphed gated θ=0", cfg, True)
+    pool_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    check(not run_g["launches"], f"{tag}: the graphs captured "
+          f"{run_g['launches']}")
+    check(same_run(torch, run_g, run_a), f"{tag} {arch}: the graphed serve "
+          f"is not bitwise the eager serve")
+    run_gb = served(f"{tag} {arch} graphed ungated", off, True)
+    check(same_run(torch, run_gb, run_b), f"{tag} {arch}: the graphed "
+          f"ungated serve is not bitwise the eager one")
+    print(f"{tag} {arch}: B1-B10 launched 0 times in every serve (none is "
+          f"on this path); θ=0 bitwise ungated (tokens, prefill and step "
+          f"logits); graphed bitwise eager, gated and ungated (tokens, "
+          f"every step's logits, all {len(tree_leaves(run_g['cache']))} "
+          f"cache leaves), no host sync in the decode loop; warm-up and "
+          f"capture {run_g['capture_s']:.3f} s; the graphed serve's peak "
+          f"{pool_gib:.3f} GiB above the weights", flush=True)
+    del run_b, run_gb
+
+    # each decode step against one uncached forward over the prompt and
+    # the tokens so far, at the same position (MLA: the absorbed decode
+    # against the expanded form)
+    inputs, steps_bf16 = run_a["inputs"], run_a["logits"]
+    want_bf16 = uncached_logits(torch, params, cfg, prompts, inputs)
+    ratios = [rel_gap(a, b) for a, b in zip(steps_bf16, want_bf16)]
+    print(f"{tag} {arch}, bf16: each decode step's logits against an "
+          f"uncached forward over the prompt and the tokens so far (no "
+          f"capacity drop there): max|d| / max|logit| worst "
+          f"{max(ratios):.3e} (steps {[f'{x:.1e}' for x in ratios]})",
+          flush=True)
+    if cfg.mla is None:
+        check(max(ratios) <= STACK_TOL, f"{tag} {arch}: decode vs uncached "
+              f"forward {max(ratios):.3e} (limit {STACK_TOL})")
+    del run_a, run_g
+
+    # warm timings: eager and graphed in turns, 2 runs each
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = {(n, g): [] for n in ("gated θ=0", "ungated")
+             for g in (False, True)}
+    for _ in range(2):
+        for n, c in (("gated θ=0", cfg), ("ungated", off)):
+            for g in (False, True):
+                run = serve.run_lm(params, c, prompts, LM_GEN, graph=g)
+                times[(n, g)].append((run["prefill_s"] * 1e3,
+                                      LM_GEN * LM_BATCH / run["decode_s"],
+                                      run["capture_s"]))
+                del run
+    best = {key: (min(t[0] for t in ts), max(t[1] for t in ts))
+            for key, ts in times.items()}
+    for (n, g), ts in times.items():
+        print(f"{tag} {arch} warm, bf16, batch {LM_BATCH}, prompt "
+              f"{LM_PROMPT}, {LM_GEN} tokens, {n}, "
+              f"{'graphed' if g else 'eager'}: prefill {best[(n, g)][0]:.3f}"
+              f" ms (best of {[round(t[0], 3) for t in ts]}), decode "
+              f"{best[(n, g)][1]:.1f} tokens/s (best of "
+              f"{[round(t[1], 1) for t in ts]})"
+              + (f", warm-up and capture s {[round(t[2], 3) for t in ts]}"
+                 if g else ""), flush=True)
+
+    # a graphed decode step's profile (position reset before each replay)
+    srv = lm_steps.make_serve_step(
+        cfg, ShapeConfig("serve", LM_PROMPT + LM_GEN, LM_BATCH, "decode"))
+    g = srv.fn.capture(params, torch.device(device))
+    pos = srv.fn.position
+    prof = profile(torch, lambda: (pos.fill_(LM_PROMPT), g.replay()),
+                   f"{tag} {arch} graphed decode step", top=6)
+    del srv, g, pos
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{tag} {arch}: peak memory {peak:.2f} GiB of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
+          f" GiB", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(params=n_params, active=n_active, gib=gib, peak=peak,
+               pool_gib=pool_gib, uncached=max(ratios), best=best,
+               step_busy_ms=prof["busy_ms"], step_idle=prof["idle"])
+    if cfg.mla is not None:
+        # MLA's absorbed decode and expanded forward round differently in
+        # bf16 (ROADMAP C.m3).  In f32 (all leaves f32, ~59 GiB), teacher-
+        # forced on the bf16 run's inputs: the absorbed decode against the
+        # expanded uncached forward within 1e-4, as the CPU f32 tests hold
+        # the algorithm.  In bf16 both forms lie ~3e-2 from the f32 model
+        # at this depth, so a step's bf16 decode and uncached forward lie
+        # up to their sum apart: the bf16 decode's worst step must lie no
+        # further from the f32 forward than 3e-2 or than the bf16
+        # uncached forward's worst step — the cached path no less
+        # accurate than the uncached one.
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        p32, gib32 = stack_weights(torch, cfg32, device)
+        run32 = serve.run_lm(p32, cfg32, prompts, LM_GEN, teacher=inputs,
+                             keep_logits=True, graph=False)
+        want32 = uncached_logits(torch, p32, cfg32, prompts, inputs)
+        r32 = [rel_gap(a, b) for a, b in zip(run32["logits"], want32)]
+        noise = [rel_gap(a, b) for a, b in zip(want_bf16, want32)]
+        err = [rel_gap(a, b) for a, b in zip(steps_bf16, want32)]
+        limit = max(STACK_TOL, max(noise))
+        print(f"{tag} {arch}, f32 ({gib32:.2f} GiB of weights), on the bf16 "
+              f"run's inputs: each absorbed decode step's logits against the "
+              f"expanded uncached forward: max|d| / max|logit| worst "
+              f"{max(r32):.3e} (limit {STACK_TOL_F32}; steps "
+              f"{[f'{x:.1e}' for x in r32]}); from that f32 forward, the "
+              f"bf16 decode lies {[f'{x:.1e}' for x in err]} and the bf16 "
+              f"uncached forward {[f'{x:.1e}' for x in noise]}: worst "
+              f"{max(err):.3e} and {max(noise):.3e} (the decode's limit "
+              f"{limit:.3e})", flush=True)
+        check(max(r32) <= STACK_TOL_F32, f"{tag} {arch} f32: decode vs "
+              f"uncached forward {max(r32):.3e}")
+        check(max(err) <= limit, f"{tag} {arch} bf16: the decode lies "
+              f"{max(err):.3e} from the f32 forward, beyond {limit:.3e}")
+        out.update(uncached_f32=max(r32), bf16_noise=max(noise),
+                   bf16_err=max(err))
+        del p32, run32, want32
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def rel_gap(a, b) -> float:
+    """max|a - b| / max|b|."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def uncached_logits(torch, params, cfg, prompts, inputs) -> list:
+    """For each column i of ``inputs`` (B, G), the last-position logits
+    (B, V) of one uncached forward over ``prompts`` and ``inputs[:, :i +
+    1]``: what a decode step fed inputs[:, i] computes.  An MoE's capacity
+    binds in such a forward (a dispatch group of tens of tokens, 8 slots
+    an expert) and never in a decode step (one token a group), and a
+    dropped assignment is a different function, not a rounding: the
+    forward runs at a capacity factor of the expert count, where an
+    expert has a slot for every assignment of its group (the reduced
+    configs raise theirs for the same consistency), and must drop
+    nothing (ROADMAP C.m2)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    seq = torch.cat([prompts, inputs], 1)
+    out = []
+    rec, undo = record_moe()
+    try:
+        for i in range(inputs.shape[1]):
+            h, _ = tfm.forward(params, seq[:, :prompts.shape[1] + i + 1],
+                               cfg)
+            out.append(tfm.unembed_logits(params, h[:, -1:], cfg)[:, 0])
+            del h
+    finally:
+        undo()
+    check(all(float(a["drop_fraction"]) == 0.0 for _, _, a in rec),
+          "the uncached forward dropped MoE assignments")
+    return out
+
+
+def serve_stack_cut(torch, engine, wrappers, arch, device="cuda") -> dict:
+    """Phase 9 for a config at its published widths with num_layers cut
+    to 2: a prefill and STACK_CUT_GEN decode steps, eager and graphed,
+    bitwise; no B1-B10 kernel launched."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    params, gib = stack_weights(torch, cfg, device)
+    prompts = serve.make_prompts(cfg, LM_BATCH, LM_PROMPT, 0, device)
+    runs = []
+    for graph in (False, True):
+        run, _, launches, _, secs = drive_counted(
+            torch, engine, wrappers, lambda: serve.run_lm(
+                params, cfg, prompts, STACK_CUT_GEN, keep_logits=True,
+                graph=graph), capture=False)
+        check(not any(launches.values()), f"[9] {arch}: B1-B10 launched "
+              f"{launches}")
+        check(bool(torch.isfinite(run["logits"]).all()),
+              f"[9] {arch}: logits not finite")
+        runs.append(run)
+    check(same_run(torch, runs[1], runs[0]), f"[9] {arch} (2 layers): the "
+          f"graphed serve is not bitwise the eager one")
+    print(f"[9] {arch} at its published widths, 2 layers "
+          f"({stack_describe(cfg)}; {gib:.2f} GiB): a prefill and "
+          f"{STACK_CUT_GEN} decode steps, graphed bitwise eager, B1-B10 "
+          f"launched 0 times; eager {runs[0]['decode_s'] * 1e3:.1f} ms, "
+          f"graphed {runs[1]['decode_s'] * 1e3:.1f} ms for the "
+          f"{STACK_CUT_GEN} steps", flush=True)
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(gib=gib)
+
+
+def stack_phase(torch, engine, wrappers, device="cuda") -> dict:
+    """Phase 9: DeepSeek-V2-Lite-16B and Gemma-2-27B at full width, then
+    the other four configs of the stack at 2 layers."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[9] before the phase: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated on the card", flush=True)
+    out = {arch: serve_stack(torch, engine, wrappers, arch, device)
+           for arch in STACK_FULL}
+    for arch in STACK_CUT:
+        out[arch] = serve_stack_cut(torch, engine, wrappers, arch, device)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[9] phase 9 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -2139,6 +2578,9 @@ def run(torch) -> int:
     # -- 7. Hymba-1.5B at full width, served (RWKV6-7B's weights freed) ------
     hymba = serve_lm(torch, engine, wrappers, "hymba-1.5b",
                      mamba_step_events_ref)
+
+    # -- 9. the attention decoder stack (Hymba-1.5B's weights freed) ---------
+    stack = stack_phase(torch, engine, wrappers)
 
     # -- 3. kernel checks on the captured inputs ------------------------------
     results = []
@@ -2607,7 +3049,15 @@ def run(torch) -> int:
           f"one layer's scan at prompt {LM_LONG}: B9' "
           f"{long_ms['wkv_long_ms']:.4f} ms, B10 "
           f"{long_ms['scan_long_ms']:.4f} ms (its streams entry "
-          f"{long_ms['scan_streams_long_ms']:.4f} ms); served (phase 8): "
+          f"{long_ms['scan_streams_long_ms']:.4f} ms); batch {LM_BATCH}, "
+          f"eager (graphed) decode tokens/s, gated θ=0: "
+          + "; ".join(
+              f"{arch} {stack[arch]['best'][('gated θ=0', False)][1]:.1f} "
+              f"({stack[arch]['best'][('gated θ=0', True)][1]:.1f}), "
+              f"prefill {stack[arch]['best'][('gated θ=0', False)][0]:.3f} "
+              f"({stack[arch]['best'][('gated θ=0', True)][0]:.3f}) ms, "
+              f"peak {stack[arch]['peak']:.2f} GiB" for arch in STACK_FULL)
+          + f" (phase 9: {stack['seconds']:.1f} s); served (phase 8): "
           + "; ".join(
               f"{net} {r['stats']['requests_s']} requests/s, p50 "
               f"{r['stats']['p50_ms']} ms, p99 {r['stats']['p99_ms']} ms, "

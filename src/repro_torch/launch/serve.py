@@ -3,19 +3,23 @@ CNN/MLP serving tier — port of ``repro.launch.serve`` on one device, no
 mesh::
 
     python -m repro_torch.launch.serve --arch rwkv6-7b --mnf
-    python -m repro_torch.launch.serve --arch hymba-1.5b --mnf
+    python -m repro_torch.launch.serve --arch gemma2-27b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --reduced --device cpu --mnf
 
-LM mode.  Weights are random from ``--seed`` (f32, as the config's param
-dtype; the leaves a block casts are cast once to the compute dtype),
-prompts are random tokens from the same seed.  With MNF on (``--mnf`` or
-a non-zero ``--mnf-threshold``; RWKV6-7B and Hymba-1.5B have it on by
-default) every decode step runs the fire-gated state update (B7 for
-RWKV6, B8 for Hymba's Mamba heads, on the card) and reports its fired
-events; Hymba's prefill runs its selective scan through B10 on the card
-either way.  On the card the prefill and the decode step run as CUDA
-graphs (``launch.steps``), captured before the timed runs.  Prints one
+LM mode serves every architecture of ``configs.ARCH_IDS``.  Weights are
+random from ``--seed``, drawn in f32 (the configs' param dtype) one
+module at a time, the leaves a block casts cast to the compute dtype as
+they are made (``transformer.init_compute_params``: the f32 model is
+never held whole); prompts are random tokens from the same seed.  With
+MNF on (``--mnf`` or a non-zero ``--mnf-threshold``; every config has it
+on at θ = 0) each FFN fires between its up and down projections
+(``engine.sparsify``, plain torch), and every decode step of RWKV6 and
+Hymba runs the fire-gated state update (B7 for RWKV6, B8 for Hymba's
+Mamba heads, on the card) and reports its fired events; Hymba's prefill
+runs its selective scan through B10 on the card either way.  On the card
+the prefill and the decode step run as CUDA graphs (``launch.steps``),
+captured before the timed runs.  Prints one
 stats JSON line: ``prefill_s`` and ``decode_tok_per_s`` (warm replays),
 ``capture_s``, ``events_per_token`` with its min and max,
 ``events_per_layer``.  The prompt is ``--prompt-len`` tokens.  (The JAX
@@ -59,7 +63,7 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.device import default_device
 from repro_torch.launch import steps
@@ -205,7 +209,7 @@ def serve_lm(args) -> dict:
     cfg = lm_config(args.arch, reduced=args.reduced, mnf=args.mnf,
                     threshold=args.mnf_threshold)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
-    params = tfm.compute_params(tfm.init_params(args.seed, cfg, dev), cfg)
+    params = tfm.init_compute_params(args.seed, cfg, dev)
     prompts = make_prompts(cfg, args.batch, args.prompt_len, args.seed, dev)
     with torch.inference_mode():
         run = run_lm(params, cfg, prompts, args.gen)
@@ -413,8 +417,7 @@ def serve_smoke(args) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="rwkv6-7b",
-                    choices=("rwkv6-7b", "hymba-1.5b"))
+    ap.add_argument("--arch", default="rwkv6-7b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,13 +1,18 @@
-"""Attention — port of the GQA/MHA half of ``repro.models.attention``:
-chunked online-softmax attention and the attention layer with its KV cache.
+"""Attention — port of ``repro.models.attention``: chunked online-softmax
+attention, the GQA/MHA layer (with optional QKV biases) and its KV cache,
+and DeepSeek-V2's multi-head latent attention (MLA).
 
 :func:`chunked_attention` keeps the JAX package's numerics: f32 logits and
 running max and sum, probabilities cast to the K/V dtype before the PV
 product (accumulated in f32), masked logits at ``_NEG``, a position
 attending where ``0 <= q_pos - kv_pos < window`` (``GLOBAL_WINDOW``: no
 bound) and below ``kv_len``, query head h reading KV head h // (H / KH).
-A Python loop over KV chunks stands in for ``lax.scan``.  MLA waits for
-the LM stack (ROADMAP.md queue A).
+A Python loop over KV chunks stands in for ``lax.scan``.
+
+MLA keeps the JAX package's two formulations: without a cache the
+expanded one (keys and values decompressed from the latent, then
+:func:`chunked_attention`); with a cache — the prefill too — the absorbed
+one, scoring the queries directly against the compressed cache in f32.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ import torch
 from repro_torch.models.layers import apply_rope, dtype_of
 from repro_torch.models.param_utils import Init
 
-__all__ = ["attn_apply", "attn_init", "chunked_attention"]
+__all__ = ["ATTN_WEIGHTS", "MLA_WEIGHTS", "attn_apply", "attn_init",
+           "chunked_attention", "mla_apply", "mla_init"]
 
 _NEG = -1e30
 
@@ -89,20 +95,39 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # Standard GQA/MHA attention layer
 # ---------------------------------------------------------------------------
 
-#: The attention leaves each use casts to the compute dtype.
-ATTN_WEIGHTS = ("wq", "wk", "wv", "wo")
+#: The attention leaves each use casts to the compute dtype (the QKV
+#: biases included).
+ATTN_WEIGHTS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 
-def attn_init(seed: int, cfg, device="cpu") -> dict:
-    """The projections of one GQA layer (the QKV biases of
-    ``cfg.qkv_bias`` come with the LM stack, ROADMAP.md queue A)."""
+def attn_init(seed: int, cfg, device) -> dict:
+    """The projections of one GQA layer, and with ``cfg.qkv_bias`` the
+    query, key and value biases (zeros, as the JAX package makes them)."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     b = Init(seed, dtype_of(cfg.param_dtype), device)
     b.dense("wq", (d, qd))
     b.dense("wk", (d, kvd))
     b.dense("wv", (d, kvd))
     b.dense("wo", (qd, d))
+    if cfg.qkv_bias:
+        b.zeros("bq", (qd,))
+        b.zeros("bk", (kvd,))
+        b.zeros("bv", (kvd,))
     return b.done()
+
+
+def _write_cache(cache, new: dict, decode_pos, s: int, in_place: bool):
+    """Each leaf of ``new`` (B, S, ...) written at rows ``decode_pos +
+    arange(S)`` of the same leaf of ``cache`` (B, Smax, ...): into a copy
+    (the JAX package's functional update) or, with ``in_place``, into the
+    cache's own tensor.  Returns the written cache."""
+    out = {}
+    for name, val in new.items():
+        leaf = cache[name] if in_place else cache[name].clone()
+        rows = decode_pos + torch.arange(s, device=val.device)
+        leaf.index_copy_(1, rows, val.to(leaf.dtype))
+        out[name] = leaf
+    return out
 
 
 def attn_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
@@ -122,6 +147,10 @@ def attn_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
     q = x @ p["wq"].to(cdt)
     k = x @ p["wk"].to(cdt)
     v = x @ p["wv"].to(cdt)
+    if "bq" in p:
+        q = q + p["bq"].to(cdt)
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
     q = q.reshape(bsz, s, cfg.num_heads, cfg.head_dim)
     k = k.reshape(bsz, s, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(bsz, s, cfg.num_kv_heads, cfg.head_dim)
@@ -131,19 +160,99 @@ def attn_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
     new_cache = (k, v)
     kv_len = None
     if cache is not None:
-        ck, cv = cache["k"], cache["v"]
-        if not in_place:
-            ck, cv = ck.clone(), cv.clone()
-        rows = decode_pos + torch.arange(s, device=x.device)
-        ck.index_copy_(1, rows, k.to(ck.dtype))
-        cv.index_copy_(1, rows, v.to(cv.dtype))
-        k, v = ck, cv
+        new_cache = _write_cache(cache, dict(k=k, v=v), decode_pos, s,
+                                 in_place)
+        k, v = new_cache["k"], new_cache["v"]
         kv_len = decode_pos + s
-        new_cache = dict(k=ck, v=cv)
 
     out = chunked_attention(q, k.to(cdt), v.to(cdt), q_positions=positions,
                             window=window, kv_len=kv_len,
                             softcap=cfg.attn_logit_softcap,
                             chunk=cfg.attn_chunk)
     out = out.reshape(bsz, s, cfg.q_dim) @ p["wo"].to(cdt)
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed KV with decoupled RoPE
+# ---------------------------------------------------------------------------
+
+#: The MLA leaves each use casts to the compute dtype.
+MLA_WEIGHTS = ("wq", "w_dkv", "w_uk", "w_uv", "wo")
+
+
+def mla_init(seed: int, cfg, device) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    b = Init(seed, dtype_of(cfg.param_dtype), device)
+    b.dense("wq", (d, h * qk))
+    b.dense("w_dkv", (d, m.kv_lora_rank + m.qk_rope_dim))
+    b.dense("w_uk", (m.kv_lora_rank, h * m.qk_nope_dim))
+    b.dense("w_uv", (m.kv_lora_rank, h * m.v_head_dim))
+    b.dense("wo", (h * m.v_head_dim, d))
+    return b.done()
+
+
+def mla_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
+              cache=None, decode_pos=None, in_place: bool = False):
+    """x (B, S, d).  Returns (out (B, S, d), new cache or (c, kr)).
+
+    Without a cache: the expanded formulation, returning the latent c
+    (B, S, kv_lora_rank) and the rotated shared key kr (B, S,
+    qk_rope_dim).  With one — dict(c=(B, Smax, kv_lora_rank), kr=(B,
+    Smax, qk_rope_dim)) — c and kr are written at ``decode_pos`` as
+    :func:`attn_apply` writes K and V (``in_place`` alike), and the
+    queries, with W_uk absorbed, score the whole cache below ``kv_len =
+    decode_pos + S`` in f32; the context is taken in the latent space and
+    W_uv applied after."""
+    m = cfg.mla
+    bsz, s, _ = x.shape
+    cdt = x.dtype
+    h = cfg.num_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    scale = qk ** -0.5
+    f32 = torch.float32
+
+    q = (x @ p["wq"].to(cdt)).reshape(bsz, s, h, qk)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckr = x @ p["w_dkv"].to(cdt)                         # (B, S, lora+rope)
+    c, kr = ckr[..., :m.kv_lora_rank], ckr[..., m.kv_lora_rank:]
+    kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+
+    if cache is None:
+        # expanded formulation (train / uncached forward)
+        k_nope = (c @ p["w_uk"].to(cdt)).reshape(bsz, s, h, m.qk_nope_dim)
+        value = (c @ p["w_uv"].to(cdt)).reshape(bsz, s, h, m.v_head_dim)
+        kfull = torch.cat([k_nope, kr[:, :, None, :].expand(
+            bsz, s, h, m.qk_rope_dim)], dim=-1)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        out = chunked_attention(qfull, kfull, value, q_positions=positions,
+                                window=window, causal=True,
+                                softcap=cfg.attn_logit_softcap,
+                                chunk=cfg.attn_chunk, scale=scale)
+        out = out.reshape(bsz, s, h * m.v_head_dim) @ p["wo"].to(cdt)
+        return out, (c, kr)
+
+    # absorbed formulation: scores against the compressed cache
+    new_cache = _write_cache(cache, dict(c=c, kr=kr), decode_pos, s,
+                             in_place)
+    cc, ckr_c = new_cache["c"], new_cache["kr"]
+    kv_len = decode_pos + s
+    wk = p["w_uk"].to(cdt).reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+    q_c = torch.einsum("bshn,lhn->bshl", q_nope, wk)        # absorb W_uk
+    logits = (torch.einsum("bshl,btl->bsht", q_c.float(), cc.float())
+              + torch.einsum("bshr,btr->bsht", q_rope.float(),
+                             ckr_c.float())) * scale
+    tpos = torch.arange(cc.shape[1], device=x.device)
+    delta = positions.to(torch.int64)[:, None] - tpos[None, :]  # (S, T)
+    ok = (tpos[None, :] < kv_len) & (delta >= 0) & (delta < int(window))
+    logits = logits.masked_fill(~ok[None, :, None, :], _NEG)
+    probs = torch.softmax(logits, dim=-1)
+    ctx_c = torch.einsum("bsht,btl->bshl", probs,
+                         cc.to(f32)).to(cdt)                # (B, S, H, lora)
+    wv = p["w_uv"].to(cdt).reshape(m.kv_lora_rank, h, m.v_head_dim)
+    out = torch.einsum("bshl,lhv->bshv", ctx_c, wv)         # absorb W_uv
+    out = out.reshape(bsz, s, h * m.v_head_dim) @ p["wo"].to(cdt)
     return out, new_cache

@@ -17,7 +17,7 @@ from repro_torch.models.param_utils import Init, fold_in
 __all__ = ["hymba_block_apply", "hymba_block_init"]
 
 
-def hymba_block_init(seed: int, cfg, device="cpu") -> dict:
+def hymba_block_init(seed: int, cfg, device) -> dict:
     b = Init(seed, layers.dtype_of(cfg.param_dtype), device)
     b.params["attn"] = attention.attn_init(fold_in(seed, 1), cfg, device)
     b.params["mamba"] = ssm.mamba_init(fold_in(seed, 2), cfg,

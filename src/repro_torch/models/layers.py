@@ -98,7 +98,7 @@ MLP_WEIGHTS = ("w_gate", "w_up", "w_down")
 
 
 def mlp_init(seed: int, cfg, d_ff: int | None = None,
-             d_model: int | None = None, device="cpu") -> dict:
+             d_model: int | None = None, *, device) -> dict:
     d = d_model or cfg.d_model
     f = d_ff or cfg.d_ff
     b = Init(seed, dtype_of(cfg.param_dtype), device)
@@ -124,7 +124,7 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return (h @ p["w_down"].to(cdt)).to(x.dtype)
 
 
-def embed_init(seed: int, cfg, device="cpu") -> dict:
+def embed_init(seed: int, cfg, device) -> dict:
     b = Init(seed, dtype_of(cfg.param_dtype), device)
     # 1/sqrt(d) rows: keeps tied-unembedding logits at unit scale.
     b.dense("tok", (cfg.vocab_size, cfg.d_model), scale=cfg.d_model ** -0.5)
@@ -134,7 +134,8 @@ def embed_init(seed: int, cfg, device="cpu") -> dict:
 
 
 def embed_apply(p: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """Embedding rows (f32) gathered, then cast to the compute dtype
+    """Embedding rows gathered, then cast to the compute dtype — the same
+    bits whether the table is f32 or its compute-dtype copy
     (``index_select``: far less host time than advanced indexing of the
     (V, d) table; PERF.md §5)."""
     cdt = dtype_of(cfg.compute_dtype)
@@ -147,7 +148,8 @@ def embed_apply(p: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
 
 def unembed_matrix(p: dict, cfg) -> torch.Tensor:
     """The (d, V) unembedding in the compute dtype (the logits multiply
-    its bf16-rounded values in f32)."""
+    its bf16-rounded values in f32); a view, no copy, when the table
+    already is in the compute dtype (``transformer.compute_params``)."""
     cdt = dtype_of(cfg.compute_dtype)
     if cfg.tie_embeddings:
         return p["tok"].T.to(cdt)

@@ -31,15 +31,18 @@ def fold_in(seed: int, data: int) -> int:
 
 class Init:
     """Collects the params of one module tree.  ``seed`` is an int; leaves
-    are made on ``device`` in ``dtype``."""
+    are made on ``device`` in ``dtype`` (on the ``meta`` device: shapes
+    and dtypes only, nothing drawn or allocated)."""
 
-    def __init__(self, seed: int, dtype=torch.float32, device="cpu"):
+    def __init__(self, seed: int, dtype: torch.dtype, device):
         self.seed = seed
         self.dtype = dtype
         self.device = torch.device(device)
         self.params: dict = {}
 
-    def _generator(self, name: str) -> torch.Generator:
+    def _generator(self, name: str) -> torch.Generator | None:
+        if self.device.type == "meta":
+            return None
         g = torch.Generator(device=self.device)
         g.manual_seed(fold_in(self.seed, zlib.crc32(name.encode())))
         return g

@@ -131,7 +131,7 @@ def wkv6_step_gated(r, k, v, w, u, s, ecfg):
 # RWKV6 block (time-mix + channel-mix)
 # ---------------------------------------------------------------------------
 
-def rwkv6_block_init(seed: int, cfg, device="cpu") -> dict:
+def rwkv6_block_init(seed: int, cfg, device) -> dict:
     d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
     assert h * hd == d, "rwkv6: heads * head_dim must equal d_model"
     b = Init(seed, layers.dtype_of(cfg.param_dtype), device)
@@ -273,8 +273,8 @@ def _dt_rank(cfg) -> int:
     return cfg.ssm.dt_rank or -(-cfg.d_model // 16)
 
 
-def mamba_init(seed: int, cfg, d_inner: int | None = None,
-               device="cpu") -> dict:
+def mamba_init(seed: int, cfg, d_inner: int | None = None, *,
+               device) -> dict:
     ssm = cfg.ssm
     d = cfg.d_model
     di = d_inner or ssm.expand * d

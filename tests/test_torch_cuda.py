@@ -1044,6 +1044,35 @@ def test_lm_graphs_replay_bitwise_eager(dev, arch, gated):
         srv.fn(other, run["cache"], dict(tokens=tok), pos)
 
 
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "gemma2-27b"])
+def test_lm_stack_graphs_replay_bitwise_eager_twice(dev, arch, gated):
+    """The reduced DeepSeek-V2-Lite (MLA, the sort-dispatched MoE and its
+    dense first layer) and Gemma-2 (softcaps, alternating windows, tied
+    embeddings) in their own bf16: the graphed serve (prefill plus 4
+    decode steps) is bitwise the eager serve — tokens, logits and every
+    cache leaf — and a second eager and a second graphed serve repeat
+    those bits (the MoE combine sums each token's contributions in a
+    fixed order, with no float atomics); no B1-B10 kernel launches on
+    this path; the decode loop makes no host sync."""
+    cfg = serve.lm_config(arch, reduced=True)
+    cfg = dataclasses.replace(cfg, mnf=dataclasses.replace(cfg.mnf,
+                                                           enabled=gated))
+    params = tfm.init_compute_params(0, cfg, dev)
+    prompts = serve.make_prompts(cfg, 2, 12, 0, dev)
+    runs = []
+    for graph in (False, True, False, True):
+        run, seen = _counted(lambda: serve.run_lm(
+            params, cfg, prompts, 4, keep_logits=True, graph=graph))
+        assert not any(seen.values()), seen
+        runs.append(run)
+    for run in runs[1:]:
+        for key in ("tokens", "inputs", "prefill_logits", "logits"):
+            assert torch.equal(run[key], runs[0][key]), key
+        assert _cache_equal(run["cache"], runs[0]["cache"])
+    assert runs[1]["launches"] == {} and runs[0]["events"] is None
+
+
 @pytest.mark.parametrize("net", ["mini", "mlp_mini"])
 def test_serve_engine_on_card(dev, net):
     """``ServeEngine`` on the card, buckets (1, 2, 4): one capture a bucket

@@ -578,7 +578,7 @@ def test_port_init_params_match_jax_shapes_and_constants():
 
 def _mamba_decode_once(cfg, seed=11):
     cfg = dataclasses.replace(cfg, compute_dtype="float32")
-    p = tssm.mamba_init(3, cfg, d_inner=cfg.d_model)
+    p = tssm.mamba_init(3, cfg, d_inner=cfg.d_model, device="cpu")
     r_ = np.random.default_rng(seed)
     conv = torch.from_numpy(r_.normal(size=(
         2, cfg.ssm.conv_dim - 1, cfg.d_model)).astype(np.float32))

@@ -249,7 +249,9 @@ def test_recurrent_step_trace_and_outputs_match_jax(case):
 
 
 def test_get_config_names_the_roadmap_item_of_unported_archs():
-    for arch in ("rwkv6-7b", "hymba-1.5b"):
+    for arch in ("rwkv6-7b", "hymba-1.5b", "qwen2-0.5b", "qwen2-1.5b",
+                 "minitron-8b", "gemma2-27b", "deepseek-moe-16b",
+                 "deepseek-v2-lite-16b"):
         cfg = get_config(arch)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
             jget_config(arch))
@@ -257,9 +259,9 @@ def test_get_config_names_the_roadmap_item_of_unported_archs():
             jget_config(arch).reduced())
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md queue A item 12"):
-        get_config("qwen2-0.5b")
+        get_config("whisper-base")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("deepseek-v2-lite-16b")
+        get_config("phi-3-vision-4.2b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
