@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
-8, 6, 7, 9, 3, so that phase 3 can replay what phases 2, 4, 5, 6 and 7
-handed the kernels, phase 8's graphs are freed before phase 6 loads its
-model, and each LM's weights before the next LM's):
+8, 6, 7, 9, 10, 11, 3, so that phase 3 can replay what phases 2, 4, 5, 6
+and 7 handed the kernels, phase 8's graphs are freed before phase 6 loads
+its model, and each LM's weights before the next LM's):
 
 1. Probe and build: the card's name and power limit, TF32 off for the dense
    oracles, the CUDA kernels (B1-B10) built from src/repro_torch/csrc.
@@ -169,6 +169,26 @@ model, and each LM's weights before the next LM's):
    biases set to seeded values), minitron-8b and deepseek-moe-16b at their
    published widths with num_layers cut to 2: a prefill and 4 decode
    steps, graphed bitwise eager.  Prints the phase's seconds.
+10. Whisper-base and phi-3-vision-4.2b, after phase 9's models are freed
+   and the allocator's cache emptied, at full width (weights random from
+   seed 0, ``init_compute_params``), batch 4, 16 greedy tokens through
+   ``run_lm``: whisper at prompt 32 with 1500 audio frames, phi-3-vision
+   at prompt 160 (144 patch positions, 16 text tokens), the frames and
+   patch embeddings normal x 0.02 from seed 0 (``serve.make_lm_inputs``).
+   Checked and reported as phase 9's models (counts 0, θ = 0 bitwise
+   ungated, graphed bitwise eager with the cross K/V leaves, each decode
+   step within 3e-2 of max|logit| of an uncached bf16 forward with the
+   same audio or vision input), and beyond: whisper's encoder ran once in
+   the eager serve (its prefill) and never in a decode step, and the
+   cross K/V of an eager prefill and of the serve's final cache are
+   bitwise ``_cross_kv`` of a separate ``_encode_audio`` run (the encoder
+   timed on its own line); phi-3's prefill logits move with a second
+   vision input while the embeddings past position 144 stay bitwise.
+11. The ``scalar`` backend (the paper's Algorithms 2 and 1, plain torch)
+   on the card: ``engine.linear`` on LeNet-300-100's FC1 at batch 2 and
+   ``engine.conv2d`` on the MINI CNN's first layer at batch 1 (strides 1
+   and 2, paddings 0 and 1), each within 1e-4 of max|ref| of torch.matmul
+   / F.conv2d in f32 (TF32 off), no B1-B10 launch.
 3. Kernel checks: each kernel against its plain PyTorch version on the
    inputs the forwards handed it (B1, B2 and B5 at the shapes of both
    VGG16 and LeNet-300-100), plus the strip convs at stride 4 and 2
@@ -1834,6 +1854,12 @@ def stack_describe(cfg) -> str:
                 f"norms")
     if cfg.qkv_bias:
         out += ", QKV biases"
+    if cfg.encoder_decoder:
+        out += (f", an encoder of {cfg.enc_layers} layers over "
+                f"{cfg.enc_frames} audio frames, cross-attention in each "
+                f"decoder layer")
+    if cfg.vision_tokens:
+        out += f", {cfg.vision_tokens} vision tokens"
     return out + (", tied embeddings" if cfg.tie_embeddings else "")
 
 
@@ -1874,6 +1900,19 @@ def record_moe():
     return rec, lambda: setattr(moe, "moe_apply", orig)
 
 
+def record_encoder():
+    """Count ``transformer._encode_audio``'s calls (the eager ones; a
+    graph's replays make none).  Returns (calls, undo)."""
+    from repro_torch.models import transformer as tfm
+    orig, rec = tfm._encode_audio, []
+
+    def spy(*args):
+        rec.append(1)
+        return orig(*args)
+    tfm._encode_audio = spy
+    return rec, lambda: setattr(tfm, "_encode_audio", orig)
+
+
 def same_run(torch, a, b) -> bool:
     """Tokens, inputs, the prefill's and every step's logits and every
     cache leaf bitwise equal."""
@@ -1885,12 +1924,14 @@ def same_run(torch, a, b) -> bool:
                                        for x, y in zip(la, lb))
 
 
-def serve_stack(torch, engine, wrappers, arch, device="cuda") -> dict:
-    """Phase 9 at full width: ``arch``'s weights from seed 0 (bf16 where
-    the blocks cast, ~31 GB for DeepSeek-V2-Lite, ~54 GB for Gemma-2-27B),
-    batch 4, prompt 32, 16 greedy tokens through ``run_lm``, every count
-    set to 0 before each serve and read after (no B1-B10 kernel on this
-    path).  Checks: MNF on at θ = 0 bitwise ungated (tokens, logits); the
+def serve_stack(torch, engine, wrappers, arch, device="cuda", *,
+                tag="[9]", prompt=LM_PROMPT, card="") -> dict:
+    """Phase 9 (or 10) at full width: ``arch``'s weights from seed 0 (bf16
+    where the blocks cast, ~31 GB for DeepSeek-V2-Lite, ~54 GB for
+    Gemma-2-27B), batch 4, ``prompt`` tokens (with whisper's audio frames
+    or phi-3-vision's patch embeddings, ``serve.make_lm_inputs``), 16
+    greedy tokens through ``run_lm``, every count set to 0 before each
+    serve and read after (no B1-B10 kernel on this path).  Checks: MNF on at θ = 0 bitwise ungated (tokens, logits); the
     graphed serve bitwise the eager one (tokens, every step's logits, the
     final cache), gated and ungated; each decode step's logits within
     STACK_TOL of max|logit| of an uncached forward over the prompt and
@@ -1898,9 +1939,10 @@ def serve_stack(torch, engine, wrappers, arch, device="cuda") -> dict:
     form) in f32 within STACK_TOL_F32, and in bf16 no further from that
     f32 forward than the bf16 forward is; for an MoE no assignment
     dropped in any decode step and the expert loads summing to tokens x
-    top_k.  Prints parameters, weight
-    GiB, peak memory, prefill ms and tokens/s eager and graphed (best of 2
-    warm runs in turns), capture s, a graphed step's profile."""
+    top_k; for whisper and phi-3-vision ``encdec_vlm_checks``.  Prints
+    parameters, weight GiB, peak memory, prefill ms and tokens/s eager and
+    graphed (best of 2 warm runs in turns), capture s, a graphed step's
+    profile."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1911,7 +1953,6 @@ def serve_stack(torch, engine, wrappers, arch, device="cuda") -> dict:
     from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
 
-    tag = "[9]"
     cfg = get_config(arch)
     check(cfg.mnf.enabled and cfg.mnf.threshold == 0.0
           and cfg.compute_dtype == "bfloat16", f"unexpected config {cfg}")
@@ -1925,15 +1966,17 @@ def serve_stack(torch, engine, wrappers, arch, device="cuda") -> dict:
           f"G params, {n_active / 1e9:.3f} G active a token; weights "
           f"{gib:.2f} GiB on the card (bf16 but the norms"
           f"{' and routers' if cfg.moe else ''}), built layer by layer from "
-          f"seed 0 in {time.perf_counter() - t0:.2f} s", flush=True)
-    prompts = serve.make_prompts(cfg, LM_BATCH, LM_PROMPT, 0, device)
+          f"seed 0 in {time.perf_counter() - t0:.2f} s"
+          + (f"; card {card}" if card else ""), flush=True)
+    prompts = serve.make_prompts(cfg, LM_BATCH, prompt, 0, device)
+    extra = serve.make_lm_inputs(cfg, LM_BATCH, 0, device)
     zero = {n: 0 for n in wrappers}
 
     def served(stag, c, graph):
         run, recs, launches, _, _ = drive_counted(
             torch, engine, wrappers, lambda: serve.run_lm(
-                params, c, prompts, LM_GEN, keep_logits=True, graph=graph),
-            capture=False)
+                params, c, prompts, LM_GEN, keep_logits=True, graph=graph,
+                **extra), capture=False)
         check(launches == zero, f"{stag}: B1-B10 launched {launches}")
         check(not any(r.get("op") == "recurrent_step" for r in recs),
               f"{stag} ran a recurrent_step")
@@ -1945,12 +1988,21 @@ def serve_stack(torch, engine, wrappers, arch, device="cuda") -> dict:
               f"not finite")
         return run
 
-    # the main path, eager: MNF on at θ = 0, bf16 (an MoE's calls kept)
+    # the main path, eager: MNF on at θ = 0, bf16 (an MoE's calls and the
+    # encoder's runs kept)
     moe_rec, undo = record_moe()
+    enc_rec, undo_enc = record_encoder()
     try:
         run_a = served(f"{tag} {arch} eager gated θ=0", cfg, False)
     finally:
         undo()
+        undo_enc()
+    if cfg.encoder_decoder:
+        check(len(enc_rec) == 1, f"{tag} {arch}: the encoder ran "
+              f"{len(enc_rec)} times in a prefill and {LM_GEN} decode "
+              f"steps, want once (in the prefill)")
+        print(f"{tag} {arch}: the encoder ran once in the eager serve (its "
+              f"prefill) and 0 times in its {LM_GEN} decode steps", flush=True)
     run_b = served(f"{tag} {arch} eager ungated", off, False)
     check(all(torch.equal(run_a[k], run_b[k]) for k in (
         "tokens", "prefill_logits", "logits")),
@@ -2009,7 +2061,7 @@ def serve_stack(torch, engine, wrappers, arch, device="cuda") -> dict:
     # the tokens so far, at the same position (MLA: the absorbed decode
     # against the expanded form)
     inputs, steps_bf16 = run_a["inputs"], run_a["logits"]
-    want_bf16 = uncached_logits(torch, params, cfg, prompts, inputs)
+    want_bf16 = uncached_logits(torch, params, cfg, prompts, inputs, extra)
     ratios = [rel_gap(a, b) for a, b in zip(steps_bf16, want_bf16)]
     print(f"{tag} {arch}, bf16: each decode step's logits against an "
           f"uncached forward over the prompt and the tokens so far (no "
@@ -2019,6 +2071,10 @@ def serve_stack(torch, engine, wrappers, arch, device="cuda") -> dict:
     if cfg.mla is None:
         check(max(ratios) <= STACK_TOL, f"{tag} {arch}: decode vs uncached "
               f"forward {max(ratios):.3e} (limit {STACK_TOL})")
+    extra_out = {}
+    if cfg.encoder_decoder or cfg.vision_tokens:
+        extra_out = encdec_vlm_checks(torch, params, cfg, prompts, extra,
+                                      run_a, tag, card)
     del run_a, run_g
 
     # warm timings: eager and graphed in turns, 2 runs each
@@ -2029,7 +2085,8 @@ def serve_stack(torch, engine, wrappers, arch, device="cuda") -> dict:
     for _ in range(2):
         for n, c in (("gated θ=0", cfg), ("ungated", off)):
             for g in (False, True):
-                run = serve.run_lm(params, c, prompts, LM_GEN, graph=g)
+                run = serve.run_lm(params, c, prompts, LM_GEN, graph=g,
+                                   **extra)
                 times[(n, g)].append((run["prefill_s"] * 1e3,
                                       LM_GEN * LM_BATCH / run["decode_s"],
                                       run["capture_s"]))
@@ -2038,7 +2095,7 @@ def serve_stack(torch, engine, wrappers, arch, device="cuda") -> dict:
             for key, ts in times.items()}
     for (n, g), ts in times.items():
         print(f"{tag} {arch} warm, bf16, batch {LM_BATCH}, prompt "
-              f"{LM_PROMPT}, {LM_GEN} tokens, {n}, "
+              f"{prompt}, {LM_GEN} tokens, {n}, "
               f"{'graphed' if g else 'eager'}: prefill {best[(n, g)][0]:.3f}"
               f" ms (best of {[round(t[0], 3) for t in ts]}), decode "
               f"{best[(n, g)][1]:.1f} tokens/s (best of "
@@ -2048,10 +2105,10 @@ def serve_stack(torch, engine, wrappers, arch, device="cuda") -> dict:
 
     # a graphed decode step's profile (position reset before each replay)
     srv = lm_steps.make_serve_step(
-        cfg, ShapeConfig("serve", LM_PROMPT + LM_GEN, LM_BATCH, "decode"))
+        cfg, ShapeConfig("serve", prompt + LM_GEN, LM_BATCH, "decode"))
     g = srv.fn.capture(params, torch.device(device))
     pos = srv.fn.position
-    prof = profile(torch, lambda: (pos.fill_(LM_PROMPT), g.replay()),
+    prof = profile(torch, lambda: (pos.fill_(prompt), g.replay()),
                    f"{tag} {arch} graphed decode step", top=6)
     del srv, g, pos
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2063,7 +2120,8 @@ def serve_stack(torch, engine, wrappers, arch, device="cuda") -> dict:
     torch.cuda.empty_cache()
     out = dict(params=n_params, active=n_active, gib=gib, peak=peak,
                pool_gib=pool_gib, uncached=max(ratios), best=best,
-               step_busy_ms=prof["busy_ms"], step_idle=prof["idle"])
+               step_busy_ms=prof["busy_ms"], step_idle=prof["idle"],
+               **extra_out)
     if cfg.mla is not None:
         # MLA's absorbed decode and expanded forward round differently in
         # bf16 (ROADMAP C.m3).  In f32 (all leaves f32, ~59 GiB), teacher-
@@ -2105,15 +2163,78 @@ def serve_stack(torch, engine, wrappers, arch, device="cuda") -> dict:
     return out
 
 
+def encdec_vlm_checks(torch, params, cfg, prompts, extra, run_a, tag,
+                      card) -> dict:
+    """Phase 10's checks beyond phase 9's.  Whisper: an eager prefill's
+    cross K/V, and those the eager serve ended with, bitwise ``_cross_kv``
+    of a separate ``_encode_audio`` run on the same frames; the encoder
+    and cross K/V timed warm (CUDA events).  Phi-3-vision: a second
+    vision input changes the prefill's logits and leaves the embeddings
+    past the vision tokens bitwise unchanged."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    out = {}
+    if cfg.encoder_decoder:
+        frames = extra["audio_frames"]
+
+        def encode():
+            return tfm._cross_kv(params, tfm._encode_audio(params, frames,
+                                                           cfg), cfg)
+        want_k, want_v = encode()
+        _, cache = tfm.prefill(params, prompts, cfg,
+                               max_len=prompts.shape[1] + LM_GEN,
+                               audio_frames=frames)
+        for name, c in (("an eager prefill", cache["scan"]),
+                        ("the serve's final cache", run_a["cache"]["scan"])):
+            check(torch.equal(c["cross_k"], want_k)
+                  and torch.equal(c["cross_v"], want_v),
+                  f"{tag} {cfg.name}: the cross K/V of {name} are not "
+                  f"bitwise _cross_kv of a separate encoder run")
+        enc_ms = cuda_ms(torch, encode, iters=5)
+        print(f"{tag} {cfg.name}: the cross K/V ({tuple(want_k.shape)}, "
+              f"{want_k.dtype}) of an eager prefill and of the serve's final "
+              f"cache bitwise _cross_kv of a separate _encode_audio run; "
+              f"encoder ({cfg.enc_layers} layers over {cfg.enc_frames} "
+              f"frames, batch {LM_BATCH}) and cross K/V, warm, eager: "
+              f"{enc_ms:.3f} ms a prefill (mean of 5, CUDA events; card "
+              f"{card})", flush=True)
+        out["encoder_ms"] = enc_ms
+        del cache
+    if cfg.vision_tokens:
+        nv = cfg.vision_tokens
+        v1 = extra["vision_embeds"]
+        v2 = serve.make_lm_inputs(cfg, LM_BATCH, 1, prompts.device)[
+            "vision_embeds"]
+        e1 = tfm._embed(params, prompts, cfg, v1)
+        e2 = tfm._embed(params, prompts, cfg, v2)
+        check(torch.equal(e1[:, :nv], v1) and torch.equal(e2[:, :nv], v2)
+              and torch.equal(e1[:, nv:], e2[:, nv:]),
+              f"{tag} {cfg.name}: the patch embeddings do not fill exactly "
+              f"the first {nv} positions")
+        l1, _ = tfm.prefill(params, prompts, cfg, vision_embeds=v1)
+        l2, _ = tfm.prefill(params, prompts, cfg, vision_embeds=v2)
+        gap = rel_gap(l2, l1)
+        check(gap > 0, f"{tag} {cfg.name}: a second vision input left the "
+              f"prefill's logits unchanged")
+        print(f"{tag} {cfg.name}: a second vision input moves the prefill's "
+              f"logits by {gap:.3e} of max|logit| and leaves the "
+              f"{prompts.shape[1] - nv} embeddings past position {nv} "
+              f"bitwise unchanged", flush=True)
+        out["vision_gap"] = gap
+    return out
+
+
 def rel_gap(a, b) -> float:
     """max|a - b| / max|b|."""
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
-def uncached_logits(torch, params, cfg, prompts, inputs) -> list:
+def uncached_logits(torch, params, cfg, prompts, inputs, extra=None) -> list:
     """For each column i of ``inputs`` (B, G), the last-position logits
     (B, V) of one uncached forward over ``prompts`` and ``inputs[:, :i +
-    1]``: what a decode step fed inputs[:, i] computes.  An MoE's capacity
+    1]`` (with the serve's audio frames or patch embeddings ``extra``):
+    what a decode step fed inputs[:, i] computes.  An MoE's capacity
     binds in such a forward (a dispatch group of tens of tokens, 8 slots
     an expert) and never in a decode step (one token a group), and a
     dropped assignment is a different function, not a rounding: the
@@ -2133,7 +2254,7 @@ def uncached_logits(torch, params, cfg, prompts, inputs) -> list:
     try:
         for i in range(inputs.shape[1]):
             h, _ = tfm.forward(params, seq[:, :prompts.shape[1] + i + 1],
-                               cfg)
+                               cfg, **(extra or {}))
             out.append(tfm.unembed_logits(params, h[:, -1:], cfg)[:, 0])
             del h
     finally:
@@ -2194,6 +2315,91 @@ def stack_phase(torch, engine, wrappers, device="cuda") -> dict:
         out[arch] = serve_stack_cut(torch, engine, wrappers, arch, device)
     out["seconds"] = time.perf_counter() - t0
     print(f"[9] phase 9 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+#: Phase 10: each model with its prompt length — whisper-base's decoder
+#: prompt beside its 1500 audio frames; phi-3-vision's 144 patch positions
+#: and 16 text tokens.
+ENCDEC = (("whisper-base", 32), ("phi-3-vision-4.2b", 160))
+
+
+def encdec_phase(torch, engine, wrappers, card, device="cuda") -> dict:
+    """Phase 10: whisper-base and phi-3-vision-4.2b at full width, served
+    and checked as phase 9's models, with ``encdec_vlm_checks``."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[10] before the phase: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on "
+          f"the card", flush=True)
+    out = {arch: serve_stack(torch, engine, wrappers, arch, device,
+                             tag="[10]", prompt=prompt, card=card)
+           for arch, prompt in ENCDEC}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[10] phase 10 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+#: The scalar oracle's tolerance against torch.matmul / F.conv2d in f32,
+#: of max|ref|.
+SCALAR_TOL = 1e-4
+
+
+def scalar_phase(torch, engine, wrappers, card, device="cuda") -> dict:
+    """Phase 11: the ``scalar`` backend (the paper's Algorithms 2 and 1,
+    plain torch ops) on the card: ``engine.linear`` on LeNet-300-100's FC1
+    at batch 2 and ``engine.conv2d`` on the MINI CNN's first layer at
+    batch 1, strides 1 and 2, paddings 0 and 1, each against torch.matmul
+    / F.conv2d in f32 within SCALAR_TOL of max|ref|; no B1-B10 launch."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import cnn, mlp
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    cfg = engine.EngineConfig(backend="scalar")
+    check(cfg.resolve_backend(torch.device(device)) == "scalar",
+          "[11] backend 'scalar' does not resolve on the card")
+    w_fc = mlp.init_mlp_params(mlp.LENET_300_100, gen)[0]
+    x_fc = torch.relu(torch.randn((2, w_fc.shape[0]), generator=gen,
+                                  device=device))
+    w_cv = cnn.init_cnn_params(cnn.MINI, gen)[0]
+    x_cv = torch.relu(torch.randn((1, cnn.MINI.input_size,
+                                   cnn.MINI.input_size, w_cv.shape[2]),
+                                  generator=gen, device=device))
+    cases = [(f"linear, LeNet-300-100 FC1 {tuple(x_fc.shape)} x "
+              f"{tuple(w_fc.shape)}",
+              lambda: engine.linear(x_fc, w_fc, cfg=cfg),
+              lambda: torch.matmul(x_fc, w_fc))]
+    for s in (1, 2):
+        for p in (0, 1):
+            cases.append((
+                f"conv2d, MINI conv1 {tuple(x_cv.shape)} * "
+                f"{tuple(w_cv.shape)} stride {s} padding {p}",
+                lambda s=s, p=p: engine.conv2d(x_cv, w_cv, cfg=cfg, stride=s,
+                                               padding=p),
+                lambda s=s, p=p: F.conv2d(
+                    x_cv.permute(0, 3, 1, 2), w_cv.permute(3, 2, 0, 1),
+                    stride=s, padding=p).permute(0, 2, 3, 1)))
+    out = {}
+    for what, fn, ref_fn in cases:
+        y, recs, launches, _, _ = drive_counted(torch, engine, wrappers, fn,
+                                                capture=False)
+        ref = ref_fn()
+        check(not any(launches.values()),
+              f"[11] scalar {what}: B1-B10 launched {launches}")
+        check(y.shape == ref.shape and bool(torch.isfinite(y).all()),
+              f"[11] scalar {what}: shape {tuple(y.shape)}, want "
+              f"{tuple(ref.shape)}, or not finite")
+        err = rel_gap(y, ref)
+        check(err <= SCALAR_TOL, f"[11] scalar {what}: max|d| / max|ref| "
+              f"{err:.3e} (limit {SCALAR_TOL})")
+        ms, ref_ms = cuda_ms(torch, fn, 5), cuda_ms(torch, ref_fn, 5)
+        print(f"[11] scalar {what}: max|d| / max|ref| {err:.3e} against the "
+              f"f32 library call (limit {SCALAR_TOL}); B1-B10 launched 0 "
+              f"times; {ms:.3f} ms eager against the library's {ref_ms:.3f} "
+              f"ms (mean of 5, CUDA events; card {card})", flush=True)
+        out[what] = dict(err=err, ms=ms, ref_ms=ref_ms)
     return out
 
 
@@ -2581,6 +2787,12 @@ def run(torch) -> int:
 
     # -- 9. the attention decoder stack (Hymba-1.5B's weights freed) ---------
     stack = stack_phase(torch, engine, wrappers)
+
+    # -- 10. whisper-base and phi-3-vision (phase 9's weights freed) ---------
+    encdec = encdec_phase(torch, engine, wrappers, card)
+
+    # -- 11. the scalar oracle (the paper's Algorithms 1 and 2) ---------------
+    scalar = scalar_phase(torch, engine, wrappers, card)
 
     # -- 3. kernel checks on the captured inputs ------------------------------
     results = []
@@ -3057,7 +3269,19 @@ def run(torch) -> int:
               f"prefill {stack[arch]['best'][('gated θ=0', False)][0]:.3f} "
               f"({stack[arch]['best'][('gated θ=0', True)][0]:.3f}) ms, "
               f"peak {stack[arch]['peak']:.2f} GiB" for arch in STACK_FULL)
-          + f" (phase 9: {stack['seconds']:.1f} s); served (phase 8): "
+          + f" (phase 9: {stack['seconds']:.1f} s); "
+          + "; ".join(
+              f"{arch} prompt {prompt} "
+              f"{encdec[arch]['best'][('gated θ=0', False)][1]:.1f} "
+              f"({encdec[arch]['best'][('gated θ=0', True)][1]:.1f}) "
+              f"tokens/s, prefill "
+              f"{encdec[arch]['best'][('gated θ=0', False)][0]:.3f} "
+              f"({encdec[arch]['best'][('gated θ=0', True)][0]:.3f}) ms, "
+              f"peak {encdec[arch]['peak']:.2f} GiB"
+              for arch, prompt in ENCDEC)
+          + f" (phase 10: {encdec['seconds']:.1f} s); the scalar oracle "
+          f"(phase 11) worst {max(r['err'] for r in scalar.values()):.1e} "
+          f"of max|ref|; served (phase 8): "
           + "; ".join(
               f"{net} {r['stats']['requests_s']} requests/s, p50 "
               f"{r['stats']['p50_ms']} ms, p99 {r['stats']['p99_ms']} ms, "

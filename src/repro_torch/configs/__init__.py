@@ -1,8 +1,9 @@
 """Architecture configs the port serves: ``get_config("<arch-id>")``.
 
-The port serves the architectures whose blocks it has ported.  Every other
-architecture of the JAX package's registry raises and names the
-``ROADMAP.md`` item that brings it.
+Every architecture of the JAX package's registry, in its order: the
+decoder-only LMs, the encoder-decoder whisper-base (its audio frames go
+through ``transformer._encode_audio``) and the vision-language
+phi-3-vision (patch embeddings in its leading positions).
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ _REGISTRY = {
     "qwen2-0.5b": "repro_torch.configs.qwen2_0p5b",
     "minitron-8b": "repro_torch.configs.minitron_8b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "whisper-base": "repro_torch.configs.whisper_base",
+    "phi-3-vision-4.2b": "repro_torch.configs.phi3_vision_4p2b",
     "hymba-1.5b": "repro_torch.configs.hymba_1p5b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
@@ -26,24 +29,13 @@ _REGISTRY = {
 #: The architectures the port serves, in the JAX registry's order.
 ARCH_IDS = tuple(_REGISTRY)
 
-#: Architectures of the JAX package not served here yet, with the
-#: ROADMAP.md item that ports them.
-NOT_YET_PORTED = {
-    arch: "queue A item 12b: whisper-base and phi-3-vision (the "
-          "encoder-decoder and vision inputs, with layer_norm)"
-    for arch in ("whisper-base", "phi-3-vision-4.2b")}
-
 
 def get_config(arch: str) -> ModelConfig:
-    if arch in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet; see ROADMAP.md "
-            f"{NOT_YET_PORTED[arch]}")
     if arch not in _REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; served: {sorted(_REGISTRY)}")
     return importlib.import_module(_REGISTRY[arch]).config()
 
 
-__all__ = ["ARCH_IDS", "GLOBAL_WINDOW", "NOT_YET_PORTED", "MLAConfig",
+__all__ = ["ARCH_IDS", "GLOBAL_WINDOW", "MLAConfig",
            "MNFConfig", "ModelConfig", "MoEConfig", "ShapeConfig",
            "SSMConfig", "get_config"]

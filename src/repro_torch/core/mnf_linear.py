@@ -2,6 +2,12 @@
 ``repro.core.mnf_linear``.
 
   * ``dense_linear``  — the oracle, y = x @ W (+ b).
+  * ``scalar_event_linear`` — Algorithm 2 verbatim: each non-zero input
+    neuron fires one (value, address) event, and the multiply phase reads
+    weight row ``address`` and accumulates value x W[address, :] into every
+    output neuron.  The JAX package walks the events one at a time
+    (``fori_loop``); here every event's product is formed at once and
+    summed over the events, so the order of the sums differs.
   * ``block_event_linear`` / ``block_event_linear_from_events`` — compacted
     K-block events times the weight row-blocks they address, through the
     plain tile dot (``kernels/event_matmul/ref.py``) or any multiply with
@@ -12,10 +18,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import events as ev
+from repro_torch.core.fire import FireConfig, fire
 from repro_torch.kernels.event_matmul.ref import event_matmul_ref
 
-__all__ = ["dense_linear", "block_event_linear",
-           "block_event_linear_from_events"]
+__all__ = ["dense_linear", "scalar_event_linear", "block_event_linear",
+           "block_event_linear_from_events", "mnf_linear"]
 
 
 def dense_linear(x: torch.Tensor, w: torch.Tensor,
@@ -23,6 +30,22 @@ def dense_linear(x: torch.Tensor, w: torch.Tensor,
     """Oracle: y = x @ W (+ b).  x (..., K), w (K, N)."""
     y = torch.matmul(x, w)
     return y if b is None else y + b
+
+
+def scalar_event_linear(x: torch.Tensor, w: torch.Tensor,
+                        b: torch.Tensor | None = None) -> torch.Tensor:
+    """Algorithm 2 for a single input vector x (K,), w (K, N) -> (N,).
+
+    The events are ``encode_scalar_events(x)`` (capacity K): each live
+    slot carries a value and the neuron address that names its weight
+    row (the direct start_weight address); a padding slot carries value 0
+    at address 0, an idle PE's no-op, as in the JAX package."""
+    assert x.ndim == 1, "scalar-event path is per-activation-vector"
+    evs = ev.encode_scalar_events(x)                      # capacity = K
+    dt = torch.promote_types(x.dtype, w.dtype)
+    rows = w[evs.indices.long()].to(dt)                   # (K, N) weight rows
+    acc = (evs.values.to(dt)[:, None] * rows).sum(0)
+    return acc if b is None else acc + b
 
 
 def block_event_linear_from_events(bev: ev.BlockEvents, w: torch.Tensor,
@@ -57,3 +80,20 @@ def block_event_linear(x: torch.Tensor, w: torch.Tensor,
                                  capacity=capacity, threshold=threshold)
     y = block_event_linear_from_events(bev, w, matmul)[:m]
     return y if b is None else y + b
+
+
+def mnf_linear(x: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor | None = None, *,
+               fire_cfg: FireConfig = FireConfig(), blk_m: int = 8,
+               blk_k: int = 128, capacity: int | None = None
+               ) -> torch.Tensor:
+    """Full MNF FC layer: the engine's multiply phase, then the fire phase.
+
+    Deprecation shim, as in the JAX package — new code calls
+    ``repro_torch.engine.linear`` and ``engine.fire`` with one
+    ``EngineConfig``.  The backend is "auto": the block-event dataflow,
+    through the kernels on CUDA tensors and their plain versions on CPU
+    tensors."""
+    from repro_torch import engine
+    cfg = engine.EngineConfig(blk_m=blk_m, blk_k=blk_k, capacity=capacity)
+    return fire(engine.linear(x, w, b, cfg), fire_cfg)

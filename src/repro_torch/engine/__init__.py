@@ -12,8 +12,8 @@ from repro_torch.core.events import (STRIP_CO_MIN, STRIP_STRIDES, STRIP_W,
                                      retile_ineligible_reason, strip_eligible,
                                      strip_ineligible_reason)
 from repro_torch.costmodel.crossover import linear_shape_class
-from repro_torch.engine.api import (conv2d, fire, fire_conv, fire_delta,
-                                    linear, matmul, maxpool2d,
+from repro_torch.engine.api import (conv2d, describe, fire, fire_conv,
+                                    fire_delta, linear, matmul, maxpool2d,
                                     pool_ineligible_reason, route_conv,
                                     route_linear, route_pool,
                                     route_recurrent,
@@ -37,5 +37,5 @@ __all__ = [
     "maxpool2d", "pool_ineligible_reason", "route_conv", "route_pool",
     "route_linear", "route_recurrent", "fire", "fire_conv", "fire_delta",
     "recurrent_ineligible_reason", "recurrent_step", "sparsify",
-    "trace_dispatch",
+    "describe", "trace_dispatch",
 ]

@@ -21,6 +21,7 @@ from repro_torch.core.fire import FireConfig
 from repro_torch.core.fire import fire as plain_fire
 from repro_torch.core.mnf_conv import conv_out_size
 from repro_torch.costmodel import crossover as xover
+from repro_torch.device import default_device
 from repro_torch.engine import trace
 from repro_torch.engine.config import EngineConfig
 from repro_torch.engine.registry import dispatch, get_backend, list_backends
@@ -33,7 +34,7 @@ __all__ = ["matmul", "linear", "conv2d", "maxpool2d",
            "pool_ineligible_reason", "route_conv", "route_pool",
            "route_linear", "route_recurrent", "fire", "fire_conv",
            "fire_delta", "recurrent_ineligible_reason", "recurrent_step",
-           "sparsify"]
+           "sparsify", "describe"]
 
 _DEFAULT = EngineConfig()
 
@@ -561,3 +562,16 @@ def sparsify(h: torch.Tensor, cfg: EngineConfig = _DEFAULT) -> torch.Tensor:
     h2 = mask_dead_blocks(h2, blk_m=cfg.blk_m, blk_k=cfg.blk_k,
                           threshold=0.0)
     return h2[:h2.shape[0] - pad_m, :shp[-1]].reshape(shp)
+
+
+def describe(cfg: EngineConfig = _DEFAULT, device=None) -> dict:
+    """The resolved engine configuration, as serve and dry-run report it:
+    the JAX package's keys less ``interpret`` and ``blk_n``, which the
+    port has no counterpart for.  ``device`` is the device type the entry
+    points run on — ``default_device()`` unless the caller passes one —
+    and the backend is the one that device's operands resolve."""
+    dev = default_device() if device is None else torch.device(device)
+    return dict(backend=cfg.resolve_backend(dev), blk_m=cfg.blk_m,
+                blk_k=cfg.blk_k, capacity=cfg.capacity,
+                threshold=cfg.threshold, magnitude=cfg.magnitude,
+                device=dev.type)

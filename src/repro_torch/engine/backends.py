@@ -15,14 +15,19 @@ One uniform signature per op:
   recurrent_step_wkv6  fn(stream, state, ops, cfg) -> (o, S')  row stream
   recurrent_step_mamba fn(stream, state, ops, cfg) -> (y, h')  row stream
 
-"dense" is the oracle.  "block" and "cuda" are one block-event dataflow
+"dense" is the oracle, and "scalar" the paper's own dataflow as a second
+one: Algorithm 2 (``scalar_event_linear``) row by row and Algorithm 1
+(``scalar_event_conv2d``) image by image, the dense pool and the plain
+fire — plain torch ops on either device, as the JAX package's are plain
+``jnp``.  Neither registers an ``*_events`` op: a stream handed to them
+decodes, visibly.  "block" and "cuda" are one block-event dataflow
 registered under both names: every callable goes through the kernels'
 wrappers (``kernels/*/ops.py``), which launch the hand-written kernel on a
 CUDA tensor and take the plain version (``ref.py``) on a CPU tensor.  Every
 event multiply gets the stream's ``qparams``: int8 codes go to the
 dequantize-at-load kernels (B5, B6).
-"dense" registers no ``recurrent_step_wkv6`` or ``recurrent_step_mamba``:
-the API falls back to the dense step, visibly.
+"dense" and "scalar" register no ``recurrent_step_wkv6`` or
+``recurrent_step_mamba``: the API falls back to the dense step, visibly.
 ``EngineConfig.resolve_backend`` holds "block" to CPU operands and "cuda"
 to CUDA operands, so the name says which of the two ran.
 """
@@ -37,10 +42,10 @@ from repro_torch.core import events as ev
 from repro_torch.core.fire import FireConfig
 from repro_torch.core.fire import fire as plain_fire
 from repro_torch.core.mnf_conv import (conv_out_size, dense_conv2d,
-                                       tap_event_conv2d)
+                                       scalar_event_conv2d, tap_event_conv2d)
 from repro_torch.core.mnf_linear import (block_event_linear,
                                          block_event_linear_from_events,
-                                         dense_linear)
+                                         dense_linear, scalar_event_linear)
 from repro_torch.engine.config import EngineConfig
 from repro_torch.engine.registry import get_backend, register_backend
 from repro_torch.engine.stream import EventStream
@@ -67,6 +72,12 @@ def _matmul_dense(a, w, cfg: EngineConfig):
     return dense_linear(a, w)
 
 
+@register_backend("matmul", "scalar")
+def _matmul_scalar(a, w, cfg: EngineConfig):
+    """Algorithm 2 on each row (the JAX package vmaps it over the rows)."""
+    return torch.stack([scalar_event_linear(row, w) for row in a])
+
+
 def _matmul_events(a, w, cfg: EngineConfig):
     c = cfg.for_width(*a.shape)
     return block_event_linear(a, w, blk_m=c.blk_m, blk_k=c.blk_k,
@@ -91,6 +102,14 @@ def _linear_events(stream, w, b, cfg: EngineConfig):
 @register_backend("conv2d", "dense")
 def _conv2d_dense(x, w, b, cfg: EngineConfig, stride, padding):
     return dense_conv2d(x, w, stride=stride, padding=padding, b=b)
+
+
+@register_backend("conv2d", "scalar")
+def _conv2d_scalar(x, w, b, cfg: EngineConfig, stride, padding):
+    """Algorithm 1 on each image."""
+    return _bias(torch.stack([scalar_event_conv2d(img, w, stride=stride,
+                                                  padding=padding)
+                              for img in x]), b)
 
 
 def _conv2d_events_dense_input(x, w, b, cfg: EngineConfig, stride, padding):
@@ -214,11 +233,12 @@ def _recurrent_mamba(stream, state, ops, cfg: EngineConfig):
 
 # -- registration -------------------------------------------------------------
 
-register_backend("linear", "dense",
-                 functools.partial(_linear, name="dense"))
-register_backend("maxpool2d", "dense", _maxpool_dense)
-for _op in ("fire", "fire_conv"):
-    register_backend(_op, "dense", _fire_dense)
+for _name in ("dense", "scalar"):
+    register_backend("linear", _name,
+                     functools.partial(_linear, name=_name))
+    register_backend("maxpool2d", _name, _maxpool_dense)
+    for _op in ("fire", "fire_conv"):
+        register_backend(_op, _name, _fire_dense)
 
 for _name in ("block", "cuda"):
     for _op, _fn in (("matmul", _matmul_events),

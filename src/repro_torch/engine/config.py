@@ -6,7 +6,8 @@ gives ``"cuda"`` (the hand-written kernels) for CUDA tensors and
 ``"block"`` (the same dataflow through the kernels' plain versions) for
 CPU tensors.  An explicit ``"cuda"`` on a CPU tensor raises, and so does an
 explicit ``"block"`` on a CUDA tensor: a CUDA tensor launches the kernels
-or raises.  There is no interpret mode.
+or raises.  The two oracles, ``"dense"`` and ``"scalar"``, resolve on
+either device and never from ``"auto"``.  There is no interpret mode.
 """
 from __future__ import annotations
 
@@ -24,10 +25,11 @@ __all__ = ["BACKENDS", "RECURRENT_BLK_K", "EngineConfig"]
 RECURRENT_BLK_K = 16
 
 #: Execution backends (DESIGN.md §4): dense — the oracle (F.conv2d /
-#: torch.matmul); block — the block-event dataflow through the kernels'
+#: torch.matmul); scalar — the paper's Algorithms 1 and 2 event by event,
+#: a second oracle; block — the block-event dataflow through the kernels'
 #: plain versions, CPU tensors only; cuda — the same dataflow through the
 #: hand-written Hopper kernels, CUDA tensors only.
-BACKENDS = ("dense", "block", "cuda")
+BACKENDS = ("dense", "scalar", "block", "cuda")
 
 
 def _device_type(t) -> str:

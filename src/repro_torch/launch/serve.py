@@ -11,7 +11,10 @@ LM mode serves every architecture of ``configs.ARCH_IDS``.  Weights are
 random from ``--seed``, drawn in f32 (the configs' param dtype) one
 module at a time, the leaves a block casts cast to the compute dtype as
 they are made (``transformer.init_compute_params``: the f32 model is
-never held whole); prompts are random tokens from the same seed.  With
+never held whole); prompts are random tokens from the same seed, and
+whisper-base's audio frames and phi-3-vision's patch embeddings normal
+x 0.02 from it (``make_lm_inputs``; phi-3-vision refuses a
+``--prompt-len`` below its 144 vision tokens).  With
 MNF on (``--mnf`` or a non-zero ``--mnf-threshold``; every config has it
 on at θ = 0) each FFN fires between its up and down projections
 (``engine.sparsify``, plain torch), and every decode step of RWKV6 and
@@ -68,9 +71,11 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.device import default_device
 from repro_torch.launch import steps
 from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import dtype_of
 
-__all__ = ["lm_config", "main", "make_prompts", "make_requests", "run_lm",
-           "serve_arrivals", "serve_cnn", "serve_lm", "serve_smoke"]
+__all__ = ["lm_config", "main", "make_lm_inputs", "make_prompts",
+           "make_requests", "run_lm", "serve_arrivals", "serve_cnn",
+           "serve_lm", "serve_smoke"]
 
 
 def lm_config(arch: str, *, reduced: bool = False, mnf: bool = False,
@@ -100,10 +105,37 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def make_lm_inputs(cfg, batch: int, seed: int, device) -> dict:
+    """The non-token inputs a config takes, seeded from ``seed`` as normal
+    x 0.02 in the compute dtype (as the JAX package's architecture smoke
+    tests make them): whisper's ``audio_frames`` (batch, enc_frames, d)
+    and phi-3-vision's ``vision_embeds`` (batch, vision_tokens, d); empty
+    for the others.  (The JAX package's ``launch.serve`` feeds zeros,
+    which would leave whisper's encoder only its position encoding to
+    see.)"""
+    cdt = dtype_of(cfg.compute_dtype)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    out = {}
+    if cfg.encoder_decoder:
+        out["audio_frames"] = (torch.randn(
+            (batch, cfg.enc_frames, cfg.d_model), generator=g,
+            device=device) * 0.02).to(cdt)
+    if cfg.vision_tokens:
+        out["vision_embeds"] = (torch.randn(
+            (batch, cfg.vision_tokens, cfg.d_model), generator=g,
+            device=device) * 0.02).to(cdt)
+    return out
+
+
 def run_lm(params, cfg, prompts: torch.Tensor, gen: int, *,
+           audio_frames: torch.Tensor | None = None,
+           vision_embeds: torch.Tensor | None = None,
            teacher: torch.Tensor | None = None, keep_logits: bool = False,
            graph: bool = True) -> dict:
-    """Prefill ``prompts`` (B, P), then ``gen`` greedy decode steps.
+    """Prefill ``prompts`` (B, P) — with whisper's ``audio_frames`` or
+    phi-3-vision's ``vision_embeds`` where the config takes them — then
+    ``gen`` greedy decode steps (an encoder-decoder's read the cross K/V
+    its prefill cached).
 
     Each step feeds the previous step's argmax (the first the prefill's),
     or with ``teacher`` (B, gen) its column i.  On the card the prefill
@@ -131,11 +163,13 @@ def run_lm(params, cfg, prompts: torch.Tensor, gen: int, *,
     srv = steps.make_serve_step(cfg, ShapeConfig("serve", max_len, bsz,
                                                  "decode"),
                                 graph=graph, pool=pool)
-    captured = [pre.fn.capture(params, prompts),
+    captured = [pre.fn.capture(params, prompts, audio_frames, vision_embeds),
                 srv.fn.capture(params, dev)] if graph else []
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = pre.fn(params, dict(tokens=prompts))
+    logits, cache = pre.fn(params, dict(tokens=prompts,
+                                        audio_frames=audio_frames,
+                                        vision_embeds=vision_embeds))
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     prefill_logits = logits.clone()
@@ -211,8 +245,9 @@ def serve_lm(args) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
     params = tfm.init_compute_params(args.seed, cfg, dev)
     prompts = make_prompts(cfg, args.batch, args.prompt_len, args.seed, dev)
+    inputs = make_lm_inputs(cfg, args.batch, args.seed, dev)
     with torch.inference_mode():
-        run = run_lm(params, cfg, prompts, args.gen)
+        run = run_lm(params, cfg, prompts, args.gen, **inputs)
     return lm_stats(cfg, run, args.batch, args.prompt_len, args.gen, dev)
 
 
@@ -477,6 +512,11 @@ def main(argv=None) -> None:
                      "mode serves MNF by default)")
         serve_cnn(args)
         return
+    cfg = lm_config(args.arch, reduced=args.reduced)
+    if args.prompt_len < cfg.vision_tokens:
+        ap.error(f"--arch {args.arch}: --prompt-len {args.prompt_len} is "
+                 f"shorter than the {cfg.vision_tokens} vision tokens that "
+                 f"fill the prompt's leading positions")
     print(json.dumps(serve_lm(args)), flush=True)
 
 

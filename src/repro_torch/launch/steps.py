@@ -6,8 +6,9 @@ On CUDA tensors a step is compiled as the JAX package's is under
 prompt length for the prefill, one per (batch, max_len) for the decode,
 captured at the first call (or by ``fn.capture``) with the parameter
 tensors of that call; a call with other parameter tensors raises.  Each
-call copies the caller's tensors into the graph's static buffers —
-skipping any that already are those buffers — and replays.  The decode
+call copies the caller's tensors — the prefill's tokens, audio frames
+and patch embeddings alike — into the graph's static buffers, skipping
+any that already are those buffers, and replays.  The decode
 graph owns its cache (updated in place, the counterpart of the JAX serve
 step's donated cache) and its position, a 0-d device integer that each
 replay advances by one: a caller that hands back ``fn.position`` and the
@@ -57,32 +58,46 @@ def _require_bound(g: graphs.Graph, params) -> None:
 
 
 class _GraphedPrefill:
-    """fn(params, batch) -> (last-position logits, filled cache)."""
+    """fn(params, batch) -> (last-position logits, filled cache).  ``batch``
+    holds ``tokens`` and, for the configs that take them,
+    ``audio_frames`` and ``vision_embeds``: static graph inputs like the
+    tokens, one graph per shape of the three."""
 
     def __init__(self, cfg, shape, pool):
         self.cfg, self.shape, self.pool = cfg, shape, pool
         self.graphs: dict[tuple, graphs.Graph] = {}
 
-    def _prefill(self, params, tokens):
+    def _prefill(self, params, tokens, audio_frames=None, vision_embeds=None):
         return tfm.prefill(params, tokens, self.cfg,
-                           max_len=self.shape.seq_len)
+                           max_len=self.shape.seq_len,
+                           audio_frames=audio_frames,
+                           vision_embeds=vision_embeds)
 
-    def capture(self, params, tokens: torch.Tensor) -> graphs.Graph:
-        """The graph of a prefill of ``tokens``' shape (captured once)."""
-        key = tuple(tokens.shape)
+    def capture(self, params, tokens: torch.Tensor, audio_frames=None,
+                vision_embeds=None) -> graphs.Graph:
+        """The graph of a prefill of these inputs' shapes (captured once)."""
+        extra = (audio_frames, vision_embeds)
+        key = (tuple(tokens.shape),) + tuple(
+            None if t is None else (tuple(t.shape), t.dtype) for t in extra)
         if key not in self.graphs:
-            static = torch.zeros(key, dtype=torch.int64, device=tokens.device)
-            self.graphs[key] = graphs.capture(self._prefill, params, static,
+            static = [torch.zeros(tokens.shape, dtype=torch.int64,
+                                  device=tokens.device)]
+            static += [None if t is None else torch.zeros_like(t)
+                       for t in extra]
+            self.graphs[key] = graphs.capture(self._prefill, params, *static,
                                               pool=self.pool)
         return self.graphs[key]
 
     def __call__(self, params, batch):
-        tokens = batch["tokens"]
-        if tokens.device.type == "cpu":
-            return self._prefill(params, tokens)
-        g = self.capture(params, tokens)
+        inputs = (batch["tokens"], batch.get("audio_frames"),
+                  batch.get("vision_embeds"))
+        if inputs[0].device.type == "cpu":
+            return self._prefill(params, *inputs)
+        g = self.capture(params, *inputs)
         _require_bound(g, params)
-        g.static[1].copy_(tokens)
+        for dst, src in zip(g.static[1:], inputs):
+            if src is not None:
+                dst.copy_(src)
         return g.replay()
 
 
@@ -140,13 +155,17 @@ class _GraphedServe:
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, *,
                       graph: bool = True, pool=None) -> StepPlan:
     """fn(params, batch) -> (last-position logits, filled cache), the cache
-    ``shape.seq_len`` long.  ``pool``: a graph memory pool to share."""
+    ``shape.seq_len`` long; ``batch`` holds ``tokens`` and, where the
+    config takes them, ``audio_frames`` and ``vision_embeds``.  ``pool``:
+    a graph memory pool to share."""
     if graph:
         fn = _GraphedPrefill(cfg, shape, pool)
     else:
         def fn(params, batch):
             return tfm.prefill(params, batch["tokens"], cfg,
-                               max_len=shape.seq_len)
+                               max_len=shape.seq_len,
+                               audio_frames=batch.get("audio_frames"),
+                               vision_embeds=batch.get("vision_embeds"))
     return StepPlan(cfg, shape, fn, cell_engine_config(cfg))
 
 

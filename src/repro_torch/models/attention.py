@@ -1,12 +1,14 @@
 """Attention — port of ``repro.models.attention``: chunked online-softmax
 attention, the GQA/MHA layer (with optional QKV biases) and its KV cache,
-and DeepSeek-V2's multi-head latent attention (MLA).
+its cross-attention form over precomputed keys and values (whisper's
+decoder), and DeepSeek-V2's multi-head latent attention (MLA).
 
 :func:`chunked_attention` keeps the JAX package's numerics: f32 logits and
 running max and sum, probabilities cast to the K/V dtype before the PV
 product (accumulated in f32), masked logits at ``_NEG``, a position
-attending where ``0 <= q_pos - kv_pos < window`` (``GLOBAL_WINDOW``: no
-bound) and below ``kv_len``, query head h reading KV head h // (H / KH).
+attending where ``0 <= q_pos - kv_pos < window`` (non-causal: where
+``|q_pos - kv_pos| < window``; ``GLOBAL_WINDOW``: no bound) and below
+``kv_len``, query head h reading KV head h // (H / KH).
 A Python loop over KV chunks stands in for ``lax.scan``.
 
 MLA keeps the JAX package's two formulations: without a cache the
@@ -131,7 +133,8 @@ def _write_cache(cache, new: dict, decode_pos, s: int, in_place: bool):
 
 
 def attn_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
-               cache=None, decode_pos=None, in_place: bool = False):
+               cache=None, decode_pos=None, in_place: bool = False,
+               causal: bool = True, kv_override: tuple | None = None):
     """x (B, S, d).  Returns (out (B, S, d), new cache or (k, v)).
 
     Without a cache (train): returns the computed (k, v).  With one —
@@ -141,21 +144,35 @@ def attn_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
     + S``.  The write goes into a copy of each (the JAX package's
     functional update) or, with ``in_place``, into the cache's own
     tensors: the port's counterpart of the JAX serve step's donated
-    cache, for a step that owns its cache (a CUDA graph's)."""
+    cache, for a step that owns its cache (a CUDA graph's).
+
+    Cross-attention: ``kv_override=(k, v)``, each (B, Skv, KH, D), takes
+    the place of the key and value projections; nothing is projected or
+    cached for them, and the query is rotated only when ``causal`` (the
+    encoder's keys carry no decoder positions).  ``causal=False`` masks
+    on ``|q_pos - kv_pos| < window`` instead."""
     bsz, s, _ = x.shape
     cdt = x.dtype
     q = x @ p["wq"].to(cdt)
-    k = x @ p["wk"].to(cdt)
-    v = x @ p["wv"].to(cdt)
     if "bq" in p:
         q = q + p["bq"].to(cdt)
-        k = k + p["bk"].to(cdt)
-        v = v + p["bv"].to(cdt)
     q = q.reshape(bsz, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(bsz, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(bsz, s, cfg.num_kv_heads, cfg.head_dim)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_override is None:
+        k = x @ p["wk"].to(cdt)
+        v = x @ p["wv"].to(cdt)
+        if "bk" in p:
+            k = k + p["bk"].to(cdt)
+            v = v + p["bv"].to(cdt)
+        k = k.reshape(bsz, s, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(bsz, s, cfg.num_kv_heads, cfg.head_dim)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    else:
+        if cache is not None:
+            raise ValueError("cross-attention (kv_override) writes no cache")
+        k, v = kv_override
+        if causal:
+            q = apply_rope(q, positions, cfg.rope_theta)
 
     new_cache = (k, v)
     kv_len = None
@@ -166,7 +183,7 @@ def attn_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
         kv_len = decode_pos + s
 
     out = chunked_attention(q, k.to(cdt), v.to(cdt), q_positions=positions,
-                            window=window, kv_len=kv_len,
+                            window=window, kv_len=kv_len, causal=causal,
                             softcap=cfg.attn_logit_softcap,
                             chunk=cfg.attn_chunk)
     out = out.reshape(bsz, s, cfg.q_dim) @ p["wo"].to(cdt)

@@ -1,5 +1,5 @@
 """Layer primitives — the parts of ``repro.models.layers`` the port's
-models need: the dense max-pool oracle of the CNN, and the LM's norm,
+models need: the dense max-pool oracle of the CNN, and the LM's norms,
 rotary embedding, MLP, embeddings and MNF fire point.
 
 LM apply-functions take params as dicts of tensors and compute in
@@ -15,9 +15,10 @@ import torch.nn.functional as F
 
 from repro_torch.models.param_utils import Init
 
-__all__ = ["MLP_WEIGHTS", "activation_fn", "apply_rope", "dtype_of", "embed_apply",
-           "embed_init", "is_glu", "max_pool_nhwc", "mlp_apply", "mlp_init",
-           "mnf_sparsify", "rms_norm", "unembed_matrix"]
+__all__ = ["MLP_WEIGHTS", "activation_fn", "apply_rope", "dtype_of",
+           "embed_apply", "embed_init", "is_glu", "layer_norm",
+           "max_pool_nhwc", "mlp_apply", "mlp_init", "mnf_sparsify",
+           "rms_norm", "unembed_matrix"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -46,6 +47,19 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     x = x.float()
     var = x.square().mean(-1, keepdim=True)
     return ((x * torch.rsqrt(var + eps)) * (1.0 + gamma.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Layer norm with f32 statistics (mean, then the variance about it),
+    scaled by ``gamma`` and shifted by ``beta``, cast back to ``x``'s
+    dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(dt)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

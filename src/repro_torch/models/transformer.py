@@ -1,34 +1,39 @@
-"""Decoder-LM assembly — port of ``repro.models.transformer`` for the
-decoder-only serving path: the "rwkv6" and "hymba" blocks, and the
-attention block — GQA with optional QKV biases, Gemma-2's attention and
-final logit softcaps, alternating local and global windows and post-block
-norms, DeepSeek-V2's MLA (``attention.mla_apply``) and the sort-dispatched
-MoE (``moe.moe_apply``) with its leading dense layers.
+"""LM assembly — port of ``repro.models.transformer`` for the serving
+path: the "rwkv6" and "hymba" blocks, and the attention block — GQA with
+optional QKV biases, Gemma-2's attention and final logit softcaps,
+alternating local and global windows and post-block norms, DeepSeek-V2's
+MLA (``attention.mla_apply``) and the sort-dispatched MoE
+(``moe.moe_apply``) with its leading dense layers; whisper's
+encoder-decoder (a non-causal encoder over precomputed audio frames, and
+a cross-attention in each decoder layer whose keys and values the
+prefill computes once and the cache carries); phi-3-vision's patch
+embeddings in the leading positions.
 
 Params are a nested dict: ``embed`` (``tok``, ``unembed``),
-``final_norm``, ``layers`` and, for an MoE arch, ``dense_layers`` (its
-``moe.first_dense_layers`` leading dense-FFN layers), each stack's leaves
+``final_norm``, ``layers``, for an MoE arch ``dense_layers`` (its
+``moe.first_dense_layers`` leading dense-FFN layers), and for an
+encoder-decoder ``encoder`` and ``enc_final_norm``, each stack's leaves
 along a leading L axis as in the JAX package (``params_from_numpy`` takes
 its ``init_params(...)[0]`` tree as numpy arrays).  A Python loop over the
 layers stands in for ``lax.scan``, with each layer's attention window
-(``cfg.window_for_layer``).  The encoder-decoder and vision inputs and
-explicit expert parallelism (``moe_ep``) raise and name their ROADMAP.md
-items.  Entry points run on the card unless the caller passes
-``device="cpu"``.
+(``cfg.window_for_layer``).  Explicit expert parallelism (``moe_ep``)
+raises and names its ROADMAP.md item.  Entry points run on the card
+unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import GLOBAL_WINDOW
 from repro_torch.device import default_device
 from repro_torch.models import attention, hymba, layers, moe, ssm
 from repro_torch.models.param_utils import Init, fold_in, stack_layer_params
 
 __all__ = ["active_params", "cache_specs", "compute_params", "copy_cache",
            "count_params", "decode_step", "forward", "init_cache",
-           "init_compute_params", "init_params", "params_from_numpy",
-           "prefill", "unembed_logits"]
+           "init_compute_params", "init_params", "input_specs",
+           "params_from_numpy", "prefill", "unembed_logits"]
 
 
 #: Block types the port serves.
@@ -42,11 +47,6 @@ def _check_block(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: block_type {cfg.block_type!r} is not ported to "
             f"repro_torch")
-    if cfg.encoder_decoder or cfg.vision_tokens:
-        raise NotImplementedError(
-            f"{cfg.name} (encoder-decoder or vision tokens) is not ported to "
-            f"repro_torch yet; see ROADMAP.md queue A item 12b (whisper-base "
-            f"and phi-3-vision with layer_norm)")
     if cfg.moe_ep:
         raise NotImplementedError(
             f"{cfg.name}: moe_ep (expert parallelism over a mesh) is not "
@@ -103,8 +103,10 @@ def _stacks(cfg) -> list:
 # Parameters
 # ---------------------------------------------------------------------------
 
-def _layer_init(seed: int, cfg, device, *, moe_layer: bool) -> dict:
-    """One decoder layer's params."""
+def _layer_init(seed: int, cfg, device, *, moe_layer: bool,
+                cross_attn: bool = False) -> dict:
+    """One decoder layer's params (with ``cross_attn``, an encoder-decoder's
+    cross-attention ``cross`` and its norm ``ln_cross``)."""
     if cfg.block_type == "rwkv6":
         return ssm.rwkv6_block_init(seed, cfg, device)
     d = cfg.d_model
@@ -117,6 +119,9 @@ def _layer_init(seed: int, cfg, device, *, moe_layer: bool) -> dict:
     else:
         mix = attention.attn_init(fold_in(seed, 1), cfg, device)
     b.params["mix"] = mix
+    if cross_attn:
+        b.params["cross"] = attention.attn_init(fold_in(seed, 2), cfg, device)
+        b.ones("ln_cross", (d,))
     b.ones("ln_mlp", (d,))
     if cfg.post_block_norm:
         b.ones("ln_attn_post", (d,))
@@ -127,6 +132,16 @@ def _layer_init(seed: int, cfg, device, *, moe_layer: bool) -> dict:
         d_ff = (cfg.moe.dense_ff or cfg.d_ff) if cfg.moe else cfg.d_ff
         b.params["ffn"] = layers.mlp_init(fold_in(seed, 4), cfg, d_ff=d_ff,
                                           device=device)
+    return b.done()
+
+
+def _enc_layer_init(seed: int, cfg, device) -> dict:
+    """One encoder layer's params: non-causal self-attention and an MLP."""
+    b = Init(seed, layers.dtype_of(cfg.param_dtype), device)
+    b.ones("ln_attn", (cfg.d_model,))
+    b.params["mix"] = attention.attn_init(fold_in(seed, 1), cfg, device)
+    b.ones("ln_mlp", (cfg.d_model,))
+    b.params["ffn"] = layers.mlp_init(fold_in(seed, 2), cfg, device=device)
     return b.done()
 
 
@@ -142,10 +157,19 @@ def _init_tree(seed: int, cfg, device, leaf_fn) -> dict:
                               device=device))
     for part, key, _, n, moe_layer in _stacks(cfg):
         base = fold_in(seed, 1 if part == "scan" else 2)
+        cross = cfg.encoder_decoder and part == "scan"
         out[key] = stack_layer_params(
-            lambda s: leaf_fn(_layer_init(s, cfg, device,
-                                          moe_layer=moe_layer)),
+            lambda s: leaf_fn(_layer_init(s, cfg, device, moe_layer=moe_layer,
+                                          cross_attn=cross)),
             [fold_in(base, i) for i in range(n)])
+    if cfg.encoder_decoder:
+        base = fold_in(seed, 3)
+        out["encoder"] = stack_layer_params(
+            lambda s: leaf_fn(_enc_layer_init(s, cfg, device)),
+            [fold_in(base, i) for i in range(cfg.enc_layers)])
+        out["enc_final_norm"] = torch.ones(
+            (cfg.d_model,), dtype=layers.dtype_of(cfg.param_dtype),
+            device=device)
     return out
 
 
@@ -159,7 +183,8 @@ def _cast_leaves(cfg) -> frozenset:
     """The leaves the forward casts to the compute dtype where it uses
     them: the embedding table (cast right after the gather, or as the
     tied unembedding), the unembedding, and each block's matmul weights
-    and biases (the Mamba conv taps and biases too)."""
+    and biases (the Mamba conv taps and biases too; the cross-attention's
+    and the encoder's share the attention's and the MLP's names)."""
     if cfg.block_type == "rwkv6":
         block = ssm.MATMUL_WEIGHTS
     elif cfg.block_type == "hymba":
@@ -246,11 +271,16 @@ def active_params(cfg) -> int:
 # ---------------------------------------------------------------------------
 
 def _apply_layer(p, x, *, cfg, positions, window, cache=None,
-                 decode_pos=None, in_place=False, moe_layer=False):
+                 decode_pos=None, in_place=False, moe_layer=False,
+                 enc_kv=None):
     """Returns (x, new_cache).  A one-token input with a cache takes the
     recurrent blocks' decode branch (a prompt of length 1 too); longer
     inputs prefill from a zero state.  An MoE layer's auxiliary losses
-    are dropped, as the JAX package's serve steps drop them."""
+    are dropped, as the JAX package's serve steps drop them.  A decoder
+    layer of an encoder-decoder attends to ``enc_kv`` (its (k, v) from
+    :func:`_cross_kv`) and caches them as ``cross_k`` / ``cross_v`` in the
+    compute dtype; without ``enc_kv`` it reads them from the cache and
+    carries them over unchanged."""
     train_mode = cache is None and decode_pos is None
     if cfg.block_type == "rwkv6":
         if cache is not None and x.shape[1] == 1:
@@ -271,6 +301,26 @@ def _apply_layer(p, x, *, cfg, positions, window, cache=None,
     if cfg.post_block_norm:
         a = layers.rms_norm(a, p["ln_attn_post"] - 1.0, cfg.norm_eps)
     x = x + a
+    if "cross" in p:
+        hc = layers.rms_norm(x, p["ln_cross"] - 1.0, cfg.norm_eps)
+        if enc_kv is None:
+            # decode: the encoder is not run again; the cross K/V come from
+            # the cache the prefill filled
+            kv = (cache["cross_k"].to(x.dtype), cache["cross_v"].to(x.dtype))
+        else:
+            kv = enc_kv
+        c, _ = attention.attn_apply(p["cross"], hc, cfg=cfg,
+                                    positions=positions, window=GLOBAL_WINDOW,
+                                    causal=False, kv_override=kv)
+        x = x + c
+        if not train_mode:
+            if enc_kv is not None:
+                cdt = new_cache["k"].dtype
+                new_cache = dict(new_cache, cross_k=kv[0].to(cdt),
+                                 cross_v=kv[1].to(cdt))
+            else:
+                new_cache = dict(new_cache, cross_k=cache["cross_k"],
+                                 cross_v=cache["cross_v"])
     h2 = layers.rms_norm(x, p["ln_mlp"] - 1.0, cfg.norm_eps)
     if moe_layer:
         f, _ = moe.moe_apply(p["ffn"], h2, cfg)
@@ -282,8 +332,82 @@ def _apply_layer(p, x, *, cfg, positions, window, cache=None,
     return x, None if train_mode else new_cache
 
 
+# ---------------------------------------------------------------------------
+# Whisper encoder
+# ---------------------------------------------------------------------------
+
+def _sinusoids(f: int, d: int, device) -> torch.Tensor:
+    """(f, d) f32 position encoding: sines then cosines of position x
+    10000^(-i / (d/2)), i < d/2."""
+    half = d // 2
+    f32 = torch.float32
+    pos = torch.arange(f, dtype=f32, device=device)
+    # the log in f32, as the JAX package takes it (made on the device: a
+    # CUDA graph's capture allows no host-to-device copy)
+    freqs = torch.exp(-torch.log(torch.full((), 10000.0, dtype=f32,
+                                            device=device))
+                      * torch.arange(half, dtype=f32, device=device) / half)
+    return torch.cat([torch.sin(pos[:, None] * freqs),
+                      torch.cos(pos[:, None] * freqs)], dim=-1)
+
+
+def _encode_audio(params, frames: torch.Tensor, cfg) -> torch.Tensor:
+    """frames (B, F, d): precomputed frame embeddings (the conv front end
+    is a stub, as in the JAX package).  Sinusoidal positions are added,
+    then each encoder layer runs non-causal self-attention with RoPE and
+    an MLP, and ``enc_final_norm`` closes the stack."""
+    _, f, d = frames.shape
+    x = frames + _sinusoids(f, d, frames.device).to(frames.dtype)
+    positions = torch.arange(f, dtype=torch.int32, device=frames.device)
+    enc = params["encoder"]
+    for i in range(cfg.enc_layers):
+        p_l = _tree_map(lambda v: v[i], enc)
+        h = layers.rms_norm(x, p_l["ln_attn"] - 1.0, cfg.norm_eps)
+        a, _ = attention.attn_apply(p_l["mix"], h, cfg=cfg,
+                                    positions=positions, window=GLOBAL_WINDOW,
+                                    causal=False)
+        x = x + a
+        h2 = layers.rms_norm(x, p_l["ln_mlp"] - 1.0, cfg.norm_eps)
+        x = x + layers.mlp_apply(p_l["ffn"], h2, cfg)
+    return layers.rms_norm(x, params["enc_final_norm"] - 1.0, cfg.norm_eps)
+
+
+def _cross_kv(params, enc_out: torch.Tensor, cfg) -> tuple:
+    """Each decoder layer's cross-attention (k, v) from the encoder output
+    (no bias): two (L, B, F, KH, D) tensors in ``enc_out``'s dtype."""
+    b, f, _ = enc_out.shape
+    cross = params["layers"]["cross"]
+    ks, vs = [], []
+    for i in range(cross["wk"].shape[0]):
+        ks.append((enc_out @ cross["wk"][i].to(enc_out.dtype)).reshape(
+            b, f, cfg.num_kv_heads, cfg.head_dim))
+        vs.append((enc_out @ cross["wv"][i].to(enc_out.dtype)).reshape(
+            b, f, cfg.num_kv_heads, cfg.head_dim))
+    return torch.stack(ks), torch.stack(vs)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _embed(params, tokens: torch.Tensor, cfg, vision_embeds):
+    """The token embeddings, with phi-3-vision's patch embeddings in place
+    of the leading ``vision_embeds.shape[1]`` positions."""
+    x = layers.embed_apply(params["embed"], tokens, cfg)
+    if cfg.vision_tokens and vision_embeds is not None:
+        nv, s = vision_embeds.shape[1], tokens.shape[1]
+        if s < nv:
+            raise ValueError(
+                f"{cfg.name}: a prompt of {s} tokens is shorter than its "
+                f"{nv} vision tokens; the patch embeddings fill the leading "
+                f"{nv} positions")
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
+    return x
+
+
 def forward(params, tokens: torch.Tensor, cfg, *, cache=None,
-            decode_pos=None, in_place: bool = False):
+            decode_pos=None, in_place: bool = False, audio_frames=None,
+            vision_embeds=None):
     """tokens (B, S) -> (hidden (B, S, d), new_cache).  ``decode_pos``:
     an int or a 0-d integer tensor (a CUDA graph's step reads it on the
     device).  The new cache is stacked from the layers' new leaves (the
@@ -292,15 +416,34 @@ def forward(params, tokens: torch.Tensor, cfg, *, cache=None,
     copied once over its layer's slice — and ``cache`` is returned: the
     counterpart of the JAX serve step's donated cache, for a step that
     owns its cache.  (The JAX package's third output, the MoE auxiliary
-    loss, is what training reads; the serving path drops it.)"""
+    loss, is what training reads; the serving path drops it.)
+
+    ``vision_embeds`` (B, NV, d): patch embeddings that replace the first
+    NV token embeddings (a prompt shorter than NV raises); without them a
+    vision config runs as a text model, as in the JAX package.
+    ``audio_frames`` (B, F, d): an encoder-decoder runs its encoder on
+    them and its decoder attends to their cross K/V; without them it reads
+    the cross K/V from ``cache``, and with no cache either it raises.  The
+    encoder runs exactly when ``audio_frames`` is given — a one-token
+    prefill too (the JAX package decides by the prompt's length and a
+    one-token prefill skips it: ROADMAP C.r7)."""
     _check_block(cfg)
     if in_place and cache is None:
         raise ValueError("an in-place step needs the cache it writes")
     s = tokens.shape[1]
-    x = layers.embed_apply(params["embed"], tokens, cfg)
+    x = _embed(params, tokens, cfg, vision_embeds)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     if decode_pos is not None:
         positions = positions + decode_pos
+    enc_kv = None
+    if cfg.encoder_decoder:
+        if audio_frames is not None:
+            enc_kv = _cross_kv(params, _encode_audio(
+                params, audio_frames.to(x.dtype), cfg), cfg)
+        elif cache is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: a forward "
+                             f"needs audio_frames, or a cache holding the "
+                             f"cross K/V of a prefill")
     stacked = {}
     for part, key, first, n, moe_layer in _stacks(cfg):
         per_layer = []
@@ -308,10 +451,12 @@ def forward(params, tokens: torch.Tensor, cfg, *, cache=None,
             p_l = _tree_map(lambda v: v[i], params[key])
             c_l = None if cache is None else \
                 _tree_map(lambda v: v[i], cache[part])
+            kv_l = None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i])
             x, nc = _apply_layer(p_l, x, cfg=cfg, positions=positions,
                                  window=cfg.window_for_layer(first + i),
                                  cache=c_l, decode_pos=decode_pos,
-                                 in_place=in_place, moe_layer=moe_layer)
+                                 in_place=in_place, moe_layer=moe_layer,
+                                 enc_kv=kv_l)
             if in_place:
                 copy_cache(c_l, nc)
             else:
@@ -340,7 +485,13 @@ def _layer_cache_spec(cfg, bsz: int, max_len: int) -> dict:
             return dict(c=((bsz, max_len, cfg.mla.kv_lora_rank), cdt),
                         kr=((bsz, max_len, cfg.mla.qk_rope_dim), cdt))
         kv = ((bsz, max_len, cfg.num_kv_heads, cfg.head_dim), cdt)
-        return dict(k=kv, v=kv)
+        out = dict(k=kv, v=kv)
+        if cfg.encoder_decoder:
+            # cross-attention K/V: written by the prefill, then read only
+            cross = ((bsz, cfg.enc_frames, cfg.num_kv_heads, cfg.head_dim),
+                     cdt)
+            out.update(cross_k=cross, cross_v=cross)
+        return out
     if cfg.block_type == "rwkv6":
         out = dict(shift_att=((bsz, cfg.d_model), cdt),
                    shift_ffn=((bsz, cfg.d_model), cdt),
@@ -388,16 +539,51 @@ def decode_step(params, cache, tokens: torch.Tensor, decode_pos, cfg, *,
                 in_place: bool = False):
     """One new token per sequence against a filled cache.  tokens (B, 1);
     ``decode_pos`` an int or a 0-d integer tensor; ``in_place`` as in
-    :func:`forward`.  Returns (logits (B, 1, V) f32, new_cache)."""
+    :func:`forward`.  Returns (logits (B, 1, V) f32, new_cache).  It
+    takes no ``audio_frames`` (the JAX package's accepts them and ignores
+    them): an encoder-decoder's step reads the cross K/V that the prefill
+    left in the cache, and never runs the encoder."""
     h, new_cache = forward(params, tokens, cfg, cache=cache,
                            decode_pos=decode_pos, in_place=in_place)
     return unembed_logits(params, h, cfg), new_cache
 
 
-def prefill(params, tokens: torch.Tensor, cfg, *, max_len: int | None = None):
+def prefill(params, tokens: torch.Tensor, cfg, *, max_len: int | None = None,
+            audio_frames=None, vision_embeds=None):
     """Run the prompt; returns (last-position logits (B, 1, V), filled
-    cache)."""
+    cache).  An encoder-decoder needs ``audio_frames`` (B, F, d): its
+    encoder runs here, once, and the cache keeps each layer's cross K/V;
+    a vision config takes ``vision_embeds`` (B, NV, d) for its leading
+    positions."""
     bsz, s = tokens.shape
+    if cfg.encoder_decoder and audio_frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its prefill "
+                         f"needs audio_frames")
     cache = init_cache(cfg, bsz, max_len or s, tokens.device)
-    h, new_cache = forward(params, tokens, cfg, cache=cache, decode_pos=0)
+    h, new_cache = forward(params, tokens, cfg, cache=cache, decode_pos=0,
+                           audio_frames=audio_frames,
+                           vision_embeds=vision_embeds)
     return unembed_logits(params, h[:, -1:], cfg), new_cache
+
+
+def input_specs(cfg, shape) -> dict:
+    """(shape, dtype) of every model input of a cell (``shape`` a
+    ``ShapeConfig``): ``tokens`` (and ``labels`` to train) — int64, torch's
+    index dtype, where the JAX package's are int32 — and, as there, a
+    vision config's ``vision_embeds`` and an encoder-decoder's
+    ``audio_frames`` (not in a decode step, which serves off the cross K/V
+    its prefill cached), each in the compute dtype."""
+    b, s = shape.global_batch, shape.seq_len
+    cdt = layers.dtype_of(cfg.compute_dtype)
+    tok = torch.int64
+    if shape.kind == "train":
+        out = dict(tokens=((b, s), tok), labels=((b, s), tok))
+    elif shape.kind == "prefill":
+        out = dict(tokens=((b, s), tok))
+    else:                      # decode: one new token against an s-long cache
+        out = dict(tokens=((b, 1), tok))
+    if cfg.vision_tokens:
+        out["vision_embeds"] = ((b, cfg.vision_tokens, cfg.d_model), cdt)
+    if cfg.encoder_decoder and shape.kind != "decode":
+        out["audio_frames"] = ((b, cfg.enc_frames, cfg.d_model), cdt)
+    return out

@@ -1045,25 +1045,30 @@ def test_lm_graphs_replay_bitwise_eager(dev, arch, gated):
 
 
 @pytest.mark.parametrize("gated", [True, False])
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "gemma2-27b",
+                                  "whisper-base", "phi-3-vision-4.2b"])
 def test_lm_stack_graphs_replay_bitwise_eager_twice(dev, arch, gated):
     """The reduced DeepSeek-V2-Lite (MLA, the sort-dispatched MoE and its
-    dense first layer) and Gemma-2 (softcaps, alternating windows, tied
-    embeddings) in their own bf16: the graphed serve (prefill plus 4
-    decode steps) is bitwise the eager serve — tokens, logits and every
-    cache leaf — and a second eager and a second graphed serve repeat
-    those bits (the MoE combine sums each token's contributions in a
-    fixed order, with no float atomics); no B1-B10 kernel launches on
-    this path; the decode loop makes no host sync."""
+    dense first layer), Gemma-2 (softcaps, alternating windows, tied
+    embeddings), whisper-base (the encoder over audio frames, the cross
+    K/V cached by the prefill) and phi-3-vision (patch embeddings, static
+    inputs of the prefill graph) in their own bf16: the graphed serve
+    (prefill plus 4 decode steps) is bitwise the eager serve — tokens,
+    logits and every cache leaf — and a second eager and a second graphed
+    serve repeat those bits (the MoE combine sums each token's
+    contributions in a fixed order, with no float atomics); no B1-B10
+    kernel launches on this path; the decode loop makes no host sync."""
     cfg = serve.lm_config(arch, reduced=True)
     cfg = dataclasses.replace(cfg, mnf=dataclasses.replace(cfg.mnf,
                                                            enabled=gated))
     params = tfm.init_compute_params(0, cfg, dev)
     prompts = serve.make_prompts(cfg, 2, 12, 0, dev)
+    extra = serve.make_lm_inputs(cfg, 2, 0, dev)
     runs = []
     for graph in (False, True, False, True):
         run, seen = _counted(lambda: serve.run_lm(
-            params, cfg, prompts, 4, keep_logits=True, graph=graph))
+            params, cfg, prompts, 4, keep_logits=True, graph=graph,
+            **extra))
         assert not any(seen.values()), seen
         runs.append(run)
     for run in runs[1:]:
@@ -1071,6 +1076,33 @@ def test_lm_stack_graphs_replay_bitwise_eager_twice(dev, arch, gated):
             assert torch.equal(run[key], runs[0][key]), key
         assert _cache_equal(run["cache"], runs[0]["cache"])
     assert runs[1]["launches"] == {} and runs[0]["events"] is None
+
+
+@pytest.mark.parametrize("stride,padding", [(1, 0), (2, 1)])
+def test_scalar_backend_on_card(dev, stride, padding):
+    """``backend="scalar"`` (the paper's Algorithms 2 and 1, plain torch)
+    resolves on CUDA tensors, launches no B1-B10 kernel, and agrees with
+    its own CPU run and with the f32 dense oracle within 1e-5 of
+    max|ref| (its conv walk scatters with atomics on the card)."""
+    from repro_torch.core.mnf_conv import dense_conv2d
+    cfg = engine.EngineConfig(backend="scalar")
+    g = torch.Generator().manual_seed(3)
+    x, w = torch.relu(torch.randn(3, 40, generator=g)), \
+        torch.randn(40, 12, generator=g)
+    xc, wc = torch.relu(torch.randn(2, 9, 9, 4, generator=g)), \
+        torch.randn(3, 3, 4, 6, generator=g)
+    cases = [(lambda a, b: engine.linear(a, b, cfg=cfg), (x, w),
+              torch.matmul(x, w)),
+             (lambda a, b: engine.conv2d(a, b, cfg=cfg, stride=stride,
+                                         padding=padding), (xc, wc),
+              dense_conv2d(xc, wc, stride=stride, padding=padding))]
+    for fn, args, ref in cases:
+        cpu = fn(*args)
+        got, seen = _counted(lambda: fn(*(t.to(dev) for t in args)))
+        assert not any(seen.values()), seen
+        scale = float(ref.abs().max())
+        assert float((got.cpu() - cpu).abs().max()) <= 1e-5 * scale
+        assert float((got.cpu() - ref).abs().max()) <= 1e-5 * scale
 
 
 @pytest.mark.parametrize("net", ["mini", "mlp_mini"])

@@ -23,8 +23,9 @@ through both packages:
 - inside the port: at θ = 0 the gated serve is bitwise the ungated one;
   ``init_compute_params`` is bitwise ``compute_params(init_params(...))``;
   ``count_params`` and ``active_params`` equal JAX's for the six full
-  configs; whisper-base and phi-3-vision raise naming ROADMAP item 12b,
-  ``moe_ep`` item 13; ``python -m repro_torch.launch.serve --arch <each>
+  configs; whisper-base and phi-3-vision (``tests/test_torch_encdec_vlm.py``
+  holds them against JAX) build through the same stack, ``moe_ep`` raises
+  naming item 13; ``python -m repro_torch.launch.serve --arch <each>
   --reduced --device cpu`` prints its stats.
 """
 import dataclasses
@@ -41,7 +42,7 @@ from repro.configs import get_config as jget_config
 from repro.models import attention as jattn
 from repro.models import moe as jmoe
 from repro.models import transformer as jtfm
-from repro_torch.configs import NOT_YET_PORTED, get_config
+from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
@@ -486,12 +487,26 @@ def test_count_and_active_params_equal_jax_full_configs(arch):
 
 
 @pytest.mark.parametrize("arch", ["whisper-base", "phi-3-vision-4.2b"])
-def test_unported_archs_raise_naming_their_item(arch):
-    assert "item 12b" in NOT_YET_PORTED[arch]
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        ttfm.init_params(0, jget_config(arch).reduced(), "cpu")
+def test_encdec_and_vision_archs_build_through_the_stack(arch):
+    """The two architectures item 12b brought: their configs equal JAX's,
+    and ``init_compute_params`` gives the attention stack's leaves in
+    bf16 (whisper's cross-attention and encoder too) and its norms in
+    f32, bitwise ``compute_params(init_params(...))``."""
+    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+        jget_config(arch))
+    cfg = get_config(arch).reduced()
+    want = dict(_leaves(ttfm.compute_params(ttfm.init_params(0, cfg, "cpu"),
+                                            cfg)))
+    got = dict(_leaves(ttfm.init_compute_params(0, cfg, "cpu")))
+    assert set(got) == set(want)
+    assert all(torch.equal(got[k], want[k]) and got[k].dtype == want[k].dtype
+               for k in got)
+    assert got["layers/mix/wq"].dtype == torch.bfloat16
+    if cfg.encoder_decoder:
+        assert got["layers/cross/wk"].dtype == torch.bfloat16
+        assert got["encoder/ffn/w_up"].dtype == torch.bfloat16
+        assert got["enc_final_norm"].dtype == torch.float32
+        assert got["layers/ln_cross"].dtype == torch.float32
 
 
 def test_moe_ep_raises_naming_item_13():

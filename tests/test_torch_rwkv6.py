@@ -27,13 +27,14 @@ import pytest
 import torch
 
 from repro import engine as jengine
+from repro.configs import ARCH_IDS as JARCH_IDS
 from repro.configs import get_config as jget_config
 from repro.core import events as jev
 from repro.kernels.wkv6.step import (wkv6_step_events_pallas,
                                      wkv6_step_events_ref as j_step_ref)
 from repro.models import transformer as jtfm
 from repro_torch import engine as tengine
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import events as tev
 from repro_torch.kernels.wkv6_step.kernel import wkv6_step_cuda
 from repro_torch.kernels.wkv6_step.ops import wkv6_step_events
@@ -249,19 +250,16 @@ def test_recurrent_step_trace_and_outputs_match_jax(case):
 
 
 def test_get_config_names_the_roadmap_item_of_unported_archs():
-    for arch in ("rwkv6-7b", "hymba-1.5b", "qwen2-0.5b", "qwen2-1.5b",
-                 "minitron-8b", "gemma2-27b", "deepseek-moe-16b",
-                 "deepseek-v2-lite-16b"):
+    """Every architecture of the JAX registry is ported (item 12b brought
+    the last two): the port's registry is JAX's, in its order, each config
+    equal to JAX's, full and reduced; an unknown name raises."""
+    assert ARCH_IDS == JARCH_IDS
+    for arch in ARCH_IDS:
         cfg = get_config(arch)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
             jget_config(arch))
         assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(
             jget_config(arch).reduced())
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A item 12"):
-        get_config("whisper-base")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("phi-3-vision-4.2b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
