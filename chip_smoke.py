@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
-8, 6, 7, 9, 10, 11, 3, so that phase 3 can replay what phases 2, 4, 5, 6
-and 7 handed the kernels, phase 8's graphs are freed before phase 6 loads
-its model, and each LM's weights before the next LM's):
+8, 6, 7, 9, 10, 11, 12, 3, so that phase 3 can replay what phases 2, 4, 5,
+6 and 7 handed the kernels, phase 8's graphs are freed before phase 6
+loads its model, and each LM's weights before the next LM's):
 
 1. Probe and build: the card's name and power limit, TF32 off for the dense
    oracles, the CUDA kernels (B1-B10) built from src/repro_torch/csrc.
@@ -16,6 +16,11 @@ its model, and each LM's weights before the next LM's):
    before the chained forward and read just after; the kernels of the path
    (B1-B4) must have launched, as the route plan says, the int8 ones not.
    Each wrapper's ``capture`` list collects the inputs of its launches.
+   Each layer's launches, in forward order, are those of the launch
+   accounting (``check_layer_plans``: a strip conv one B3 launch with
+   ``fused_conv_plan``'s subtaps and grid, a per-tap conv k x k B2
+   launches, a pool one B4a / B4b launch over ``pool_window_plan`` /
+   ``pool_plan``'s grid, an FC one B2 launch).
    The trace must hold no fallback_decode, the plan no densify point;
    chained == round-trip bitwise; logits within 5e-3 of the dense oracle
    and within 1e-4 of its largest magnitude.  Prints the warm forward time
@@ -189,6 +194,38 @@ its model, and each LM's weights before the next LM's):
    ``engine.conv2d`` on the MINI CNN's first layer at batch 1 (strides 1
    and 2, paddings 0 and 1), each within 1e-4 of max|ref| of torch.matmul
    / F.conv2d in f32 (TF32 off), no B1-B10 launch.
+12. AlexNet at 224 (stock: conv1 k11 s4 p2, pools k3 s2, FC 9216 -> 4096
+   -> 4096 -> 1000, 62.4 M parameters), the paper's other network, through
+   ``examples/torch_serve_cnn_events.serve_cnn_events``: buckets (1, 4,
+   8), weight sparsity 0.5, 336 ``data.cnn_batch`` requests at activation
+   sparsity 0.6 in 60 ticks (``ALEX_ARRIVALS``: 30, 78 and 228 requests
+   in buckets 1, 4 and 8), counts set to 0 just before the engine is
+   built and read after.  3 captures, flat; each bucket's capture saw the
+   route plan (B1 x10, B2 x176: conv1 on the dense input and every conv
+   per tap, B4b x3); the boundary reports' routes
+   ``chain_boundary_summary``'s, no fallback_decode or densify point;
+   every request FIFO in its tick, within 5e-3 and 1e-4·max|dense| of the
+   dense oracle and bitwise its bucket-1 replay; the eager forward of the
+   full bucket of 8 bitwise its served rows, with the plan's launches
+   layer by layer (``check_layer_plans``), and one launch of each of its
+   distinct B1, B2 and B4b shapes kept for phase 3.  ``run_with_stats`` on the
+   card: kind, dense_macs, in_elems and c_out ``analytic_network_stats``'
+   exactly, in_events and event_macs the same function's on CPU tensors
+   (a difference only up to the values within 1e-6 of the threshold).
+   Prints the cost model of the paper's 200 MHz ASIC (``table4_row``,
+   ``network_cycles`` of MNF and the four baselines) on these stats and
+   on the paper's profile, beside Table 4 and Fig. 8 (model numbers, not
+   times on the card); requests/s, p50/p99 and warm-up and capture
+   seconds per bucket, the bucket-8 replay beside the dense oracle's graph
+   on the same frames, and a profile of it.  Then served twice more
+   under ``route="adaptive"`` at occupancy hints 0.3 and 0.9 with
+   BENCH_engine.json's crossover table installed: every routed trace
+   record's route the cheaper side of its own fields (the table's ratio
+   where the table covers the record, else its recorded cost estimates),
+   ``route_conflicts`` empty, rows within 5e-3 and 1e-4·max|dense| of the
+   oracle; prints the boundaries whose route differs from auto; the table
+   cleared after.  AlexNet's launches per bucket go on a JSON line of
+   their own; the phase frees its engines.
 3. Kernel checks: each kernel against its plain PyTorch version on the
    inputs the forwards handed it (B1, B2 and B5 at the shapes of both
    VGG16 and LeNet-300-100), plus the strip convs at stride 4 and 2
@@ -220,7 +257,13 @@ its model, and each LM's weights before the next LM's):
    their library columns are null.  B1, B2, B3 and both pools also at
    phase 8's bucket-128 launches (B2 at FC1), against the plain version
    as above, timed beside their bound (``serve128`` in their JSON
-   entries).  Prints each kernel's
+   entries).  B1, B2 and B4b also at each distinct launch shape of phase
+   12's eager AlexNet@224 bucket-8 forward (B2: conv1's per-tap K of 3,
+   conv2's k5 on 27x27, conv3-5, FC1's K of 9216; B4b: the k3 s2 pools at
+   C 96 and 256), against the plain version as above (B2 also against
+   torch.matmul on the decoded map), timed beside their bound and summed
+   over a forward's launches (``alexnet224`` in their JSON entries).
+   Prints each kernel's
    time, the plain version's, one PyTorch library call's on the same
    function, and the bound.
 
@@ -301,6 +344,28 @@ PLAN_F32_MLP = dict(fire_compact=2, event_matmul=3, event_conv=0,
                     mamba_scan_fused=0)
 PLAN_INT8_MLP = dict(fire_compact=0, event_matmul=1, event_conv=0,
                      event_pool_window=0, event_pool=0, event_matmul_int8=2,
+                     event_conv_int8=0, wkv6_step=0, mamba_step=0,
+                     wkv6_single=0, wkv6=0, mamba_scan=0,
+                     mamba_scan_fused=0)
+
+
+#: Phase 12: AlexNet@224 served through the JAX example's buckets, and the
+#: launches a bucket's capture sees: conv1 (on the dense input) and every
+#: conv run per tap on B2 (121 + 25 + 3 x 9), the FCs on B2 (3), the three
+#: k3 s2 pools on B4b, a fire (B1) after each conv, pool and hidden FC.
+ALEX_BUCKETS = (1, 4, 8)
+#: Requests arriving at each tick, six rounds of ten ticks.  A tick of n
+#: runs batches of min(n, 8) padded up to the smallest bucket, so a round
+#: serves bucket 1 five times (ticks 1, 1, 9, 17, 1), bucket 4 four times
+#: (3, 12, 2, 4: 13 requests) and bucket 8 six times (38 requests): in all
+#: 336 requests, 30 in bucket 1, 78 in bucket 4 and 228 in bucket 8.
+ALEX_ARRIVALS = (1, 1, 3, 9, 12, 6, 2, 17, 1, 4) * 6
+#: Occupancy hints of the adaptive serves.
+ALEX_OCCUPANCY = (0.3, 0.9)
+#: The crossover table's boundary of each routed op.
+BOUNDARY = {"conv2d": "conv", "maxpool2d": "pool", "linear": "linear"}
+PLAN_F32_ALEX = dict(fire_compact=10, event_matmul=176, event_conv=0,
+                     event_pool_window=0, event_pool=3, event_matmul_int8=0,
                      event_conv_int8=0, wkv6_step=0, mamba_step=0,
                      wkv6_single=0, wkv6=0, mamba_scan=0,
                      mamba_scan_fused=0)
@@ -464,6 +529,91 @@ def check_plan(tag, launches, plan):
     print(f"{tag} launches per kernel: {launches}; route plan "
           f"{'confirmed' if not diff else f'differs (got, plan): {diff}'}",
           flush=True)
+
+
+def check_layer_plans(tag, cnn, spec, batch, recs, captured) -> list:
+    """Each layer's counted launches, in forward order, against the launch
+    accounting of the JAX package (``fused_conv_plan``, ``pool_plan``,
+    ``pool_window_plan``): a strip conv one B3 launch
+    (``launches_fused``) whose plan has ``subtaps`` subtaps over
+    ``grid_fused``'s output strips; a per-tap conv (a pixel stream, or a
+    dense chain head, which records nothing) ``launches_per_tap`` B2
+    launches on its (padded) tap weights; a pool one B4a or B4b launch
+    (``launches``) over its plan's grid; an FC one B2 launch.  ``recs``
+    are the forward's trace records and ``captured`` each wrapper's
+    launches in order, all of which the layers must use up.  Returns one
+    "layer kernel xN" string a layer."""
+    from repro_torch.kernels.event_conv.ops import fused_conv_plan
+    from repro_torch.kernels.event_pool.ops import pool_plan, pool_window_plan
+
+    queues = {n: list(captured[n]) for n in ("event_conv", "event_matmul",
+                                             "event_pool",
+                                             "event_pool_window")}
+    ops = {cnn.ConvSpec: "conv2d", cnn.PoolSpec: "maxpool2d",
+           cnn.FCSpec: "linear"}
+    recs = [r for r in recs if r.get("op") in ops.values()]
+    out = []
+
+    def take(name, n, what):
+        check(len(queues[name]) >= n, f"{tag} {what}: {n} {name} launches "
+              f"planned, {len(queues[name])} left")
+        calls, queues[name][:] = queues[name][:n], queues[name][n:]
+        return calls
+
+    for i, (layer, shape) in enumerate(layer_inputs(cnn, spec, batch)):
+        rec = recs.pop(0) if recs and recs[0]["op"] == ops[type(layer)] \
+            else None
+        what = f"layer {i} {type(layer).__name__} {shape}"
+        if isinstance(layer, cnn.ConvSpec):
+            k, p, st, co = layer.k, layer.padding, layer.stride, layer.out_ch
+            if rec is not None and rec.get("strip"):
+                (args, kw), = take("event_conv", 1, what)
+                plan = fused_conv_plan(shape, k, p, nkb=kw["nkb"], stride=st)
+                check(plan["launches_fused"] == 1
+                      and args[2].numel() == plan["subtaps"]
+                      and tuple(args[4].shape) == plan["grid_fused"][:2]
+                      and kw["row_stride"] == st,
+                      f"{tag} {what}: B3 took tap {tuple(args[2].shape)}, "
+                      f"src {tuple(args[4].shape)}; plan {plan}")
+                out.append(f"{i} B3 x1 ({plan['subtaps']} subtaps)")
+            else:
+                plan = fused_conv_plan(shape, k, p, nkb=1, stride=st)
+                n = plan["launches_per_tap"]
+                for args, _ in take("event_matmul", n, what):
+                    bk = args[0].shape[3]
+                    check(tuple(args[3].shape) == (-(-shape[3] // bk) * bk,
+                                                   co),
+                          f"{tag} {what}: a tap's weight "
+                          f"{tuple(args[3].shape)}, want ({shape[3]}, {co}) "
+                          f"padded to {bk}")
+                out.append(f"{i} B2 x{n}")
+        elif isinstance(layer, cnn.PoolSpec):
+            if rec is None or not rec.get("pool_events"):
+                out.append(f"{i} dense")
+                continue
+            window = rec["route"] == "window"
+            name = "event_pool_window" if window else "event_pool"
+            (args, kw), = take(name, 1, what)
+            plan = (pool_window_plan if window else pool_plan)(
+                shape, layer.k, layer.stride, nkb=kw["nkb"])
+            check(plan["launches"] == 1
+                  and tuple(args[3].shape) == plan["grid"][:2],
+                  f"{tag} {what}: {name} took src {tuple(args[3].shape)}; "
+                  f"plan {plan}")
+            out.append(f"{i} {'B4a' if window else 'B4b'} x1 (grid "
+                       f"{plan['grid']})")
+        else:
+            (args, _), = take("event_matmul", 1, what)
+            b, h, w, c = shape
+            bk = args[0].shape[3]
+            check(tuple(args[3].shape) == (-(-(h * w * c) // bk) * bk,
+                                           layer.out),
+                  f"{tag} {what}: FC weight {tuple(args[3].shape)}")
+            out.append(f"{i} B2 x1")
+    left = {n: len(q) for n, q in queues.items() if q}
+    check(not left and not recs, f"{tag}: launches no layer planned {left}, "
+          f"records left {recs}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -695,6 +845,41 @@ SERVE_KEEP = {
     "event_pool_window": lambda a, kw: a[0].numel(),
     "event_pool": lambda a, kw: a[0].numel(),
 }
+
+#: Phase 12's kernels, and the score of a launch among those of its shape
+#: that phase 3 replays: the one with the most live events (B2: its event
+#: counts, B4b: its window counts; B1's launches of a shape are alike).
+ALEX_KEEP = {
+    "fire_compact": lambda a: 0,
+    "event_matmul": lambda a: int(a[2].sum()),
+    "event_pool": lambda a: int(a[4].sum()),
+}
+
+
+def call_shape(torch, args, kw) -> tuple:
+    """A launch's shape: its tensors' shapes, its other arguments."""
+    return tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
+                 for a in args) + tuple(sorted(kw.items()))
+
+
+def keep_by_shape(torch, captured) -> dict:
+    """{kernel: [(args on the host, kw, launches of that shape)]}: for each
+    ``ALEX_KEEP`` kernel, its launch that scores largest among those of
+    each distinct shape in ``captured``, in order of first launch."""
+    out = {}
+    for name, score in ALEX_KEEP.items():
+        best = {}               # shape: [launches, best score, (args, kw)]
+        for args, kw in captured[name]:
+            slot = best.setdefault(call_shape(torch, args, kw),
+                                   [0, None, None])
+            slot[0] += 1
+            s = score(args)
+            if slot[1] is None or s > slot[1]:
+                slot[1:] = [s, (args, kw)]
+        out[name] = [(tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                            for a in args), kw, n)
+                     for n, _, (args, kw) in best.values()]
+    return out
 
 
 def serve_net(torch, drive, wrappers, tag, spec, params, plan, dense, seed,
@@ -2404,6 +2589,343 @@ def scalar_phase(torch, engine, wrappers, card, device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: AlexNet@224, the paper's other network, served through the JAX
+# example's buckets (examples/torch_serve_cnn_events.py), its measured
+# events priced on the paper's ASIC model, and served again under adaptive
+# routing with BENCH_engine.json's crossover table installed.
+# ---------------------------------------------------------------------------
+
+def adaptive_route(xover, table, rec, flavor) -> tuple:
+    """(route, source) that an adaptive trace record ``rec`` must carry,
+    read from its own fields: the cheaper side by ``table``'s ratio at the
+    record's occupancy, backend, shape class and event ``flavor`` (the
+    route auto takes there) where the table covers it, else by the
+    record's cost estimates; dense where auto has no event route."""
+    if flavor not in xover.EVENT_ROUTES:
+        return "dense", "geometry"
+    t_ratio = table.ratio(BOUNDARY[rec["op"]], rec["occupancy"],
+                          backend=rec["backend"],
+                          shape_class=rec["shape_class"], flavor=flavor)
+    if t_ratio is not None:
+        return ("dense" if t_ratio > 1.0 else flavor), "table"
+    ratio = rec["est_event_cost"] / max(rec["est_dense_cost"], 1e-12)
+    return ("dense" if ratio > 1.0 else flavor), "model"
+
+
+def dense_preacts(torch, F, cnn, params, x, spec) -> list:
+    """Each compute layer's pre-activation on the dense path (f32, the
+    device of ``x``): what a fire thresholds."""
+    out = []
+    for layer, w in zip(spec.layers, params):
+        if isinstance(layer, cnn.ConvSpec):
+            x = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                         stride=layer.stride,
+                         padding=layer.padding).permute(0, 2, 3, 1)
+        elif isinstance(layer, cnn.PoolSpec):
+            x = F.max_pool2d(x.permute(0, 3, 1, 2), layer.k,
+                             layer.stride).permute(0, 2, 3, 1)
+            continue
+        else:
+            x = x.reshape(x.shape[0], -1) @ w
+        out.append(x)
+        x = torch.relu(x)
+    return out
+
+
+def alexnet_phase(torch, engine, wrappers, drive, card) -> dict:
+    """Phase 12: stock AlexNet at 224 (conv1 k11 s4 p2; pools k3 s2; FC
+    9216 -> 4096 -> 4096 -> 1000) served through
+    ``examples/torch_serve_cnn_events.serve_cnn_events``: buckets (1, 4,
+    8), weight sparsity 0.5, requests ``data.cnn_batch`` frames at
+    activation sparsity 0.6 arriving ``ALEX_ARRIVALS`` a tick, counts set
+    to 0 just before and read just after.  Checks: 3 captures, flat; each
+    bucket's capture saw ``PLAN_F32_ALEX``; every boundary report's routes
+    ``chain_boundary_summary``'s, no fallback_decode or densify point;
+    every request served FIFO in its tick, within 5e-3 and
+    1e-4·max|dense| of the dense oracle and bitwise its bucket-1 replay;
+    the eager forward of the full bucket of 8 bitwise its served rows, its
+    launches the plan's and each layer's those of ``check_layer_plans``;
+    one launch of each distinct B1, B2 and B4b shape of that forward kept
+    (on the host, ``kept``) for phase 3.  ``run_with_stats`` on the
+    first frame on the card: its shape fields ``analytic_network_stats``'s
+    exactly, its counts the same function's on the CPU (any difference no
+    larger than the values within 1e-6 of the threshold); the paper's
+    ASIC priced on them and on the paper's profile.  Then two adaptive
+    serves (occupancy hints ``ALEX_OCCUPANCY``) with BENCH_engine.json's
+    table installed: every routed record's route the cheaper side of its
+    own fields (the table's ratio at its occupancy, backend, shape class
+    and event flavour where the table covers it, else its recorded cost
+    estimates), no ``route_conflicts``, rows within 5e-3 and
+    1e-4·max|dense| of the oracle; the table cleared after.  Frees every
+    engine before it returns."""
+    import importlib.util
+
+    import torch.nn.functional as F
+
+    from repro_torch.costmodel import PAPER_TABLE4, network_cycles, table4_row
+    from repro_torch.costmodel import crossover as xover
+    from repro_torch.costmodel.table4 import (ALEXNET_DENSITY_PROFILE,
+                                              ALEXNET_W_DENSITY,
+                                              PAPER_RATIOS)
+    from repro_torch.costmodel.workloads import analytic_network_stats
+    from repro_torch.models import cnn
+
+    t_phase = time.perf_counter()
+    mod = importlib.util.spec_from_file_location(
+        "torch_serve_cnn_events",
+        ROOT / "examples" / "torch_serve_cnn_events.py")
+    ex = importlib.util.module_from_spec(mod)
+    mod.loader.exec_module(ex)
+    dev = torch.device("cuda")
+    spec = cnn.ALEXNET
+    params = cnn.init_cnn_params(
+        spec, torch.Generator(device=dev).manual_seed(12),
+        weight_sparsity=0.5)
+    n_params = sum(p.numel() for p in params if p is not None)
+    n_req = sum(ALEX_ARRIVALS)
+
+    def serve(engine_cfg=None):
+        return ex.serve_cnn_events(
+            "alexnet", 224, buckets=ALEX_BUCKETS, weight_sparsity=0.5,
+            act_sparsity=0.6, device=dev, params=params,
+            arrivals=ALEX_ARRIVALS, engine_cfg=engine_cfg)
+
+    print(f"[12] {spec.name}@224: {n_params} parameters "
+          f"({n_params * 4 / 1e6:.1f} MB f32), buckets {ALEX_BUCKETS}, "
+          f"{n_req} requests in ticks of {list(ALEX_ARRIVALS)}", flush=True)
+    run, _, raw, _, serve_s = drive(serve, capture=False)
+    eng = run["engine"]
+    check(eng.recompiles == len(ALEX_BUCKETS), f"[12]: {eng.recompiles} "
+          f"captures, not {len(ALEX_BUCKETS)}")
+    missing = [n for n, want in PLAN_F32_ALEX.items() if want and not raw[n]]
+    stray = [n for n, want in PLAN_F32_ALEX.items() if not want and raw[n]]
+    check(not missing and not stray, f"[12]: kernels of the path never "
+          f"launched {missing}, off it launched {stray}")
+    per_bucket = {}
+    for b in ALEX_BUCKETS:
+        g = eng.plans[b].fn.graph
+        got = {n: g.launches.get(w, 0) for n, w in wrappers.items()}
+        check_plan(f"[12] bucket {b} capture", got, PLAN_F32_ALEX)
+        check(got == PLAN_F32_ALEX, f"[12] bucket {b}: the capture saw "
+              f"{got}, not the route plan {PLAN_F32_ALEX}")
+        rep = eng.boundary_report(b)
+        summary = cnn.chain_boundary_summary(spec, batch=b, device=dev)
+        want = [(r["op"], r["route"], r["shape_class"])
+                for r in summary["routes"]]
+        check(rep["fallback_decodes"] == 0 and rep["boundaries"]["densify"]
+              == 0 and [(r["op"], r["route"], r["shape_class"])
+                        for r in rep["routes"]] == want,
+              f"[12] bucket {b}: boundary report {rep}, routes want {want}")
+        per_bucket[b] = dict(launches=got)
+    done = eng.completed
+    check([r.rid for r in done] == list(range(n_req))
+          and all(r.completion_tick == r.arrival_tick for r in done),
+          "[12]: not every request served FIFO in its own tick")
+    oracle = run["oracle"]
+    got_rows = torch.stack([r.result for r in done])
+    d = float((got_rows - oracle).abs().max())
+    ratio = d / max(float(oracle.abs().max()), 1e-30)
+    check(bool(torch.allclose(got_rows, oracle, atol=5e-3, rtol=5e-3))
+          and ratio <= 1e-4, f"[12]: served rows off the dense oracle by "
+          f"{d:.3e} (ratio to max|dense| {ratio:.3e})")
+    off = [r.rid for r in done
+           if not bits_equal(torch, eng.forward(1, [r.image])[0], r.result)]
+    check(not off, f"[12]: {len(off)} served rows not bitwise their bucket-1 "
+          f"replay (first {off[:8]})")
+    routes = sorted({(r["op"], r["route"]) for r in
+                     eng.boundary_report(8)["routes"]})
+    print(f"[12] served FIFO in {serve_s:.3f} s (warm-up, traffic, oracle and "
+          f"run_with_stats); captures {eng.recompiles}, flat; each bucket's "
+          f"capture saw the route plan; routes {routes} as "
+          f"chain_boundary_summary says, densify 0, fallback_decode 0; "
+          f"all {n_req} served rows within 5e-3 and 1e-4·max|dense| of the "
+          f"dense oracle (max|d| {d:.3e}, ratio to max|dense| "
+          f"{ratio:.3e}) and bitwise their bucket-1 replays", flush=True)
+
+    # the full bucket of 8, eagerly: bitwise its served rows, its launches
+    # the plan's layer by layer
+    reqs = [r for r in done if r.bucket == 8][:8]
+    x8 = torch.stack([r.image for r in reqs]).to(dev)
+    with torch.inference_mode():
+        y8, recs8, launches8, captured8, _ = drive(
+            lambda: cnn.cnn_forward(eng.params, x8, spec))
+    check(bits_equal(torch, y8.cpu(), torch.stack([r.result for r in reqs])),
+          "[12]: the eager forward of a full bucket of 8 is not bitwise its "
+          "served rows")
+    check(launches8 == PLAN_F32_ALEX, f"[12] eager bucket 8: launches "
+          f"{launches8}, plan {PLAN_F32_ALEX}")
+    layers = check_layer_plans("[12] eager bucket 8", cnn, spec, 8, recs8,
+                               captured8)
+    kept = keep_by_shape(torch, captured8)
+    del captured8
+    print(f"[12] the eager forward of the full bucket of 8 is bitwise its "
+          f"served rows; launches by layer as fused_conv_plan / pool_plan "
+          f"say: {layers}; kept for phase 3 one launch of each shape: "
+          + ", ".join(f"{n} x{len(k)}" for n, k in kept.items()), flush=True)
+
+    # times: per bucket p50 / p99, warm-up, capture; the bucket-8 replay
+    # beside the dense oracle's graph on the same 8 frames
+    stats = run["stats"]
+    g8 = eng.plans[8].fn.graph
+    eng.plans[8].fn.graph.static[1].copy_(x8)
+    replay_ms, _ = host_ms(torch, g8.replay, reps=5)
+    dpipe = cnn.make_cnn_pipeline(spec, batch=8, mnf=False, device=dev)
+    dpipe(eng.params, x8)
+    dense_ms, _ = host_ms(torch, lambda: dpipe(eng.params, x8), reps=5)
+    del dpipe
+    for b in ALEX_BUCKETS:
+        per_bucket[b].update(stats["per_bucket"][b], **eng.warmup_s[b])
+        print(f"[12] bucket {b}: {per_bucket[b]['requests']} requests, p50 "
+              f"{per_bucket[b]['p50_ms']:.3f} ms, p99 "
+              f"{per_bucket[b]['p99_ms']:.3f} ms; warm-up "
+              f"{eng.warmup_s[b]['warmup_s']:.3f} s, capture "
+              f"{eng.warmup_s[b]['capture_s']:.3f} s; launches a forward "
+              f"B1 {per_bucket[b]['launches']['fire_compact']}, B2 "
+              f"{per_bucket[b]['launches']['event_matmul']}, B4b "
+              f"{per_bucket[b]['launches']['event_pool']} (card {card})",
+              flush=True)
+    print(f"[12] served {stats['requests']} requests at "
+          f"{stats['requests_s']} requests/s, p50 {stats['p50_ms']} ms, p99 "
+          f"{stats['p99_ms']} ms; the bucket-8 replay {replay_ms:.3f} ms "
+          f"against the dense oracle's graph on the same 8 frames "
+          f"{dense_ms:.3f} ms (host clock, medians of 5; card {card})",
+          flush=True)
+    profile(torch, g8.replay, "[12] bucket 8 graphed")
+
+    # run_with_stats on the first frame: shape fields analytic, counts the
+    # CPU's; then the paper's ASIC priced on them
+    st = run["layer_stats"]
+    an = analytic_network_stats(spec, ALEXNET_DENSITY_PROFILE)
+    shape_keys = ("kind", "dense_macs", "in_elems", "c_out")
+    check(len(st) == len(an) and all(
+        all(a[k] == m[k] for k in shape_keys) for a, m in zip(an, st)),
+        f"[12]: run_with_stats' shape fields differ from "
+        f"analytic_network_stats': {[{k: m[k] for k in shape_keys} for m in st]}")
+    cpu_params = [None if p is None else p.cpu() for p in eng.params]
+    _, st_cpu = cnn.run_with_stats(cpu_params, run["frames"][:1], spec,
+                                   device="cpu")
+    diff = [i for i, (m, c) in enumerate(zip(st, st_cpu))
+            if (m["in_events"], m["event_macs"])
+            != (c["in_events"], c["event_macs"])]
+    if diff:
+        pre = dense_preacts(torch, F, cnn, cpu_params, run["frames"][:1],
+                            spec)
+        ties = [0] + [int((p.abs() <= 1e-6).sum()) for p in pre]
+        for i in diff:
+            dev_ev = abs(st[i]["in_events"] - st_cpu[i]["in_events"])
+            print(f"[12] layer {i}: in_events card {st[i]['in_events']} cpu "
+                  f"{st_cpu[i]['in_events']}, event_macs card "
+                  f"{st[i]['event_macs']} cpu {st_cpu[i]['event_macs']}; "
+                  f"{ties[i]} values of the layer before within 1e-6 of "
+                  f"the threshold", flush=True)
+            check(dev_ev <= ties[i], f"[12] layer {i}: the event counts of "
+                  f"card and CPU differ by {dev_ev}, more than the "
+                  f"{ties[i]} ties")
+    ev_macs = sum(m["event_macs"] for m in st)
+    dn_macs = sum(m["dense_macs"] for m in st)
+    print(f"[12] run_with_stats on the first frame on the card: kind, "
+          f"dense_macs, in_elems, c_out analytic_network_stats' exactly; "
+          f"in_events and event_macs the CPU's "
+          f"{'exactly' if not diff else f'but at layers {diff} (ties)'}; "
+          f"event/dense MACs {ev_macs:.0f}/{dn_macs:.0f} = "
+          f"{ev_macs / dn_macs:.4f}", flush=True)
+    priced = {}
+    for what, stats_, wd in (("measured (weight density 0.5)", st, 0.5),
+                             ("paper profile", an, ALEXNET_W_DENSITY)):
+        row = table4_row(stats_, w_density=wd)
+        mnf = network_cycles(stats_, "mnf", d_w=wd)
+        cyc = {dsg: network_cycles(stats_, dsg, d_w=wd)
+               for dsg in ("scnn_dense", "scnn", "sparten", "gospa")}
+        priced[what] = dict(row=row, mnf_cycles=mnf, cycles=cyc)
+        print(f"[12] the cost model of the paper's 200 MHz ASIC (Table 3; "
+              f"model numbers, not times on the card), AlexNet@224, "
+              f"{what}: {row['frames_s']:.1f} frames/s, "
+              f"{row['power_mw']:.1f} mW, {row['frames_j']:.1f} frames/J "
+              f"(paper {PAPER_TABLE4['alexnet']['frames_s']}, "
+              f"{PAPER_TABLE4['alexnet']['power_mw']}, "
+              f"{PAPER_TABLE4['alexnet']['frames_j']}); MNF {mnf:,.0f} "
+              f"cycles/frame; baselines / MNF: "
+              + ", ".join(f"{dsg} {c / mnf:.2f}x (paper "
+                          f"{PAPER_RATIOS['alexnet'][dsg]}x)"
+                          for dsg, c in cyc.items()), flush=True)
+    warm = {b: eng.warmup_s[b] for b in ALEX_BUCKETS}
+    del run, eng, done, reqs, g8, y8, x8, got_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # adaptive routing with BENCH_engine.json's table installed
+    table = xover.load_crossover_table(str(ROOT / "BENCH_engine.json"))
+    check(table.entries > 0, "[12]: BENCH_engine.json gave no crossover "
+          "entries")
+    auto_routes = {b: [(r["op"], r["route"]) for r in
+                       cnn.chain_boundary_summary(spec, batch=b,
+                                                  device=dev)["routes"]]
+                   for b in ALEX_BUCKETS}
+    adaptive = {}
+    prev = xover.set_active_table(table)
+    try:
+        for occ in ALEX_OCCUPANCY:
+            cfg = engine.EngineConfig(route="adaptive", occupancy_hint=occ)
+            run_a = serve(cfg)
+            eng_a = run_a["engine"]
+            flips = set()
+            n_rec = 0
+            for b in ALEX_BUCKETS:
+                recs = [r for r in eng_a.plans[b].fn.graph.records
+                        if r.get("route") is not None]
+                check([r["op"] for r in recs] == [r[0] for r in
+                                                  auto_routes[b]],
+                      f"[12] adaptive {occ} bucket {b}: routed records "
+                      f"{[r['op'] for r in recs]}, auto {auto_routes[b]}")
+                for rec, (op, flavor) in zip(recs, auto_routes[b]):
+                    want = adaptive_route(xover, table, rec, flavor)
+                    check((rec["route"], rec["route_source"]) == want,
+                          f"[12] adaptive {occ} bucket {b}: record {rec}, "
+                          f"its own fields give {want}")
+                    if rec["route"] != flavor:
+                        flips.add((op, rec["shape_class"], flavor,
+                                   rec["route"]))
+                    n_rec += 1
+                conflicts = xover.route_conflicts(recs, table)
+                check(conflicts == [], f"[12] adaptive {occ} bucket {b}: "
+                      f"route conflicts {conflicts}")
+                rep = eng_a.boundary_report(b)
+                check(rep["fallback_decodes"] == 0, f"[12] adaptive {occ} "
+                      f"bucket {b}: {rep}")
+            rows = torch.stack([r.result for r in eng_a.completed])
+            da = float((rows - run_a["oracle"]).abs().max())
+            ra = da / max(float(run_a["oracle"].abs().max()), 1e-30)
+            check(bool(torch.allclose(rows, run_a["oracle"], atol=5e-3,
+                                      rtol=5e-3)) and ra <= 1e-4,
+                  f"[12] adaptive {occ}: served rows off the oracle by "
+                  f"{da:.3e} (ratio to max|dense| {ra:.3e})")
+            adaptive[occ] = dict(flips=sorted(flips),
+                                 requests_s=run_a["stats"]["requests_s"],
+                                 max_abs_err=da, ratio=ra)
+            print(f"[12] adaptive at occupancy {occ} (BENCH_engine.json: "
+                  f"device {table.device!r}, {table.entries} entries, "
+                  f"{len(table)} curves): {n_rec} routed records over the "
+                  f"buckets, each routed to the cheaper side its own fields "
+                  f"give; route_conflicts empty; rows within 5e-3 and "
+                  f"1e-4·max|dense| of the oracle (max|d| {da:.3e}, ratio "
+                  f"{ra:.3e}); boundaries off auto "
+                  f"(op, shape class, auto, adaptive): {sorted(flips)}; "
+                  f"{run_a['stats']['requests_s']} requests/s (card {card})",
+                  flush=True)
+            del run_a, eng_a, rows
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        xover.set_active_table(prev)
+    check(xover.active_table() is None, "[12]: the table was not cleared")
+    seconds = time.perf_counter() - t_phase
+    print(f"[12] phase 12 took {seconds:.1f} s", flush=True)
+    return dict(stats=stats, per_bucket=per_bucket, warm=warm,
+                replay8_ms=replay_ms, dense8_ms=dense_ms, priced=priced,
+                adaptive=adaptive, seconds=seconds, kept=kept)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -2611,6 +3133,9 @@ def run(torch) -> int:
     strip_convs, pools = check_trace(
         "[2]", spec, recs, launches,
         cnn.chain_boundary_summary(spec, batch=4, device=dev))
+    layers = check_layer_plans("[2]", cnn, spec, 4, recs, captured)
+    print(f"[2] launches by layer as fused_conv_plan / pool_plan / "
+          f"pool_window_plan say: {layers}", flush=True)
     check(y_chain.shape == (4, spec.num_classes)
           and bool(torch.isfinite(y_chain).all()),
           f"logits {tuple(y_chain.shape)} not finite (4, {spec.num_classes})")
@@ -2794,6 +3319,12 @@ def run(torch) -> int:
     # -- 11. the scalar oracle (the paper's Algorithms 1 and 2) ---------------
     scalar = scalar_phase(torch, engine, wrappers, card)
 
+    # -- 12. AlexNet@224 served, priced, and routed adaptively ----------------
+    alex = alexnet_phase(torch, engine, wrappers, drive, card)
+    print(json.dumps({"alexnet_launches": {
+        "per_bucket": {b: v["launches"] for b, v in
+                       alex["per_bucket"].items()}}}), flush=True)
+
     # -- 3. kernel checks on the captured inputs ------------------------------
     results = []
     # the main paths' counts: captured x replayed (the graphed forwards'
@@ -2808,15 +3339,11 @@ def run(torch) -> int:
                 "mamba_scan": hymba["streams_launches"],
                 "mamba_scan_fused": hymba["scan_launches"]}
 
-    def shapes(args, kw):
-        return tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
-                     for a in args) + tuple(sorted(kw.items()))
-
     def unique(calls):
         """The first captured call of each distinct shape."""
         seen = {}
         for args, kw in calls:
-            seen.setdefault(shapes(args, kw), (args, kw))
+            seen.setdefault(call_shape(torch, args, kw), (args, kw))
         return list(seen.values())
 
     def heaviest(items, work):
@@ -3193,28 +3720,34 @@ def run(torch) -> int:
         del x_nchw
 
     # phase 8's bucket-128 launches (served VGG16@224, a full bucket of
-    # 128): each kernel of the path at its heaviest launch there, against
-    # its plain version, timed beside its bound
+    # 128) and phase 12's (AlexNet@224, the eager bucket-8 forward): each
+    # kernel of the path against its plain version, timed beside its bound
     def fire_work(a, kw, y):
         n = a[0].numel()
         return n * 8 + n // (kw["blk_m"] * kw["blk_k"]) * 4, float(n)
 
-    for name, kern, ref, exact, work in (
-            ("fire_compact", fire_ops.fire_compact, fire_compact_ref, True,
-             fire_work),
-            ("event_matmul", mm_ops.event_matmul, event_matmul_ref, False,
-             lambda a, kw, y: matmul_work(torch, *a)),
-            ("event_conv", conv_ops.event_conv, event_conv_ref, False,
-             lambda a, kw, y: conv_work(torch, a, kw["row_stride"])),
-            ("event_pool_window", pool_ops.event_pool_window,
-             event_pool_window_ref, True,
-             lambda a, kw, y: pool_work(a[0], a[4], y.numel())),
-            ("event_pool", pool_ops.event_pool, event_pool_ref, True,
-             lambda a, kw, y: pool_work(a[0], a[4], y.numel()))):
-        args, kw = served["vgg16"]["bucket128"][name]
+    replays = {
+        "fire_compact": (fire_ops.fire_compact, fire_compact_ref, True,
+                         fire_work),
+        "event_matmul": (mm_ops.event_matmul, event_matmul_ref, False,
+                         lambda a, kw, y: matmul_work(torch, *a)),
+        "event_conv": (conv_ops.event_conv, event_conv_ref, False,
+                       lambda a, kw, y: conv_work(torch, a, kw["row_stride"])),
+        "event_pool_window": (pool_ops.event_pool_window,
+                              event_pool_window_ref, True,
+                              lambda a, kw, y: pool_work(a[0], a[4],
+                                                         y.numel())),
+        "event_pool": (pool_ops.event_pool, event_pool_ref, True,
+                       lambda a, kw, y: pool_work(a[0], a[4], y.numel())),
+    }
+
+    def replay(name, args, kw, what):
+        """One kept launch against its plain version (exact, or within
+        1e-4 * max|plain|), graph-timed beside its bound and the plain
+        version's time."""
+        kern, ref, exact, work = replays[name]
         args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
                      for a in args)
-        what = f"{name} at bucket 128, {tuple(args[0].shape)}"
         y, want = kern(*args, **kw), ref(*args, **kw)
         if exact:
             check(all(torch.equal(u, v) for u, v in zip(
@@ -3224,20 +3757,48 @@ def run(torch) -> int:
             err = 0.0
         else:
             err = close(y, want, what)
+        if name == "event_matmul":
+            close(y.reshape(-1, y.shape[-1]), decoded(*args) @ args[3],
+                  what + " vs torch.matmul")
         b = bound_ms(*work(args, kw, y[0] if isinstance(y, tuple) else y))
-        ms = graph_ms(torch, lambda: kern(*args, **kw), 10)
-        plain_ms = cuda_ms(torch, lambda: ref(*args, **kw), 1)
         shape = shape_str(args) if name == "event_matmul" \
             else str(tuple(args[0].shape))
+        return dict(shape=shape, max_abs_err=err,
+                    ms=graph_ms(torch, lambda: kern(*args, **kw), 10),
+                    plain_ms=cuda_ms(torch, lambda: ref(*args, **kw), 1),
+                    bound_ms=b[0], bound_by=b[1])
+
+    for name in replays:
+        args, kw = served["vgg16"]["bucket128"][name]
+        what = f"{name} at bucket 128, {tuple(args[0].shape)}"
+        r = replay(name, args, kw, what)
         entry = next(e for e in results if e["name"] == name)
-        entry["serve128"] = dict(
-            shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b[0], bound_by=b[1])
+        entry["serve128"] = r
         print(f"[3] {what} (phase 8's full bucket of 128, its heaviest "
-              f"launch): max_abs_err {err:.3e}{' (exact)' if exact else ''}"
-              f", {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} "
-              f"ms ({b[1]})", flush=True)
-        del args, y, want
+              f"launch): max_abs_err {r['max_abs_err']:.3e}"
+              f"{' (exact)' if replays[name][2] else ''}, {r['ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+
+    for name, kept in alex["kept"].items():
+        rows, total = [], 0.0
+        for args, kw, n in kept:
+            what = f"{name} at AlexNet@224 bucket 8, {tuple(args[0].shape)}"
+            r = replay(name, args, kw, what)
+            rows.append(dict(r, launches=n))
+            total += r["ms"] * n
+            print(f"[3] {what} (phase 12, x{n} a forward): max_abs_err "
+                  f"{r['max_abs_err']:.3e}"
+                  f"{' (exact)' if replays[name][2] else ''}, {r['ms']:.4f} "
+                  f"ms, x{n} = {r['ms'] * n:.4f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})", flush=True)
+        print(f"[3] {name}: {total:.4f} ms an AlexNet@224 bucket-8 forward, "
+              f"its {sum(r['launches'] for r in rows)} launches at "
+              f"{len(rows)} shapes (each shape's kept launch graph-timed, "
+              f"times its launches; card {card})", flush=True)
+        entry = next(e for e in results if e["name"] == name)
+        entry["alexnet224"] = dict(shapes=rows, per_forward_ms=total)
 
     long_ms = lm_kernels(torch, rwkv, hymba, report, close)
 
@@ -3281,7 +3842,10 @@ def run(torch) -> int:
               for arch, prompt in ENCDEC)
           + f" (phase 10: {encdec['seconds']:.1f} s); the scalar oracle "
           f"(phase 11) worst {max(r['err'] for r in scalar.values()):.1e} "
-          f"of max|ref|; served (phase 8): "
+          f"of max|ref|; AlexNet@224 served (phase 12, "
+          f"{alex['seconds']:.1f} s): {alex['stats']['requests_s']} "
+          f"requests/s, the bucket-8 replay {alex['replay8_ms']:.3f} ms "
+          f"(dense oracle {alex['dense8_ms']:.3f} ms); served (phase 8): "
           + "; ".join(
               f"{net} {r['stats']['requests_s']} requests/s, p50 "
               f"{r['stats']['p50_ms']} ms, p99 {r['stats']['p99_ms']} ms, "

@@ -3,21 +3,44 @@
 
 ``decide_route`` is the one decision point the engine's ``route_*``
 functions call.  Under ``route="auto"`` it routes by geometry alone (the
-event path whenever one exists); under "adaptive" it compares the analytic
-seed (or an installed measured ``CrossoverTable``) at the static occupancy
-hint; any other mode forces a route.  No H100 table exists yet (ROADMAP:
-routing calibration), so adaptive routing runs on the analytic seed.
+event path whenever one exists); under "adaptive" it takes the argmin of
+the event and dense costs at the static occupancy hint; any other mode
+forces a route.  Two cost sources, in authority order:
+
+  * a measured ``CrossoverTable`` — ``kind == "crossover"`` entries of a
+    benchmark file, read by ``load_crossover_table`` and installed
+    explicitly with ``set_active_table`` (the engine never reads a file
+    on its own; ``launch.serve --route adaptive --bench FILE`` does it);
+  * the analytic seed (``boundary_costs``, the paper's cycle models),
+    used where no table covers the boundary and always recorded in the
+    ``est_*_cost`` trace fields.
+
+The table a file gives is what was measured where it says (its
+``device`` field): ``BENCH_engine.json``'s entries are CPU interpret-mode
+times of the JAX package, not an H100 calibration.  ``route_conflicts``
+is the gate that holds served routes against a table, with the
+``ROUTE_HYSTERESIS`` band around ratio 1.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 from repro_torch.costmodel.accelerators import (PAPER_HW, dense_layer_cycles,
                                                 mnf_layer_cycles)
 
-__all__ = ["EVENT_ROUTES", "LAUNCH_OVERHEAD_CYCLES", "RouteDecision",
-           "CrossoverTable", "active_table", "boundary_costs",
-           "decide_route", "linear_shape_class", "set_active_table"]
+__all__ = ["ROUTE_HYSTERESIS", "EVENT_ROUTES", "LAUNCH_OVERHEAD_CYCLES",
+           "RouteDecision", "CrossoverTable", "active_table",
+           "boundary_costs", "decide_route", "linear_shape_class",
+           "load_crossover_table", "route_conflicts", "set_active_table"]
+
+#: Tolerance band of the route-vs-table gate (``route_conflicts``): a route
+#: is against the table only when the measured event/dense ratio at its
+#: occupancy leaves [1/(1+h), 1+h] on the losing side.  Decisions take the
+#: argmin; the band keeps near-crossover boundaries from flapping on
+#: timing noise.
+ROUTE_HYSTERESIS = 0.25
 
 #: Route labels that consume the event stream; "dense" consumes the twin.
 EVENT_ROUTES = ("strip", "pixel", "window", "event")
@@ -63,9 +86,12 @@ class CrossoverTable:
     """Measured event/dense time ratios per (boundary, backend, shape
     class, event flavor), interpolated piecewise-linearly in occupancy.
     Built from ``kind == "crossover"`` entries of a benchmark file; keys
-    fall back most-specific first."""
+    fall back most-specific first.  ``device`` names where the entries
+    were measured (None: not stated), ``entries`` how many were used."""
 
-    def __init__(self, entries: list[dict]):
+    def __init__(self, entries: list[dict], *, device: str | None = None):
+        self.device = device
+        self.entries = 0
         buckets: dict[tuple, dict[float, list[float]]] = {}
         for e in entries:
             if e.get("kind") != "crossover":
@@ -76,6 +102,7 @@ class CrossoverTable:
                        if r in EVENT_ROUTES and v is not None}
             if not dense or not flavors:
                 continue
+            self.entries += 1
             ratios = {None: min(flavors.values()) / dense}
             ratios.update({r: v / dense for r, v in flavors.items()})
             occ = round(float(e.get("occupancy", 1.0)), 6)
@@ -119,6 +146,20 @@ def _interp(curve: list[tuple[float, float]], x: float) -> float:
         if x <= x1:
             return y0 + (x - x0) / max(x1 - x0, 1e-12) * (y1 - y0)
     return curve[-1][1]
+
+
+def load_crossover_table(path: str) -> CrossoverTable:
+    """The table of a benchmark file (an empty table if the file is
+    absent): the raw entry list, or the ``{"device": ..., "entries":
+    [...]}`` wrapper, whose ``device`` the table keeps."""
+    if not os.path.exists(path):
+        return CrossoverTable([])
+    with open(path) as f:
+        data = json.load(f)
+    if isinstance(data, dict):
+        return CrossoverTable(data.get("entries", []),
+                              device=data.get("device"))
+    return CrossoverTable(data)
 
 
 #: Process-global table consulted by adaptive dispatch (None = seed only).
@@ -165,3 +206,34 @@ def decide_route(mode: str, boundary: str, *, occupancy: float | None,
     return RouteDecision(route=route, est_event_cost=est_ev,
                          est_dense_cost=est_de, occupancy=occ,
                          ratio=float(ratio), source=source)
+
+
+def route_conflicts(records: list[dict], table: CrossoverTable, *,
+                    hysteresis: float = ROUTE_HYSTERESIS) -> list[dict]:
+    """Routes that contradict ``table`` beyond the hysteresis band: a trace
+    record routed onto the event path while the table says dense wins by
+    more than the band (ratio > 1 + h), or routed dense (not a visible
+    fallback) while events win by more than it (ratio < 1 / (1 + h)).
+    Records the table does not cover are never conflicts (the analytic
+    seed owns them).  Each conflict is its record plus ``table_ratio``."""
+    out = []
+    for r in records:
+        route = r.get("route")
+        if route is None or r.get("occupancy") is None:
+            continue
+        boundary = {"conv2d": "conv", "maxpool2d": "pool",
+                    "linear": "linear"}.get(r.get("op"))
+        if boundary is None:
+            continue
+        event_taken = route in EVENT_ROUTES
+        ratio = table.ratio(boundary, float(r["occupancy"]),
+                            backend=r.get("backend"),
+                            shape_class=r.get("shape_class"),
+                            flavor=route if event_taken else None)
+        if ratio is None:
+            continue
+        if (event_taken and ratio > 1.0 + hysteresis) or \
+                (not event_taken and not r.get("fallback_decode")
+                 and ratio < 1.0 / (1.0 + hysteresis)):
+            out.append(dict(r, table_ratio=ratio))
+    return out

@@ -21,7 +21,7 @@ from repro_torch.engine.api import (conv2d, describe, fire, fire_conv,
                                     recurrent_step, sparsify)
 from repro_torch.engine.config import BACKENDS, RECURRENT_BLK_K, EngineConfig
 from repro_torch.engine.registry import (dispatch, get_backend, list_backends,
-                                         register_backend)
+                                         register_backend, registered_ops)
 from repro_torch.engine.stream import EventStream
 from repro_torch.engine.trace import trace_dispatch
 
@@ -33,7 +33,7 @@ __all__ = [
     "STRIP_STRIDES", "STRIP_W", "strip_eligible", "strip_ineligible_reason",
     "pool_window_ineligible_reason", "retile_ineligible_reason",
     "linear_shape_class", "register_backend", "get_backend", "dispatch",
-    "list_backends", "matmul", "linear", "conv2d",
+    "list_backends", "registered_ops", "matmul", "linear", "conv2d",
     "maxpool2d", "pool_ineligible_reason", "route_conv", "route_pool",
     "route_linear", "route_recurrent", "fire", "fire_conv", "fire_delta",
     "recurrent_ineligible_reason", "recurrent_step", "sparsify",

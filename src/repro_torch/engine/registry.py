@@ -4,7 +4,8 @@ from __future__ import annotations
 
 from typing import Callable
 
-__all__ = ["register_backend", "get_backend", "dispatch", "list_backends"]
+__all__ = ["register_backend", "get_backend", "dispatch", "list_backends",
+           "registered_ops"]
 
 _REGISTRY: dict[tuple[str, str], Callable] = {}
 
@@ -36,3 +37,7 @@ def dispatch(op: str, cfg, *tensors) -> Callable:
 def list_backends(op: str) -> list[str]:
     return sorted(n for (o, n) in _REGISTRY if o == op)
 
+
+def registered_ops() -> list[str]:
+    """Every op some backend implements, sorted."""
+    return sorted({o for (o, _) in _REGISTRY})

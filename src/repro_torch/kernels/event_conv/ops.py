@@ -11,7 +11,9 @@ it (``kernels.note_launch``); a CPU tensor takes the plain version
 stream in one launch: it builds the cached ``strip_tap_map`` plan on the
 device, the live counts per (output strip, subtap) and the tap-stacked
 weights, then calls ``event_conv``, or ``event_conv_dequant`` when the
-stream carries int8 codes (``stream.qparams``).
+stream carries int8 codes (``stream.qparams``).  ``fused_conv_plan`` is
+its static launch accounting (launches, subtaps, event grid against the
+per-tap path), the JAX package's numbers exactly.
 """
 from __future__ import annotations
 
@@ -25,8 +27,8 @@ from repro_torch.kernels.event_conv.kernel import (event_conv_cuda,
 from repro_torch.kernels.event_conv.ref import (event_conv_int8_ref,
                                                event_conv_ref)
 
-__all__ = ["event_conv", "event_conv_dequant", "fused_event_conv2d",
-           "stacked_weights", "strip_conv_inputs"]
+__all__ = ["event_conv", "event_conv_dequant", "fused_conv_plan",
+           "fused_event_conv2d", "stacked_weights", "strip_conv_inputs"]
 
 
 def event_conv(a_vals, a_idx, tap, shift, src, cnt, ws, *, nkb: int,
@@ -108,3 +110,33 @@ def fused_event_conv2d(stream, w: torch.Tensor, *, stride: int = 1,
     oy = conv_out_size(h, k, stride, padding)
     ox = conv_out_size(wd, k, stride, padding)
     return y.reshape(-1, co)[:b * oy * ox]
+
+
+def fused_conv_plan(logical_shape: tuple, k: int, padding: int,
+                    nkb: int, capacity: int | None = None,
+                    stride: int = 1) -> dict:
+    """Static launch accounting of one strip conv layer against the per-tap
+    path: ``launches_fused`` (1) and ``launches_per_tap`` (k·k);
+    ``grid_fused`` (output strips, subtaps, event slots) the kernel walks;
+    ``subtaps`` the compacted subtap count it launches (dead straddle parts
+    dropped at plan time), ``subtaps_worst`` the uncompacted
+    ``strip_parts(stride)·k·k``, ``compaction`` their ratio; the event
+    grids (row groups × event slots) each path consumes and their ratio;
+    the row groups the per-tap path gathers (the fused path none)."""
+    b, h, wd, _ = logical_shape
+    e = nkb if capacity is None else min(capacity, nkb)
+    oh = conv_out_size(h, k, stride, padding)
+    ow = conv_out_size(wd, k, stride, padding)
+    g_pix = b * h * wd
+    g_strip = g_pix // ev.STRIP_W
+    g_out = b * oh * (ow // ev.STRIP_W)
+    subtaps, subtaps_worst = ev.strip_subtap_counts(k, padding, stride)
+    return dict(
+        launches_fused=1, launches_per_tap=k * k,
+        grid_fused=(g_out, subtaps, e),
+        subtaps=subtaps, subtaps_worst=subtaps_worst,
+        compaction=subtaps / subtaps_worst,
+        event_grid_strip=g_strip * e, event_grid_pixel=g_pix * e,
+        grid_reduction=float(g_pix) / float(g_strip),
+        gathered_groups_per_tap=k * k * b * oh * ow,
+        gathered_groups_fused=0)

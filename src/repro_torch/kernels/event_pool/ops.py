@@ -10,7 +10,8 @@ out).
 
 ``event_max_pool2d`` / ``event_max_pool2d_window`` pool a conv
 ``EventStream`` through the cached device plans and return the pooled
-rows (B·OH·OW, C).
+rows (B·OH·OW, C).  ``pool_plan`` and ``pool_window_plan`` are their
+static launch accounting, the JAX package's numbers exactly.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from repro_torch.kernels.event_pool.ref import (event_pool_ref,
                                                 event_pool_window_ref)
 
 __all__ = ["event_max_pool2d", "event_max_pool2d_window", "event_pool",
-           "event_pool_window", "pool_inputs", "pool_window_inputs"]
+           "event_pool_window", "pool_inputs", "pool_plan",
+           "pool_window_inputs", "pool_window_plan"]
 
 
 def event_pool(a_vals, a_idx, row, src, cnt, *, nkb: int) -> torch.Tensor:
@@ -94,3 +96,51 @@ def event_max_pool2d_window(stream, k: int, stride: int) -> torch.Tensor:
     y = event_pool_window(*pool_window_inputs(stream, k, stride), nkb=nkb,
                           row_stride=stride)
     return y.reshape(-1, nkb * stream.blk_k)[:, :c]
+
+
+def pool_plan(logical_shape: tuple, k: int, stride: int, *,
+              nkb: int, capacity: int | None = None) -> dict:
+    """Static launch accounting of one per-event pool layer against the
+    dense pool: one launch; ``grid`` (output pixels, window taps, event
+    slots) the kernel walks, ``event_grid`` its step count, ``dense_reads``
+    what the dense pool touches (k·k·C a pooled pixel), ``out_rows`` the
+    pooled pixels.  The grid is the same for pixel and strip inputs."""
+    b, h, w, c = logical_shape
+    oh = (h - k) // stride + 1
+    ow = (w - k) // stride + 1
+    e = nkb if capacity is None else min(capacity, nkb)
+    p_out = b * oh * ow
+    return dict(
+        launches=1, window_taps=k * k,
+        grid=(p_out, k * k, e),
+        event_grid=p_out * k * k * e,
+        dense_reads=p_out * k * k * c,
+        out_rows=p_out)
+
+
+def pool_window_plan(logical_shape: tuple, k: int, stride: int, *,
+                     nkb: int, capacity: int | None = None) -> dict:
+    """Launch accounting of the window-major grid against the per-event
+    one: the grid walks (output strips, k·k·parts, event slots), a strip
+    serving 8 pooled pixels a step while straddle ``parts`` multiply the
+    taps; ``grid_reduction`` is the per-event grid's step count over
+    this one's.  Asserts the stream geometry is window-eligible."""
+    b, h, w, c = logical_shape
+    reason = ev.pool_window_ineligible_reason(logical_shape, k, stride,
+                                              ev.STRIP_W)
+    assert reason is None, (logical_shape, k, stride, reason)
+    oh = (h - k) // stride + 1
+    ow = (w - k) // stride + 1
+    e = nkb if capacity is None else min(capacity, nkb)
+    parts = ((ev.STRIP_W - 1) * stride + k - 1) // ev.STRIP_W + 1
+    g_out = b * oh * (ow // ev.STRIP_W)
+    p_out = b * oh * ow
+    return dict(
+        launches=1, window_taps=k * k, parts=parts,
+        grid=(g_out, k * k * parts, e),
+        event_grid=g_out * k * k * parts * e,
+        pixel_event_grid=p_out * k * k * e,
+        grid_reduction=(p_out * k * k * e)
+        / max(g_out * k * k * parts * e, 1),
+        dense_reads=p_out * k * k * c,
+        out_rows=p_out)

@@ -41,6 +41,17 @@ path instead.  Requests are relu(normal) images (or vectors) made from
     PYTHONPATH=src python -m repro_torch.launch.serve --mlp mini \
         --device cpu
 
+``--route adaptive`` routes each boundary by the argmin of its event and
+dense costs at ``--occupancy-hint``: this module loads the crossover table
+of ``--bench`` (default ``BENCH_engine.json``) and installs it with
+``costmodel.crossover.set_active_table`` (the engine reads no file on its
+own), and the stats JSON names the table's ``device`` and entry count.
+``BENCH_engine.json``'s entries are the JAX package's CPU interpret-mode
+times (``"device": "cpu"``), not an H100 calibration::
+
+    python -m repro_torch.launch.serve --cnn alexnet --cnn-size 224 \
+        --route adaptive --occupancy-hint 0.3 --bench BENCH_engine.json
+
 ``--smoke`` serves the mini networks through buckets (1, 2, 4) and fails
 (exit 1) on a steady-state capture, an eligible boundary reporting
 fallback_decode, padded-bucket logits that are not bitwise the unpadded
@@ -51,10 +62,8 @@ or re-tile point::
 
 Left out of CNN mode: ``--cache-dir`` (a CUDA graph cannot be written to
 disk, and the kernel library is already cached per source hash:
-``repro_torch.serving``), ``--mnf-pallas`` (there is no Pallas backend:
-the device picks ``cuda`` or ``block``), ``--route adaptive`` and
-``--bench`` (they need a measured crossover table and
-``load_crossover_table``, ROADMAP item 8).
+``repro_torch.serving``) and ``--mnf-pallas`` (there is no Pallas
+backend: the device picks ``cuda`` or ``block``).
 """
 from __future__ import annotations
 
@@ -296,6 +305,7 @@ def serve_cnn(args) -> dict:
     capture, a fallback_decode at an eligible boundary, or MLP densify
     points; prints the stats JSON line either way."""
     from repro_torch import engine, serving
+    from repro_torch.costmodel import crossover as xover
 
     dev = default_device() if args.device is None \
         else torch.device(args.device)
@@ -304,23 +314,32 @@ def serve_cnn(args) -> dict:
     buckets = tuple(int(b) for b in args.buckets.split(","))
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
+    table = None
+    if args.route == "adaptive":
+        # installed explicitly: the engine never reads a file on its own
+        table = xover.load_crossover_table(args.bench)
     ecfg = engine.EngineConfig(threshold=args.mnf_threshold,
                                route=args.route,
                                occupancy_hint=args.occupancy_hint)
-    params = _init_params(spec, args.seed, dev, args.weight_sparsity)
-    eng = serving.ServeEngine(
-        spec, params,
-        serving.ServeEngineConfig(buckets=buckets, mnf=not args.dense),
-        engine_cfg=ecfg, device=dev)
+    prev = xover.set_active_table(table) if table is not None else None
+    try:
+        params = _init_params(spec, args.seed, dev, args.weight_sparsity)
+        eng = serving.ServeEngine(
+            spec, params,
+            serving.ServeEngineConfig(buckets=buckets, mnf=not args.dense),
+            engine_cfg=ecfg, device=dev)
 
-    # made ahead of the loop: requests/s measures the pipeline, not the
-    # host's random number generator
-    images = make_requests(spec, args.rate * args.ticks, args.seed)
-    warm = eng.recompiles
-    with torch.inference_mode():
-        serve_arrivals(eng, images, [args.rate] * args.ticks)
-    stats = eng.stats()
-    report = eng.boundary_report()
+        # made ahead of the loop: requests/s measures the pipeline, not
+        # the host's random number generator
+        images = make_requests(spec, args.rate * args.ticks, args.seed)
+        warm = eng.recompiles
+        with torch.inference_mode():
+            serve_arrivals(eng, images, [args.rate] * args.ticks)
+        stats = eng.stats()
+        report = eng.boundary_report()
+    finally:
+        if table is not None:
+            xover.set_active_table(prev)
 
     failures = []
     if eng.recompiles != warm:
@@ -340,6 +359,10 @@ def serve_cnn(args) -> dict:
         engine=dataclasses.asdict(eng.engine_cfg), boundaries=report,
         device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu"), **stats)
+    if table is not None:
+        out["crossover_table"] = dict(path=args.bench, device=table.device,
+                                      entries=table.entries,
+                                      curves=len(table))
     print(json.dumps(out), flush=True)
     _fail(failures)
     return out
@@ -491,14 +514,20 @@ def main(argv=None) -> None:
     ap.add_argument("--weight-sparsity", type=float, default=0.5,
                     help="CNN mode: unstructured weight pruning density")
     ap.add_argument("--route", default="auto",
-                    choices=("auto", "dense", "event", "strip", "pixel",
-                             "window"),
+                    choices=("auto", "adaptive", "dense", "event", "strip",
+                             "pixel", "window"),
                     help="CNN mode: per-boundary routing policy: auto "
-                         "(geometry, event-first) or a forced route "
-                         "(DESIGN.md §11)")
+                         "(geometry, event-first), adaptive (the cost "
+                         "model's or the crossover table's argmin at "
+                         "--occupancy-hint) or a forced route (DESIGN.md "
+                         "§11)")
     ap.add_argument("--occupancy-hint", type=float, default=None,
-                    help="CNN mode: static occupancy recorded with each "
+                    help="CNN mode: static occupancy the adaptive router "
+                         "decides at (default 1.0), recorded with each "
                          "routing decision")
+    ap.add_argument("--bench", default="BENCH_engine.json",
+                    help="CNN mode: benchmark file whose crossover entries "
+                         "make the adaptive routing table")
     args = ap.parse_args(argv)
 
     if args.smoke:

@@ -1,6 +1,7 @@
 """The port stands alone: it imports without JAX and without the ``repro``
-package, its CUDA paths refuse CPU tensors, and it never falls back to the
-CPU on its own."""
+package (the package, its tools, its benchmark and example twins and
+``chip_smoke.py``), its CUDA paths refuse CPU tensors, and it never falls
+back to the CPU on its own."""
 import ast
 import pathlib
 import subprocess
@@ -51,6 +52,8 @@ def _imported_roots(path: pathlib.Path):
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
                          + sorted((ROOT / "tools").glob("*.py"))
+                         + sorted((ROOT / "benchmarks").glob("torch_*.py"))
+                         + sorted((ROOT / "examples").glob("torch_*.py"))
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
