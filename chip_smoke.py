@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
-8, 6, 7, 9, 10, 11, 12, 3, so that phase 3 can replay what phases 2, 4, 5,
-6 and 7 handed the kernels, phase 8's graphs are freed before phase 6
-loads its model, and each LM's weights before the next LM's):
+8, 6, 7, 9, 10, 11, 12, 13, 3, so that phase 3 can replay what phases 2,
+4, 5, 6 and 7 handed the kernels, phase 8's graphs are freed before phase
+6 loads its model, and each LM's weights before the next LM's):
 
 1. Probe and build: the card's name and power limit, TF32 off for the dense
    oracles, the CUDA kernels (B1-B10) built from src/repro_torch/csrc.
@@ -120,7 +120,12 @@ loads its model, and each LM's weights before the next LM's):
    max|plain| against the plain version; B9 once on each head of layer 0
    at prompt 32 (64 launches, the head's strided rows), bitwise B9''s
    slice.  The gap of B9' to the chunked output (which clamps w) is
-   printed, not held.
+   printed, not held.  The roofline of one eager gated decode step
+   (``launch.roofline.count_cost`` after a prompt-32 prefill: the aten
+   ops by PyTorch's FLOP counter and the byte counter, B7's 32 calls by
+   its formula): one B7 call a layer counted, t_memory at least the
+   bf16 weights' bytes over 3.35 TB/s; printed beside PERF.md section
+   5's byte floor (4.5 ms) and measured busy time (13.70 ms).
 7. Hymba-1.5B served at its published widths (32 layers, d_model 1600, 25
    query and 5 KV heads of 64, sliding window 1024 but in layers 0, 15 and
    31, Mamba heads of state 16 over DI 1600, d_ff 5504, vocab 32001;
@@ -226,6 +231,25 @@ loads its model, and each LM's weights before the next LM's):
    oracle; prints the boundaries whose route differs from auto; the table
    cleared after.  AlexNet's launches per bucket go on a JSON line of
    their own; the phase frees its engines.
+13. Training (``train_phase``): Qwen2-0.5B at full width (24 layers, d
+   896, vocab 151,936; f32 params, bf16 compute, MNF at θ = 0), batch 8 x
+   128, 60 steps of AdamW under warmup_cosine(3e-4, 20, 60) on the Markov
+   corpus through ``launch.train`` (the prefetching loader, the
+   resilient loop), every launch count set to 0 just before and read
+   just after: the path reaches no kernel, all stay 0.  Checks: every
+   loss finite, the mean of the last 5 below the mean of the first 5 by
+   0.2 (the JAX system test's criterion); the counted step's FLOPs
+   between 6·N·D and twice it; accum_steps 2 against 1 on one batch
+   (loss within 1e-3, first moments within 2e-2 of the tree's largest,
+   params within 2 lr + 1e-6); a run stopped by SIGTERM through the loop's preemption
+   path writes its checkpoint, restored bitwise, and a resumed run
+   starts at that step with losses within 5e-3 of the uninterrupted
+   run's; Hymba's train step on the card raises B10's missing-backward
+   error.  Prints the losses, the step's median ms, tokens/s, peak
+   memory, the idle share from torch.profiler over 3 steps, and the
+   roofline row (counted GFLOP and GB, t_compute, t_memory, the
+   bottleneck, model GFLOP, useful_ratio, roofline_frac) with the
+   measured share beside it.
 3. Kernel checks: each kernel against its plain PyTorch version on the
    inputs the forwards handed it (B1, B2 and B5 at the shapes of both
    VGG16 and LeNet-300-100), plus the strip convs at stride 4 and 2
@@ -274,6 +298,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -444,17 +469,20 @@ def host_ms(torch, fn, reps: int = 3) -> tuple[float, list]:
     return statistics.median(times), times
 
 
-def profile(torch, fn, label: str, steps: int = 3, top: int = 0) -> dict:
+def profile(torch, fn, label: str, steps: int = 3, top: int = 0,
+            host_ops: bool = True) -> dict:
     """Print the device busy time, idle share and ms by kernel of ``fn``
     (warm, ``steps`` calls under torch.profiler, per-call averages): the
     MNF kernels by name and the rest as "other", or with ``top`` the
     ``top`` kernels that take most device time, whatever their names.
-    Returns host ms, device busy ms and the idle share."""
+    ``host_ops`` False records the device's activity alone (no host op
+    events to gather: seconds less for an eager train step's ~7,000
+    ops).  Returns host ms, device busy ms and the idle share."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host_ops else [])) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
@@ -614,56 +642,6 @@ def check_layer_plans(tag, cnn, spec, batch, recs, captured) -> list:
     check(not left and not recs, f"{tag}: launches no layer planned {left}, "
           f"records left {recs}")
     return out
-
-
-# ---------------------------------------------------------------------------
-# Per-kernel work: the bytes each input/output moves once (an int8 code is
-# one byte) and the operations this run's data needs (live events only).
-# ---------------------------------------------------------------------------
-
-def matmul_work(torch, a_vals, a_idx, counts, w, qbytes=0):
-    g, e, bm, bk = a_vals.shape
-    n = w.shape[1]
-    cnt = counts.clamp(max=e).long()
-    live = torch.arange(e, device=cnt.device)[None, :] < cnt[:, None]
-    slots = int(cnt.sum())
-    blocks = int(torch.unique(a_idx[live]).numel())
-    nbytes = slots * (bm * bk * a_vals.element_size() + 4) + g * 4 \
-        + blocks * bk * n * 4 + g * bm * n * 4 + qbytes
-    return nbytes, 2.0 * slots * bm * bk * n
-
-
-def live_slots(a_vals):
-    """(G, E) live event slots: padding slots hold zeros, a live tile from
-    the fire phase holds a non-zero value (or code)."""
-    return a_vals.flatten(2).ne(0).any(-1)
-
-
-def conv_work(torch, args, stride, qbytes=0):
-    a_vals, a_idx, tap, shift, src, cnt, ws = args
-    g_in, e, bm, bk = a_vals.shape
-    g_out, t_n = src.shape
-    n = ws.shape[1]
-    live = live_slots(a_vals)
-    slots = int(live.sum())
-    blocks = int(torch.unique(a_idx[live]).numel())
-    taps = int(torch.unique(tap).numel())
-    i = torch.arange(bm, device=shift.device)
-    r = stride * i[None, :] + shift[:, None].long()
-    rows = ((r >= 0) & (r < bm)).sum(1)                      # (T,)
-    events = cnt.clamp(max=e).long().sum(0)                  # (T,)
-    flops = 2.0 * bk * n * float((rows * events).sum())
-    nbytes = slots * (bm * bk * a_vals.element_size() + 4) \
-        + taps * blocks * bk * n * 4 + g_out * bm * n * 4 + src.numel() * 8 \
-        + qbytes
-    return nbytes, flops
-
-
-def pool_work(a_vals, cnt, out_elems):
-    _, e, bm, bk = a_vals.shape
-    slots = int(live_slots(a_vals).sum())
-    nbytes = slots * (bm * bk + 1) * 4 + out_elems * 4 + cnt.numel() * 8
-    return nbytes, float(cnt.clamp(max=e).sum()) * bm * bk
 
 
 def strided_conv_inputs(torch, gen, int8: bool) -> list:
@@ -1149,76 +1127,6 @@ class FirstCalls(list):
             super().append(item)
 
 
-def wkv6_work(bev, r):
-    """Bytes and operations one B7 launch needs on these events: the
-    state read and written once, r, v, w, u read and o written, each live
-    event tile and address, and counts (the kernel derives the live mask
-    itself); a multiply per state element (decay), a multiply-add per
-    element for the readout, a multiply and an add per element of each
-    live block (increment)."""
-    g, d = r.shape
-    _, e, _, bk = bev.values.shape
-    slots = int(bev.counts.clamp(max=e).sum())
-    nbytes = 2 * g * d * d * 4 + 5 * g * d * 4 + slots * (bk * 4 + 4) \
-        + g * 4
-    return nbytes, 3.0 * g * d * d + 2.0 * slots * bk * d + 5.0 * g * d
-
-
-def mamba_work(bev, h):
-    """Bytes and operations one B8 launch needs on these events: h and dA
-    read and h' written once, B and C read and y written, each live event
-    tile and address, and counts (the kernel derives the live mask
-    itself); a multiply per state element (decay), a multiply and an add
-    per element for the readout, a multiply and an add per element of
-    each live block (increment)."""
-    b, di, n = h.shape
-    _, e, _, bk = bev.values.shape
-    slots = int(bev.counts.clamp(max=e).sum())
-    nbytes = 3 * b * di * n * 4 + 2 * b * n * 4 + b * di * 4 \
-        + slots * (bk * 4 + 4) + b * 4
-    return nbytes, 3.0 * b * di * n + 2.0 * slots * bk * n
-
-
-def wkv6_scan_work(r, k, v, w, u, s0):
-    """Bytes and operations one B9/B9' launch needs: r, k, v, w and u read
-    once in their own types (G x T x D each), o written once (f32), s0
-    (when given) read and S written once (f32, G x D x D); per row and
-    token 5 D^2 (the readout's multiply-add, the decay's multiply, the
-    increment's multiply and add) and 5 D (the bonus r u k and o = att v +
-    readout)."""
-    t, d = r.shape[-2:]
-    g = r.numel() // (t * d)
-    nbytes = sum(x.numel() * x.element_size() for x in (r, k, v, w, u)) \
-        + g * t * d * 4 + (2 if s0 is not None else 1) * g * d * d * 4
-    return nbytes, g * t * (5.0 * d * d + 5.0 * d)
-
-
-def mamba_scan_work(da, h0):
-    """Bytes and operations one B10 launch needs: da and dbx read once
-    (B, T, DI, N) f32, c read and y written, h0 (when given) read and h
-    written once; per state element and step a multiply and an add (the
-    update) and a multiply and an add (the readout)."""
-    b, t, di, n = da.shape
-    nbytes = 2 * b * t * di * n * 4 + b * t * n * 4 + b * t * di * 4 \
-        + (2 if h0 is not None else 1) * b * di * n * 4
-    return nbytes, 4.0 * b * t * di * n
-
-
-def mamba_scan_fused_work(dt, a, h0):
-    """Bytes and operations one launch of B10's fused entry needs: dt and
-    x (B, T, DI) and B and C (B, T, N) read once in their own type, A
-    (DI, N) f32, h0 (when given) read and h written once, y (B, T, DI) f32
-    written; per channel and step dt x (a multiply), per state element and
-    step dt A and its exp, the multiply by B, the update's multiply and
-    add and the readout's multiply and add (7)."""
-    b, t, di = dt.shape
-    n = a.shape[-1]
-    size = dt.element_size()
-    nbytes = 2 * b * t * di * size + 2 * b * t * n * size + di * n * 4 \
-        + b * t * di * 4 + (2 if h0 is not None else 1) * b * di * n * 4
-    return nbytes, b * t * di * (7.0 * n + 1.0)
-
-
 def record_wkv(limit=None):
     """Patch ``models.ssm.wkv6_chunked`` to record, for its first ``limit``
     calls (all when None), ((r, k, v, w, u), o): what the RWKV6 prefill
@@ -1347,7 +1255,7 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import serve
     from repro_torch.launch import steps as lm_steps
-    from repro_torch.launch.graphs import leaves as tree_leaves
+    from repro_torch.models.param_utils import tree_leaves
     from repro_torch.models import transformer as tfm
 
     spec = LM_PHASES[arch]
@@ -1684,6 +1592,10 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
                    streams_launches=main["mamba_scan"])
     del caps_a
 
+    if scan is None:
+        out["roofline"] = decode_roofline(torch, tag, arch, params, cfg,
+                                          prompts, kern)
+
     # One prefill at prompt 2000: Hymba keeps layer 0's B10 launches (4
     # chunks; da and dbx are ~1.6 GB a layer at this length) and replays
     # them; RWKV6 records layer 0's chunked-WKV inputs.
@@ -1741,6 +1653,64 @@ def serve_lm(torch, engine, wrappers, arch, ref, cfg=None,
     return out
 
 
+#: RWKV6-7B's gated decode step as PERF.md section 5 records it (batch
+#: 4, graphed): the byte floor reckoned by hand, and the measured device
+#: busy time, in ms.
+RWKV_DECODE_FLOOR_MS, RWKV_DECODE_BUSY_MS = 4.5, 13.70
+
+
+def decode_roofline(torch, tag, arch, params, cfg, prompts, kern) -> dict:
+    """Phase 6: the roofline of one eager gated decode step (θ = 0, bf16)
+    after a prefill of the prompts, counted by ``launch.roofline
+    .count_cost``: the aten ops by PyTorch's FLOP counter and the byte
+    counter, the L launches of B7 (``kern``) by its formula.  Checks:
+    one B7 call a layer counted, and the memory term at least the bytes
+    of the step's bf16 weights over the HBM rate (the weights set the
+    floor; the counter adds copies on top, never less).  Prints the row
+    beside PERF.md section 5's hand-reckoned byte floor and measured busy
+    time."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline
+    from repro_torch.models.param_utils import tree_leaves
+    from repro_torch.models import transformer as tfm
+
+    _, cache = tfm.prefill(params, prompts, cfg, max_len=LM_PROMPT + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, cost = roofline.count_cost(tfm.decode_step, params, cache,
+                                  prompts[:, -1:], LM_PROMPT, cfg)
+    torch.cuda.synchronize()
+    calls, kbytes, kops = cost.kernels.get(kern.__name__, [0, 0, 0.0])
+    check(calls == cfg.num_layers and set(cost.kernels) == {kern.__name__},
+          f"{tag} roofline: kernels counted {cost.kernels}, want "
+          f"{cfg.num_layers} {kern.__name__} calls")
+    rep = roofline.analyze(arch, cfg, ShapeConfig("decode", LM_PROMPT + 1,
+                                                  LM_BATCH, "decode"),
+                           "1", 1, cost, torch.cuda.max_memory_allocated())
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params)
+                  if t.dtype == torch.bfloat16)
+    floor_ms = weights / roofline.HW().hbm_bw * 1e3
+    check(rep.t_memory * 1e3 >= floor_ms, f"{tag} roofline: t_memory "
+          f"{rep.t_memory * 1e3:.3f} ms below the bf16 weights' "
+          f"{floor_ms:.3f} ms")
+    print(f"{tag} roofline of one gated decode step (θ=0, bf16, batch "
+          f"{LM_BATCH}, eager, counted): {rep.hlo_gflops:.3f} GFLOP, "
+          f"{rep.hlo_gbytes:.3f} GB (aten ops {rep.xla_raw_gbytes:.3f} GB; "
+          f"B7 x{calls} by its formula {kbytes / 1e9:.4f} GB, "
+          f"{kops / 1e9:.4f} GFLOP); t_compute {rep.t_compute * 1e3:.4f} ms,"
+          f" t_memory {rep.t_memory * 1e3:.3f} ms [{rep.bottleneck}] "
+          f"beside PERF.md section 5's hand-reckoned byte floor "
+          f"{RWKV_DECODE_FLOOR_MS} ms and measured busy "
+          f"{RWKV_DECODE_BUSY_MS:.2f} ms; the bf16 weights alone "
+          f"{weights / 1e9:.3f} GB = {floor_ms:.3f} ms (gate: t_memory >= "
+          f"it); model {rep.model_gflops:.3f} GFLOP, useful_ratio "
+          f"{rep.useful_ratio:.3f}, roofline_frac {rep.roofline_frac:.4f} "
+          f"(card {card_line()})", flush=True)
+    print(roofline.format_row(rep), flush=True)
+    del cache
+    return dict(rep.to_json(), weights_ms=floor_ms)
+
+
 def wkv_kernels(torch, rwkv, report, close) -> dict:
     """Phase 3 for B9' (wkv6) and B9 (wkv6_single) on layer 0's inputs of
     phase 6's prefill at prompt 32 as the prefill hands them (bf16 r, k, v
@@ -1750,6 +1720,7 @@ def wkv_kernels(torch, rwkv, report, close) -> dict:
     Returns the prompt-2000 time (ms)."""
     from repro_torch.kernels.wkv6 import ops as wkv_scan_ops
     from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+    from repro_torch.kernels.wkv6.ops import wkv6_scan_work
     from repro_torch.kernels.wkv6.ref import wkv6_multihead_ref, wkv6_ref
 
     def wkv_args(a):
@@ -1830,14 +1801,18 @@ def lm_kernels(torch, rwkv, hymba, report, close) -> dict:
     prompt-2000 times (ms)."""
     from repro_torch.kernels.mamba_scan.kernel import (mamba_scan_cuda,
                                                        mamba_scan_fused_cuda)
+    from repro_torch.kernels.mamba_scan.ops import (mamba_scan_fused_work,
+                                                    mamba_scan_work)
     from repro_torch.kernels.mamba_scan.ref import (mamba_scan_fused_ref,
                                                     mamba_scan_ref,
                                                     mamba_scan_streams)
     from repro_torch.kernels.mamba_step import ops as mamba_ops
     from repro_torch.kernels.mamba_step.kernel import mamba_step_cuda
+    from repro_torch.kernels.mamba_step.ops import mamba_work
     from repro_torch.kernels.mamba_step.ref import mamba_step_events_ref
     from repro_torch.kernels.wkv6_step import ops as wkv6_ops
     from repro_torch.kernels.wkv6_step.kernel import wkv6_step_cuda
+    from repro_torch.kernels.wkv6_step.ops import wkv6_work
     from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
 
     # B7 wkv6_step: the main path's last launch (RWKV6-7B, batch 4, θ=0);
@@ -1932,14 +1907,14 @@ def lm_kernels(torch, rwkv, hymba, report, close) -> dict:
                   cuda_ms(torch, lambda: scan_layer(
                       mamba_scan_fused_ref, largs, 5), 1),
                   bound_ms(*map(sum, zip(*(
-                      mamba_scan_fused_work(a[0], a[2], a[5] if i else None)
+                      mamba_scan_fused_work(*a[:5], a[5] if i else None)
                       for i, a in enumerate(lf)))))),
         "streams": (graph_ms(torch, lambda: scan_layer(
                         mamba_scan_cuda, ls, 3), 3),
                     cuda_ms(torch, lambda: scan_layer(
                         mamba_scan_ref, ls, 3), 1),
                     bound_ms(*map(sum, zip(*(
-                        mamba_scan_work(a[0], a[3] if i else None)
+                        mamba_scan_work(*a[:3], a[3] if i else None)
                         for i, a in enumerate(ls))))))}
     build_ms = graph_ms(torch, lambda: [mamba_scan_streams(*a[:5])
                                         for a in largs], 1)
@@ -1947,7 +1922,7 @@ def lm_kernels(torch, rwkv, hymba, report, close) -> dict:
     report("mamba_scan_fused", err, graph_ms(
                torch, lambda: mamba_scan_fused_cuda(*fargs), 20),
            cuda_ms(torch, lambda: mamba_scan_fused_ref(*args), 2), None,
-           bound_ms(*mamba_scan_fused_work(fargs[0], fargs[2], fargs[5])),
+           bound_ms(*mamba_scan_fused_work(*fargs[:6])),
            f" at dt/x {tuple(fargs[0].shape)} {fargs[0].dtype}, A "
            f"{tuple(fargs[2].shape)}, B/C {tuple(fargs[3].shape)}, h0 "
            f"{'None' if fargs[5] is None else 'given'}; bitwise the streams "
@@ -1970,7 +1945,7 @@ def lm_kernels(torch, rwkv, hymba, report, close) -> dict:
     report("mamba_scan", err_s, graph_ms(
                torch, lambda: mamba_scan_cuda(*sargs), 20),
            cuda_ms(torch, lambda: mamba_scan_ref(*sargs), 2), None,
-           bound_ms(*mamba_scan_work(sargs[0], sargs[3])),
+           bound_ms(*mamba_scan_work(*sargs[:4])),
            f" at da/dbx {tuple(sargs[0].shape)}, c {tuple(sargs[2].shape)}"
            f", h0 {'None' if sargs[3] is None else 'given'} (torch's "
            f"streams of the fused entry's inputs); the model calls the fused "
@@ -2101,8 +2076,8 @@ def record_encoder():
 def same_run(torch, a, b) -> bool:
     """Tokens, inputs, the prefill's and every step's logits and every
     cache leaf bitwise equal."""
-    from repro_torch.launch.graphs import leaves
-    la, lb = leaves(a["cache"]), leaves(b["cache"])
+    from repro_torch.models.param_utils import tree_leaves
+    la, lb = tree_leaves(a["cache"]), tree_leaves(b["cache"])
     return all(torch.equal(a[k], b[k]) for k in (
         "tokens", "inputs", "prefill_logits", "logits")) \
         and len(la) == len(lb) and all(torch.equal(x, y)
@@ -2134,7 +2109,7 @@ def serve_stack(torch, engine, wrappers, arch, device="cuda", *,
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import serve
     from repro_torch.launch import steps as lm_steps
-    from repro_torch.launch.graphs import leaves as tree_leaves
+    from repro_torch.models.param_utils import tree_leaves
     from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
 
@@ -2927,6 +2902,322 @@ def alexnet_phase(torch, engine, wrappers, drive, card) -> dict:
 
 # ---------------------------------------------------------------------------
 
+#: Phase 13: Qwen2-0.5B trained at full width through launch/train.py,
+#: with the JAX example's batch and sequence, AdamW under
+#: warmup_cosine(3e-4, 20, TRAIN_STEPS) on the Markov corpus.
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "qwen2-0.5b", 60, 8, 128
+#: The loss criterion of the JAX system test: the mean of the last 5
+#: losses below the mean of the first 5 by at least this much.
+TRAIN_DROP = 0.2
+#: The preempted run stops after step TRAIN_PREEMPT_AT (its checkpoint is
+#: step TRAIN_PREEMPT_AT + 1); the resumed run goes on to TRAIN_RESUME_TO.
+TRAIN_PREEMPT_AT, TRAIN_RESUME_TO = 3, 8
+#: The resumed run's losses against the uninterrupted run's, relative: the
+#: backward of the embedding gather adds with atomics, so the two runs'
+#: states differ in their last bits (bf16 compute).
+RESUME_TOL = 5e-3
+#: accum_steps=2 against 1 on one batch (bf16 compute, microbatches of 4
+#: rows against one of 8), from a fresh optimizer state with no clipping,
+#: so that the first moments are 0.1 x the averaged gradient itself (a
+#: clip to norm 1 would scale a missing 1/accum_steps away): the loss and
+#: the gradient's global norm, relative (a missing average reads 2x; half
+#: the batch left out moves both by far more, as the run shows beside
+#: them), and each leaf's first moments within ACCUM_MU_TOL of the leaf's
+#: own largest.  The key bias (ACCUM_ZERO_GRAD) has an exact gradient of
+#: 0 (softmax is shift-invariant along the keys): what it holds is
+#: rounding, so its floor is the tree's largest first moment.  The params
+#: are not gated: a first Adam step moves each element by lr times its
+#: normalized gradient (+-1) and its weight decay term, so any two
+#: gradients give params within 2 lr of each other.
+ACCUM_LR, ACCUM_LOSS_TOL, ACCUM_GN_TOL, ACCUM_MU_TOL = 1e-4, 1e-5, 1e-2, 2e-2
+ACCUM_ZERO_GRAD = ("layers/mix/bk",)
+
+
+class _SkippedSaves:
+    """Stands in for ``checkpoint.save`` inside the block: records the
+    steps the loop asks to save and writes nothing (a checkpoint that
+    nothing reads is 5.5 GiB of disk time)."""
+
+    def __init__(self, ckpt):
+        self.ckpt, self.steps = ckpt, []
+
+    def __enter__(self):
+        self.orig = self.ckpt.save
+        self.ckpt.save = lambda tree, d, step: self.steps.append(step)
+        return self
+
+    def __exit__(self, *exc):
+        self.ckpt.save = self.orig
+
+
+def train_phase(torch, engine, wrappers, card) -> dict:
+    """Phase 13: training on the card.
+
+    The main path: ``launch.train.train`` on Qwen2-0.5B at full width
+    (24 layers, d 896, vocab 151,936; f32 params, bf16 compute, MNF at
+    its θ = 0), every launch count set to 0 just before and read just
+    after (the path reaches none of B1-B10: all stay 0).  Checks: every
+    loss finite, the mean of the last 5 below the mean of the first 5 by
+    ``TRAIN_DROP``; the counted step's FLOPs between 6·N·D and twice it.
+    Prints the step's median ms, tokens/s, peak memory, the idle share
+    from torch.profiler over 3 steps, and the roofline row with the
+    measured share (model FLOPs over the median step at the bf16 peak).
+    Then: ``accum_steps`` 2 against 1 on one batch (loss, grad norm and
+    each leaf's first moments; half the batch shown to fail the gates); a
+    run stopped by the loop's preemption path (SIGTERM) writes its
+    checkpoint, which a resumed run restores bitwise, and whose losses
+    match the uninterrupted run's; Hymba's train step on the card raises
+    B10's missing-backward error.  The main and the resumed runs' final
+    checkpoints, which nothing reads, are asked for and not written
+    (:class:`_SkippedSaves`); the preempted run's goes to
+    build/smoke_train, removed at the end."""
+    import os
+    import shutil
+    import signal
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenStreamConfig, markov_lm_batch
+    from repro_torch.kernels.mamba_scan.ops import B10BackwardMissing
+    from repro_torch.launch import roofline, train
+    from repro_torch.models.param_utils import tree_leaves
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import LoopConfig, ResilientLoop
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = ROOT / "build" / "smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", "3e-4",
+            "--warmup", "20", "--ckpt-every", str(TRAIN_STEPS + 1),
+            "--log-every", "5"]
+    args = train.parse_args(argv + ["--ckpt-dir", str(root / "main")])
+    cfg, shape, plan = train.build(args)
+    check((cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.param_dtype,
+           cfg.compute_dtype, cfg.mnf.enabled, cfg.mnf.threshold)
+          == (24, 896, 151936, "float32", "bfloat16", True, 0.0),
+          f"[13] unexpected config {cfg}")
+
+    # -- the main path: launch/train.py, counts 0 before, read after; its
+    # final checkpoint is asked for and not written (nothing reads it)
+    with _SkippedSaves(ckpt) as skipped:
+        run, _, launches, _, secs = drive_counted(
+            torch, engine, wrappers, lambda: train.train(args),
+            capture=False)
+    check_plan("[13] train", launches, {n: 0 for n in wrappers})
+    n_params = sum(t.numel() for t in tree_leaves(run["state"][0]))
+    check(skipped.steps == [TRAIN_STEPS], f"[13] the loop asked to save "
+          f"steps {skipped.steps}, not its final step {TRAIN_STEPS} alone")
+    log = run["log"]
+    losses = [m["loss"] for m in log]
+    keys = ("final_step", "preempted", "wall_s", "first_loss", "last_loss",
+            "stragglers_flagged", "tokens_per_s")
+    print(f"[13] {cfg.name} at full width ({cfg.num_layers} layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e6:.1f} M "
+          f"params f32, bf16 compute, MNF θ=0), batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps through launch/train.py in "
+          f"{secs:.1f} s: " + json.dumps({k: run[k] for k in keys}),
+          flush=True)
+    print(f"[13] losses {[round(x, 4) for x in losses]}", flush=True)
+    check(run["final_step"] == TRAIN_STEPS and not run["preempted"],
+          f"[13] the run ended at {run['final_step']}")
+    check(all(math.isfinite(x) for x in losses), "[13] a loss not finite")
+    first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last5 < first5 - TRAIN_DROP, f"[13] the loss fell from "
+          f"{first5:.4f} to {last5:.4f} (mean of the first and last 5): "
+          f"less than {TRAIN_DROP}")
+    step_ms = run["step_ms"]
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    rep = run["report"]
+    six_nd = 6.0 * n_params * TRAIN_BATCH * TRAIN_SEQ
+    check(six_nd <= rep.hlo_gflops * 1e9 <= 2 * six_nd,
+          f"[13] counted {rep.hlo_gflops:.1f} GFLOP outside [6ND, 12ND] = "
+          f"[{six_nd / 1e9:.1f}, {2 * six_nd / 1e9:.1f}]")
+    print(f"[13] step {step_ms:.3f} ms (median of steps 1-"
+          f"{TRAIN_STEPS - 1}; all ms "
+          f"{[round(m['step_time_s'] * 1e3, 2) for m in log]}), "
+          f"{tok_s:.1f} tokens/s, peak memory {run['peak_bytes'] / 2**30:.3f}"
+          f" GiB; mean loss of the first 5 steps {first5:.4f}, of the last "
+          f"5 {last5:.4f} (a drop of {first5 - last5:.4f}, limit "
+          f">= {TRAIN_DROP}) (card {card})", flush=True)
+    print(f"[13] roofline of the train step (counted: FlopCounterMode and "
+          f"the byte counter, eager, nothing fused): {rep.hlo_gflops:.1f} "
+          f"GFLOP, {rep.hlo_gbytes:.2f} GB; t_compute "
+          f"{rep.t_compute * 1e3:.3f} ms, t_memory {rep.t_memory * 1e3:.3f} "
+          f"ms [{rep.bottleneck}]; model (6·N·D) {rep.model_gflops:.1f} GFLOP,"
+          f" useful_ratio {rep.useful_ratio:.4f}, roofline_frac "
+          f"{rep.roofline_frac:.4f}; measured share (model FLOPs over the "
+          f"median step at {roofline.HW().peak_flops / 1e12:.0f} TFLOP/s) "
+          f"{run['measured_frac']:.4f} (card {card})", flush=True)
+    print(roofline.format_row(rep), flush=True)
+
+    marks = [("", t_phase), ("main run", time.perf_counter())]
+    params, opt_state = run["state"]
+    measured = run["measured_frac"]
+    ds = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH)
+    batch = markov_lm_batch(ds, TRAIN_STEPS, device="cuda")
+    prof = profile(torch, lambda: plan.fn(params, opt_state, batch),
+                   "[13] train step", steps=3, top=6, host_ops=False)
+    marks.append(("profile", time.perf_counter()))
+
+    # -- accum_steps 2 against 1, one batch, a fresh optimizer state, no
+    # clipping; half the batch alone shows what the gates would see
+    opt = AdamWConfig(lr=ACCUM_LR, grad_clip=math.inf)
+    fresh = adamw_init(params)
+    outs = [make_train_step(cfg, shape, opt=opt, accum_steps=a).fn(
+        params, fresh, batch) for a in (1, 2)]
+    (p1, s1, m1), (p2, s2, m2) = outs
+    half_shape = ShapeConfig("half", TRAIN_SEQ, TRAIN_BATCH // 2, "train")
+    m_half = make_train_step(cfg, half_shape, opt=opt).fn(
+        params, fresh, {k: v[:TRAIN_BATCH // 2]
+                        for k, v in batch.items()})[2]
+
+    def rel(m, key):
+        return abs(float(m[key]) - float(m1[key])) / abs(float(m1[key]))
+    loss_d, gn_d = rel(m2, "loss"), rel(m2, "grad_norm")
+    flat = ckpt.checkpointer._flatten_with_path
+    mu_max = max(float(b.abs().max()) for _, b in flat(s1.mu))
+    per_leaf = sorted(((float((a - b).abs().max()) / max(
+        float(b.abs().max()), mu_max if "/".join(pa) in ACCUM_ZERO_GRAD
+        else 0.0, 1e-30), "/".join(pa))
+        for (pa, a), (_, b) in zip(flat(s2.mu), flat(s1.mu))), reverse=True)
+    mu_d = per_leaf[0][0]
+    p_d = max(float((a - b).abs().max())
+              for a, b in zip(tree_leaves(p2), tree_leaves(p1)))
+    print(f"[13] accum_steps 2 vs 1 on one batch (no clipping): loss "
+          f"{float(m2['loss']):.6f} vs {float(m1['loss']):.6f} (relative "
+          f"{loss_d:.3e}, limit {ACCUM_LOSS_TOL}; half the batch "
+          f"{rel(m_half, 'loss'):.3e}), grad_norm {float(m2['grad_norm']):.6f}"
+          f" vs {float(m1['grad_norm']):.6f} (relative {gn_d:.3e}, limit "
+          f"{ACCUM_GN_TOL}; half the batch {rel(m_half, 'grad_norm'):.3e}); "
+          f"first moments, each leaf against its own max (the key bias "
+          f"against the tree's {mu_max:.3e}), worst "
+          f"{[(n, f'{r:.2e}') for r, n in per_leaf[:3]]} (limit "
+          f"{ACCUM_MU_TOL}); params worst |d| {p_d / ACCUM_LR:.4f} lr (not "
+          f"gated: at most 2 lr for any two gradients)", flush=True)
+    check(rel(m_half, "loss") > ACCUM_LOSS_TOL
+          and rel(m_half, "grad_norm") > ACCUM_GN_TOL,
+          "[13] half the batch passes the accum gates: they test nothing")
+    check(loss_d <= ACCUM_LOSS_TOL and gn_d <= ACCUM_GN_TOL
+          and mu_d <= ACCUM_MU_TOL, "[13] accum_steps 2 != 1")
+    del outs, p1, p2, s1, s2, fresh, m_half
+
+    marks.append(("accum", time.perf_counter()))
+
+    # -- preemption: a run stopped by SIGTERM checkpoints; a resumed run
+    # restores it (held bitwise against the stopped run's state at its
+    # first step), starts at that step and tracks the uninterrupted run's
+    # losses; its own final checkpoint is asked for and not written
+    def loop(total, kill_at=None, first=None):
+        def batch_fn(step):
+            if step == kill_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return markov_lm_batch(ds, step, device="cuda")
+
+        def step_fn(state, b):
+            if first is not None and not first:
+                first.append((time.perf_counter(), state))
+            p, o, m = plan.fn(*state, b)
+            return (p, o), m
+        fresh_p = tfm.init_params(0, cfg, "cuda")
+        return ResilientLoop(LoopConfig(total_steps=total,
+                                        ckpt_dir=str(root / "pre"),
+                                        ckpt_every=TRAIN_STEPS + 1),
+                             step_fn, batch_fn), (fresh_p,
+                                                  adamw_init(fresh_p))
+
+    del params, opt_state, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lp, init = loop(TRAIN_STEPS, kill_at=TRAIN_PREEMPT_AT)
+    state_b, final_b, pre_b = lp.run(init)
+    save_s = time.perf_counter() - t0
+    check(pre_b and final_b == TRAIN_PREEMPT_AT + 1
+          and ckpt.latest_step(str(root / "pre")) == final_b,
+          f"[13] preempted run: final {final_b}, preempted {pre_b}, latest "
+          f"{ckpt.latest_step(str(root / 'pre'))}")
+    pre_gib = lp_bytes(root / "pre", final_b) / 2**30
+    del init, lp
+    first = []
+    lc, init = loop(TRAIN_RESUME_TO, first=first)
+    t0 = time.perf_counter()
+    with _SkippedSaves(ckpt) as skipped:
+        _, final_c, pre_c = lc.run(init)
+    check(len(first) == 1, "[13] the resumed run took no step")
+    restore_s = first[0][0] - t0
+    restored = first[0][1]
+    same = [(pa, torch.equal(a, b)) for (pa, a), (pb, b) in zip(
+        flat(restored), flat(state_b)) if pa == pb]
+    same = len(same) == len(flat(state_b)) and all(e for _, e in same)
+    check(same, "[13] the restored leaves are not bitwise the saved ones")
+    del restored, state_b, first
+    resumed = [m["loss"] for m in lc.metrics_log]
+    steps_c = [int(m["step"]) for m in lc.metrics_log]
+    check(steps_c == list(range(TRAIN_PREEMPT_AT + 1, TRAIN_RESUME_TO))
+          and final_c == TRAIN_RESUME_TO and not pre_c
+          and skipped.steps == [TRAIN_RESUME_TO],
+          f"[13] the resumed run ran steps {steps_c}, asked to save "
+          f"{skipped.steps}")
+    want = losses[TRAIN_PREEMPT_AT + 1:TRAIN_RESUME_TO]
+    res_d = max(abs(a - b) / abs(b) for a, b in zip(resumed, want))
+    print(f"[13] preempted by SIGTERM before the end of step "
+          f"{TRAIN_PREEMPT_AT}: checkpoint of step {final_b} written "
+          f"({pre_gib:.2f} GiB on disk; the run and its save {save_s:.1f} "
+          f"s); the resumed run restored it bitwise (restore and first "
+          f"batch {restore_s:.1f} s), ran steps {steps_c}, losses "
+          f"{[round(x, 4) for x in resumed]} against the uninterrupted "
+          f"run's {[round(x, 4) for x in want]} (worst relative {res_d:.2e},"
+          f" limit {RESUME_TOL})", flush=True)
+    check(res_d <= RESUME_TOL, f"[13] resumed losses off by {res_d:.2e}")
+    del lc, init
+    shutil.rmtree(root, ignore_errors=True)
+
+    marks.append(("preemption and resume", time.perf_counter()))
+
+    # -- Hymba: B10 has no backward, and training through it raises
+    hcfg = get_config("hymba-1.5b").reduced()
+    hplan = make_train_step(hcfg, ShapeConfig("h", 16, 2, "train"))
+    hp = tfm.init_params(0, hcfg, "cuda")
+    before = wrappers["mamba_scan_fused"].launches
+    try:
+        hplan.fn(hp, adamw_init(hp), markov_lm_batch(TokenStreamConfig(
+            vocab_size=hcfg.vocab_size, seq_len=16, global_batch=2), 0,
+            device="cuda"))
+        raised = None
+    except B10BackwardMissing as exc:
+        raised = str(exc)
+    check(raised is not None and "item 18" in raised
+          and wrappers["mamba_scan_fused"].launches == before,
+          f"[13] Hymba's train step on the card did not raise B10's "
+          f"missing-backward error ({raised})")
+    print(f"[13] Hymba (reduced) train step on the card raised: {raised}",
+          flush=True)
+    del hp, hplan
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("Hymba", time.perf_counter()))
+    seconds = marks[-1][1] - t_phase
+    print(f"[13] phase 13 took {seconds:.1f} s: " + ", ".join(
+        f"{name} {t1 - t0:.1f} s" for (_, t0), (name, t1) in zip(
+            marks, marks[1:])), flush=True)
+    return dict(step_ms=step_ms, tok_s=tok_s, first5=first5, last5=last5,
+                idle=prof["idle"], report=rep.to_json(),
+                measured_frac=measured, seconds=seconds)
+
+
+def lp_bytes(d, step) -> int:
+    """Bytes of checkpoint ``step`` in directory ``d``."""
+    sd = pathlib.Path(d) / f"step_{step:08d}"
+    return sum(f.stat().st_size for f in sd.iterdir())
+
+
 def main() -> int:
     try:
         import torch
@@ -2961,15 +3252,19 @@ def run(torch) -> int:
     from repro_torch.core.fire import FireConfig
     from repro_torch.kernels import build
     from repro_torch.kernels.event_conv import ops as conv_ops
+    from repro_torch.kernels.event_conv.ops import conv_work
     from repro_torch.kernels.event_conv.ref import (event_conv_int8_ref,
                                                     event_conv_ref)
     from repro_torch.kernels.event_matmul import ops as mm_ops
+    from repro_torch.kernels.event_matmul.ops import matmul_work
     from repro_torch.kernels.event_matmul.ref import (event_matmul_int8_ref,
                                                       event_matmul_ref)
     from repro_torch.kernels.event_pool import ops as pool_ops
+    from repro_torch.kernels.event_pool.ops import pool_work
     from repro_torch.kernels.event_pool.ref import (event_pool_ref,
                                                     event_pool_window_ref)
     from repro_torch.kernels.fire_compact import ops as fire_ops
+    from repro_torch.kernels.fire_compact.ops import fire_work
     from repro_torch.kernels.fire_compact.ref import fire_compact_ref
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.mamba_step import ops as mamba_ops
@@ -3325,6 +3620,9 @@ def run(torch) -> int:
         "per_bucket": {b: v["launches"] for b, v in
                        alex["per_bucket"].items()}}}), flush=True)
 
+    # -- 13. training Qwen2-0.5B at full width, and its roofline -----------
+    trained = train_phase(torch, engine, wrappers, card)
+
     # -- 3. kernel checks on the captured inputs ------------------------------
     results = []
     # the main paths' counts: captured x replayed (the graphed forwards'
@@ -3499,7 +3797,7 @@ def run(torch) -> int:
         worst = max(worst, close(y, event_matmul_ref(*args), what))
         close(y.reshape(-1, y.shape[-1]), decoded(*args) @ args[3],
               what + " vs torch.matmul")
-    f32_work = lambda a: matmul_work(torch, *a)  # noqa: E731
+    f32_work = lambda a: matmul_work(*a)  # noqa: E731
     n_tap, tap_args = matmul_shapes(
         "event_matmul", mm_ops.event_matmul,
         by_shape(captured["event_matmul"], recs), f32_work)
@@ -3533,7 +3831,7 @@ def run(torch) -> int:
         close(y.reshape(-1, y.shape[-1]),
               decoded(dq(a_vals, sc, zp), a_idx, counts, w) @ w,
               what + " vs torch.matmul")
-    int8_work = lambda a: matmul_work(torch, *a[:3], a[5], qbytes=8)  # noqa
+    int8_work = lambda a: matmul_work(*a[:3], a[5], qbytes=8)  # noqa
     n_tap8, tap8_args = matmul_shapes(
         "event_matmul_int8", mm_ops.event_matmul_dequant,
         by_shape(captured8["event_matmul_int8"], recs8), int8_work)
@@ -3616,9 +3914,9 @@ def run(torch) -> int:
     other_strides("event_conv", False)
     conv_forward_ms = conv_layers(
         "event_conv", conv_ops.event_conv, convs,
-        lambda a, s: conv_work(torch, a, s))
+        lambda a, s: conv_work(a, s))
     b, ((layer, shape), (args, kw)) = heaviest(
-        convs, lambda c: conv_work(torch, c[1][0], c[0][0].stride))
+        convs, lambda c: conv_work(c[1][0], c[0][0].stride))
     x_nchw = dense_nchw(args[0], args[1], kw["nkb"], shape)
     w_oihw = conv_oihw(args[6], layer.k, shape[3])
     report("event_conv", worst,
@@ -3666,10 +3964,10 @@ def run(torch) -> int:
     other_strides("event_conv_int8", True)
     conv8_forward_ms = conv_layers(
         "event_conv_int8", conv_ops.event_conv_dequant, convs8,
-        lambda a, s: conv_work(torch, (*a[:6], a[8]), s, qbytes=8))
+        lambda a, s: conv_work((*a[:6], a[8]), s, qbytes=8))
     b, ((layer, shape), (args, kw)) = heaviest(
         convs8, lambda c: conv_work(
-            torch, (*c[1][0][:6], c[1][0][8]), c[0][0].stride, qbytes=8))
+            (*c[1][0][:6], c[1][0][8]), c[0][0].stride, qbytes=8))
     x_nchw = dense_nchw(dq(args[0], *args[6:8]), args[1], kw["nkb"], shape)
     w_oihw = conv_oihw(args[8], layer.k, shape[3])
     report("event_conv_int8", worst,
@@ -3722,17 +4020,13 @@ def run(torch) -> int:
     # phase 8's bucket-128 launches (served VGG16@224, a full bucket of
     # 128) and phase 12's (AlexNet@224, the eager bucket-8 forward): each
     # kernel of the path against its plain version, timed beside its bound
-    def fire_work(a, kw, y):
-        n = a[0].numel()
-        return n * 8 + n // (kw["blk_m"] * kw["blk_k"]) * 4, float(n)
-
     replays = {
         "fire_compact": (fire_ops.fire_compact, fire_compact_ref, True,
-                         fire_work),
+                         lambda a, kw, y: fire_work(a[0], **kw)),
         "event_matmul": (mm_ops.event_matmul, event_matmul_ref, False,
-                         lambda a, kw, y: matmul_work(torch, *a)),
+                         lambda a, kw, y: matmul_work(*a)),
         "event_conv": (conv_ops.event_conv, event_conv_ref, False,
-                       lambda a, kw, y: conv_work(torch, a, kw["row_stride"])),
+                       lambda a, kw, y: conv_work(a, kw["row_stride"])),
         "event_pool_window": (pool_ops.event_pool_window,
                               event_pool_window_ref, True,
                               lambda a, kw, y: pool_work(a[0], a[4],
@@ -3845,7 +4139,12 @@ def run(torch) -> int:
           f"of max|ref|; AlexNet@224 served (phase 12, "
           f"{alex['seconds']:.1f} s): {alex['stats']['requests_s']} "
           f"requests/s, the bucket-8 replay {alex['replay8_ms']:.3f} ms "
-          f"(dense oracle {alex['dense8_ms']:.3f} ms); served (phase 8): "
+          f"(dense oracle {alex['dense8_ms']:.3f} ms); Qwen2-0.5B trained "
+          f"(phase 13, {trained['seconds']:.1f} s): step "
+          f"{trained['step_ms']:.3f} ms, {trained['tok_s']:.1f} tokens/s, "
+          f"idle share {trained['idle']:.3f}, measured share "
+          f"{trained['measured_frac']:.4f}, roofline_frac "
+          f"{trained['report']['roofline_frac']:.4f}; served (phase 8): "
           + "; ".join(
               f"{net} {r['stats']['requests_s']} requests/s, p50 "
               f"{r['stats']['p50_ms']} ms, p99 {r['stats']['p99_ms']} ms, "

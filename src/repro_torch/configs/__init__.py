@@ -9,9 +9,9 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (GLOBAL_WINDOW, MLAConfig, MNFConfig,
-                                      ModelConfig, MoEConfig, ShapeConfig,
-                                      SSMConfig)
+from repro_torch.configs.base import (GLOBAL_WINDOW, SHAPES, MLAConfig,
+                                      MNFConfig, ModelConfig, MoEConfig,
+                                      ShapeConfig, SSMConfig)
 
 _REGISTRY = {
     "qwen2-1.5b": "repro_torch.configs.qwen2_1p5b",
@@ -36,6 +36,6 @@ def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(_REGISTRY[arch]).config()
 
 
-__all__ = ["ARCH_IDS", "GLOBAL_WINDOW", "MLAConfig",
+__all__ = ["ARCH_IDS", "GLOBAL_WINDOW", "SHAPES", "MLAConfig",
            "MNFConfig", "ModelConfig", "MoEConfig", "ShapeConfig",
            "SSMConfig", "get_config"]

@@ -177,3 +177,12 @@ class ShapeConfig:
     global_batch: int
     kind: str                      # train | prefill | decode
 
+
+#: The cells of the JAX package's dry run (``repro.configs.base.SHAPES``):
+#: the shapes ``launch.roofline.model_flops`` and ``launch.report`` read.
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

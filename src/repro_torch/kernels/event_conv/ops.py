@@ -21,16 +21,52 @@ import torch
 
 from repro_torch.core import events as ev
 from repro_torch.core.mnf_conv import conv_out_size
-from repro_torch.kernels import note_launch
+from repro_torch.kernels import kernel_wrapper, note_launch
 from repro_torch.kernels.event_conv.kernel import (event_conv_cuda,
                                                   event_conv_int8_cuda)
 from repro_torch.kernels.event_conv.ref import (event_conv_int8_ref,
                                                event_conv_ref)
 
-__all__ = ["event_conv", "event_conv_dequant", "fused_conv_plan",
-           "fused_event_conv2d", "stacked_weights", "strip_conv_inputs"]
+__all__ = ["conv_work", "event_conv", "event_conv_dequant",
+           "fused_conv_plan", "fused_event_conv2d", "live_slots",
+           "stacked_weights", "strip_conv_inputs"]
 
 
+def live_slots(a_vals: torch.Tensor) -> torch.Tensor:
+    """(G, E) live event slots: padding slots hold zeros, a live tile from
+    the fire phase holds a non-zero value (or code)."""
+    return a_vals.flatten(2).ne(0).any(-1)
+
+
+def conv_work(args: tuple, stride: int, qbytes: int = 0) -> tuple[int, float]:
+    """Bytes and operations of one B3 (or B6) launch on ``args`` (a_vals,
+    a_idx, tap, shift, src, cnt, ws): each live event tile (in its own
+    type) and address read once, each distinct (tap, live K-block) weight
+    block once, the plan's source table, the (G_out, bm, N) f32 output
+    written, ``qbytes`` for the dequantization's scale and zero point; a
+    multiply and an add per element of each event tile times N, for each
+    output row its shift at ``stride`` lands in the strip."""
+    a_vals, a_idx, tap, shift, src, cnt, ws = args
+    g_in, e, bm, bk = a_vals.shape
+    g_out, t_n = src.shape
+    n = ws.shape[1]
+    live = live_slots(a_vals)
+    slots = int(live.sum())
+    blocks = int(torch.unique(a_idx[live]).numel())
+    taps = int(torch.unique(tap).numel())
+    i = torch.arange(bm, device=shift.device)
+    r = stride * i[None, :] + shift[:, None].long()
+    rows = ((r >= 0) & (r < bm)).sum(1)                      # (T,)
+    events = cnt.clamp(max=e).long().sum(0)                  # (T,)
+    flops = 2.0 * bk * n * float((rows * events).sum())
+    nbytes = slots * (bm * bk * a_vals.element_size() + 4) \
+        + taps * blocks * bk * n * 4 + g_out * bm * n * 4 + src.numel() * 8 \
+        + qbytes
+    return nbytes, flops
+
+
+@kernel_wrapper(lambda out, *args, nkb, row_stride=1:
+                conv_work(args, row_stride))
 def event_conv(a_vals, a_idx, tap, shift, src, cnt, ws, *, nkb: int,
                row_stride: int = 1) -> torch.Tensor:
     """(G_out, bm, N): sum_t sum_{e<cnt} remap_t(a[src, e]) @ ws tile."""
@@ -43,10 +79,8 @@ def event_conv(a_vals, a_idx, tap, shift, src, cnt, ws, *, nkb: int,
     return out
 
 
-event_conv.launches = 0
-event_conv.capture = None
-
-
+@kernel_wrapper(lambda out, *args, nkb, row_stride=1:
+                conv_work((*args[:6], args[8]), row_stride, qbytes=8))
 def event_conv_dequant(a_vals, a_idx, tap, shift, src, cnt, scale,
                        zero_point, ws, *, nkb: int,
                        row_stride: int = 1) -> torch.Tensor:
@@ -61,10 +95,6 @@ def event_conv_dequant(a_vals, a_idx, tap, shift, src, cnt, scale,
     note_launch(event_conv_dequant, args,
                 dict(nkb=nkb, row_stride=row_stride))
     return out
-
-
-event_conv_dequant.launches = 0
-event_conv_dequant.capture = None
 
 
 def stacked_weights(w: torch.Tensor, bk: int, nkb: int) -> torch.Tensor:

@@ -20,15 +20,39 @@ import torch
 
 from repro_torch.core import events as ev
 from repro_torch.core.quantize import QParams
-from repro_torch.kernels import note_launch
+from repro_torch.kernels import kernel_wrapper, note_launch
 from repro_torch.kernels.event_matmul.kernel import (event_matmul_cuda,
                                                     event_matmul_int8_cuda)
 from repro_torch.kernels.event_matmul.ref import (event_matmul_int8_ref,
                                                   event_matmul_ref)
 
-__all__ = ["event_matmul", "event_matmul_dequant", "event_matmul_int8"]
+__all__ = ["event_matmul", "event_matmul_dequant", "event_matmul_int8",
+           "matmul_work"]
 
 
+def matmul_work(a_vals: torch.Tensor, a_idx: torch.Tensor,
+                counts: torch.Tensor, w: torch.Tensor,
+                qbytes: int = 0) -> tuple[int, float]:
+    """Bytes and operations of one B2 (or B5) launch on these events: each
+    live event tile (in its own type: an int8 code is one byte) and its
+    address read once, the counts, each distinct live K-block's (bk, N)
+    weight rows once, the (G, bm, N) f32 output written, ``qbytes`` for
+    the dequantization's scale and zero point; a multiply and an add per
+    element of each live tile times N."""
+    g, e, bm, bk = a_vals.shape
+    n = w.shape[1]
+    cnt = counts.clamp(max=e).long()
+    live = torch.arange(e, device=cnt.device)[None, :] < cnt[:, None]
+    slots = int(cnt.sum())
+    blocks = int(torch.unique(a_idx[live]).numel())
+    nbytes = slots * (bm * bk * a_vals.element_size() + 4) + g * 4 \
+        + blocks * bk * n * 4 + g * bm * n * 4 + qbytes
+    return nbytes, 2.0 * slots * bm * bk * n
+
+
+@kernel_wrapper(lambda out, a_vals, a_idx, counts, w, *, qparams=None:
+                matmul_work(a_vals, a_idx, counts, w,
+                            qbytes=0 if qparams is None else 8))
 def event_matmul(a_vals: torch.Tensor, a_idx: torch.Tensor,
                  counts: torch.Tensor, w: torch.Tensor, *,
                  qparams: QParams | None = None) -> torch.Tensor:
@@ -45,10 +69,8 @@ def event_matmul(a_vals: torch.Tensor, a_idx: torch.Tensor,
     return out
 
 
-event_matmul.launches = 0
-event_matmul.capture = None
-
-
+@kernel_wrapper(lambda out, a_vals, a_idx, counts, scale, zero_point, w:
+                matmul_work(a_vals, a_idx, counts, w, qbytes=8))
 def event_matmul_dequant(a_vals: torch.Tensor, a_idx: torch.Tensor,
                          counts: torch.Tensor, scale: torch.Tensor,
                          zero_point: torch.Tensor,
@@ -62,10 +84,6 @@ def event_matmul_dequant(a_vals: torch.Tensor, a_idx: torch.Tensor,
     out = event_matmul_int8_cuda(*(t.contiguous() for t in args))
     note_launch(event_matmul_dequant, args, {})
     return out
-
-
-event_matmul_dequant.launches = 0
-event_matmul_dequant.capture = None
 
 
 def event_matmul_int8(q: torch.Tensor, w: torch.Tensor, qparams: QParams, *,

@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import events as ev
-from repro_torch.kernels import note_launch
+from repro_torch.kernels import kernel_wrapper, note_launch
+from repro_torch.kernels.event_conv.ops import live_slots
 from repro_torch.kernels.event_pool.kernel import (event_pool_cuda,
                                                    event_pool_window_cuda)
 from repro_torch.kernels.event_pool.ref import (event_pool_ref,
@@ -26,9 +27,26 @@ from repro_torch.kernels.event_pool.ref import (event_pool_ref,
 
 __all__ = ["event_max_pool2d", "event_max_pool2d_window", "event_pool",
            "event_pool_window", "pool_inputs", "pool_plan",
-           "pool_window_inputs", "pool_window_plan"]
+           "pool_window_inputs", "pool_window_plan", "pool_work"]
 
 
+def pool_work(a_vals: torch.Tensor, cnt: torch.Tensor,
+              out_elems: int) -> tuple[int, float]:
+    """Bytes and operations of one B4a or B4b launch: each live event tile
+    and its address read once (f32), the plan's counts, the ``out_elems``
+    pooled values written; a max per element of each event a window
+    reads."""
+    _, e, bm, bk = a_vals.shape
+    slots = int(live_slots(a_vals).sum())
+    nbytes = slots * (bm * bk + 1) * 4 + out_elems * 4 + cnt.numel() * 8
+    return nbytes, float(cnt.clamp(max=e).sum()) * bm * bk
+
+
+def _pool_call_work(out, a_vals, a_idx, plan, src, cnt, **_):
+    return pool_work(a_vals, cnt, out.numel())
+
+
+@kernel_wrapper(_pool_call_work)
 def event_pool(a_vals, a_idx, row, src, cnt, *, nkb: int) -> torch.Tensor:
     """(P_out, nkb, bk) per-output-pixel segment max."""
     args = (a_vals, a_idx, row, src, cnt)
@@ -39,10 +57,7 @@ def event_pool(a_vals, a_idx, row, src, cnt, *, nkb: int) -> torch.Tensor:
     return out
 
 
-event_pool.launches = 0
-event_pool.capture = None
-
-
+@kernel_wrapper(_pool_call_work)
 def event_pool_window(a_vals, a_idx, shift, src, cnt, *, nkb: int,
                       row_stride: int) -> torch.Tensor:
     """(G_out, 8, nkb, bk) window-major segment max."""
@@ -54,10 +69,6 @@ def event_pool_window(a_vals, a_idx, shift, src, cnt, *, nkb: int,
     note_launch(event_pool_window, args,
                 dict(nkb=nkb, row_stride=row_stride))
     return out
-
-
-event_pool_window.launches = 0
-event_pool_window.capture = None
 
 
 def pool_inputs(stream, k: int, stride: int) -> tuple:

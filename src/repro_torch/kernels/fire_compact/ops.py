@@ -17,13 +17,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import events as ev
-from repro_torch.kernels import note_launch
+from repro_torch.kernels import kernel_wrapper, note_launch
 from repro_torch.kernels.fire_compact.kernel import fire_compact_cuda
 from repro_torch.kernels.fire_compact.ref import fire_compact_ref
 
-__all__ = ["fire_compact", "fire_and_encode"]
+__all__ = ["fire_and_encode", "fire_compact", "fire_work"]
 
 
+def fire_work(acc: torch.Tensor, *, blk_m: int, blk_k: int,
+              **_) -> tuple[int, float]:
+    """Bytes and operations of one B1 launch: the accumulator read and the
+    fired map written once (f32), one int32 occupancy a tile; a compare a
+    value."""
+    n = acc.numel()
+    return n * 8 + n // (blk_m * blk_k) * 4, float(n)
+
+
+@kernel_wrapper(lambda out, acc, **kw: fire_work(acc, **kw))
 def fire_compact(acc: torch.Tensor, *, blk_m: int, blk_k: int,
                  threshold: float = 0.0, magnitude: bool = False,
                  qscale: float | None = None):
@@ -36,10 +46,6 @@ def fire_compact(acc: torch.Tensor, *, blk_m: int, blk_k: int,
     out = fire_compact_cuda(acc.contiguous(), **kw)
     note_launch(fire_compact, (acc,), kw)
     return out
-
-
-fire_compact.launches = 0
-fire_compact.capture = None
 
 
 def fire_and_encode(acc: torch.Tensor, *, blk_m: int, blk_k: int,

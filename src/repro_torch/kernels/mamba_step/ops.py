@@ -12,13 +12,29 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import events as ev
-from repro_torch.kernels import note_launch
+from repro_torch.kernels import kernel_wrapper, note_launch
 from repro_torch.kernels.mamba_step.kernel import mamba_step_cuda
 from repro_torch.kernels.mamba_step.ref import mamba_step_events_ref
 
-__all__ = ["mamba_step_events"]
+__all__ = ["mamba_step_events", "mamba_work"]
 
 
+def mamba_work(bev: ev.BlockEvents, h: torch.Tensor) -> tuple[int, float]:
+    """Bytes and operations one B8 launch needs on these events: h and dA
+    read and h' written once, B and C read and y written, each live event
+    tile and address, and counts (the kernel derives the live mask
+    itself); a multiply per state element (decay), a multiply and an add
+    per element for the readout, a multiply and an add per element of
+    each live block (increment)."""
+    b, di, n = h.shape
+    _, e, _, bk = bev.values.shape
+    slots = int(bev.counts.clamp(max=e).sum())
+    nbytes = 3 * b * di * n * 4 + 2 * b * n * 4 + b * di * 4 \
+        + slots * (bk * 4 + 4) + b * 4
+    return nbytes, 3.0 * b * di * n + 2.0 * slots * bk * n
+
+
+@kernel_wrapper(lambda out, bev, da, bmat, cmat, h, **kw: mamba_work(bev, h))
 def mamba_step_events(bev: ev.BlockEvents, da: torch.Tensor,
                       bmat: torch.Tensor, cmat: torch.Tensor,
                       h: torch.Tensor, *,
@@ -37,7 +53,3 @@ def mamba_step_events(bev: ev.BlockEvents, da: torch.Tensor,
     note_launch(mamba_step_events, (bev, da, bmat, cmat, h),
                 dict(blk_k=blk_k))
     return out
-
-
-mamba_step_events.launches = 0
-mamba_step_events.capture = None

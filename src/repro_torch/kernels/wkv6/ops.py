@@ -16,11 +16,25 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import note_launch
+from repro_torch.kernels import kernel_wrapper, note_launch
 from repro_torch.kernels.wkv6.kernel import wkv6_cuda
 from repro_torch.kernels.wkv6.ref import wkv6_multihead_ref, wkv6_ref
 
-__all__ = ["wkv6", "wkv6_single"]
+__all__ = ["wkv6", "wkv6_scan_work", "wkv6_single"]
+
+
+def wkv6_scan_work(r, k, v, w, u, s0=None) -> tuple[int, float]:
+    """Bytes and operations one B9/B9' launch needs: r, k, v, w and u read
+    once in their own types (G x T x D each), o written once (f32), s0
+    (when given) read and S written once (f32, G x D x D); per row and
+    token 5 D^2 (the readout's multiply-add, the decay's multiply, the
+    increment's multiply and add) and 5 D (the bonus r u k and o = att v +
+    readout)."""
+    t, d = r.shape[-2:]
+    g = r.numel() // (t * d)
+    nbytes = sum(x.numel() * x.element_size() for x in (r, k, v, w, u)) \
+        + g * t * d * 4 + (2 if s0 is not None else 1) * g * d * d * 4
+    return nbytes, g * t * (5.0 * d * d + 5.0 * d)
 
 
 def _kernel_args(r, k, v, w, u, s0):
@@ -32,6 +46,7 @@ def _kernel_args(r, k, v, w, u, s0):
     return row(r), row(k), row(v), row(w), f32(u), f32(s0)
 
 
+@kernel_wrapper(lambda out, *a, **kw: wkv6_scan_work(*a, **kw))
 def wkv6_single(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 w: torch.Tensor, u: torch.Tensor,
                 s0: torch.Tensor | None = None
@@ -46,6 +61,7 @@ def wkv6_single(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@kernel_wrapper(lambda out, *a, **kw: wkv6_scan_work(*a, **kw))
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, s0: torch.Tensor | None = None
          ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -56,9 +72,3 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     out = wkv6_cuda(*_kernel_args(r, k, v, w, u, s0))
     note_launch(wkv6, (r, k, v, w, u, s0), {})
     return out
-
-
-wkv6_single.launches = 0
-wkv6_single.capture = None
-wkv6.launches = 0
-wkv6.capture = None

@@ -12,13 +12,29 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import events as ev
-from repro_torch.kernels import note_launch
+from repro_torch.kernels import kernel_wrapper, note_launch
 from repro_torch.kernels.wkv6_step.kernel import wkv6_step_cuda
 from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
 
-__all__ = ["wkv6_step_events"]
+__all__ = ["wkv6_step_events", "wkv6_work"]
 
 
+def wkv6_work(bev: ev.BlockEvents, r: torch.Tensor) -> tuple[int, float]:
+    """Bytes and operations one B7 launch needs on these events: the
+    state read and written once, r, v, w, u read and o written, each live
+    event tile and address, and counts (the kernel derives the live mask
+    itself); a multiply per state element (decay), a multiply-add per
+    element for the readout, a multiply and an add per element of each
+    live block (increment)."""
+    g, d = r.shape
+    _, e, _, bk = bev.values.shape
+    slots = int(bev.counts.clamp(max=e).sum())
+    nbytes = 2 * g * d * d * 4 + 5 * g * d * 4 + slots * (bk * 4 + 4) \
+        + g * 4
+    return nbytes, 3.0 * g * d * d + 2.0 * slots * bk * d + 5.0 * g * d
+
+
+@kernel_wrapper(lambda out, bev, r, *args, **kw: wkv6_work(bev, r))
 def wkv6_step_events(bev: ev.BlockEvents, r: torch.Tensor, v: torch.Tensor,
                      w: torch.Tensor, u: torch.Tensor, s: torch.Tensor, *,
                      blk_k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -35,7 +51,3 @@ def wkv6_step_events(bev: ev.BlockEvents, r: torch.Tensor, v: torch.Tensor,
         nkb=bev.num_k_blocks)
     note_launch(wkv6_step_events, (bev, r, v, w, u, s), dict(blk_k=blk_k))
     return out
-
-
-wkv6_step_events.launches = 0
-wkv6_step_events.capture = None

@@ -28,23 +28,15 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.engine import trace
+from repro_torch.models.param_utils import tree_leaves
 
-__all__ = ["Graph", "capture", "leaves", "same_tensors"]
-
-
-def leaves(tree) -> list:
-    """The tensors of a nested dict / list / tuple, in order."""
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in leaves(v)]
-    return [tree] if isinstance(tree, torch.Tensor) else []
+__all__ = ["Graph", "capture", "same_tensors"]
 
 
 def same_tensors(a, b) -> bool:
     """Whether two trees hold the same tensors: the same storage, shape and
     dtype, leaf by leaf."""
-    la, lb = leaves(a), leaves(b)
+    la, lb = tree_leaves(a), tree_leaves(b)
     return len(la) == len(lb) and all(
         x.data_ptr() == y.data_ptr() and x.shape == y.shape
         and x.dtype == y.dtype for x, y in zip(la, lb))
@@ -75,7 +67,8 @@ class Graph:
 
 def capture(fn, *static, pool=None) -> Graph:
     """Warm ``fn(*static)`` up once, then capture one call of it."""
-    off = [tuple(t.shape) for t in leaves(static) if t.device.type != "cuda"]
+    off = [tuple(t.shape) for t in tree_leaves(static)
+           if t.device.type != "cuda"]
     if off:
         raise ValueError(f"a CUDA graph reads CUDA tensors only; inputs of "
                          f"shape {off} lie elsewhere")

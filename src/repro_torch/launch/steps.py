@@ -1,5 +1,11 @@
-"""Step factories — port of ``repro.launch.steps.make_prefill_step`` and
-``make_serve_step`` on one device: no mesh, no shardings.
+"""Step factories — port of ``repro.launch.steps.make_train_step``,
+``make_prefill_step`` and ``make_serve_step`` on one device: no mesh, no
+shardings.
+
+The train step runs eagerly: autograd over ``transformer.lm_loss`` under
+the config's remat policy, then ``optim.adamw_update``, with
+``accum_steps`` microbatches summed into one optimizer step (capturing
+it as a CUDA graph is ROADMAP.md queue A item 19).
 
 On CUDA tensors a step is compiled as the JAX package's is under
 ``jax.jit``, here as a CUDA graph (``launch.graphs``): one graph per
@@ -31,9 +37,12 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.engine.config import EngineConfig
 from repro_torch.launch import graphs
 from repro_torch.models import transformer as tfm
+from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.models.param_utils import tree_leaves, tree_map
 
 __all__ = ["CNNCellPlan", "StepPlan", "cell_engine_config",
-           "make_cnn_serve_step", "make_prefill_step", "make_serve_step"]
+           "make_cnn_serve_step", "make_prefill_step", "make_serve_step",
+           "make_train_step"]
 
 
 def cell_engine_config(cfg: ModelConfig) -> EngineConfig:
@@ -150,6 +159,55 @@ class _GraphedServe:
         if decode_pos is not s_pos:
             s_pos.copy_(decode_pos)
         return g.replay(), s_cache
+
+
+def make_train_step(cfg: ModelConfig, shape: ShapeConfig, *,
+                    opt: AdamWConfig | None = None,
+                    accum_steps: int = 1) -> StepPlan:
+    """fn(params, opt_state, batch) -> (params, opt_state, metrics): one
+    AdamW step on the mean ``lm_loss`` of ``batch`` (``shape.global_batch``
+    rows), the new trees returned and the old ones left as they are (the
+    JAX step's donated buffers are freed once the caller drops them).
+    ``metrics``: ``loss``, ``grad_norm`` and ``lr``, 0-d f32 tensors.
+    With ``accum_steps`` > 1 the batch splits into that many microbatches
+    along its rows, run one after another: their gradients summed in f32
+    and averaged, their losses averaged, one optimizer step."""
+    opt = opt or AdamWConfig()
+    if shape.global_batch % accum_steps:
+        raise ValueError(f"batch {shape.global_batch} does not split into "
+                         f"{accum_steps} microbatches")
+
+    def loss_and_grads(params, batch):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss = tfm.lm_loss(leaves, batch, cfg)
+        # a leaf the loss does not read gets a zero gradient, as in JAX
+        it = iter(torch.autograd.grad(loss, tree_leaves(leaves),
+                                      allow_unused=True))
+        return loss.detach(), tree_map(
+            lambda p: torch.zeros_like(p) if (g := next(it)) is None else g,
+            leaves)
+
+    def train_step(params, opt_state, batch):
+        if accum_steps == 1:
+            loss, grads = loss_and_grads(params, batch)
+        else:
+            micro = {k: v.chunk(accum_steps) for k, v in batch.items()}
+            loss = 0.0
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            for i in range(accum_steps):
+                l_i, g_i = loss_and_grads(
+                    params, {k: v[i] for k, v in micro.items()})
+                grads = tree_map(lambda a, b: a + b.float(), grads, g_i)
+                loss = loss + l_i
+            loss = loss / accum_steps
+            grads = tree_map(lambda g: g / accum_steps, grads)
+        with torch.no_grad():
+            new_p, new_o, metrics = adamw_update(grads, opt_state, params,
+                                                 opt)
+        return new_p, new_o, dict(loss=loss, **metrics)
+
+    return StepPlan(cfg, shape, train_step, cell_engine_config(cfg))
 
 
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, *,

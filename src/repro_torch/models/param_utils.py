@@ -14,7 +14,8 @@ import zlib
 
 import torch
 
-__all__ = ["Init", "fold_in", "stack_layer_params"]
+__all__ = ["Init", "fold_in", "stack_layer_params", "tree_leaves",
+           "tree_map"]
 
 _MASK64 = (1 << 64) - 1
 
@@ -27,6 +28,25 @@ def fold_in(seed: int, data: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return (z ^ (z >> 31)) >> 1
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` on the leaves of nested dicts (a tuple is a leaf), and on the
+    matching leaves of ``rest``, trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict / list / tuple, in order (anything
+    else is left out)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
 
 
 class Init:

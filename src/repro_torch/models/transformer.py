@@ -1,5 +1,5 @@
-"""LM assembly — port of ``repro.models.transformer`` for the serving
-path: the "rwkv6" and "hymba" blocks, and the attention block — GQA with
+"""LM assembly — port of ``repro.models.transformer``: the "rwkv6" and
+"hymba" blocks, and the attention block — GQA with
 optional QKV biases, Gemma-2's attention and final logit softcaps,
 alternating local and global windows and post-block norms, DeepSeek-V2's
 MLA (``attention.mla_apply``) and the sort-dispatched MoE
@@ -16,23 +16,37 @@ encoder-decoder ``encoder`` and ``enc_final_norm``, each stack's leaves
 along a leading L axis as in the JAX package (``params_from_numpy`` takes
 its ``init_params(...)[0]`` tree as numpy arrays).  A Python loop over the
 layers stands in for ``lax.scan``, with each layer's attention window
-(``cfg.window_for_layer``).  Explicit expert parallelism (``moe_ep``)
-raises and names its ROADMAP.md item.  Entry points run on the card
-unless the caller passes ``device="cpu"``.
+(``cfg.window_for_layer``), each layer's params ``unbind`` views of the
+stacks (autograd stacks their gradients back in one op a leaf).
+Explicit expert parallelism (``moe_ep``) raises and names its ROADMAP.md
+item.  Entry points run on the card unless the caller passes
+``device="cpu"``.
+
+Training: :func:`lm_loss` is the chunked softmax cross-entropy of the JAX
+package, with the MoE auxiliary loss the forward sums.  Under autograd
+each layer of the uniform stack, each encoder layer and each
+cross-entropy chunk runs under ``cfg.remat`` (:func:`_remat`, the JAX
+package's ``_remat_policy``): "full" recomputes it in the backward,
+"dots" saves its matmul outputs, "none" saves everything.  Params stay
+in ``cfg.param_dtype`` and are cast where they are used, so the
+gradients land on the param-dtype leaves.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GLOBAL_WINDOW
 from repro_torch.device import default_device
 from repro_torch.models import attention, hymba, layers, moe, ssm
-from repro_torch.models.param_utils import Init, fold_in, stack_layer_params
+from repro_torch.models.param_utils import (Init, fold_in, stack_layer_params,
+                                           tree_leaves, tree_map)
 
 __all__ = ["active_params", "cache_specs", "compute_params", "copy_cache",
            "count_params", "decode_step", "forward", "init_cache",
-           "init_compute_params", "init_params", "input_specs",
+           "init_compute_params", "init_params", "input_specs", "lm_loss",
            "params_from_numpy", "prefill", "unembed_logits"]
 
 
@@ -54,19 +68,6 @@ def _check_block(cfg) -> None:
             f"and runtime)")
 
 
-def _tree_map(fn, tree):
-    """``fn`` on every leaf of a nested dict (a tuple is a leaf)."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _tree_leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _tree_leaves(v)]
-    return [tree]
-
-
 def copy_cache(dst, src) -> None:
     """Copy each leaf of cache (or cache part) ``src`` over the same leaf
     of ``dst``, skipping a leaf that already is ``dst``'s tensor."""
@@ -75,6 +76,14 @@ def copy_cache(dst, src) -> None:
             copy_cache(dst[k], src[k])
     elif src is not dst:
         dst.copy_(src)
+
+
+def _unstack(tree: dict, n: int) -> list:
+    """The ``n`` per-layer trees of a stack: each leaf ``unbind`` along
+    axis 0 (views, whose gradients autograd stacks back in one op, where
+    indexing each layer would add a stack-sized gradient a layer)."""
+    views = tree_map(lambda v: v.unbind(0), tree)
+    return [tree_map(lambda t: t[i], views) for i in range(n)]
 
 
 def _tree_stack(trees: list) -> dict:
@@ -250,7 +259,7 @@ def params_from_numpy(tree: dict, cfg, device=None) -> dict:
 def count_params(cfg) -> int:
     """The model's parameter count (the shapes of ``init_params`` on the
     ``meta`` device, which allocates nothing)."""
-    return sum(t.numel() for t in _tree_leaves(init_params(0, cfg, "meta")))
+    return sum(t.numel() for t in tree_leaves(init_params(0, cfg, "meta")))
 
 
 def active_params(cfg) -> int:
@@ -273,10 +282,10 @@ def active_params(cfg) -> int:
 def _apply_layer(p, x, *, cfg, positions, window, cache=None,
                  decode_pos=None, in_place=False, moe_layer=False,
                  enc_kv=None):
-    """Returns (x, new_cache).  A one-token input with a cache takes the
-    recurrent blocks' decode branch (a prompt of length 1 too); longer
-    inputs prefill from a zero state.  An MoE layer's auxiliary losses
-    are dropped, as the JAX package's serve steps drop them.  A decoder
+    """Returns (x, new_cache, aux).  A one-token input with a cache takes
+    the recurrent blocks' decode branch (a prompt of length 1 too); longer
+    inputs prefill from a zero state.  ``aux`` is an MoE layer's
+    load-balance loss (0-d f32), 0.0 for any other layer.  A decoder
     layer of an encoder-decoder attends to ``enc_kv`` (its (k, v) from
     :func:`_cross_kv`) and caches them as ``cross_k`` / ``cross_v`` in the
     compute dtype; without ``enc_kv`` it reads them from the cache and
@@ -287,7 +296,7 @@ def _apply_layer(p, x, *, cfg, positions, window, cache=None,
             x, new_cache = ssm.rwkv6_block_decode(p, x, cfg, cache)
         else:
             x, new_cache = ssm.rwkv6_block_apply(p, x, cfg)
-        return x, None if train_mode else new_cache
+        return x, None if train_mode else new_cache, 0.0
     h = layers.rms_norm(x, p["ln_attn"] - 1.0, cfg.norm_eps)
     if cfg.block_type == "hymba":
         mix = hymba.hymba_block_apply
@@ -322,14 +331,50 @@ def _apply_layer(p, x, *, cfg, positions, window, cache=None,
                 new_cache = dict(new_cache, cross_k=cache["cross_k"],
                                  cross_v=cache["cross_v"])
     h2 = layers.rms_norm(x, p["ln_mlp"] - 1.0, cfg.norm_eps)
+    aux = 0.0
     if moe_layer:
-        f, _ = moe.moe_apply(p["ffn"], h2, cfg)
+        f, moe_aux = moe.moe_apply(p["ffn"], h2, cfg)
+        aux = moe_aux["load_balance_loss"]
     else:
         f = layers.mlp_apply(p["ffn"], h2, cfg)
     if cfg.post_block_norm:
         f = layers.rms_norm(f, p["ln_mlp_post"] - 1.0, cfg.norm_eps)
     x = x + f
-    return x, None if train_mode else new_cache
+    return x, None if train_mode else new_cache, aux
+
+
+#: The ops whose outputs "dots" saves: the products without batch dims
+#: (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots():
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _remat(fn, cfg, *args):
+    """``fn(*args)`` under the config's rematerialisation policy — the
+    JAX package's ``_remat_policy`` around its scan bodies — when autograd
+    records (grad mode on and a tensor of ``args`` that requires grad):
+    "full" keeps only the inputs and recomputes the rest in the backward,
+    "dots" keeps the matmul outputs too (:data:`_DOTS`), "none" keeps
+    everything (no checkpoint).  A serving call runs ``fn`` as it is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in tree_leaves(args)):
+        return fn(*args)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_save_dots)
+    if cfg.remat != "full":
+        raise ValueError(f"{cfg.name}: remat {cfg.remat!r} is not one of "
+                         f"full, dots, none")
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -359,16 +404,18 @@ def _encode_audio(params, frames: torch.Tensor, cfg) -> torch.Tensor:
     _, f, d = frames.shape
     x = frames + _sinusoids(f, d, frames.device).to(frames.dtype)
     positions = torch.arange(f, dtype=torch.int32, device=frames.device)
-    enc = params["encoder"]
-    for i in range(cfg.enc_layers):
-        p_l = _tree_map(lambda v: v[i], enc)
+
+    def layer(p_l, x):
         h = layers.rms_norm(x, p_l["ln_attn"] - 1.0, cfg.norm_eps)
         a, _ = attention.attn_apply(p_l["mix"], h, cfg=cfg,
                                     positions=positions, window=GLOBAL_WINDOW,
                                     causal=False)
         x = x + a
         h2 = layers.rms_norm(x, p_l["ln_mlp"] - 1.0, cfg.norm_eps)
-        x = x + layers.mlp_apply(p_l["ffn"], h2, cfg)
+        return x + layers.mlp_apply(p_l["ffn"], h2, cfg)
+
+    for p_l in _unstack(params["encoder"], cfg.enc_layers):
+        x = _remat(layer, cfg, p_l, x)
     return layers.rms_norm(x, params["enc_final_norm"] - 1.0, cfg.norm_eps)
 
 
@@ -416,7 +463,8 @@ def forward(params, tokens: torch.Tensor, cfg, *, cache=None,
     copied once over its layer's slice — and ``cache`` is returned: the
     counterpart of the JAX serve step's donated cache, for a step that
     owns its cache.  (The JAX package's third output, the MoE auxiliary
-    loss, is what training reads; the serving path drops it.)
+    loss, is what training reads: :func:`lm_loss` takes it from
+    :func:`_forward`; the serving path drops it.)
 
     ``vision_embeds`` (B, NV, d): patch embeddings that replace the first
     NV token embeddings (a prompt shorter than NV raises); without them a
@@ -427,6 +475,18 @@ def forward(params, tokens: torch.Tensor, cfg, *, cache=None,
     encoder runs exactly when ``audio_frames`` is given — a one-token
     prefill too (the JAX package decides by the prompt's length and a
     one-token prefill skips it: ROADMAP C.r7)."""
+    x, new_cache, _ = _forward(params, tokens, cfg, cache=cache,
+                               decode_pos=decode_pos, in_place=in_place,
+                               audio_frames=audio_frames,
+                               vision_embeds=vision_embeds)
+    return x, new_cache
+
+
+def _forward(params, tokens: torch.Tensor, cfg, *, cache=None,
+             decode_pos=None, in_place: bool = False, audio_frames=None,
+             vision_embeds=None):
+    """:func:`forward`, and the sum of the MoE layers' load-balance losses
+    (0-d f32; 0.0 for an arch without MoE): (hidden, new_cache, aux)."""
     _check_block(cfg)
     if in_place and cache is None:
         raise ValueError("an in-place step needs the cache it writes")
@@ -438,25 +498,34 @@ def forward(params, tokens: torch.Tensor, cfg, *, cache=None,
     enc_kv = None
     if cfg.encoder_decoder:
         if audio_frames is not None:
-            enc_kv = _cross_kv(params, _encode_audio(
+            ks, vs = _cross_kv(params, _encode_audio(
                 params, audio_frames.to(x.dtype), cfg), cfg)
+            enc_kv = list(zip(ks.unbind(0), vs.unbind(0)))
         elif cache is None:
             raise ValueError(f"{cfg.name} is an encoder-decoder: a forward "
                              f"needs audio_frames, or a cache holding the "
                              f"cross K/V of a prefill")
-    stacked = {}
+    train_mode = cache is None and decode_pos is None
+    stacked, aux = {}, 0.0
     for part, key, first, n, moe_layer in _stacks(cfg):
         per_layer = []
-        for i in range(n):
-            p_l = _tree_map(lambda v: v[i], params[key])
+        for i, p_l in enumerate(_unstack(params[key], n)):
             c_l = None if cache is None else \
-                _tree_map(lambda v: v[i], cache[part])
-            kv_l = None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i])
-            x, nc = _apply_layer(p_l, x, cfg=cfg, positions=positions,
-                                 window=cfg.window_for_layer(first + i),
-                                 cache=c_l, decode_pos=decode_pos,
-                                 in_place=in_place, moe_layer=moe_layer,
-                                 enc_kv=kv_l)
+                tree_map(lambda v: v[i], cache[part])
+            kw = dict(cfg=cfg, positions=positions,
+                      window=cfg.window_for_layer(first + i), cache=c_l,
+                      decode_pos=decode_pos, in_place=in_place,
+                      moe_layer=moe_layer,
+                      enc_kv=None if enc_kv is None else enc_kv[i])
+            if train_mode and part == "scan":
+                # the uniform stack: the JAX package's checkpointed scan
+                # body
+                x, nc, a = _remat(
+                    lambda p_, x_, kw=kw: _apply_layer(p_, x_, **kw), cfg,
+                    p_l, x)
+            else:
+                x, nc, a = _apply_layer(p_l, x, **kw)
+            aux = aux + a
             if in_place:
                 copy_cache(c_l, nc)
             else:
@@ -464,12 +533,58 @@ def forward(params, tokens: torch.Tensor, cfg, *, cache=None,
         stacked[part] = per_layer
     x = layers.rms_norm(x, params["final_norm"] - 1.0, cfg.norm_eps)
     if in_place:
-        return x, cache
+        return x, cache, aux
     new_cache = None
     if cache is not None or decode_pos is not None:
         new_cache = {st[0]: _tree_stack(stacked[st[0]])
                      for st in reversed(_stacks(cfg))}
-    return x, new_cache
+    return x, new_cache, aux
+
+
+def _xent_chunk(hc: torch.Tensor, tc: torch.Tensor, w: torch.Tensor, cfg):
+    """One chunk's summed cross-entropy and its count of labels: f32
+    logits of ``hc`` against the unembedding ``w``, softcapped where the
+    config says; labels below 0 are left out."""
+    logits = hc.float() @ w.float()
+    if cfg.final_logit_softcap:
+        logits = cfg.final_logit_softcap * torch.tanh(
+            logits / cfg.final_logit_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, tc.clamp(min=0).long()[..., None])[..., 0]
+    valid = tc >= 0
+    loss = torch.where(valid, lse - ll, 0.0)
+    return loss.sum(), valid.sum()
+
+
+def lm_loss(params, batch: dict, cfg) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens`` and
+    ``labels`` (B, S), a label of -1 left out; a vision config's
+    ``vision_embeds``, an encoder-decoder's ``audio_frames``): the logits
+    materialized one sequence chunk of ``cfg.xent_chunk`` at a time, in
+    f32, each chunk under the remat policy; plus 0.01 x the summed MoE
+    load-balance loss for an MoE config.  A 0-d f32 tensor."""
+    h, _, aux = _forward(params, batch["tokens"], cfg,
+                         vision_embeds=batch.get("vision_embeds"),
+                         audio_frames=batch.get("audio_frames"))
+    w = layers.unembed_matrix(params["embed"], cfg)
+    targets = batch["labels"]
+    s = h.shape[1]
+    chunk = min(cfg.xent_chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    n = torch.zeros((), dtype=torch.int64, device=h.device)
+    for c0 in range(0, s + pad, chunk):
+        l_c, n_c = _remat(lambda hc, tc, w_: _xent_chunk(hc, tc, w_, cfg),
+                          cfg, h[:, c0:c0 + chunk], targets[:, c0:c0 + chunk],
+                          w)
+        tot, n = tot + l_c, n + n_c
+    loss = tot / torch.clamp(n, min=1)
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -513,13 +628,13 @@ def cache_specs(cfg, bsz: int, max_len: int) -> dict:
     """(shape, dtype) of each leaf of the full decode cache: ``scan``, and
     for an MoE arch ``dense``, each leaf with a leading L axis."""
     one = _layer_cache_spec(cfg, bsz, max_len)
-    return {part: _tree_map(lambda sd: ((n,) + sd[0], sd[1]), one)
+    return {part: tree_map(lambda sd: ((n,) + sd[0], sd[1]), one)
             for part, _, _, n, _ in reversed(_stacks(cfg))}
 
 
 def init_cache(cfg, bsz: int, max_len: int, device=None) -> dict:
     dev = _device(device)
-    return _tree_map(lambda sd: torch.zeros(sd[0], dtype=sd[1], device=dev),
+    return tree_map(lambda sd: torch.zeros(sd[0], dtype=sd[1], device=dev),
                      cache_specs(cfg, bsz, max_len))
 
 

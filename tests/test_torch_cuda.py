@@ -48,8 +48,15 @@ from repro_torch.kernels.wkv6.ref import wkv6_multihead_ref
 from repro_torch.kernels.wkv6_step.ops import wkv6_step_events
 from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
 from repro_torch import serving
+from repro_torch.configs import get_config
+from repro_torch.data import TokenStreamConfig, markov_lm_batch
+from repro_torch.kernels.mamba_scan.ops import (B10BackwardMissing,
+                                                mamba_scan_fused_work)
 from repro_torch.launch import graphs, serve, steps
+from repro_torch.launch.roofline import count_cost
 from repro_torch.models import cnn, mlp
+from repro_torch.optim import AdamWConfig, adamw_init, warmup_cosine
+from repro_torch.models.param_utils import tree_leaves
 from repro_torch.serving import server
 from repro_torch.models import transformer as tfm
 
@@ -1004,7 +1011,7 @@ def test_pipeline_replay_bitwise_eager(dev, net, int8):
 
 
 def _cache_equal(a, b):
-    la, lb = graphs.leaves(a), graphs.leaves(b)
+    la, lb = tree_leaves(a), tree_leaves(b)
     return len(la) == len(lb) and all(torch.equal(x, y)
                                       for x, y in zip(la, lb))
 
@@ -1152,3 +1159,72 @@ def test_serve_engine_on_card(dev, net):
     with pytest.raises(RuntimeError):
         with server._no_host_sync(dev):
             torch.ones(1, device=dev).item()
+
+
+# -- training (launch.steps.make_train_step) and the roofline's counts -------
+
+def _train_plan(arch, accum):
+    cfg = get_config(arch).reduced()
+    return cfg, steps.make_train_step(
+        cfg, ShapeConfig("t", 16, 4, "train"),
+        opt=AdamWConfig(schedule=warmup_cosine(1e-3, 1, 10)),
+        accum_steps=accum)
+
+
+def test_train_step_on_card(dev):
+    """A reduced Qwen2's train step on the card: finite loss, params
+    moved, their f32 dtype kept, and accum 2's moments within 2e-2 of
+    accum 1's (bf16 compute; the microbatches round apart)."""
+    runs = []
+    for accum in (1, 2):
+        cfg, plan = _train_plan("qwen2-0.5b", accum)
+        params = tfm.init_params(0, cfg, dev)
+        state = adamw_init(params)
+        batch = markov_lm_batch(TokenStreamConfig(
+            vocab_size=cfg.vocab_size, seq_len=16, global_batch=4), 0,
+            device=dev)
+        new_p, new_s, m = plan.fn(params, state, batch)
+        assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0
+        assert new_p["embed"]["tok"].dtype == torch.float32
+        assert not torch.equal(new_p["embed"]["tok"], params["embed"]["tok"])
+        runs.append((m, new_s))
+    (m1, s1), (m2, s2) = runs
+    assert abs(float(m1["loss"]) - float(m2["loss"])) <= \
+        2e-2 * abs(float(m1["loss"]))
+    for a, b in zip(tree_leaves(s2.mu), tree_leaves(s1.mu)):
+        assert float((a - b).abs().max()) <= 2e-2 * max(
+            float(b.abs().max()), 1e-30)
+
+
+def test_hymba_training_on_card_raises_the_b10_error(dev):
+    """B10 has no backward: a train step through Hymba's prefill scan on
+    the card raises the named error (ROADMAP.md queue A item 18) and runs
+    no plain version in its place."""
+    cfg, plan = _train_plan("hymba-1.5b", 1)
+    params = tfm.init_params(0, cfg, dev)
+    batch = markov_lm_batch(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=16, global_batch=4), 0,
+        device=dev)
+    before = mamba_scan_fused.launches
+    with pytest.raises(B10BackwardMissing, match="item 18"):
+        plan.fn(params, adamw_init(params), batch)
+    assert mamba_scan_fused.launches == before
+    # serving (no grad) still launches B10
+    with torch.no_grad():
+        tfm.prefill(params, batch["tokens"], cfg)
+    assert mamba_scan_fused.launches > before
+
+
+def test_count_cost_counts_a_launch_by_its_formula(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    args = (torch.rand((2, 9, 40), generator=g, device=dev) * 0.1,
+            torch.randn((2, 9, 40), generator=g, device=dev),
+            -torch.rand((40, 4), generator=g, device=dev),
+            torch.randn((2, 9, 4), generator=g, device=dev),
+            torch.randn((2, 9, 4), generator=g, device=dev))
+    before = mamba_scan_fused.launches
+    _, cost = count_cost(mamba_scan_fused, *args)
+    assert mamba_scan_fused.launches == before + 1
+    nbytes, ops = mamba_scan_fused_work(*args)
+    assert cost.kernels == {"mamba_scan_fused": [1, nbytes, ops]}
+    assert (cost.aten_flops, cost.aten_bytes) == (0.0, 0.0)

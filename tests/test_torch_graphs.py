@@ -47,6 +47,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import cnn as tcnn
 from repro_torch.models import mlp as tmlp
 from repro_torch.models import transformer as ttfm
+from repro_torch.models.param_utils import tree_leaves
 
 CNN_SPECS = {"mini": (jcnn.MINI, tcnn.MINI),
              "mini_s4": (jcnn.MINI_S4, tcnn.MINI_S4)}
@@ -174,7 +175,7 @@ def _lm(arch):
 
 
 def _cache_leaves(cache):
-    return dict(zip(_paths(cache), graphs.leaves(cache)))
+    return dict(zip(_paths(cache), tree_leaves(cache)))
 
 
 def _paths(tree, path=""):

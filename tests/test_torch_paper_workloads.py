@@ -10,17 +10,13 @@ and the priced example.
   (``params_from_numpy``) on a ``cnn_batch`` frame: every count exactly
   JAX's, the logits within 5e-3 (the tolerance of the JAX package's own
   run_with_stats test);
-- ``examples/torch_serve_cnn_events.py``: at its defaults with
-  ``--device cpu`` it exits 0; with JAX's weights its priced row is
-  ``table4_row`` of JAX's stats of the same frame, exactly;
-- ``examples/torch_quickstart.py --device cpu`` exits 0.
+- ``examples/torch_serve_cnn_events.py``: with JAX's weights its priced
+  row is ``table4_row`` of JAX's stats of the same frame, exactly (the
+  examples run as scripts in ``tests/test_torch_paper_examples.py``).
 """
 import functools
 import importlib.util
-import os
 import pathlib
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -38,7 +34,6 @@ from repro_torch.data import synthetic as tsyn
 from repro_torch.models import cnn as tcnn
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
 
 
 # ---------------------------------------------------------------------------
@@ -46,8 +41,8 @@ ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
 # ---------------------------------------------------------------------------
 
 def test_data_exports():
-    assert tdata.__all__ == ["TokenStreamConfig", "cnn_batch", "lm_batch",
-                             "markov_lm_batch"]
+    assert tdata.__all__ == ["PrefetchLoader", "TokenStreamConfig",
+                             "cnn_batch", "lm_batch", "markov_lm_batch"]
     assert tsyn.__all__ == jsyn.__all__
 
 
@@ -157,17 +152,3 @@ def test_serve_cnn_events_prices_jax_stats_exactly():
     assert run["row"] == table4_row(tstats, w_density=0.5)
     assert all(torch.allclose(r.result, run["oracle"][r.rid], atol=5e-3,
                               rtol=5e-3) for r in run["engine"].completed)
-
-
-@pytest.mark.parametrize("name", ["torch_serve_cnn_events",
-                                  "torch_quickstart"])
-def test_example_runs_on_cpu(name):
-    res = subprocess.run([sys.executable, f"examples/{name}.py", "--device",
-                          "cpu"], cwd=ROOT, env=ENV, capture_output=True,
-                         text=True, timeout=600)
-    assert res.returncode == 0, res.stderr[-2000:]
-    if name == "torch_serve_cnn_events":
-        assert "served 16 frames" in res.stdout
-        assert "modeled on MNF ASIC (Table 3 hw)" in res.stdout
-    else:
-        assert "multiply phase == dense: True" in res.stdout

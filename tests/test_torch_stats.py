@@ -7,13 +7,13 @@ Every count must equal the reference's exactly:
 - ``core.fire``: ``fire_stats``, ``fire_to_block_events``;
 - ``engine.stream``: ``EventStream.num_events`` and ``occupancy()``,
   the degenerate (empty-grid) stream included;
-- ``models.cnn.run_with_stats`` on ``tests/test_torch_cnn.py``'s specs
-  and ``models.mlp.run_mlp_with_stats`` on MLP_MINI and LeNet-300-100:
-  the static fields and the traced counts exactly the JAX package's, the
-  logits bitwise the port's own forward; with no ``stats`` list the
-  forward runs none of the accounting and dispatches the same trace.
+- ``models.mlp.run_mlp_with_stats`` on MLP_MINI and LeNet-300-100: the
+  static fields and the traced counts exactly the JAX package's, the
+  logits bitwise the port's own forward (``models.cnn.run_with_stats``
+  on ``tests/test_torch_cnn.py``'s specs is
+  ``tests/test_torch_stats_cnn.py``); with no ``stats`` list the forward
+  runs none of the accounting and dispatches the same trace.
 """
-import functools
 import importlib
 
 import jax
@@ -135,51 +135,6 @@ def test_layer_dense_macs_and_static_stats_equal_jax():
     for spec in (jcnn.VGG16, jcnn.ALEXNET):
         tspec = getattr(tcnn, spec.name.upper())
         assert tcnn.layer_dense_macs(tspec) == jcnn.layer_dense_macs(spec)
-
-
-def _image(seed, spec, batch=2):
-    size = spec.input_size
-    return np.maximum(np.random.default_rng(seed).normal(
-        size=(batch, size, size, spec.in_ch)), 0).astype(np.float32)
-
-
-@functools.lru_cache(maxsize=None)
-def _cnn_stats(name, threshold):
-    jspec, tspec = SPECS[name]
-    params = jcnn.init_cnn_params(jax.random.PRNGKey(7), jspec,
-                                  weight_sparsity=0.5)
-    x = _image(7, tspec)
-    fc = jfire.FireConfig(threshold=threshold)
-    _, jstats = jcnn.run_with_stats(params, jnp.asarray(x), jspec,
-                                    fire_cfg=fc)
-    tparams = tcnn.params_from_numpy([None if p is None else np.asarray(p)
-                                      for p in params])
-    tfc = tfire.FireConfig(threshold=threshold)
-    y, tstats = tcnn.run_with_stats(tparams, torch.from_numpy(x), tspec,
-                                    fire_cfg=tfc, device="cpu")
-    y_fwd = tcnn.cnn_forward(tparams, torch.from_numpy(x), tspec,
-                             fire_cfg=tfc, device="cpu")
-    return jstats, tstats, y, y_fwd
-
-
-@pytest.mark.parametrize("threshold", [0.0, 0.05])
-@pytest.mark.parametrize("name", sorted(SPECS))
-def test_run_with_stats_counts_equal_jax(name, threshold):
-    """Every field of every compute layer's stats exactly the JAX
-    package's: the static ones, the traced counts, the densities and
-    ``avg_touched``."""
-    jstats, tstats, _, _ = _cnn_stats(name, threshold)
-    assert len(tstats) == len(jstats)
-    for i, (t, j) in enumerate(zip(tstats, jstats)):
-        assert set(t) == set(j), i
-        for key in j:
-            assert t[key] == j[key], (i, key, t[key], j[key])
-
-
-@pytest.mark.parametrize("name", sorted(SPECS))
-def test_run_with_stats_logits_bitwise_cnn_forward(name):
-    _, _, y, y_fwd = _cnn_stats(name, 0.0)
-    assert torch.equal(y.view(torch.int32), y_fwd.view(torch.int32))
 
 
 @pytest.mark.parametrize("spec_name", ["MLP_MINI", "LENET_300_100"])
