@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
-8, 6, 7, 9, 10, 11, 12, 13, 3, so that phase 3 can replay what phases 2,
+8, 6, 7, 9, 10, 11, 12, 13, 14, 3, so that phase 3 can replay what phases 2,
 4, 5, 6 and 7 handed the kernels, phase 8's graphs are freed before phase
 6 loads its model, and each LM's weights before the next LM's):
 
@@ -250,6 +250,27 @@ Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
    roofline row (counted GFLOP and GB, t_compute, t_memory, the
    bottleneck, model GFLOP, useful_ratio, roofline_frac) with the
    measured share beside it.
+14. Parallel and runtime (``parallel_phase``) over a one-rank NCCL mesh
+   (one H100: NCCL takes no two ranks on one device; multi-rank numerics
+   are the CPU tests' over gloo): ``checked_mesh((1, 1))`` starts the
+   group and (2, 1) raises ``MeshCapacityError``; Qwen2-0.5B at full
+   width, 3 steps of the mesh train step (DTensor params and moments
+   under the placements ``logical_to_pspec`` resolves) against the
+   unsharded step from the same params and batches ([13]'s batch 8 x
+   128): losses within 1e-5 relative, each leaf's update within 2e-2 of
+   the unsharded update's largest, both steps' ms; DeepSeek-V2-Lite-16B's
+   MoE layer at full width (64 experts, top-6, batch 4 x 32, f32,
+   capacity factor 64) through ``moe_apply_ep`` against ``moe_apply``
+   within 1e-5 of max|y|, one all-reduce issued (``CommDebugMode``);
+   ``quantized_psum`` (round(x / scale) x scale exactly) and
+   ``event_psum`` (fired + residual bitwise g + old residual, the fired
+   share at most 5% plus ties) over NCCL on a 151,936 x 896 f32
+   gradient, timed; VGG16@224 batch 8 through ``make_cnn_serve_step(...,
+   mesh=...)``: B1-B4 launched at capture as the route plan says, logits
+   bitwise the mesh-less plan's; ``pipeline_apply`` with one stage
+   bitwise the stage function.  Every main path with the launch counts
+   set to 0 just before and read just after; the group destroyed at
+   the end.
 3. Kernel checks: each kernel against its plain PyTorch version on the
    inputs the forwards handed it (B1, B2 and B5 at the shapes of both
    VGG16 and LeNet-300-100), plus the strip convs at stride 4 and 2
@@ -2052,8 +2073,8 @@ def record_moe():
     from repro_torch.models import moe
     orig, rec = moe.moe_apply, []
 
-    def spy(p, x, cfg):
-        y, aux = orig(p, x, cfg)
+    def spy(p, x, cfg, **kw):
+        y, aux = orig(p, x, cfg, **kw)
         rec.append((x, p["router"], aux))
         return y, aux
     moe.moe_apply = spy
@@ -2066,9 +2087,9 @@ def record_encoder():
     from repro_torch.models import transformer as tfm
     orig, rec = tfm._encode_audio, []
 
-    def spy(*args):
+    def spy(*args, **kw):
         rec.append(1)
-        return orig(*args)
+        return orig(*args, **kw)
     tfm._encode_audio = spy
     return rec, lambda: setattr(tfm, "_encode_audio", orig)
 
@@ -3212,6 +3233,316 @@ def train_phase(torch, engine, wrappers, card) -> dict:
                 measured_frac=measured, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: parallel and runtime on the card: the mesh paths of
+# launch.steps, moe_apply_ep, the compressed all-reduces, the batch-parallel
+# serve plan and the pipeline, over a one-rank NCCL mesh (one H100: NCCL
+# takes no two ranks on one device, so multi-rank numerics are the CPU
+# tests' over gloo).
+# ---------------------------------------------------------------------------
+
+#: The sharded train step against the unsharded one from the same params
+#: and batches: PAR_STEPS steps of [13]'s model, batch and sequence; the
+#: loss each step within PAR_LOSS_TOL relative, each leaf's update each
+#: step within PAR_UPD_TOL of the unsharded update's largest ([13]'s accum
+#: gate).
+PAR_STEPS, PAR_LOSS_TOL, PAR_UPD_TOL = 3, 1e-5, 2e-2
+#: DeepSeek-V2-Lite-16B's MoE layer at full width (64 experts, top-6, f32)
+#: on [9]'s batch and prompt; y of moe_apply_ep within PAR_MOE_TOL of
+#: max|y| of moe_apply's.  The two sum an expert's slots in batched
+#: products of different slot counts (capacity per rank against per
+#: dispatch group), so they round apart.
+PAR_MOE_ARCH, PAR_MOE_BATCH, PAR_MOE_PROMPT, PAR_MOE_TOL = (
+    "deepseek-v2-lite-16b", 4, 32, 1e-5)
+#: The compressed all-reduces on Qwen2-0.5B's embedding-sized gradient.
+PAR_GRAD_SHAPE, PAR_K_FRAC = (151936, 896), 0.05
+
+
+def parallel_phase(torch, engine, wrappers, drive, card, vgg_spec,
+                   vgg_params) -> dict:
+    """Phase 14: the parallel layer on one card, over a one-rank NCCL
+    mesh — the real DTensor placements, collectives and code paths.
+
+    ``checked_mesh((1, 1))`` starts the one-rank NCCL group; a (2, 1)
+    shape raises ``MeshCapacityError``.  Then, each main path with every
+    launch count set to 0 just before and read just after:
+
+    - Qwen2-0.5B at full width (24 layers, d 896, vocab 151,936; [13]'s
+      batch 8 x 128): ``PAR_STEPS`` steps of the mesh train step
+      (``launch.steps.make_train_step(mesh=...)``) against the unsharded
+      step from the same params and batches: the loss each step within
+      ``PAR_LOSS_TOL`` relative, each leaf's update within ``PAR_UPD_TOL``
+      of the unsharded update's largest, every param and moment a DTensor
+      under the placements ``logical_to_pspec`` resolves; both steps' ms
+      (no kernel launches: the counts stay 0);
+    - DeepSeek-V2-Lite-16B's MoE layer at full width with ``moe_ep``:
+      ``moe_apply_ep`` on the mesh against ``moe_apply``, one all-reduce
+      issued (the ep sum; ``CommDebugMode``);
+    - ``quantized_psum`` and ``event_psum`` over NCCL on a gradient the
+      size of Qwen2-0.5B's embedding: the quantized sum is round(x /
+      scale) x scale exactly, fired + the new residual is g + the old
+      residual bitwise, and the fired share is at most ``PAR_K_FRAC`` plus
+      ties;
+    - VGG16@224 through ``make_cnn_serve_step(spec, 8, mesh=...)``: the
+      logits bitwise the mesh-less plan's, B1-B4 launched at capture as
+      the route plan says;
+    - ``pipeline_apply`` with one stage, bitwise the stage function.
+
+    The group is destroyed at the end."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenStreamConfig, markov_lm_batch
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.param_utils import tree_leaves
+    from repro_torch.optim import (AdamWConfig, adamw_init, event_psum,
+                                   quantized_psum, warmup_cosine)
+    from repro_torch.parallel import pipeline_apply
+    from repro_torch.parallel import sharding as sh
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not dist.is_initialized(), "[14] a process group before the phase")
+    mesh = lmesh.checked_mesh((1, 1), ("data", "model"))
+    check(dist.is_initialized() and dist.get_world_size() == 1
+          and dist.get_backend() == "nccl" and mesh.device_type == "cuda",
+          f"[14] the one-rank group: backend {dist.get_backend()}")
+    try:
+        lmesh.checked_mesh((2, 1), ("data", "model"))
+        refused = None
+    except lmesh.MeshCapacityError as exc:
+        refused = str(exc)
+    check(refused is not None and "only 1 exist" in refused,
+          f"[14] checked_mesh((2, 1)) on one rank did not refuse: {refused}")
+    print(f"[14] one-rank NCCL group started by checked_mesh((1, 1)); "
+          f"(2, 1) refused: {refused}", flush=True)
+    marks = [("", t_phase)]
+
+    # -- Qwen2-0.5B: the mesh train step against the unsharded one --------
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("par", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt = AdamWConfig(schedule=warmup_cosine(3e-4, 20, TRAIN_STEPS))
+    ref = steps.make_train_step(cfg, shape, opt=opt)
+    plan = steps.make_train_step(cfg, shape, opt=opt, mesh=mesh)
+    ds = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH)
+    batches = [markov_lm_batch(ds, i, device="cuda")
+               for i in range(PAR_STEPS)]
+    p0 = tfm.init_params(0, cfg, "cuda")
+    runs = {}
+    for tag, fn in (("unsharded", ref.fn), ("mesh", plan.fn)):
+        state = (p0, adamw_init(p0))
+        trail, times = [], []
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if tag == "mesh" and i == 0:
+                new, _, launches, _, _ = drive(
+                    lambda: fn(*state, b), capture=False)
+                check_plan("[14] mesh train step", launches,
+                           {n: 0 for n in wrappers})
+            else:
+                new = fn(*state, b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            p_old = [t.full_tensor() if isinstance(t, DTensor) else t
+                     for t in tree_leaves(state[0])]
+            p_new = [t.full_tensor() if isinstance(t, DTensor) else t
+                     for t in tree_leaves(new[0])]
+            trail.append(dict(loss=float(new[2]["loss"]),
+                              upd=[(a - b_).float() for a, b_ in
+                                   zip(p_new, p_old)]))
+            state = (new[0], new[1])
+        runs[tag] = dict(trail=trail, times=times, state=state)
+    m_state = runs["mesh"]["state"]
+    want_pl = [tuple(pl) for pl in _leaf_lists(plan.param_placements)]
+    got_pl = [tuple(t.placements) for t in tree_leaves(m_state[0])]
+    check(all(isinstance(t, DTensor) for t in tree_leaves(m_state[0])
+              + tree_leaves(m_state[1].mu) + tree_leaves(m_state[1].nu)),
+          "[14] a param or moment of the mesh step is not a DTensor")
+    check(got_pl == want_pl and [tuple(t.placements) for t in
+                                 tree_leaves(m_state[1].mu)] == want_pl,
+          "[14] the mesh step's leaves left their placements")
+    loss_d, upd_d = [], []
+    for a, b_ in zip(runs["mesh"]["trail"], runs["unsharded"]["trail"]):
+        loss_d.append(abs(a["loss"] - b_["loss"]) / abs(b_["loss"]))
+        upd_d.append(max(float((u - v).abs().max()) / max(
+            float(v.abs().max()), 1e-30) for u, v in zip(a["upd"],
+                                                          b_["upd"])))
+    ms_mesh = statistics.median(runs["mesh"]["times"][1:])
+    ms_ref = statistics.median(runs["unsharded"]["times"][1:])
+    print(f"[14] {cfg.name} at full width, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, {PAR_STEPS} steps on the (1, 1) mesh against the "
+          f"unsharded step: losses "
+          f"{[round(t['loss'], 6) for t in runs['mesh']['trail']]} vs "
+          f"{[round(t['loss'], 6) for t in runs['unsharded']['trail']]} "
+          f"(relative {[f'{d:.2e}' for d in loss_d]}, limit {PAR_LOSS_TOL});"
+          f" worst leaf update off by {[f'{d:.2e}' for d in upd_d]} of its "
+          f"largest (limit {PAR_UPD_TOL}); {len(got_pl)} params and their "
+          f"moments DTensors under the resolved placements (distinct: "
+          f"{sorted(set(map(str, got_pl)))}); step ms mesh "
+          f"{[round(t, 2) for t in runs['mesh']['times']]} (median of steps "
+          f"2-{PAR_STEPS} {ms_mesh:.3f}), unsharded "
+          f"{[round(t, 2) for t in runs['unsharded']['times']]} (median "
+          f"{ms_ref:.3f}) (card {card})", flush=True)
+    check(max(loss_d) <= PAR_LOSS_TOL and max(upd_d) <= PAR_UPD_TOL,
+          "[14] the mesh train step is off the unsharded step")
+    del runs, m_state, p0, batches, ref, plan
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("train", time.perf_counter()))
+
+    # -- DeepSeek-V2-Lite's MoE layer with moe_ep ---------------------------
+    mcfg = get_config(PAR_MOE_ARCH)
+    mcfg = dataclasses.replace(mcfg, moe_ep=True, compute_dtype="float32",
+                               moe=dataclasses.replace(
+                                   mcfg.moe, capacity_factor=float(
+                                       mcfg.moe.num_experts)))
+    mp, maxes = moe.moe_init(0, mcfg, "cuda", with_axes=True)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    xm = torch.randn((PAR_MOE_BATCH, PAR_MOE_PROMPT, mcfg.d_model),
+                     generator=gen, device="cuda")
+    y_ref, aux_ref = moe.moe_apply(mp, xm, mcfg)
+    rules = sh.make_rules(mesh)
+    dmp = sh.distribute_tree(mp, maxes, mesh, rules)
+    xd = distribute_tensor(xm, mesh, sh.to_placements(sh.logical_to_pspec(
+        ("batch", "seq", None), tuple(xm.shape), mesh, rules), mesh),
+        src_data_rank=None)
+
+    def ep():
+        with CommDebugMode() as comm, implicit_replication():
+            y, aux = moe.moe_apply_ep(dmp, xd, mcfg,
+                                      sc=sh.make_sharder(mesh, rules))
+        return y, aux, comm
+    (y_ep, aux_ep, comm), _, launches, _, ep_s = drive(ep, capture=False)
+    check_plan("[14] moe_apply_ep", launches, {n: 0 for n in wrappers})
+    n_ar = comm.get_comm_counts().get(torch.ops.c10d.allreduce_, 0)
+    counts = {str(k): v for k, v in comm.get_comm_counts().items()}
+    y_ep = y_ep.full_tensor()
+    moe_d = float((y_ep - y_ref).abs().max()) / float(y_ref.abs().max())
+    lb_d = abs(float(aux_ep["load_balance_loss"].full_tensor())
+               - float(aux_ref["load_balance_loss"]))
+    print(f"[14] {PAR_MOE_ARCH} MoE layer at full width ("
+          f"{mcfg.moe.num_experts} experts, top-{mcfg.moe.top_k}, f32, "
+          f"capacity factor {mcfg.moe.capacity_factor}), batch "
+          f"{PAR_MOE_BATCH} x {PAR_MOE_PROMPT}: moe_apply_ep on the mesh "
+          f"{ep_s * 1e3:.2f} ms (first call) vs moe_apply: max|d| "
+          f"{moe_d:.3e} of max|y| (limit {PAR_MOE_TOL}), load-balance loss "
+          f"off by {lb_d:.2e}; collectives issued {counts}", flush=True)
+    check(moe_d <= PAR_MOE_TOL and lb_d <= 1e-6,
+          "[14] moe_apply_ep is off moe_apply")
+    check(n_ar == 1, f"[14] the ep path issued {n_ar} all-reduces, not 1")
+    del mp, dmp, xm, xd, y_ref, y_ep
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("moe_ep", time.perf_counter()))
+
+    # -- the compressed all-reduces over NCCL -------------------------------
+    g = torch.randn(PAR_GRAD_SHAPE, generator=gen, device="cuda")
+    res = 0.01 * torch.randn(PAR_GRAD_SHAPE, generator=gen, device="cuda")
+    (q, fired, new_res), _, launches, _, comp_s = drive(
+        lambda: (quantized_psum(g),) + event_psum(g, res,
+                                                  k_frac=PAR_K_FRAC),
+        capture=False)
+    check_plan("[14] compression", launches, {n: 0 for n in wrappers})
+    scale = g.abs().max() / 127.0
+    check(torch.equal(q, torch.round(g / scale) * scale),
+          "[14] quantized_psum is not round(x / scale) x scale")
+    acc = g + res
+    check(torch.equal(fired + new_res, acc),
+          "[14] fired + new residual is not g + old residual bitwise")
+    k = int(acc.numel() * PAR_K_FRAC)
+    theta = torch.topk(acc.abs().reshape(-1), k).values[-1]
+    n_fired = int((fired != 0).sum())
+    ties = int((acc.abs() == theta).sum())
+    check(n_fired <= k + ties - 1, f"[14] {n_fired} fired of {k} + {ties} "
+          f"ties")
+    q_ms = cuda_ms(torch, lambda: quantized_psum(g), 5)
+    e_ms = cuda_ms(torch, lambda: event_psum(g, res, k_frac=PAR_K_FRAC), 5)
+    print(f"[14] compression over NCCL on a {PAR_GRAD_SHAPE} f32 gradient: "
+          f"quantized_psum == round(x / scale) x scale exactly, "
+          f"{q_ms:.3f} ms; event_psum fired {n_fired} of {acc.numel()} "
+          f"({n_fired / acc.numel():.4f}; k {k}, {ties} at the threshold), "
+          f"fired + residual == g + old residual bitwise, {e_ms:.3f} ms "
+          f"(one rank: the all-reduces move nothing) (card {card})",
+          flush=True)
+    del g, res, q, fired, new_res, acc
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("compression", time.perf_counter()))
+
+    # -- VGG16@224 batch-parallel serve plan --------------------------------
+    x8 = torch.relu(torch.randn((8, vgg_spec.input_size, vgg_spec.input_size,
+                                 vgg_spec.in_ch), generator=gen,
+                                device="cuda"))
+    plan_m = steps.make_cnn_serve_step(vgg_spec, 8, mesh=mesh)
+    plan_0 = steps.make_cnn_serve_step(vgg_spec, 8)
+    y_m, _, raw, _, first_s = drive(
+        lambda: plan_m.fn(vgg_params, x8).clone(), capture=False)
+    pipe = plan_m.fn
+    got = {n: pipe.graph.launches.get(w, 0) * pipe.graph.replays
+           for n, w in wrappers.items()}
+    check_plan("[14] vgg16@224 serve plan on the mesh (captured x "
+               "replayed)", got, PLAN_F32_VGG)
+    check(got == PLAN_F32_VGG, f"[14] launches {got} are not the route "
+          f"plan's")
+    y_0 = plan_0.fn(vgg_params, x8).clone()
+    check(torch.equal(y_m, y_0), "[14] the mesh serve plan's logits are "
+          "not bitwise the mesh-less plan's")
+    check(plan_m.mesh is mesh and plan_m.data_shards == 1
+          and str(plan_m.input_sharding) == "[Replicate(), Replicate()]",
+          f"[14] serve plan on the mesh: shards {plan_m.data_shards}, input "
+          f"{plan_m.input_sharding}")
+    serve_ms, _ = host_ms(torch, lambda: plan_m.fn(vgg_params, x8), reps=5)
+    print(f"[14] {vgg_spec.name}@{vgg_spec.input_size} batch 8 through "
+          f"make_cnn_serve_step(mesh=(1, 1)): data_shards "
+          f"{plan_m.data_shards}, input {plan_m.input_sharding}, logits "
+          f"bitwise the mesh-less plan's; first call {first_s:.3f} s, warm "
+          f"replay {serve_ms:.3f} ms (card {card})", flush=True)
+    del plan_m, plan_0, pipe, y_m, y_0, x8
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("serve plan", time.perf_counter()))
+
+    # -- pipeline_apply with one stage --------------------------------------
+    pmesh = lmesh.checked_mesh((1,), ("pipe",))
+    ws = 0.3 * torch.randn((1, 256, 256), generator=gen, device="cuda")
+    xs = torch.randn((6, 4, 256), generator=gen, device="cuda")
+    stage = lambda w, mb: torch.tanh(mb @ w)
+    yp = pipeline_apply(stage, ws, xs, mesh=pmesh, axis="pipe")
+    seq = torch.stack([stage(ws[0], mb) for mb in xs])
+    check(torch.equal(yp, seq), "[14] pipeline_apply with one stage is not "
+          "bitwise the stage function")
+    print(f"[14] pipeline_apply with one stage over {tuple(xs.shape)}: "
+          f"bitwise the stage function", flush=True)
+    dist.destroy_process_group()
+    marks.append(("pipeline", time.perf_counter()))
+    seconds = marks[-1][1] - t_phase
+    print(f"[14] phase 14 took {seconds:.1f} s: " + ", ".join(
+        f"{name} {t1 - t0:.1f} s" for (_, t0), (name, t1) in zip(
+            marks, marks[1:])), flush=True)
+    return dict(seconds=seconds, step_ms=ms_mesh, ref_step_ms=ms_ref,
+                loss_d=max(loss_d), upd_d=max(upd_d), moe_d=moe_d,
+                q_ms=q_ms, e_ms=e_ms, serve_ms=serve_ms)
+
+
+def _leaf_lists(tree) -> list:
+    """The leaves of a dict tree whose leaves are lists, in key order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaf_lists(v)]
+    return [tree]
+
+
 def lp_bytes(d, step) -> int:
     """Bytes of checkpoint ``step`` in directory ``d``."""
     sd = pathlib.Path(d) / f"step_{step:08d}"
@@ -3622,6 +3953,9 @@ def run(torch) -> int:
 
     # -- 13. training Qwen2-0.5B at full width, and its roofline -----------
     trained = train_phase(torch, engine, wrappers, card)
+
+    # -- 14. parallel and runtime over a one-rank NCCL mesh -----------------
+    par = parallel_phase(torch, engine, wrappers, drive, card, spec, params)
 
     # -- 3. kernel checks on the captured inputs ------------------------------
     results = []
@@ -4144,7 +4478,10 @@ def run(torch) -> int:
           f"{trained['step_ms']:.3f} ms, {trained['tok_s']:.1f} tokens/s, "
           f"idle share {trained['idle']:.3f}, measured share "
           f"{trained['measured_frac']:.4f}, roofline_frac "
-          f"{trained['report']['roofline_frac']:.4f}; served (phase 8): "
+          f"{trained['report']['roofline_frac']:.4f}; on a one-rank mesh "
+          f"(phase 14, {par['seconds']:.1f} s): the train step "
+          f"{par['step_ms']:.3f} ms against {par['ref_step_ms']:.3f} ms "
+          f"unsharded; served (phase 8): "
           + "; ".join(
               f"{net} {r['stats']['requests_s']} requests/s, p50 "
               f"{r['stats']['p50_ms']} ms, p99 {r['stats']['p99_ms']} ms, "

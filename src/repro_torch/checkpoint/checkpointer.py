@@ -18,6 +18,11 @@ previous checkpoint.  ``save_async`` copies the tree to the host before
 it returns and writes on a worker thread, so training can go on.
 ``restore`` puts each leaf on the device of the matching leaf of the
 tree it restores into (or on ``device``).
+
+Sharded state (DTensor leaves, ``launch.steps`` on a mesh) is gathered
+whole before it is written — every rank of the mesh calls ``save`` —
+and only rank 0 of the process group writes; ``restore`` re-places each
+leaf under the placements of the DTensor it restores into.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import whole
 
 __all__ = ["all_steps", "latest_step", "restore", "save", "save_async"]
 
@@ -69,9 +76,15 @@ def _unflatten(tree, leaves):
     return next(leaves)
 
 
+def _writes() -> bool:
+    """Whether this process writes: rank 0, or no process group."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = whole(leaf).detach().cpu()
         if t.dtype == torch.bfloat16:
             # npz has no bf16 descriptor: store the raw bits; restore views
             # them back via the target leaf dtype.
@@ -88,13 +101,15 @@ def _flatten(tree) -> dict[str, np.ndarray]:
 def save(tree, ckpt_dir: str, step: int) -> str:
     """Write ``tree`` (nested dicts, lists, tuples and NamedTuples of
     tensors, arrays or numbers) as step ``step``; returns its directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    arrays = _flatten(tree)
+    if not _writes():
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    arrays = _flatten(tree)
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     meta = dict(step=step,
                 leaves={k: dict(shape=list(v.shape), dtype=str(v.dtype))
@@ -115,7 +130,7 @@ def _to_host(tree):
     """A host copy of every tensor leaf (a copy, a CPU tensor's too)."""
     flat = _flatten_with_path(tree)
     return _unflatten(tree, iter(
-        [leaf.detach().to("cpu", copy=True)
+        [whole(leaf).detach().to("cpu", copy=True)
          if isinstance(leaf, torch.Tensor) else leaf for _, leaf in flat]))
 
 
@@ -123,8 +138,8 @@ def save_async(tree, ckpt_dir: str, step: int) -> threading.Thread:
     """Copy ``tree`` to host memory now, write it on a worker thread;
     returns the started thread (join it before the next save)."""
     host_tree = _to_host(tree)
-    t = threading.Thread(target=save, args=(host_tree, ckpt_dir, step),
-                         daemon=False)
+    t = threading.Thread(target=save if _writes() else lambda *a: None,
+                         args=(host_tree, ckpt_dir, step), daemon=False)
     t.start()
     return t
 
@@ -146,6 +161,15 @@ def all_steps(ckpt_dir: str) -> list[int]:
         if name.startswith("step_") and not name.endswith(".tmp"):
             out.append(int(name.split("_")[1]))
     return sorted(out)
+
+
+def _replace_like(leaf, t: torch.Tensor) -> torch.Tensor:
+    """``t`` under the placements of ``leaf`` where that is a DTensor."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(leaf, DTensor):
+        return distribute_tensor(t, leaf.device_mesh, leaf.placements,
+                                 src_data_rank=None)
+    return t
 
 
 def restore(tree_like, ckpt_dir: str, step: int | None = None,
@@ -174,8 +198,9 @@ def restore(tree_like, ckpt_dir: str, step: int | None = None,
                         torch.bfloat16)
                 else:
                     t = torch.from_numpy(arr).to(leaf.dtype)
-                leaves.append(t.to(leaf.device if device is None
-                                   else torch.device(device)))
+                t = t.to(leaf.device if device is None
+                         else torch.device(device))
+                leaves.append(_replace_like(leaf, t))
             else:
                 leaves.append(arr)
     return _unflatten(tree_like, iter(leaves)), step

@@ -24,9 +24,11 @@ and counts it as it runs:
   (``kernels.count_work``), the same numbers ``chip_smoke.py`` bounds the
   kernels with, on the card and on the CPU alike.
 
-The collective term is 0 on one device.  ``collective_bytes_from_hlo``
-and ``launch/hlo_analysis.py`` parse XLA's HLO and have no counterpart
-here (ROADMAP.md queue A item 13).  ``MODEL_FLOPS`` (6·N·D train, 2·N·D
+The collective term is 0 on one device; the sharded steps
+(``launch.steps`` with a mesh) are not counted yet: their collective term
+is ROADMAP.md queue A item 13b.  ``collective_bytes_from_hlo`` and
+``launch/hlo_analysis.py`` parse XLA's HLO and have no counterpart
+here.  ``MODEL_FLOPS`` (6·N·D train, 2·N·D
 inference, N the active params) gives the useful-compute ratio, which
 exposes recomputation (remat) and other redundant work.
 """
@@ -54,7 +56,7 @@ class HW:
 
     peak_flops: float = 989e12       # bf16 dense tensor-core FLOP/s
     hbm_bw: float = 3.35e12          # HBM3 bytes/s
-    link_bw: float = 900e9           # NVLink bytes/s (read by item 13 only)
+    link_bw: float = 900e9           # NVLink bytes/s (item 13b's term)
     hbm_bytes: float = 80e9          # HBM3 capacity, bytes
 
 

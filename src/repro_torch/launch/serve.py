@@ -1,6 +1,5 @@
 """Serving driver: an LM prefill + greedy decode loop, or the event-resident
-CNN/MLP serving tier — port of ``repro.launch.serve`` on one device, no
-mesh::
+CNN/MLP serving tier — port of ``repro.launch.serve``::
 
     python -m repro_torch.launch.serve --arch rwkv6-7b --mnf
     python -m repro_torch.launch.serve --arch gemma2-27b
@@ -52,6 +51,15 @@ times (``"device": "cpu"``), not an H100 calibration::
     python -m repro_torch.launch.serve --cnn alexnet --cnn-size 224 \
         --route adaptive --occupancy-hint 0.3 --bench BENCH_engine.json
 
+Meshes, as in ``repro.launch.serve``: the CNN mode serves on
+``launch.mesh.make_serve_mesh()`` (every rank on the data axis: each
+bucket batch-parallel over it), the LM mode on ``checked_mesh((world,
+1))`` (the sharded eager steps of ``launch.steps``).  Started by
+``torchrun --nproc-per-node N`` (N > 1) every rank serves the same
+requests; a single process is a world of one, whose 1x1 mesh places
+everything whole on the one device, so it serves with no mesh (the CUDA
+graphs as above) and starts no process group.
+
 ``--smoke`` serves the mini networks through buckets (1, 2, 4) and fails
 (exit 1) on a steady-state capture, an eligible boundary reporting
 fallback_decode, padded-bucket logits that are not bitwise the unpadded
@@ -79,6 +87,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.device import default_device
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import checked_mesh, make_serve_mesh
+from repro_torch.parallel.sharding import whole
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import dtype_of
 
@@ -136,11 +146,19 @@ def make_lm_inputs(cfg, batch: int, seed: int, device) -> dict:
     return out
 
 
+def _world_mesh(shape_of_world, device: torch.device):
+    """The serving mesh for this world, or None in a world of one
+    (module docstring)."""
+    from repro_torch.launch.mesh import init_world
+    world = init_world(device.type)
+    return None if world == 1 else shape_of_world(world, device)
+
+
 def run_lm(params, cfg, prompts: torch.Tensor, gen: int, *,
            audio_frames: torch.Tensor | None = None,
            vision_embeds: torch.Tensor | None = None,
            teacher: torch.Tensor | None = None, keep_logits: bool = False,
-           graph: bool = True) -> dict:
+           graph: bool = True, mesh=None) -> dict:
     """Prefill ``prompts`` (B, P) — with whisper's ``audio_frames`` or
     phi-3-vision's ``vision_embeds`` where the config takes them — then
     ``gen`` greedy decode steps (an encoder-decoder's read the cross K/V
@@ -160,18 +178,20 @@ def run_lm(params, cfg, prompts: torch.Tensor, gen: int, *,
     ending in a synchronize; warm replays on the card),
     ``capture_s`` (the graphs' warm-up and capture) and ``launches``
     ({kernel wrapper: launches}, captured × replayed; None when eager).
+    With a ``mesh`` the steps are the sharded eager ones (no graphs, no
+    sync guard; the final cache a tree of DTensors).
     """
     bsz, plen = prompts.shape
     dev = prompts.device
     max_len = plen + gen
-    graph = graph and dev.type == "cuda"
+    graph = graph and dev.type == "cuda" and mesh is None
     pool = torch.cuda.graph_pool_handle() if graph else None
     pre = steps.make_prefill_step(cfg, ShapeConfig("pf", max_len, bsz,
                                                    "prefill"),
-                                  graph=graph, pool=pool)
+                                  graph=graph, pool=pool, mesh=mesh)
     srv = steps.make_serve_step(cfg, ShapeConfig("serve", max_len, bsz,
                                                  "decode"),
-                                graph=graph, pool=pool)
+                                graph=graph, pool=pool, mesh=mesh)
     captured = [pre.fn.capture(params, prompts, audio_frames, vision_embeds),
                 srv.fn.capture(params, dev)] if graph else []
     _sync(dev)
@@ -186,7 +206,8 @@ def run_lm(params, cfg, prompts: torch.Tensor, gen: int, *,
     cur = logits[:, -1].argmax(-1)[:, None]
     pos = torch.full((), plen, dtype=torch.int64, device=dev)
     inputs, out, ev_steps, kept = [], [], [], []
-    debug = torch.cuda.get_sync_debug_mode() if dev.type == "cuda" else None
+    debug = torch.cuda.get_sync_debug_mode() \
+        if dev.type == "cuda" and mesh is None else None
     t0 = time.perf_counter()
     try:
         if debug is not None:
@@ -202,7 +223,7 @@ def run_lm(params, cfg, prompts: torch.Tensor, gen: int, *,
             if keep_logits:
                 kept.append(logits[:, -1].clone())
             if track:
-                ev_steps.append(cache["scan"]["events"].clone())
+                ev_steps.append(whole(cache["scan"]["events"]).clone())
     finally:
         if debug is not None:
             torch.cuda.set_sync_debug_mode(debug)
@@ -255,8 +276,10 @@ def serve_lm(args) -> dict:
     params = tfm.init_compute_params(args.seed, cfg, dev)
     prompts = make_prompts(cfg, args.batch, args.prompt_len, args.seed, dev)
     inputs = make_lm_inputs(cfg, args.batch, args.seed, dev)
+    mesh = _world_mesh(lambda world, d: checked_mesh(
+        (world, 1), ("data", "model"), device_type=d.type), dev)
     with torch.inference_mode():
-        run = run_lm(params, cfg, prompts, args.gen, **inputs)
+        run = run_lm(params, cfg, prompts, args.gen, mesh=mesh, **inputs)
     return lm_stats(cfg, run, args.batch, args.prompt_len, args.gen, dev)
 
 
@@ -327,7 +350,9 @@ def serve_cnn(args) -> dict:
         eng = serving.ServeEngine(
             spec, params,
             serving.ServeEngineConfig(buckets=buckets, mnf=not args.dense),
-            engine_cfg=ecfg, device=dev)
+            engine_cfg=ecfg, device=dev,
+            mesh=_world_mesh(lambda world, d: make_serve_mesh(
+                device_type=d.type), dev))
 
         # made ahead of the loop: requests/s measures the pipeline, not
         # the host's random number generator

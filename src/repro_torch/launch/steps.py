@@ -1,6 +1,7 @@
-"""Step factories — port of ``repro.launch.steps.make_train_step``,
-``make_prefill_step`` and ``make_serve_step`` on one device: no mesh, no
-shardings.
+"""Step factories — port of ``repro.launch.steps``: ``make_train_step``,
+``make_prefill_step``, ``make_serve_step`` and ``make_cnn_serve_step``,
+on one device or, given a ``mesh``, sharded over it (:class:`CellPlan`,
+:func:`plan_cell`).
 
 The train step runs eagerly: autograd over ``transformer.lm_loss`` under
 the config's remat policy, then ``optim.adamw_update``, with
@@ -22,9 +23,39 @@ returned cache copies nothing but the new tokens.  What a step returns
 is rewritten by its next replay.  On CPU tensors, or with ``graph=False``,
 ``fn`` is the eager callable.
 
+With a ``mesh`` (a ``DeviceMesh``, ``launch.mesh``) the LM steps run
+eagerly on DTensors, every rank of the mesh calling them:
+
+- the params, the AdamW moments and the cache are DTensors under the
+  placements their logical axes resolve to (``transformer.param_axes``,
+  ``transformer.cache_axes``; ``make_rules(mesh, fsdp=cfg.fsdp,
+  seq_shard=cfg.seq_shard)`` unless ``rules`` is given), the batch's rows
+  over the data axes where they divide (``_batch_placements``), and
+  ``sc`` is ``parallel.sharding.make_sharder``.  A step places what it is
+  handed (full tensors, the same on every rank, or DTensors) and returns
+  params, moments and cache in the same placements; the logits and the
+  metrics come back whole, plain tensors on every rank.
+- The model runs under DTensor's ``implicit_replication`` (a plain
+  tensor the model makes — positions, masks, zero states — is taken as
+  replicated).  Where DTensor (as of torch 2.11) has no sharding rule,
+  the model gathers or runs locally, at these points only, each named
+  in its function's docstring: an activation product gathers a
+  sequence-sharded stream first (``layers.mm``); the label pick of the
+  cross-entropy gathers its chunk's vocabulary shards
+  (``transformer._label_logits``); attention, MLA's absorbed decode,
+  RWKV6's chunked WKV, the cache writes and Mamba's prefill (B10) run
+  on each rank's batch rows (``parallel.sharding.batch_local``);
+  Mamba's decode step (B8), RWKV6's gated step (B7) and the MoE of a
+  config without ``moe_ep`` run on the whole tensors on every rank
+  (``parallel.sharding.replicated_call``); ``moe_apply_ep`` runs its
+  dispatch and experts on each rank's shard (``local_map``).
+- Gradients are reduced into their params' placements (a partial sum
+  reduce-scattered or all-reduced by DTensor) before the update.
+
 :func:`make_cnn_serve_step` is the CNN/MLP serving plan of one batch
 bucket (``repro_torch.serving``): the whole network as one pipeline, a
-CUDA graph on the card.
+CUDA graph on the card; with a mesh it goes batch-parallel over the data
+axes (:class:`BatchParallel`).
 """
 from __future__ import annotations
 
@@ -37,12 +68,17 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.engine.config import EngineConfig
 from repro_torch.launch import graphs
 from repro_torch.models import transformer as tfm
-from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.optim import AdamWConfig, OptState, adamw_update
 from repro_torch.models.param_utils import tree_leaves, tree_map
+from repro_torch.parallel.sharding import (ShardingRules, data_axis_size,
+                                           distribute_tree, logical_to_pspec,
+                                           make_rules, make_sharder, place,
+                                           serve_batch_pspec, to_placements,
+                                           whole)
 
-__all__ = ["CNNCellPlan", "StepPlan", "cell_engine_config",
-           "make_cnn_serve_step", "make_prefill_step", "make_serve_step",
-           "make_train_step"]
+__all__ = ["BatchParallel", "CNNCellPlan", "CellPlan", "StepPlan",
+           "cell_engine_config", "make_cnn_serve_step", "make_prefill_step",
+           "make_serve_step", "make_train_step", "plan_cell"]
 
 
 def cell_engine_config(cfg: ModelConfig) -> EngineConfig:
@@ -57,6 +93,149 @@ class StepPlan:
     shape: ShapeConfig
     fn: Callable
     engine: EngineConfig
+
+
+@dataclasses.dataclass
+class CellPlan:
+    """A step sharded over a mesh: ``fn``, and what it places its inputs
+    by — the rules, each param leaf's logical axes, shape and dtype
+    (``param_shapes``) and DTensor placements (``param_placements``)."""
+
+    cfg: ModelConfig
+    shape: ShapeConfig
+    mesh: Any
+    rules: ShardingRules
+    param_axes: Any
+    param_shapes: Any
+    param_placements: Any
+    fn: Callable
+    engine: EngineConfig
+
+
+def _batch_placements(shape: tuple, mesh, rules: ShardingRules) -> list:
+    """A batch-leading input's placements: its rows over the data axes
+    where they divide, replicated otherwise (a batch of 1 on a multi-rank
+    mesh stays whole)."""
+    axes = ("batch",) + (None,) * (len(shape) - 1)
+    return to_placements(logical_to_pspec(axes, shape, mesh, rules), mesh)
+
+
+def _place_batch(batch: dict, mesh, rules: ShardingRules) -> dict:
+    return {k: None if v is None else place(
+        v, mesh, _batch_placements(tuple(v.shape), mesh, rules))
+        for k, v in batch.items()}
+
+
+def _cell(cfg, shape, mesh, rules, fn) -> CellPlan:
+    axes = tfm.param_axes(cfg)
+    shapes = tree_map(lambda t: (tuple(t.shape), t.dtype),
+                      tfm.init_params(0, cfg, "meta"))
+    placements = tree_map(
+        lambda ax, sd: to_placements(logical_to_pspec(ax, sd[0], mesh,
+                                                      rules), mesh),
+        axes, shapes)
+    return CellPlan(cfg, shape, mesh, rules, axes, shapes, placements, fn,
+                    cell_engine_config(cfg))
+
+
+def _mesh_train_step(cfg, shape, mesh, rules, opt, accum_steps) -> CellPlan:
+    """The train step on a mesh (the module docstring says how it places
+    and where it gathers)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    sc = make_sharder(mesh, rules)
+    axes = tfm.param_axes(cfg)
+    place_tree = lambda tree: distribute_tree(tree, axes, mesh, rules)
+
+    def loss_and_grads(params, batch):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss = tfm.lm_loss(leaves, _place_batch(batch, mesh, rules), cfg,
+                           sc=sc)
+        it = iter(torch.autograd.grad(loss, tree_leaves(leaves),
+                                      allow_unused=True))
+        # a leaf the loss does not read gets a zero gradient; the others'
+        # partial sums are reduced into the leaf's own placements
+        return loss.detach(), tree_map(
+            lambda p: torch.zeros_like(p) if (g := next(it)) is None
+            else g.redistribute(mesh, p.placements), leaves)
+
+    def train_step(params, opt_state, batch):
+        params = place_tree(params)
+        opt_state = OptState(place_tree(opt_state.mu),
+                             place_tree(opt_state.nu), opt_state.count)
+        batch = {k: whole(v) for k, v in batch.items()}
+        with implicit_replication():
+            if accum_steps == 1:
+                loss, grads = loss_and_grads(params, batch)
+            else:
+                micro = {k: v.chunk(accum_steps) for k, v in batch.items()}
+                loss = 0.0
+                grads = tree_map(
+                    lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
+                for i in range(accum_steps):
+                    l_i, g_i = loss_and_grads(
+                        params, {k: v[i] for k, v in micro.items()})
+                    grads = tree_map(lambda a, b: a + b.float(), grads, g_i)
+                    loss = loss + l_i
+                loss = loss / accum_steps
+                grads = tree_map(lambda g: g / accum_steps, grads)
+            with torch.no_grad():
+                new_p, new_o, metrics = adamw_update(grads, opt_state,
+                                                     params, opt)
+        metrics = {k: whole(v) for k, v in dict(loss=loss,
+                                                 **metrics).items()}
+        assert all(isinstance(t, DTensor) for t in tree_leaves(new_p))
+        return new_p, new_o, metrics
+
+    return _cell(cfg, shape, mesh, rules, train_step)
+
+
+def _mesh_prefill_step(cfg, shape, mesh, rules) -> CellPlan:
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    sc = make_sharder(mesh, rules)
+    axes, caxes = tfm.param_axes(cfg), tfm.cache_axes(cfg)
+
+    def prefill_step(params, batch):
+        params = distribute_tree(params, axes, mesh, rules)
+        batch = _place_batch(dict(batch), mesh, rules)
+        cache = distribute_tree(
+            tfm.init_cache(cfg, shape.global_batch, shape.seq_len,
+                           mesh.device_type), caxes, mesh, rules)
+        with implicit_replication():
+            logits, cache = tfm.prefill(
+                params, batch["tokens"], cfg, max_len=shape.seq_len,
+                audio_frames=batch.get("audio_frames"),
+                vision_embeds=batch.get("vision_embeds"), sc=sc,
+                cache=cache)
+        return whole(logits), distribute_tree(cache, caxes, mesh, rules)
+
+    return _cell(cfg, shape, mesh, rules, prefill_step)
+
+
+def _mesh_serve_step(cfg, shape, mesh, rules) -> CellPlan:
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    sc = make_sharder(mesh, rules)
+    axes, caxes = tfm.param_axes(cfg), tfm.cache_axes(cfg)
+
+    def serve_step(params, cache, batch, decode_pos):
+        params = distribute_tree(params, axes, mesh, rules)
+        cache = distribute_tree(cache, caxes, mesh, rules)
+        tokens = _place_batch(dict(tokens=batch["tokens"]), mesh,
+                              rules)["tokens"]
+        with implicit_replication():
+            logits, cache = tfm.decode_step(params, cache, tokens,
+                                            whole(decode_pos), cfg, sc=sc)
+        return whole(logits), distribute_tree(cache, caxes, mesh, rules)
+
+    return _cell(cfg, shape, mesh, rules, serve_step)
+
+
+def _rules(cfg, mesh, rules) -> ShardingRules:
+    return rules or make_rules(mesh, fsdp=cfg.fsdp, seq_shard=cfg.seq_shard)
 
 
 def _require_bound(g: graphs.Graph, params) -> None:
@@ -163,7 +342,8 @@ class _GraphedServe:
 
 def make_train_step(cfg: ModelConfig, shape: ShapeConfig, *,
                     opt: AdamWConfig | None = None,
-                    accum_steps: int = 1) -> StepPlan:
+                    accum_steps: int = 1, mesh=None,
+                    rules: ShardingRules | None = None):
     """fn(params, opt_state, batch) -> (params, opt_state, metrics): one
     AdamW step on the mean ``lm_loss`` of ``batch`` (``shape.global_batch``
     rows), the new trees returned and the old ones left as they are (the
@@ -171,11 +351,16 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, *,
     ``metrics``: ``loss``, ``grad_norm`` and ``lr``, 0-d f32 tensors.
     With ``accum_steps`` > 1 the batch splits into that many microbatches
     along its rows, run one after another: their gradients summed in f32
-    and averaged, their losses averaged, one optimizer step."""
+    and averaged, their losses averaged, one optimizer step.  With a
+    ``mesh``: a :class:`CellPlan` whose ``fn`` is the sharded step (the
+    module docstring)."""
     opt = opt or AdamWConfig()
     if shape.global_batch % accum_steps:
         raise ValueError(f"batch {shape.global_batch} does not split into "
                          f"{accum_steps} microbatches")
+    if mesh is not None:
+        return _mesh_train_step(cfg, shape, mesh, _rules(cfg, mesh, rules),
+                                opt, accum_steps)
 
     def loss_and_grads(params, batch):
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
@@ -211,11 +396,15 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, *,
 
 
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, *,
-                      graph: bool = True, pool=None) -> StepPlan:
+                      graph: bool = True, pool=None, mesh=None,
+                      rules: ShardingRules | None = None):
     """fn(params, batch) -> (last-position logits, filled cache), the cache
     ``shape.seq_len`` long; ``batch`` holds ``tokens`` and, where the
     config takes them, ``audio_frames`` and ``vision_embeds``.  ``pool``:
-    a graph memory pool to share."""
+    a graph memory pool to share.  With a ``mesh``: a :class:`CellPlan`,
+    eager (``graph`` and ``pool`` unused)."""
+    if mesh is not None:
+        return _mesh_prefill_step(cfg, shape, mesh, _rules(cfg, mesh, rules))
     if graph:
         fn = _GraphedPrefill(cfg, shape, pool)
     else:
@@ -228,10 +417,14 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, *,
 
 
 def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, *,
-                    graph: bool = True, pool=None) -> StepPlan:
+                    graph: bool = True, pool=None, mesh=None,
+                    rules: ShardingRules | None = None):
     """fn(params, cache, batch, decode_pos) -> (logits, new cache): one new
     token against a cache of ``shape.global_batch`` rows ``shape.seq_len``
-    long.  ``pool``: a graph memory pool to share."""
+    long.  ``pool``: a graph memory pool to share.  With a ``mesh``: a
+    :class:`CellPlan`, eager, the new cache a functional update."""
+    if mesh is not None:
+        return _mesh_serve_step(cfg, shape, mesh, _rules(cfg, mesh, rules))
     if graph:
         fn = _GraphedServe(cfg, shape, pool)
     else:
@@ -247,9 +440,11 @@ class CNNCellPlan:
     logits``, the whole network as one pipeline (``models.cnn.Pipeline``,
     a CUDA graph on the card).  ``boundaries``: the static chain
     accounting (``chain_boundary_summary`` / ``mlp_boundary_summary``;
-    pool boundaries on the event path, densify points left).  One device:
-    ``data_shards`` is 1 and ``mesh`` / ``input_sharding`` None (sharding
-    over a mesh is ROADMAP item 13)."""
+    pool boundaries on the event path, densify points left).  ``mesh``:
+    the mesh the plan serves on (None on one device), ``data_shards`` how
+    many ways the batch splits over its data axes (1: whole on every
+    rank), ``input_sharding`` the image buffer's DTensor placements (None
+    off a mesh)."""
 
     spec: Any
     batch: int
@@ -262,18 +457,63 @@ class CNNCellPlan:
     input_sharding: Any = None
 
 
+class BatchParallel:
+    """A pipeline run batch-parallel over a mesh's data axes (the JAX
+    package's ``shard_map`` with weights replicated and the batch
+    sharded): ``fn(params, x)`` takes the full batch (the same on every
+    rank), runs the inner pipeline (``models.cnn.Pipeline``, a CUDA graph
+    on the card) on this rank's rows, and all-gathers the logits over the
+    data axes, so every rank returns them whole.  The forward is
+    independent per sample, so the logits are bitwise one device's.
+    ``captures``, ``graph`` and ``fwd`` are the inner pipeline's."""
+
+    def __init__(self, inner, mesh, placements: list, shape: tuple):
+        self.inner, self.mesh, self.placements = inner, mesh, placements
+        self.shape = tuple(shape)
+        names = mesh.mesh_dim_names
+        self._data_dims = [i for i, a in enumerate(names)
+                           if a in ("pod", "data")]
+
+    captures = property(lambda self: self.inner.captures)
+    graph = property(lambda self: self.inner.graph)
+    fwd = property(lambda self: self.inner.fwd)
+
+    def _shard_index(self) -> int:
+        """This rank's place along the data axes, major to minor."""
+        coord, idx = self.mesh.get_coordinate(), 0
+        for i in self._data_dims:
+            idx = idx * self.mesh.size(i) + coord[i]
+        return idx
+
+    def __call__(self, params, x: torch.Tensor) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
+        if tuple(x.shape) != self.shape:
+            raise ValueError(f"input {tuple(x.shape)}: this plan takes "
+                             f"{self.shape}")
+        rows = self.inner.shape[0]
+        local = x.narrow(0, self._shard_index() * rows, rows)
+        y = self.inner(params, local)
+        return DTensor.from_local(y, self.mesh, self.placements,
+                                  run_check=False).full_tensor()
+
+
 def make_cnn_serve_step(spec, batch: int, *, mnf: bool = True,
                         engine_cfg: EngineConfig | None = None,
-                        fire_cfg=None, device=None) -> CNNCellPlan:
+                        fire_cfg=None, device=None,
+                        mesh=None) -> CNNCellPlan:
     """The event-resident CNN/MLP pipeline for batched serving at
     ``batch``: ``models.cnn.make_cnn_pipeline`` for a ``CNNSpec`` (already
     ``.scaled`` to the serving resolution), ``models.mlp.
     make_mlp_pipeline`` for an ``MLPSpec`` (a flat ``(batch,
     in_features)`` input).  On the card (``default_device()`` unless
     ``device`` says otherwise) ``fn`` captures one CUDA graph at its first
-    call and replays it; a capture that fails raises.  One device: the
-    JAX package's batch-parallel ``shard_map`` over a mesh is left to
-    ROADMAP item 13."""
+    call and replays it; a capture that fails raises.
+
+    With a ``mesh`` the plan goes batch-parallel over its data axes
+    (:class:`BatchParallel`): weights replicated, each data rank's
+    pipeline built for ``batch / data`` rows.  A batch that does not
+    divide the data axes stays whole on every rank (the same policy as
+    ``parallel.sharding.serve_batch_pspec``)."""
     from repro_torch.core.fire import FireConfig
     from repro_torch.device import default_device
     from repro_torch.models import cnn as cnn_mod
@@ -282,19 +522,40 @@ def make_cnn_serve_step(spec, batch: int, *, mnf: bool = True,
     dev = default_device() if device is None else torch.device(device)
     fire_cfg = fire_cfg or FireConfig()
     ecfg = engine_cfg or EngineConfig(backend="auto")
+    data = data_axis_size(mesh) if mesh is not None else 1
+    shards = data if (data > 1 and batch % data == 0) else 1
+    rows = batch // shards
     if isinstance(spec, mlp_mod.MLPSpec):
-        fn = mlp_mod.make_mlp_pipeline(spec, batch=batch, mnf=mnf,
+        fn = mlp_mod.make_mlp_pipeline(spec, batch=rows, mnf=mnf,
                                        fire_cfg=fire_cfg, engine_cfg=ecfg,
                                        device=dev)
         boundaries = mlp_mod.mlp_boundary_summary(
             spec, batch=batch, fire_cfg=fire_cfg, engine_cfg=ecfg,
             device=dev) if mnf else {}
     else:
-        fn = cnn_mod.make_cnn_pipeline(spec, batch=batch, mnf=mnf,
+        fn = cnn_mod.make_cnn_pipeline(spec, batch=rows, mnf=mnf,
                                        fire_cfg=fire_cfg, engine_cfg=ecfg,
                                        device=dev)
         boundaries = cnn_mod.chain_boundary_summary(
             spec, batch=batch, fire_cfg=fire_cfg, engine_cfg=ecfg,
             device=dev) if mnf else {}
-    return CNNCellPlan(spec=spec, batch=batch, fn=fn, input_shape=fn.shape,
-                       engine=ecfg, boundaries=boundaries)
+    shape = (batch,) + tuple(fn.shape[1:])
+    in_sharding = None
+    if mesh is not None:
+        ndim = len(shape)
+        in_sharding = to_placements(
+            serve_batch_pspec(mesh, batch, ndim) if shards > 1 else (), mesh)
+    if shards > 1:
+        fn = BatchParallel(fn, mesh, in_sharding, shape)
+    return CNNCellPlan(spec=spec, batch=batch, fn=fn, input_shape=shape,
+                       engine=ecfg, boundaries=boundaries, mesh=mesh,
+                       data_shards=shards, input_sharding=in_sharding)
+
+
+def plan_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, **kw) -> CellPlan:
+    """The sharded step of a cell's kind: train, prefill or decode."""
+    if shape.kind == "train":
+        return make_train_step(cfg, shape, mesh=mesh, **kw)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, shape, mesh=mesh, **kw)
+    return make_serve_step(cfg, shape, mesh=mesh, **kw)

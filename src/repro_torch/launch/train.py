@@ -1,5 +1,4 @@
-"""End-to-end training driver — port of ``repro.launch.train`` on one
-device (no mesh).
+"""End-to-end training driver — port of ``repro.launch.train``.
 
 Wires config -> train step (``launch.steps.make_train_step``: AdamW under
 ``warmup_cosine(--lr, --warmup, --steps)``) -> resilient loop
@@ -10,7 +9,17 @@ checkpoint on SIGTERM or SIGINT) -> the synthetic Markov corpus
 loader (``data.PrefetchLoader``, which puts each batch on the device).
 Params are f32 (the configs' param dtype) from seed 0, the compute in the
 config's dtype (bf16).  Runs on the card unless ``--device`` says
-otherwise::
+otherwise.
+
+The (data, model) mesh comes from the world size as in
+``repro.launch.train`` (:func:`train_mesh_shape`; the production 16x16
+mesh from 512 ranks).
+Started by ``torchrun --nproc-per-node N`` (N > 1), every rank trains
+the sharded step (``launch.steps`` with the mesh) on the same batches,
+and the checkpoints gather the state whole (rank 0 writes).  A single
+process is a world of one, whose mesh is 1x1: it places every leaf
+whole on the one device, so :func:`train` runs the single-device step and
+starts no process group::
 
     python -m repro_torch.launch.train --arch qwen2-0.5b --steps 30
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
@@ -45,13 +54,15 @@ from repro_torch.data import (PrefetchLoader, TokenStreamConfig,
                               markov_lm_batch)
 from repro_torch.device import default_device
 from repro_torch.launch import roofline
+from repro_torch.launch.mesh import (checked_mesh, init_world,
+                                     make_production_mesh)
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import AdamWConfig, adamw_init, warmup_cosine
 from repro_torch.models.param_utils import tree_leaves
 from repro_torch.runtime import LoopConfig, ResilientLoop
 
-__all__ = ["build", "main", "parse_args", "train"]
+__all__ = ["build", "main", "parse_args", "train", "train_mesh_shape"]
 
 ROOT = pathlib.Path(__file__).resolve().parents[3]
 
@@ -75,9 +86,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def train_mesh_shape(world: int) -> tuple:
+    """``repro.launch.train``'s (data, model) grid for ``world`` ranks
+    below 512: the model axis the largest power of two up to 4 that
+    divides the world, the rest data.  A world of 1 gives 1x1."""
+    model = 1
+    while model * 2 <= min(4, world) and world % (model * 2) == 0:
+        model *= 2
+    return (world // model, model)
+
+
+def _mesh(device: torch.device):
+    """The training mesh, or None in a world of one (module docstring)."""
+    world = init_world(device.type)
+    if world == 1:
+        return None
+    if world >= 512:
+        return make_production_mesh(device_type=device.type)
+    return checked_mesh(train_mesh_shape(world), ("data", "model"),
+                        device_type=device.type)
+
+
 def build(args):
     """(cfg, shape, plan): the config as the flags set it, the batch shape,
-    and the train step."""
+    and the train step (a ``CellPlan`` on the training mesh when the world
+    has more than one rank)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -88,7 +121,9 @@ def build(args):
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     opt = AdamWConfig(schedule=warmup_cosine(args.lr, args.warmup,
                                              args.steps))
-    return cfg, shape, make_train_step(cfg, shape, opt=opt)
+    dev = default_device() if args.device is None else torch.device(
+        args.device)
+    return cfg, shape, make_train_step(cfg, shape, opt=opt, mesh=_mesh(dev))
 
 
 def _state_bytes(state) -> int:
@@ -101,7 +136,9 @@ def train(args) -> dict:
     step's metrics), ``state`` ((params, opt_state) at the end),
     ``report`` (the counted step's ``RooflineReport``), ``cost``,
     ``step_ms`` (the median step after the first), ``measured_frac``,
-    ``peak_bytes`` and ``cfg``."""
+    ``peak_bytes`` and ``cfg``.  On a mesh the step is not counted
+    (``report`` and ``cost`` None: the sharded step's roofline is
+    ROADMAP.md queue A item 13b)."""
     dev = default_device() if args.device is None else torch.device(
         args.device)
     cfg, shape, plan = build(args)
@@ -137,8 +174,9 @@ def train(args) -> dict:
     finally:
         loader.close()
     dt = time.time() - t0
+    mesh = getattr(plan, "mesh", None)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
-        else _state_bytes(state)
+        else _state_bytes(state) if mesh is None else None
 
     log = loop.metrics_log
     losses = [m["loss"] for m in log]
@@ -153,14 +191,17 @@ def train(args) -> dict:
 
     # the roofline of one more step on the final state (its result is
     # dropped): counted FLOPs and bytes against the card's peaks
-    batch = {k: v.to(dev) for k, v in markov_lm_batch(
-        ds_cfg, final_step, device="cpu").items()}
-    _, cost = roofline.count_cost(plan.fn, *state, batch)
-    report = roofline.analyze(args.arch, cfg, shape, "1", 1, cost, peak)
+    report = cost = None
+    if mesh is None:
+        batch = {k: v.to(dev) for k, v in markov_lm_batch(
+            ds_cfg, final_step, device="cpu").items()}
+        _, cost = roofline.count_cost(plan.fn, *state, batch)
+        report = roofline.analyze(args.arch, cfg, shape, "1", 1, cost, peak)
     times = [m["step_time_s"] for m in log[1:]] or \
         [m["step_time_s"] for m in log]
     step_s = statistics.median(times) if times else None
-    measured = None if step_s is None or dev.type != "cuda" else \
+    measured = None if step_s is None or dev.type != "cuda" \
+        or report is None else \
         report.model_gflops * 1e9 / (step_s * roofline.HW().peak_flops)
     return dict(out, log=log, state=state, report=report, cost=cost,
                 step_ms=None if step_s is None else step_s * 1e3,
@@ -175,11 +216,14 @@ def main(argv=None) -> None:
     keys = ("final_step", "preempted", "wall_s", "first_loss", "last_loss",
             "stragglers_flagged", "tokens_per_s")
     print(json.dumps({k: run[k] for k in keys}), flush=True)
-    print(json.dumps(dict(roofline=run["report"].to_json(),
-                          step_ms=run["step_ms"],
-                          measured_frac=run["measured_frac"],
-                          kernels=run["cost"].kernels)), flush=True)
-    print(roofline.format_row(run["report"]), flush=True)
+    report = run["report"]
+    print(json.dumps(dict(
+        roofline=None if report is None else report.to_json(),
+        step_ms=run["step_ms"], measured_frac=run["measured_frac"],
+        kernels=None if report is None else run["cost"].kernels)),
+        flush=True)
+    if report is not None:
+        print(roofline.format_row(report), flush=True)
     for m in run["log"][::max(1, args.log_every)]:
         print(f"  step {int(m['step']):5d} loss {m['loss']:.4f} "
               f"gnorm {m['grad_norm']:.3f} {m['step_time_s']*1e3:8.1f}ms")

@@ -19,8 +19,9 @@ one, scoring the queries directly against the compressed cache in f32.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.layers import apply_rope, dtype_of
+from repro_torch.models.layers import apply_rope, dtype_of, mm
 from repro_torch.models.param_utils import Init
 
 __all__ = ["ATTN_WEIGHTS", "MLA_WEIGHTS", "attn_apply", "attn_init",
@@ -46,7 +47,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     0..Skv-1).  window: attend iff 0 <= q_pos - kv_pos < window.  kv_len:
     KV slots >= kv_len are invalid (decode caches); an int or a 0-d
     integer tensor (a CUDA graph's decode reads it on the device).
-    Returns (B, Sq, H, Dv) in q's dtype; softmax math in f32."""
+    Returns (B, Sq, H, Dv) in q's dtype; softmax math in f32.  On
+    DTensors each rank attends its own batch rows, its q, k and v
+    gathered whole on every other dim (``parallel.sharding.batch_local``:
+    the einsums flatten the head dims, which DTensor cannot do sharded)."""
+    if isinstance(q, DTensor):
+        from repro_torch.parallel.sharding import batch_local
+        return batch_local(chunked_attention, q, k, v, batched=3,
+                           q_positions=q_positions, window=window,
+                           kv_len=kv_len, causal=causal, softcap=softcap,
+                           chunk=chunk, scale=scale)
     b, sq, h, dk = q.shape
     _, skv, kh, _ = k.shape
     dv = v.shape[-1]
@@ -102,39 +112,46 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 ATTN_WEIGHTS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 
-def attn_init(seed: int, cfg, device) -> dict:
+def attn_init(seed: int, cfg, device, *, with_axes: bool = False):
     """The projections of one GQA layer, and with ``cfg.qkv_bias`` the
     query, key and value biases (zeros, as the JAX package makes them)."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    b = Init(seed, dtype_of(cfg.param_dtype), device)
-    b.dense("wq", (d, qd))
-    b.dense("wk", (d, kvd))
-    b.dense("wv", (d, kvd))
-    b.dense("wo", (qd, d))
+    b = Init(seed, dtype_of(cfg.param_dtype), device, with_axes=with_axes)
+    b.dense("wq", (d, qd), ("embed", "q_heads"))
+    b.dense("wk", (d, kvd), ("embed", "kv_heads"))
+    b.dense("wv", (d, kvd), ("embed", "kv_heads"))
+    b.dense("wo", (qd, d), ("q_heads", "embed"))
     if cfg.qkv_bias:
-        b.zeros("bq", (qd,))
-        b.zeros("bk", (kvd,))
-        b.zeros("bv", (kvd,))
+        b.zeros("bq", (qd,), ("q_heads",))
+        b.zeros("bk", (kvd,), ("kv_heads",))
+        b.zeros("bv", (kvd,), ("kv_heads",))
     return b.done()
+
+
+def _write_rows(leaf, val, decode_pos, s: int, in_place: bool):
+    leaf = leaf if in_place else leaf.clone()
+    rows = decode_pos + torch.arange(s, device=val.device)
+    leaf.index_copy_(1, rows, val.to(leaf.dtype))
+    return leaf
 
 
 def _write_cache(cache, new: dict, decode_pos, s: int, in_place: bool):
     """Each leaf of ``new`` (B, S, ...) written at rows ``decode_pos +
     arange(S)`` of the same leaf of ``cache`` (B, Smax, ...): into a copy
     (the JAX package's functional update) or, with ``in_place``, into the
-    cache's own tensor.  Returns the written cache."""
-    out = {}
-    for name, val in new.items():
-        leaf = cache[name] if in_place else cache[name].clone()
-        rows = decode_pos + torch.arange(s, device=val.device)
-        leaf.index_copy_(1, rows, val.to(leaf.dtype))
-        out[name] = leaf
-    return out
+    cache's own tensor.  Returns the written cache.  A DTensor leaf is
+    written on each rank's batch rows (``parallel.sharding.batch_local``:
+    ``index_copy_`` has no sharding rule in some DTensor versions)."""
+    from repro_torch.parallel.sharding import batch_local
+    return {name: batch_local(_write_rows, cache[name], val, batched=2,
+                              decode_pos=decode_pos, s=s, in_place=in_place)
+            for name, val in new.items()}
 
 
 def attn_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
                cache=None, decode_pos=None, in_place: bool = False,
-               causal: bool = True, kv_override: tuple | None = None):
+               causal: bool = True, kv_override: tuple | None = None,
+               sc=lambda x, ax: x):
     """x (B, S, d).  Returns (out (B, S, d), new cache or (k, v)).
 
     Without a cache (train): returns the computed (k, v).  With one —
@@ -150,16 +167,20 @@ def attn_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
     the place of the key and value projections; nothing is projected or
     cached for them, and the query is rotated only when ``causal`` (the
     encoder's keys carry no decoder positions).  ``causal=False`` masks
-    on ``|q_pos - kv_pos| < window`` instead."""
+    on ``|q_pos - kv_pos| < window`` instead.
+
+    Sharding (``sc``, the JAX package's points): heads over the model axis
+    when they divide it, else the query sequence (``attn_seq``) with the
+    small GQA K/V replicated; a cache kv_heads first, else ``cache_seq``."""
     bsz, s, _ = x.shape
     cdt = x.dtype
-    q = x @ p["wq"].to(cdt)
+    q = mm(x, p["wq"].to(cdt))
     if "bq" in p:
         q = q + p["bq"].to(cdt)
     q = q.reshape(bsz, s, cfg.num_heads, cfg.head_dim)
     if kv_override is None:
-        k = x @ p["wk"].to(cdt)
-        v = x @ p["wv"].to(cdt)
+        k = mm(x, p["wk"].to(cdt))
+        v = mm(x, p["wv"].to(cdt))
         if "bk" in p:
             k = k + p["bk"].to(cdt)
             v = v + p["bv"].to(cdt)
@@ -174,6 +195,7 @@ def attn_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
         if causal:
             q = apply_rope(q, positions, cfg.rope_theta)
 
+    q = sc(q, ("batch", "attn_seq", "heads", None))
     new_cache = (k, v)
     kv_len = None
     if cache is not None:
@@ -181,12 +203,18 @@ def attn_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
                                  in_place)
         k, v = new_cache["k"], new_cache["v"]
         kv_len = decode_pos + s
+        k = sc(k, ("batch", "cache_seq", "kv_heads", None))
+        v = sc(v, ("batch", "cache_seq", "kv_heads", None))
+    else:
+        k = sc(k, ("batch", None, "kv_heads", None))
+        v = sc(v, ("batch", None, "kv_heads", None))
 
     out = chunked_attention(q, k.to(cdt), v.to(cdt), q_positions=positions,
                             window=window, kv_len=kv_len, causal=causal,
                             softcap=cfg.attn_logit_softcap,
                             chunk=cfg.attn_chunk)
-    out = out.reshape(bsz, s, cfg.q_dim) @ p["wo"].to(cdt)
+    out = sc(out, ("batch", "attn_seq", "heads", None))
+    out = mm(out.reshape(bsz, s, cfg.q_dim), p["wo"].to(cdt))
     return out, new_cache
 
 
@@ -198,21 +226,24 @@ def attn_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
 MLA_WEIGHTS = ("wq", "w_dkv", "w_uk", "w_uv", "wo")
 
 
-def mla_init(seed: int, cfg, device) -> dict:
+def mla_init(seed: int, cfg, device, *, with_axes: bool = False):
     m = cfg.mla
     d, h = cfg.d_model, cfg.num_heads
     qk = m.qk_nope_dim + m.qk_rope_dim
-    b = Init(seed, dtype_of(cfg.param_dtype), device)
-    b.dense("wq", (d, h * qk))
-    b.dense("w_dkv", (d, m.kv_lora_rank + m.qk_rope_dim))
-    b.dense("w_uk", (m.kv_lora_rank, h * m.qk_nope_dim))
-    b.dense("w_uv", (m.kv_lora_rank, h * m.v_head_dim))
-    b.dense("wo", (h * m.v_head_dim, d))
+    b = Init(seed, dtype_of(cfg.param_dtype), device, with_axes=with_axes)
+    b.dense("wq", (d, h * qk), ("embed", "q_heads"))
+    b.dense("w_dkv", (d, m.kv_lora_rank + m.qk_rope_dim), ("embed", "kv_lora"))
+    b.dense("w_uk", (m.kv_lora_rank, h * m.qk_nope_dim),
+            ("kv_lora", "q_heads"))
+    b.dense("w_uv", (m.kv_lora_rank, h * m.v_head_dim),
+            ("kv_lora", "q_heads"))
+    b.dense("wo", (h * m.v_head_dim, d), ("q_heads", "embed"))
     return b.done()
 
 
 def mla_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
-              cache=None, decode_pos=None, in_place: bool = False):
+              cache=None, decode_pos=None, in_place: bool = False,
+              sc=lambda x, ax: x):
     """x (B, S, d).  Returns (out (B, S, d), new cache or (c, kr)).
 
     Without a cache: the expanded formulation, returning the latent c
@@ -229,19 +260,21 @@ def mla_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
     h = cfg.num_heads
     qk = m.qk_nope_dim + m.qk_rope_dim
     scale = qk ** -0.5
-    f32 = torch.float32
 
-    q = (x @ p["wq"].to(cdt)).reshape(bsz, s, h, qk)
+    q = mm(x, p["wq"].to(cdt)).reshape(bsz, s, h, qk)
+    q = sc(q, ("batch", "attn_seq", "heads", None))
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    ckr = x @ p["w_dkv"].to(cdt)                         # (B, S, lora+rope)
+    ckr = mm(x, p["w_dkv"].to(cdt))                      # (B, S, lora+rope)
     c, kr = ckr[..., :m.kv_lora_rank], ckr[..., m.kv_lora_rank:]
     kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
 
     if cache is None:
         # expanded formulation (train / uncached forward)
-        k_nope = (c @ p["w_uk"].to(cdt)).reshape(bsz, s, h, m.qk_nope_dim)
-        value = (c @ p["w_uv"].to(cdt)).reshape(bsz, s, h, m.v_head_dim)
+        k_nope = mm(c, p["w_uk"].to(cdt)).reshape(bsz, s, h, m.qk_nope_dim)
+        value = mm(c, p["w_uv"].to(cdt)).reshape(bsz, s, h, m.v_head_dim)
+        k_nope = sc(k_nope, ("batch", None, "heads", None))
+        value = sc(value, ("batch", None, "heads", None))
         kfull = torch.cat([k_nope, kr[:, :, None, :].expand(
             bsz, s, h, m.qk_rope_dim)], dim=-1)
         qfull = torch.cat([q_nope, q_rope], dim=-1)
@@ -249,27 +282,43 @@ def mla_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
                                 window=window, causal=True,
                                 softcap=cfg.attn_logit_softcap,
                                 chunk=cfg.attn_chunk, scale=scale)
-        out = out.reshape(bsz, s, h * m.v_head_dim) @ p["wo"].to(cdt)
+        out = mm(out.reshape(bsz, s, h * m.v_head_dim), p["wo"].to(cdt))
         return out, (c, kr)
 
     # absorbed formulation: scores against the compressed cache
     new_cache = _write_cache(cache, dict(c=c, kr=kr), decode_pos, s,
                              in_place)
-    cc, ckr_c = new_cache["c"], new_cache["kr"]
-    kv_len = decode_pos + s
-    wk = p["w_uk"].to(cdt).reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+    from repro_torch.parallel.sharding import batch_local
+    out = batch_local(_mla_absorbed, q_nope, q_rope, new_cache["c"],
+                      new_cache["kr"], p["w_uk"], p["w_uv"], batched=4,
+                      cfg=cfg, positions=positions, kv_len=decode_pos + s,
+                      window=window)
+    out = mm(out.reshape(bsz, s, h * m.v_head_dim), p["wo"].to(cdt))
+    return out, new_cache
+
+
+def _mla_absorbed(q_nope, q_rope, cc, ckr_c, w_uk, w_uv, *, cfg, positions,
+                  kv_len, window):
+    """MLA's absorbed attention (B, S, H, v_head_dim): W_uk folded into
+    the queries, scores against the compressed cache ``cc`` and its rotated
+    keys ``ckr_c`` below ``kv_len`` in f32, the context taken in the
+    latent space and W_uv applied after.  Batch-local (``mla_apply`` runs
+    it on each rank's rows on a mesh)."""
+    m = cfg.mla
+    h = cfg.num_heads
+    cdt = q_nope.dtype
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    wk = w_uk.to(cdt).reshape(m.kv_lora_rank, h, m.qk_nope_dim)
     q_c = torch.einsum("bshn,lhn->bshl", q_nope, wk)        # absorb W_uk
     logits = (torch.einsum("bshl,btl->bsht", q_c.float(), cc.float())
               + torch.einsum("bshr,btr->bsht", q_rope.float(),
                              ckr_c.float())) * scale
-    tpos = torch.arange(cc.shape[1], device=x.device)
+    tpos = torch.arange(cc.shape[1], device=cc.device)
     delta = positions.to(torch.int64)[:, None] - tpos[None, :]  # (S, T)
     ok = (tpos[None, :] < kv_len) & (delta >= 0) & (delta < int(window))
     logits = logits.masked_fill(~ok[None, :, None, :], _NEG)
     probs = torch.softmax(logits, dim=-1)
     ctx_c = torch.einsum("bsht,btl->bshl", probs,
-                         cc.to(f32)).to(cdt)                # (B, S, H, lora)
-    wv = p["w_uv"].to(cdt).reshape(m.kv_lora_rank, h, m.v_head_dim)
-    out = torch.einsum("bshl,lhv->bshv", ctx_c, wv)         # absorb W_uv
-    out = out.reshape(bsz, s, h * m.v_head_dim) @ p["wo"].to(cdt)
-    return out, new_cache
+                         cc.float()).to(cdt)                # (B, S, H, lora)
+    wv = w_uv.to(cdt).reshape(m.kv_lora_rank, h, m.v_head_dim)
+    return torch.einsum("bshl,lhv->bshv", ctx_c, wv)        # absorb W_uv

@@ -17,19 +17,21 @@ from repro_torch.models.param_utils import Init, fold_in
 __all__ = ["hymba_block_apply", "hymba_block_init"]
 
 
-def hymba_block_init(seed: int, cfg, device) -> dict:
-    b = Init(seed, layers.dtype_of(cfg.param_dtype), device)
-    b.params["attn"] = attention.attn_init(fold_in(seed, 1), cfg, device)
-    b.params["mamba"] = ssm.mamba_init(fold_in(seed, 2), cfg,
-                                       d_inner=cfg.d_model, device=device)
-    b.ones("norm_attn", (cfg.d_model,))
-    b.ones("norm_mamba", (cfg.d_model,))
+def hymba_block_init(seed: int, cfg, device, *, with_axes: bool = False):
+    b = Init(seed, layers.dtype_of(cfg.param_dtype), device,
+             with_axes=with_axes)
+    b.sub("attn", attention.attn_init(fold_in(seed, 1), cfg, device,
+                                      with_axes=True))
+    b.sub("mamba", ssm.mamba_init(fold_in(seed, 2), cfg, d_inner=cfg.d_model,
+                                  device=device, with_axes=True))
+    b.ones("norm_attn", (cfg.d_model,), ("embed",))
+    b.ones("norm_mamba", (cfg.d_model,), ("embed",))
     return b.done()
 
 
 def hymba_block_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor,
                       window, cache=None, decode_pos=None,
-                      in_place: bool = False):
+                      in_place: bool = False, sc=lambda x, ax: x):
     """x (B, S, d) pre-normed.  cache: dict(attn=..., conv=..., ssm=...).
     A one-token input with a cache takes the Mamba decode step; longer
     inputs run the prefill scan.  ``in_place``: the KV write goes into
@@ -37,12 +39,12 @@ def hymba_block_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor,
     a_out, a_cache = attention.attn_apply(
         p["attn"], x, cfg=cfg, positions=positions, window=window,
         cache=cache.get("attn") if cache else None, decode_pos=decode_pos,
-        in_place=in_place)
+        in_place=in_place, sc=sc)
     if cache is not None and x.shape[1] == 1:
         m_out, m_state, m_events = ssm.mamba_step(
             p["mamba"], x, cfg, (cache["conv"], cache["ssm"]))
     else:
-        m_out, m_state = ssm.mamba_apply(p["mamba"], x, cfg)
+        m_out, m_state = ssm.mamba_apply(p["mamba"], x, cfg, sc=sc)
         m_events = torch.zeros((), dtype=torch.float32, device=x.device)
     y = 0.5 * (layers.rms_norm(a_out, p["norm_attn"] - 1.0, cfg.norm_eps)
                + layers.rms_norm(m_out, p["norm_mamba"] - 1.0, cfg.norm_eps))

@@ -12,12 +12,13 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.param_utils import Init
 
 __all__ = ["MLP_WEIGHTS", "activation_fn", "apply_rope", "dtype_of",
            "embed_apply", "embed_init", "is_glu", "layer_norm",
-           "max_pool_nhwc", "mlp_apply", "mlp_init", "mnf_sparsify",
+           "max_pool_nhwc", "mlp_apply", "mlp_init", "mm", "mnf_sparsify",
            "rms_norm", "unembed_matrix"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -27,6 +28,45 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 def dtype_of(name: str) -> torch.dtype:
     """The torch dtype of a config's dtype name ("bfloat16", ...)."""
     return _DTYPES[name]
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``: activations x (..., k) against a weight w (k, n).  A
+    DTensor x sharded on a dim between its first and its last (a
+    sequence-sharded stream) is gathered whole on that dim first:
+    ``@`` flattens the leading dims, and DTensor (torch 2.11) refuses to
+    flatten a sharded dim other than the first (the all-gather GSPMD
+    issues before the product under sequence parallelism)."""
+    if isinstance(x, DTensor) and x.ndim > 2:
+        last = x.ndim - 1
+        pl = [Replicate() if isinstance(p, Shard) and 0 < p.dim < last
+              else p for p in x.placements]
+        if pl != list(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+        return _GradInPlace.apply(x @ w)
+    return x @ w
+
+
+class _GradInPlace(torch.autograd.Function):
+    """Identity whose backward hands on the gradient in the forward
+    output's own shards (replicated where the output was a partial sum):
+    a gradient that reaches a product's output
+    sharded on its sequence dim (from an op that took the stream so)
+    comes back gathered on it, so the product's backward need not
+    flatten a sharded dim either."""
+
+    @staticmethod
+    def forward(ctx, y):
+        # a partial sum's gradient is one value on every rank
+        ctx.placements = [p if isinstance(p, Shard) else Replicate()
+                          for p in y.placements]
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and list(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
 
 
 def max_pool_nhwc(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
@@ -112,38 +152,41 @@ MLP_WEIGHTS = ("w_gate", "w_up", "w_down")
 
 
 def mlp_init(seed: int, cfg, d_ff: int | None = None,
-             d_model: int | None = None, *, device) -> dict:
+             d_model: int | None = None, *, device, with_axes: bool = False):
     d = d_model or cfg.d_model
     f = d_ff or cfg.d_ff
-    b = Init(seed, dtype_of(cfg.param_dtype), device)
+    b = Init(seed, dtype_of(cfg.param_dtype), device, with_axes=with_axes)
     if is_glu(cfg.act):
-        b.dense("w_gate", (d, f))
-    b.dense("w_up", (d, f))
-    b.dense("w_down", (f, d))
+        b.dense("w_gate", (d, f), ("embed", "ff"))
+    b.dense("w_up", (d, f), ("embed", "ff"))
+    b.dense("w_down", (f, d), ("ff", "embed"))
     return b.done()
 
 
-def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, cfg,
+              sc=lambda x, ax: x) -> torch.Tensor:
     """x (..., d_model) -> (..., d_model): the MNF fire phase
     (:func:`mnf_sparsify`) sits between the up and down projections."""
     act = activation_fn(cfg.act)
     cdt = dtype_of(cfg.compute_dtype)
     xc = x.to(cdt)
-    up = xc @ p["w_up"].to(cdt)
+    up = mm(xc, p["w_up"].to(cdt))
     if is_glu(cfg.act):
-        h = act(xc @ p["w_gate"].to(cdt)) * up
+        h = act(mm(xc, p["w_gate"].to(cdt))) * up
     else:
         h = act(up)
+    h = sc(h, ("batch",) + (None,) * (h.ndim - 2) + ("ff",))
     h = mnf_sparsify(h, cfg)
-    return (h @ p["w_down"].to(cdt)).to(x.dtype)
+    return mm(h, p["w_down"].to(cdt)).to(x.dtype)
 
 
-def embed_init(seed: int, cfg, device) -> dict:
-    b = Init(seed, dtype_of(cfg.param_dtype), device)
+def embed_init(seed: int, cfg, device, *, with_axes: bool = False):
+    b = Init(seed, dtype_of(cfg.param_dtype), device, with_axes=with_axes)
     # 1/sqrt(d) rows: keeps tied-unembedding logits at unit scale.
-    b.dense("tok", (cfg.vocab_size, cfg.d_model), scale=cfg.d_model ** -0.5)
+    b.dense("tok", (cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+            scale=cfg.d_model ** -0.5)
     if not cfg.tie_embeddings:
-        b.dense("unembed", (cfg.d_model, cfg.vocab_size))
+        b.dense("unembed", (cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
     return b.done()
 
 

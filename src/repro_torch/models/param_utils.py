@@ -5,8 +5,14 @@ Params are plain nested dicts of tensors.  Each leaf draws from its own
 leaf's name (:func:`fold_in`) — the image of the JAX package's
 ``fold_in(key, crc32(name))``.  The bits differ from ``jax.random``; tests
 that compare the two packages carry the JAX weights across instead
-(``models.transformer.params_from_numpy``).  The port has no logical-axis
-specs: it runs on one device.
+(``models.transformer.params_from_numpy``).
+
+Every leaf also has its logical axes: a tuple of axis names, one per dim,
+in a tree of the same keys (the JAX package's ``specs``), which
+``repro_torch.parallel.sharding`` resolves to DTensor placements.  An init
+function built with ``with_axes=True`` returns ``(params, axes)``;
+``models.transformer.param_axes`` prepends ``"layers"`` to the stacked
+layers' axes, as ``stack_layer_params`` does in the JAX package.
 """
 from __future__ import annotations
 
@@ -50,15 +56,27 @@ def tree_leaves(tree) -> list:
 
 
 class Init:
-    """Collects the params of one module tree.  ``seed`` is an int; leaves
-    are made on ``device`` in ``dtype`` (on the ``meta`` device: shapes
-    and dtypes only, nothing drawn or allocated)."""
+    """Collects the params of one module tree and each leaf's logical axes.
+    ``seed`` is an int; leaves are made on ``device`` in ``dtype`` (on the
+    ``meta`` device: shapes and dtypes only, nothing drawn or allocated).
+    :meth:`done` returns the params, or ``(params, axes)`` with
+    ``with_axes``."""
 
-    def __init__(self, seed: int, dtype: torch.dtype, device):
+    def __init__(self, seed: int, dtype: torch.dtype, device, *,
+                 with_axes: bool = False):
         self.seed = seed
         self.dtype = dtype
         self.device = torch.device(device)
+        self.with_axes = with_axes
         self.params: dict = {}
+        self.axes: dict = {}
+
+    def _put(self, name: str, value: torch.Tensor, axes: tuple) -> None:
+        if len(axes) != value.ndim:
+            raise ValueError(f"{name}: axes {axes} for shape "
+                             f"{tuple(value.shape)}")
+        self.params[name] = value
+        self.axes[name] = tuple(axes)
 
     def _generator(self, name: str) -> torch.Generator | None:
         if self.device.type == "meta":
@@ -67,36 +85,41 @@ class Init:
         g.manual_seed(fold_in(self.seed, zlib.crc32(name.encode())))
         return g
 
-    def dense(self, name: str, shape: tuple, *,
+    def dense(self, name: str, shape: tuple, axes: tuple, *,
               scale: float | None = None) -> None:
         """LeCun-normal weight (fan-in = shape[-2] by default)."""
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         s = (1.0 / fan_in) ** 0.5 if scale is None else scale
         w = torch.randn(shape, generator=self._generator(name),
                         dtype=self.dtype, device=self.device)
-        self.params[name] = w.mul_(s)
+        self._put(name, w.mul_(s), axes)
 
-    def zeros(self, name: str, shape: tuple) -> None:
-        self.params[name] = torch.zeros(shape, dtype=self.dtype,
-                                        device=self.device)
+    def zeros(self, name: str, shape: tuple, axes: tuple) -> None:
+        self._put(name, torch.zeros(shape, dtype=self.dtype,
+                                    device=self.device), axes)
 
-    def ones(self, name: str, shape: tuple) -> None:
-        self.params[name] = torch.ones(shape, dtype=self.dtype,
-                                       device=self.device)
+    def ones(self, name: str, shape: tuple, axes: tuple) -> None:
+        self._put(name, torch.ones(shape, dtype=self.dtype,
+                                   device=self.device), axes)
 
-    def const(self, name: str, shape: tuple,
+    def const(self, name: str, shape: tuple, axes: tuple,
               value: float | torch.Tensor) -> None:
         """A constant leaf: ``value`` (a float, or a tensor broadcast to
         ``shape``)."""
         if isinstance(value, torch.Tensor):
-            self.params[name] = torch.broadcast_to(
-                value.to(self.dtype), shape).to(self.device).clone()
+            t = torch.broadcast_to(value.to(self.dtype),
+                                   shape).to(self.device).clone()
         else:
-            self.params[name] = torch.full(shape, value, dtype=self.dtype,
-                                           device=self.device)
+            t = torch.full(shape, value, dtype=self.dtype, device=self.device)
+        self._put(name, t, axes)
 
-    def done(self) -> dict:
-        return self.params
+    def sub(self, name: str, child: tuple) -> None:
+        """A child module's ``(params, axes)`` (an init function called
+        with ``with_axes=True``) under ``name``."""
+        self.params[name], self.axes[name] = child
+
+    def done(self):
+        return (self.params, self.axes) if self.with_axes else self.params
 
 
 def stack_layer_params(init_layer_fn, seeds: list[int]) -> dict:

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused
 from repro_torch.models import layers
@@ -47,7 +48,16 @@ def wkv6_chunked(r, k, v, w, u, s0=None, *, chunk: int = 32):
     """r, k, v, w (B, H, T, D); u (H, D); s0 (B, H, D, D) or None.
 
     Exact (against the sequential recurrence) for w >= exp(min clamp);
-    smaller decays are clamped.  Returns (o (B, H, T, D) f32, s_final)."""
+    smaller decays are clamped.  Returns (o (B, H, T, D) f32, s_final).
+    On DTensors each rank runs its own batch rows
+    (``parallel.sharding.batch_local``: the einsums flatten the head
+    dim, which DTensor cannot do sharded)."""
+    if isinstance(r, DTensor):
+        from repro_torch.parallel.sharding import batch_local
+        return batch_local(
+            lambda r_, k_, v_, w_, s_, u_: wkv6_chunked(
+                r_, k_, v_, w_, u_, s_, chunk=chunk),
+            r, k, v, w, s0, u, batched=5)
     b, h, t, d = r.shape
     pad = (-t) % chunk
     if pad:
@@ -114,7 +124,15 @@ def wkv6_step_gated(r, k, v, w, u, s, ecfg):
     """Fire-gated single decode step (DESIGN.md §13): the key vector — the
     state update's increment drive — is thresholded by signed fire, and
     the state update skips dead channel-blocks.  Returns (o, s_new,
-    n_events), the last the per-token scalar event count (0-d f32)."""
+    n_events), the last the per-token scalar event count (0-d f32).  On
+    DTensors (a sharded serve step) every rank runs it on the whole
+    tensors (``parallel.sharding.replicated_call``): the kernel (B7)
+    takes plain tensors."""
+    from repro_torch.parallel.sharding import replicated_call
+    return replicated_call(_wkv6_step_gated, r, k, v, w, u, s, ecfg)
+
+
+def _wkv6_step_gated(r, k, v, w, u, s, ecfg):
     from repro_torch import engine
     b, h, d = r.shape
     fl = lambda z: z.reshape(b * h, d).float()
@@ -131,30 +149,32 @@ def wkv6_step_gated(r, k, v, w, u, s, ecfg):
 # RWKV6 block (time-mix + channel-mix)
 # ---------------------------------------------------------------------------
 
-def rwkv6_block_init(seed: int, cfg, device) -> dict:
+def rwkv6_block_init(seed: int, cfg, device, *, with_axes: bool = False):
     d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
     assert h * hd == d, "rwkv6: heads * head_dim must equal d_model"
-    b = Init(seed, layers.dtype_of(cfg.param_dtype), device)
-    b.ones("ln1", (d,))
-    b.ones("ln2", (d,))
+    b = Init(seed, layers.dtype_of(cfg.param_dtype), device,
+             with_axes=with_axes)
+    b.ones("ln1", (d,), ("embed",))
+    b.ones("ln2", (d,), ("embed",))
     # time-mix lerp coefficients (per channel, one per r/k/v/w/g)
     for nm in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"):
-        b.const(nm, (d,), 0.5)
-    for nm in ("wr", "wk", "wv", "wg", "wo"):
-        b.dense(nm, (d, d))
+        b.const(nm, (d,), ("embed",), 0.5)
+    for nm in ("wr", "wk", "wv", "wg"):
+        b.dense(nm, (d, d), ("embed", "q_heads"))
+    b.dense("wo", (d, d), ("q_heads", "embed"))
     # data-dependent decay LoRA: w = exp(-exp(w0 + tanh(x A) B))
     lora = max(32, d // 64)
-    b.const("w0", (d,), -0.6)                                 # soft init decay
-    b.dense("w_a", (d, lora))
-    b.dense("w_b", (lora, d))
-    b.const("u", (h, hd), 0.0)                                # bonus
-    b.ones("gn", (d,))                                        # group norm gain
+    b.const("w0", (d,), ("embed",), -0.6)                     # soft init decay
+    b.dense("w_a", (d, lora), ("embed", "lora"))
+    b.dense("w_b", (lora, d), ("lora", "embed"))
+    b.const("u", (h, hd), ("q_heads", None), 0.0)             # bonus
+    b.ones("gn", (d,), ("embed",))                            # group norm gain
     # channel mix
-    b.const("mu_ck", (d,), 0.5)
-    b.const("mu_cr", (d,), 0.5)
-    b.dense("ck", (d, cfg.d_ff))
-    b.dense("cv", (cfg.d_ff, d))
-    b.dense("cr", (d, d))
+    b.const("mu_ck", (d,), ("embed",), 0.5)
+    b.const("mu_cr", (d,), ("embed",), 0.5)
+    b.dense("ck", (d, cfg.d_ff), ("embed", "ff"))
+    b.dense("cv", (cfg.d_ff, d), ("ff", "embed"))
+    b.dense("cr", (d, d), ("embed", "q_heads"))
     return b.done()
 
 
@@ -175,18 +195,20 @@ def _time_mix_inputs(p, xn, xs):
             mix(p["mu_w"]), mix(p["mu_g"]))
 
 
-def _rwkv_time_mix(p, xn, xs, cfg, state, step: bool):
+def _rwkv_time_mix(p, xn, xs, cfg, state, step: bool, sc=lambda x, ax: x):
     """xn, xs (B, T, d) (T == 1 for decode steps)."""
     b, t, _ = xn.shape
     h, hd = cfg.num_heads, cfg.head_dim
     cdt = xn.dtype
     xr, xk, xv, xw, xg = _time_mix_inputs(p, xn, xs)
-    r = xr @ p["wr"].to(cdt)
-    k = xk @ p["wk"].to(cdt)
-    v = xv @ p["wv"].to(cdt)
-    g = F.silu(xg @ p["wg"].to(cdt))
-    lw_arg = p["w0"].float() + torch.tanh(xw.float() @ p["w_a"].float()) \
-        @ p["w_b"].float()
+    mm = layers.mm
+    r = mm(xr, p["wr"].to(cdt))
+    k = mm(xk, p["wk"].to(cdt))
+    v = mm(xv, p["wv"].to(cdt))
+    g = F.silu(mm(xg, p["wg"].to(cdt)))
+    lw_arg = p["w0"].float() + mm(torch.tanh(mm(xw.float(),
+                                                p["w_a"].float())),
+                                  p["w_b"].float())
     w = torch.exp(-torch.exp(lw_arg))                        # (…, d) in (0,1)
 
     n_ev = None
@@ -200,9 +222,11 @@ def _rwkv_time_mix(p, xn, xs, cfg, state, step: bool):
             o, s_new = wkv6_step(sh(r), sh(k), sh(v), sh(w), p["u"], state)
         o = o.reshape(b, 1, h * hd)
     else:
-        sh = lambda z: z.reshape(b, t, h, hd).transpose(1, 2)
+        sh = lambda z: sc(z.reshape(b, t, h, hd).transpose(1, 2),
+                          ("batch", "heads", None, None))
         o, s_new = wkv6_chunked(sh(r), sh(k), sh(v), sh(w), p["u"], state,
                                 chunk=cfg.wkv_chunk)
+        o = sc(o, ("batch", "heads", None, None))
         o = o.transpose(1, 2).reshape(b, t, h * hd)
     # per-head group norm (population variance) + gate
     oshape = o.shape
@@ -211,28 +235,32 @@ def _rwkv_time_mix(p, xn, xs, cfg, state, step: bool):
     var = og.var(-1, keepdim=True, correction=0)
     og = (og - mu) * torch.rsqrt(var + 64e-5)
     o = (og.reshape(oshape) * p["gn"].float()).to(cdt)
-    out = (o * g) @ p["wo"].to(cdt)
+    out = mm(o * g, p["wo"].to(cdt))
     return out, s_new, n_ev
 
 
-def _rwkv_channel_mix(p, xn, xs, cfg):
+def _rwkv_channel_mix(p, xn, xs, cfg, sc=lambda x, ax: x):
     cdt = xn.dtype
     xk = xn + (xs - xn) * p["mu_ck"].to(cdt)
     xr = xn + (xs - xn) * p["mu_cr"].to(cdt)
-    k = torch.square(F.relu(xk @ p["ck"].to(cdt)))           # relu^2: sparse
+    k = torch.square(F.relu(layers.mm(xk, p["ck"].to(cdt))))  # relu^2: sparse
+    k = sc(k, ("batch",) + (None,) * (k.ndim - 2) + ("ff",))
     k = layers.mnf_sparsify(k, cfg)                          # MNF exact here
-    return torch.sigmoid(xr @ p["cr"].to(cdt)) * (k @ p["cv"].to(cdt))
+    return torch.sigmoid(layers.mm(xr, p["cr"].to(cdt))) \
+        * layers.mm(k, p["cv"].to(cdt))
 
 
-def rwkv6_block_apply(p, x: torch.Tensor, cfg, wkv_state=None):
+def rwkv6_block_apply(p, x: torch.Tensor, cfg, wkv_state=None,
+                      sc=lambda x, ax: x):
     """Prefill.  x (B, T, d).  Returns (y, decode-ready state dict)."""
     xn = layers.rms_norm(x, p["ln1"] - 1.0, cfg.norm_eps)
     xs = _token_shift(xn, None)
-    att, s_fin, _ = _rwkv_time_mix(p, xn, xs, cfg, wkv_state, step=False)
+    att, s_fin, _ = _rwkv_time_mix(p, xn, xs, cfg, wkv_state, step=False,
+                                   sc=sc)
     x = x + att
     xn2 = layers.rms_norm(x, p["ln2"] - 1.0, cfg.norm_eps)
     xs2 = _token_shift(xn2, None)
-    x = x + _rwkv_channel_mix(p, xn2, xs2, cfg)
+    x = x + _rwkv_channel_mix(p, xn2, xs2, cfg, sc=sc)
     state = dict(shift_att=xn[:, -1], shift_ffn=xn2[:, -1], wkv=s_fin)
     if cfg.mnf.enabled:
         # Decode fills this with the per-token fired-event count; prefill
@@ -274,22 +302,23 @@ def _dt_rank(cfg) -> int:
 
 
 def mamba_init(seed: int, cfg, d_inner: int | None = None, *,
-               device) -> dict:
+               device, with_axes: bool = False):
     ssm = cfg.ssm
     d = cfg.d_model
     di = d_inner or ssm.expand * d
     n = ssm.state_dim
-    b = Init(seed, layers.dtype_of(cfg.param_dtype), device)
-    b.dense("w_in", (d, 2 * di))                              # x and z
-    b.dense("conv_w", (ssm.conv_dim, di), scale=0.5)
-    b.zeros("conv_b", (di,))
-    b.dense("w_bcdt", (di, 2 * n + _dt_rank(cfg)))
-    b.dense("w_dt", (_dt_rank(cfg), di), scale=1.0)
-    b.zeros("dt_bias", (di,))
-    b.const("a_log", (di, n),
+    b = Init(seed, layers.dtype_of(cfg.param_dtype), device,
+             with_axes=with_axes)
+    b.dense("w_in", (d, 2 * di), ("embed", "ff"))             # x and z
+    b.dense("conv_w", (ssm.conv_dim, di), (None, "ff"), scale=0.5)
+    b.zeros("conv_b", (di,), ("ff",))
+    b.dense("w_bcdt", (di, 2 * n + _dt_rank(cfg)), ("ff", None))
+    b.dense("w_dt", (_dt_rank(cfg), di), (None, "ff"), scale=1.0)
+    b.zeros("dt_bias", (di,), ("ff",))
+    b.const("a_log", (di, n), ("ff", None),
             torch.log(torch.arange(1, n + 1, dtype=torch.float32)))
-    b.ones("d_skip", (di,))
-    b.dense("w_out", (di, d))
+    b.ones("d_skip", (di,), ("ff",))
+    b.dense("w_out", (di, d), ("ff", "embed"))
     return b.done()
 
 
@@ -302,15 +331,15 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _mamba_bcdt(p, xc, cfg):
     n = cfg.ssm.state_dim
-    bcdt = xc @ p["w_bcdt"].to(xc.dtype)
+    bcdt = layers.mm(xc, p["w_bcdt"].to(xc.dtype))
     bmat = bcdt[..., :n]
     cmat = bcdt[..., n:2 * n]
-    dt = _softplus(bcdt[..., 2 * n:] @ p["w_dt"].to(xc.dtype)
+    dt = _softplus(layers.mm(bcdt[..., 2 * n:], p["w_dt"].to(xc.dtype))
                    + p["dt_bias"].to(xc.dtype))                # (.., di)
     return bmat, cmat, dt
 
 
-def mamba_apply(p, x: torch.Tensor, cfg):
+def mamba_apply(p, x: torch.Tensor, cfg, sc=lambda x, ax: x):
     """Prefill.  x (B, T, d) -> (y (B, T, d), (conv_state, ssm_state)).
 
     The selective scan runs one step at a time in f32 over chunks of
@@ -318,11 +347,19 @@ def mamba_apply(p, x: torch.Tensor, cfg):
     (B10) a chunk, whose final state starts the next chunk: it takes dt,
     x, A, B and C and forms the decay exp(dt A) and increment (dt x) B
     itself (on the card in registers; the plain version on the CPU builds
-    the chunk's (B, C, DI, N) streams at once)."""
+    the chunk's (B, C, DI, N) streams at once).  On DTensors each rank
+    runs the block on its own batch rows (``parallel.sharding.
+    batch_local``): the scan is independent per row, and B10 takes plain
+    tensors."""
+    if isinstance(x, DTensor):
+        from repro_torch.parallel.sharding import batch_local
+        return batch_local(lambda x_, p_: mamba_apply(p_, x_, cfg, sc=sc),
+                           x, p, batched=1)
     ssm = cfg.ssm
     t = x.shape[1]
     cdt = x.dtype
-    xz = x @ p["w_in"].to(cdt)
+    xz = layers.mm(x, p["w_in"].to(cdt))
+    xz = sc(xz, ("batch", None, "ff"))
     xc, z = xz.chunk(2, dim=-1)                              # (B, T, di)
     cw = ssm.conv_dim
     assert cw > 1, "conv width must exceed 1"
@@ -339,11 +376,11 @@ def mamba_apply(p, x: torch.Tensor, cfg):
         sl = slice(c0, min(c0 + ssm.scan_chunk, t))
         y_c, h = mamba_scan_fused(dt[:, sl], xs[:, sl], a, bmat[:, sl],
                                   cmat[:, sl], h)
-        ys.append(y_c)
+        ys.append(sc(y_c, ("batch", None, "ff")))
     y = torch.cat(ys, dim=1)                                 # (B, T, di) f32
     y = y + p["d_skip"].float() * xs.float()
     y = y.to(cdt) * F.silu(z)
-    out = y @ p["w_out"].to(cdt)
+    out = layers.mm(y, p["w_out"].to(cdt))
     conv_state = xpad[:, -(cw - 1):, :]                      # last cw-1 inputs
     return out, (conv_state, h)
 
@@ -360,7 +397,14 @@ def mamba_step(p, x: torch.Tensor, cfg, state):
     count (0-d f32, zero with MNF off).  The dense path calls the plain
     step (``kernels.mamba_step.ref.mamba_step_ref``) that the gated
     backends run, so at threshold 0 the two agree bit for bit on the
-    CPU."""
+    CPU.  On DTensors (a sharded serve step) every rank runs the step on
+    the whole tensors (``parallel.sharding.replicated_call``): the
+    kernel (B8) takes plain tensors, and the event count is the whole
+    batch's."""
+    if isinstance(x, DTensor):
+        from repro_torch.parallel.sharding import replicated_call
+        return replicated_call(
+            lambda p_, x_, st_: mamba_step(p_, x_, cfg, st_), p, x, state)
     from repro_torch.kernels.mamba_step.ref import mamba_step_ref
     conv_state, h = state
     cdt = x.dtype

@@ -18,9 +18,16 @@ its ``init_params(...)[0]`` tree as numpy arrays).  A Python loop over the
 layers stands in for ``lax.scan``, with each layer's attention window
 (``cfg.window_for_layer``), each layer's params ``unbind`` views of the
 stacks (autograd stacks their gradients back in one op a leaf).
-Explicit expert parallelism (``moe_ep``) raises and names its ROADMAP.md
-item.  Entry points run on the card unless the caller passes
-``device="cpu"``.
+Entry points run on the card unless the caller passes ``device="cpu"``.
+
+Sharding: every entry point takes ``sc(x, logical_axes)``, called at the
+JAX package's points (``parallel.sharding.make_sharder`` redistributes a
+DTensor to the placements the axes resolve to on a mesh); the identity
+:data:`_id_sc` by default, and then nothing computed changes.
+:func:`param_axes` and :func:`cache_axes` give every param and cache
+leaf its logical axes.  A ``moe_ep`` config's MoE layers run
+``moe.moe_apply_ep`` (expert parallelism on a mesh, ``moe_apply`` off
+one).
 
 Training: :func:`lm_loss` is the chunked softmax cross-entropy of the JAX
 package, with the MoE auxiliary loss the forward sums.  Under autograd
@@ -33,6 +40,8 @@ gradients land on the param-dtype leaves.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -44,10 +53,15 @@ from repro_torch.models import attention, hymba, layers, moe, ssm
 from repro_torch.models.param_utils import (Init, fold_in, stack_layer_params,
                                            tree_leaves, tree_map)
 
-__all__ = ["active_params", "cache_specs", "compute_params", "copy_cache",
-           "count_params", "decode_step", "forward", "init_cache",
-           "init_compute_params", "init_params", "input_specs", "lm_loss",
-           "params_from_numpy", "prefill", "unembed_logits"]
+__all__ = ["Sharder", "active_params", "cache_axes", "cache_specs",
+           "compute_params", "copy_cache", "count_params", "decode_step",
+           "forward", "init_cache", "init_compute_params", "init_params",
+           "input_specs", "lm_loss", "param_axes", "params_from_numpy",
+           "prefill", "unembed_logits"]
+
+#: ``sc(x, logical_axes) -> x``: an activation sharding constraint.
+Sharder = Callable[[torch.Tensor, tuple], torch.Tensor]
+_id_sc: Sharder = lambda x, ax: x
 
 
 #: Block types the port serves.
@@ -55,17 +69,11 @@ PORTED_BLOCKS = ("rwkv6", "hymba", "attn")
 
 
 def _check_block(cfg) -> None:
-    """Raise for what the port does not serve yet, naming the ROADMAP.md
-    item that brings it."""
+    """Raise for a block type the port does not serve."""
     if cfg.block_type not in PORTED_BLOCKS:
         raise NotImplementedError(
             f"{cfg.name}: block_type {cfg.block_type!r} is not ported to "
             f"repro_torch")
-    if cfg.moe_ep:
-        raise NotImplementedError(
-            f"{cfg.name}: moe_ep (expert parallelism over a mesh) is not "
-            f"ported to repro_torch; see ROADMAP.md queue A item 13 (parallel "
-            f"and runtime)")
 
 
 def copy_cache(dst, src) -> None:
@@ -113,44 +121,50 @@ def _stacks(cfg) -> list:
 # ---------------------------------------------------------------------------
 
 def _layer_init(seed: int, cfg, device, *, moe_layer: bool,
-                cross_attn: bool = False) -> dict:
+                cross_attn: bool = False, with_axes: bool = False):
     """One decoder layer's params (with ``cross_attn``, an encoder-decoder's
     cross-attention ``cross`` and its norm ``ln_cross``)."""
     if cfg.block_type == "rwkv6":
-        return ssm.rwkv6_block_init(seed, cfg, device)
+        return ssm.rwkv6_block_init(seed, cfg, device, with_axes=with_axes)
     d = cfg.d_model
-    b = Init(seed, layers.dtype_of(cfg.param_dtype), device)
-    b.ones("ln_attn", (d,))
+    b = Init(seed, layers.dtype_of(cfg.param_dtype), device,
+             with_axes=with_axes)
+    b.ones("ln_attn", (d,), ("embed",))
     if cfg.block_type == "hymba":
-        mix = hymba.hymba_block_init(fold_in(seed, 1), cfg, device)
+        mix = hymba.hymba_block_init
     elif cfg.mla is not None:
-        mix = attention.mla_init(fold_in(seed, 1), cfg, device)
+        mix = attention.mla_init
     else:
-        mix = attention.attn_init(fold_in(seed, 1), cfg, device)
-    b.params["mix"] = mix
+        mix = attention.attn_init
+    b.sub("mix", mix(fold_in(seed, 1), cfg, device, with_axes=True))
     if cross_attn:
-        b.params["cross"] = attention.attn_init(fold_in(seed, 2), cfg, device)
-        b.ones("ln_cross", (d,))
-    b.ones("ln_mlp", (d,))
+        b.sub("cross", attention.attn_init(fold_in(seed, 2), cfg, device,
+                                           with_axes=True))
+        b.ones("ln_cross", (d,), ("embed",))
+    b.ones("ln_mlp", (d,), ("embed",))
     if cfg.post_block_norm:
-        b.ones("ln_attn_post", (d,))
-        b.ones("ln_mlp_post", (d,))
+        b.ones("ln_attn_post", (d,), ("embed",))
+        b.ones("ln_mlp_post", (d,), ("embed",))
     if moe_layer:
-        b.params["ffn"] = moe.moe_init(fold_in(seed, 3), cfg, device)
+        b.sub("ffn", moe.moe_init(fold_in(seed, 3), cfg, device,
+                                  with_axes=True))
     else:
         d_ff = (cfg.moe.dense_ff or cfg.d_ff) if cfg.moe else cfg.d_ff
-        b.params["ffn"] = layers.mlp_init(fold_in(seed, 4), cfg, d_ff=d_ff,
-                                          device=device)
+        b.sub("ffn", layers.mlp_init(fold_in(seed, 4), cfg, d_ff=d_ff,
+                                     device=device, with_axes=True))
     return b.done()
 
 
-def _enc_layer_init(seed: int, cfg, device) -> dict:
+def _enc_layer_init(seed: int, cfg, device, *, with_axes: bool = False):
     """One encoder layer's params: non-causal self-attention and an MLP."""
-    b = Init(seed, layers.dtype_of(cfg.param_dtype), device)
-    b.ones("ln_attn", (cfg.d_model,))
-    b.params["mix"] = attention.attn_init(fold_in(seed, 1), cfg, device)
-    b.ones("ln_mlp", (cfg.d_model,))
-    b.params["ffn"] = layers.mlp_init(fold_in(seed, 2), cfg, device=device)
+    b = Init(seed, layers.dtype_of(cfg.param_dtype), device,
+             with_axes=with_axes)
+    b.ones("ln_attn", (cfg.d_model,), ("embed",))
+    b.sub("mix", attention.attn_init(fold_in(seed, 1), cfg, device,
+                                     with_axes=True))
+    b.ones("ln_mlp", (cfg.d_model,), ("embed",))
+    b.sub("ffn", layers.mlp_init(fold_in(seed, 2), cfg, device=device,
+                                 with_axes=True))
     return b.done()
 
 
@@ -186,6 +200,26 @@ def init_params(seed: int, cfg, device=None) -> dict:
     """Random params from ``seed`` in ``cfg.param_dtype`` on ``device``
     (on the ``meta`` device: shapes and dtypes only)."""
     return _init_tree(seed, cfg, _device(device), lambda tree: tree)
+
+
+def param_axes(cfg) -> dict:
+    """The logical axes of every param leaf: a tree of the keys of
+    :func:`init_params`' tree, each leaf the tuple of axis names the JAX
+    package's ``init_params(key, cfg)[1]`` has there (the stacks' leaves
+    with ``"layers"`` first)."""
+    _check_block(cfg)
+    stacked = lambda axes: tree_map(lambda ax: ("layers",) + ax, axes)
+    out = dict(embed=layers.embed_init(0, cfg, "meta", with_axes=True)[1],
+               final_norm=("embed",))
+    for part, key, _, _, moe_layer in _stacks(cfg):
+        out[key] = stacked(_layer_init(
+            0, cfg, "meta", moe_layer=moe_layer, with_axes=True,
+            cross_attn=cfg.encoder_decoder and part == "scan")[1])
+    if cfg.encoder_decoder:
+        out["encoder"] = stacked(_enc_layer_init(0, cfg, "meta",
+                                                 with_axes=True)[1])
+        out["enc_final_norm"] = ("embed",)
+    return out
 
 
 def _cast_leaves(cfg) -> frozenset:
@@ -281,7 +315,7 @@ def active_params(cfg) -> int:
 
 def _apply_layer(p, x, *, cfg, positions, window, cache=None,
                  decode_pos=None, in_place=False, moe_layer=False,
-                 enc_kv=None):
+                 enc_kv=None, sc: Sharder = _id_sc):
     """Returns (x, new_cache, aux).  A one-token input with a cache takes
     the recurrent blocks' decode branch (a prompt of length 1 too); longer
     inputs prefill from a zero state.  ``aux`` is an MoE layer's
@@ -295,8 +329,9 @@ def _apply_layer(p, x, *, cfg, positions, window, cache=None,
         if cache is not None and x.shape[1] == 1:
             x, new_cache = ssm.rwkv6_block_decode(p, x, cfg, cache)
         else:
-            x, new_cache = ssm.rwkv6_block_apply(p, x, cfg)
-        return x, None if train_mode else new_cache, 0.0
+            x, new_cache = ssm.rwkv6_block_apply(p, x, cfg, sc=sc)
+        return (sc(x, ("batch", "seq", None)),
+                None if train_mode else new_cache, 0.0)
     h = layers.rms_norm(x, p["ln_attn"] - 1.0, cfg.norm_eps)
     if cfg.block_type == "hymba":
         mix = hymba.hymba_block_apply
@@ -306,10 +341,11 @@ def _apply_layer(p, x, *, cfg, positions, window, cache=None,
         mix = attention.attn_apply
     a, new_cache = mix(p["mix"], h, cfg=cfg, positions=positions,
                        window=window, cache=cache, decode_pos=decode_pos,
-                       in_place=in_place)
+                       in_place=in_place, sc=sc)
     if cfg.post_block_norm:
         a = layers.rms_norm(a, p["ln_attn_post"] - 1.0, cfg.norm_eps)
     x = x + a
+    x = sc(x, ("batch", "seq", None))
     if "cross" in p:
         hc = layers.rms_norm(x, p["ln_cross"] - 1.0, cfg.norm_eps)
         if enc_kv is None:
@@ -320,7 +356,7 @@ def _apply_layer(p, x, *, cfg, positions, window, cache=None,
             kv = enc_kv
         c, _ = attention.attn_apply(p["cross"], hc, cfg=cfg,
                                     positions=positions, window=GLOBAL_WINDOW,
-                                    causal=False, kv_override=kv)
+                                    causal=False, kv_override=kv, sc=sc)
         x = x + c
         if not train_mode:
             if enc_kv is not None:
@@ -333,14 +369,16 @@ def _apply_layer(p, x, *, cfg, positions, window, cache=None,
     h2 = layers.rms_norm(x, p["ln_mlp"] - 1.0, cfg.norm_eps)
     aux = 0.0
     if moe_layer:
-        f, moe_aux = moe.moe_apply(p["ffn"], h2, cfg)
+        moe_fn = moe.moe_apply_ep if cfg.moe_ep else moe.moe_apply
+        f, moe_aux = moe_fn(p["ffn"], h2, cfg, sc=sc)
         aux = moe_aux["load_balance_loss"]
     else:
-        f = layers.mlp_apply(p["ffn"], h2, cfg)
+        f = layers.mlp_apply(p["ffn"], h2, cfg, sc=sc)
     if cfg.post_block_norm:
         f = layers.rms_norm(f, p["ln_mlp_post"] - 1.0, cfg.norm_eps)
     x = x + f
-    return x, None if train_mode else new_cache, aux
+    return sc(x, ("batch", "seq", None)), \
+        None if train_mode else new_cache, aux
 
 
 #: The ops whose outputs "dots" saves: the products without batch dims
@@ -396,7 +434,8 @@ def _sinusoids(f: int, d: int, device) -> torch.Tensor:
                       torch.cos(pos[:, None] * freqs)], dim=-1)
 
 
-def _encode_audio(params, frames: torch.Tensor, cfg) -> torch.Tensor:
+def _encode_audio(params, frames: torch.Tensor, cfg,
+                  sc: Sharder = _id_sc) -> torch.Tensor:
     """frames (B, F, d): precomputed frame embeddings (the conv front end
     is a stub, as in the JAX package).  Sinusoidal positions are added,
     then each encoder layer runs non-causal self-attention with RoPE and
@@ -409,10 +448,11 @@ def _encode_audio(params, frames: torch.Tensor, cfg) -> torch.Tensor:
         h = layers.rms_norm(x, p_l["ln_attn"] - 1.0, cfg.norm_eps)
         a, _ = attention.attn_apply(p_l["mix"], h, cfg=cfg,
                                     positions=positions, window=GLOBAL_WINDOW,
-                                    causal=False)
+                                    causal=False, sc=sc)
         x = x + a
         h2 = layers.rms_norm(x, p_l["ln_mlp"] - 1.0, cfg.norm_eps)
-        return x + layers.mlp_apply(p_l["ffn"], h2, cfg)
+        return sc(x + layers.mlp_apply(p_l["ffn"], h2, cfg, sc=sc),
+                  ("batch", "seq", None))
 
     for p_l in _unstack(params["encoder"], cfg.enc_layers):
         x = _remat(layer, cfg, p_l, x)
@@ -426,10 +466,10 @@ def _cross_kv(params, enc_out: torch.Tensor, cfg) -> tuple:
     cross = params["layers"]["cross"]
     ks, vs = [], []
     for i in range(cross["wk"].shape[0]):
-        ks.append((enc_out @ cross["wk"][i].to(enc_out.dtype)).reshape(
-            b, f, cfg.num_kv_heads, cfg.head_dim))
-        vs.append((enc_out @ cross["wv"][i].to(enc_out.dtype)).reshape(
-            b, f, cfg.num_kv_heads, cfg.head_dim))
+        ks.append(layers.mm(enc_out, cross["wk"][i].to(enc_out.dtype))
+                  .reshape(b, f, cfg.num_kv_heads, cfg.head_dim))
+        vs.append(layers.mm(enc_out, cross["wv"][i].to(enc_out.dtype))
+                  .reshape(b, f, cfg.num_kv_heads, cfg.head_dim))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -454,7 +494,7 @@ def _embed(params, tokens: torch.Tensor, cfg, vision_embeds):
 
 def forward(params, tokens: torch.Tensor, cfg, *, cache=None,
             decode_pos=None, in_place: bool = False, audio_frames=None,
-            vision_embeds=None):
+            vision_embeds=None, sc: Sharder = _id_sc):
     """tokens (B, S) -> (hidden (B, S, d), new_cache).  ``decode_pos``:
     an int or a 0-d integer tensor (a CUDA graph's step reads it on the
     device).  The new cache is stacked from the layers' new leaves (the
@@ -478,20 +518,20 @@ def forward(params, tokens: torch.Tensor, cfg, *, cache=None,
     x, new_cache, _ = _forward(params, tokens, cfg, cache=cache,
                                decode_pos=decode_pos, in_place=in_place,
                                audio_frames=audio_frames,
-                               vision_embeds=vision_embeds)
+                               vision_embeds=vision_embeds, sc=sc)
     return x, new_cache
 
 
 def _forward(params, tokens: torch.Tensor, cfg, *, cache=None,
              decode_pos=None, in_place: bool = False, audio_frames=None,
-             vision_embeds=None):
+             vision_embeds=None, sc: Sharder = _id_sc):
     """:func:`forward`, and the sum of the MoE layers' load-balance losses
     (0-d f32; 0.0 for an arch without MoE): (hidden, new_cache, aux)."""
     _check_block(cfg)
     if in_place and cache is None:
         raise ValueError("an in-place step needs the cache it writes")
     s = tokens.shape[1]
-    x = _embed(params, tokens, cfg, vision_embeds)
+    x = sc(_embed(params, tokens, cfg, vision_embeds), ("batch", "seq", None))
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     if decode_pos is not None:
         positions = positions + decode_pos
@@ -499,7 +539,7 @@ def _forward(params, tokens: torch.Tensor, cfg, *, cache=None,
     if cfg.encoder_decoder:
         if audio_frames is not None:
             ks, vs = _cross_kv(params, _encode_audio(
-                params, audio_frames.to(x.dtype), cfg), cfg)
+                params, audio_frames.to(x.dtype), cfg, sc), cfg)
             enc_kv = list(zip(ks.unbind(0), vs.unbind(0)))
         elif cache is None:
             raise ValueError(f"{cfg.name} is an encoder-decoder: a forward "
@@ -515,7 +555,7 @@ def _forward(params, tokens: torch.Tensor, cfg, *, cache=None,
             kw = dict(cfg=cfg, positions=positions,
                       window=cfg.window_for_layer(first + i), cache=c_l,
                       decode_pos=decode_pos, in_place=in_place,
-                      moe_layer=moe_layer,
+                      moe_layer=moe_layer, sc=sc,
                       enc_kv=None if enc_kv is None else enc_kv[i])
             if train_mode and part == "scan":
                 # the uniform stack: the JAX package's checkpointed scan
@@ -541,22 +581,38 @@ def _forward(params, tokens: torch.Tensor, cfg, *, cache=None,
     return x, new_cache, aux
 
 
-def _xent_chunk(hc: torch.Tensor, tc: torch.Tensor, w: torch.Tensor, cfg):
+def _label_logits(logits: torch.Tensor, tc: torch.Tensor) -> torch.Tensor:
+    """Each row's logit at its label.  DTensor has no rule for a gather
+    along a sharded dim, so logits sharded over the vocabulary are
+    gathered whole on that dim first (an all-gather of the chunk's
+    logits)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if isinstance(logits, DTensor):
+        last = logits.ndim - 1
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if isinstance(pl, Shard) and pl.dim == last else pl
+            for pl in logits.placements])
+    return logits.gather(-1, tc.clamp(min=0).long()[..., None])[..., 0]
+
+
+def _xent_chunk(hc: torch.Tensor, tc: torch.Tensor, w: torch.Tensor, cfg,
+                sc: Sharder = _id_sc):
     """One chunk's summed cross-entropy and its count of labels: f32
     logits of ``hc`` against the unembedding ``w``, softcapped where the
     config says; labels below 0 are left out."""
-    logits = hc.float() @ w.float()
+    logits = layers.mm(hc.float(), w.float())
+    logits = sc(logits, ("batch", None, "vocab"))
     if cfg.final_logit_softcap:
         logits = cfg.final_logit_softcap * torch.tanh(
             logits / cfg.final_logit_softcap)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, tc.clamp(min=0).long()[..., None])[..., 0]
+    ll = _label_logits(logits, tc)
     valid = tc >= 0
     loss = torch.where(valid, lse - ll, 0.0)
     return loss.sum(), valid.sum()
 
 
-def lm_loss(params, batch: dict, cfg) -> torch.Tensor:
+def lm_loss(params, batch: dict, cfg, *, sc: Sharder = _id_sc) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` (``tokens`` and
     ``labels`` (B, S), a label of -1 left out; a vision config's
     ``vision_embeds``, an encoder-decoder's ``audio_frames``): the logits
@@ -565,7 +621,7 @@ def lm_loss(params, batch: dict, cfg) -> torch.Tensor:
     load-balance loss for an MoE config.  A 0-d f32 tensor."""
     h, _, aux = _forward(params, batch["tokens"], cfg,
                          vision_embeds=batch.get("vision_embeds"),
-                         audio_frames=batch.get("audio_frames"))
+                         audio_frames=batch.get("audio_frames"), sc=sc)
     w = layers.unembed_matrix(params["embed"], cfg)
     targets = batch["labels"]
     s = h.shape[1]
@@ -577,7 +633,7 @@ def lm_loss(params, batch: dict, cfg) -> torch.Tensor:
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     n = torch.zeros((), dtype=torch.int64, device=h.device)
     for c0 in range(0, s + pad, chunk):
-        l_c, n_c = _remat(lambda hc, tc, w_: _xent_chunk(hc, tc, w_, cfg),
+        l_c, n_c = _remat(lambda hc, tc, w_: _xent_chunk(hc, tc, w_, cfg, sc),
                           cfg, h[:, c0:c0 + chunk], targets[:, c0:c0 + chunk],
                           w)
         tot, n = tot + l_c, n + n_c
@@ -632,6 +688,38 @@ def cache_specs(cfg, bsz: int, max_len: int) -> dict:
             for part, _, _, n, _ in reversed(_stacks(cfg))}
 
 
+def _layer_cache_axes(cfg) -> dict:
+    """Logical axes of ONE layer's cache (the leaves of
+    :func:`_layer_cache_spec`)."""
+    _check_block(cfg)
+    kv = ("batch", "cache_seq", "kv_heads", None)
+    if cfg.block_type == "attn":
+        if cfg.mla is not None:
+            return dict(c=("batch", "cache_seq", None),
+                        kr=("batch", "cache_seq", None))
+        out = dict(k=kv, v=kv)
+        if cfg.encoder_decoder:
+            cross = ("batch", None, "kv_heads", None)
+            out.update(cross_k=cross, cross_v=cross)
+        return out
+    if cfg.block_type == "rwkv6":
+        out = dict(shift_att=("batch", None), shift_ffn=("batch", None),
+                   wkv=("batch", "heads", None, None))
+    else:
+        out = dict(attn=dict(k=kv, v=kv), conv=("batch", None, "ff"),
+                   ssm=("batch", "ff", None))
+    if cfg.mnf.enabled:
+        out["events"] = ()                       # a scalar: replicated
+    return out
+
+
+def cache_axes(cfg) -> dict:
+    """Logical axes of the full decode cache (:func:`cache_specs`' keys),
+    each leaf with ``"layers"`` first."""
+    one = tree_map(lambda ax: ("layers",) + ax, _layer_cache_axes(cfg))
+    return {part: one for part, _, _, _, _ in reversed(_stacks(cfg))}
+
+
 def init_cache(cfg, bsz: int, max_len: int, device=None) -> dict:
     dev = _device(device)
     return tree_map(lambda sd: torch.zeros(sd[0], dtype=sd[1], device=dev),
@@ -643,7 +731,7 @@ def unembed_logits(params, h: torch.Tensor, cfg) -> torch.Tensor:
     the compute-dtype unembedding's values, softcapped where the config
     says (``cfg.final_logit_softcap``)."""
     w = layers.unembed_matrix(params["embed"], cfg)
-    logits = h.float() @ w.float()
+    logits = layers.mm(h.float(), w.float())
     if cfg.final_logit_softcap:
         logits = cfg.final_logit_softcap * torch.tanh(
             logits / cfg.final_logit_softcap)
@@ -651,7 +739,7 @@ def unembed_logits(params, h: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def decode_step(params, cache, tokens: torch.Tensor, decode_pos, cfg, *,
-                in_place: bool = False):
+                in_place: bool = False, sc: Sharder = _id_sc):
     """One new token per sequence against a filled cache.  tokens (B, 1);
     ``decode_pos`` an int or a 0-d integer tensor; ``in_place`` as in
     :func:`forward`.  Returns (logits (B, 1, V) f32, new_cache).  It
@@ -659,25 +747,28 @@ def decode_step(params, cache, tokens: torch.Tensor, decode_pos, cfg, *,
     them): an encoder-decoder's step reads the cross K/V that the prefill
     left in the cache, and never runs the encoder."""
     h, new_cache = forward(params, tokens, cfg, cache=cache,
-                           decode_pos=decode_pos, in_place=in_place)
+                           decode_pos=decode_pos, in_place=in_place, sc=sc)
     return unembed_logits(params, h, cfg), new_cache
 
 
 def prefill(params, tokens: torch.Tensor, cfg, *, max_len: int | None = None,
-            audio_frames=None, vision_embeds=None):
+            audio_frames=None, vision_embeds=None, sc: Sharder = _id_sc,
+            cache=None):
     """Run the prompt; returns (last-position logits (B, 1, V), filled
     cache).  An encoder-decoder needs ``audio_frames`` (B, F, d): its
     encoder runs here, once, and the cache keeps each layer's cross K/V;
     a vision config takes ``vision_embeds`` (B, NV, d) for its leading
-    positions."""
+    positions.  ``cache``: the zero cache to fill (one ``max_len`` long is
+    made when None; a sharded step passes one under its placements)."""
     bsz, s = tokens.shape
     if cfg.encoder_decoder and audio_frames is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: its prefill "
                          f"needs audio_frames")
-    cache = init_cache(cfg, bsz, max_len or s, tokens.device)
+    if cache is None:
+        cache = init_cache(cfg, bsz, max_len or s, tokens.device)
     h, new_cache = forward(params, tokens, cfg, cache=cache, decode_pos=0,
                            audio_frames=audio_frames,
-                           vision_embeds=vision_embeds)
+                           vision_embeds=vision_embeds, sc=sc)
     return unembed_logits(params, h[:, -1:], cfg), new_cache
 
 

@@ -1,7 +1,9 @@
-"""The fault-tolerant training loop (port of ``repro.runtime``; the
-elastic re-mesh of ``elastic.py`` belongs to ROADMAP.md queue A item
-13)."""
+"""The fault-tolerant training loop and the elastic re-mesh — port of
+``repro.runtime``."""
+from repro_torch.runtime.elastic import (choose_mesh_shape, elastic_remesh,
+                                         reshard_tree)
 from repro_torch.runtime.fault_tolerance import (LoopConfig, ResilientLoop,
                                                  StragglerDetector)
 
-__all__ = ["LoopConfig", "ResilientLoop", "StragglerDetector"]
+__all__ = ["LoopConfig", "ResilientLoop", "StragglerDetector",
+           "choose_mesh_shape", "elastic_remesh", "reshard_tree"]

@@ -92,21 +92,26 @@ def _no_host_sync(device: torch.device):
 
 class ServeEngine:
     """One serving replica: continuously batched, one captured pipeline a
-    bucket.  Runs on the card unless ``device`` says otherwise."""
+    bucket.  Runs on the card unless ``device`` says otherwise.  With a
+    ``mesh`` (``launch.mesh.make_serve_mesh``; every rank of it runs the
+    engine on the same requests) each bucket that divides the data axes
+    is served batch-parallel over them (``launch.steps.BatchParallel``),
+    the weights replicated."""
 
     def __init__(self, spec, params, cfg: ServeEngineConfig | None = None, *,
-                 engine_cfg=None, device=None):
+                 engine_cfg=None, device=None, mesh=None):
         self.cfg = cfg or ServeEngineConfig()
         self.spec = spec
         self.device = default_device() if device is None \
             else torch.device(device)
+        self.mesh = mesh
         self.engine_cfg = engine_cfg or mnf_engine.EngineConfig()
         self.fire_cfg = FireConfig(threshold=self.engine_cfg.threshold)
         self.plans = {
             b: make_cnn_serve_step(spec, b, mnf=self.cfg.mnf,
                                    engine_cfg=self.engine_cfg,
                                    fire_cfg=self.fire_cfg,
-                                   device=self.device)
+                                   device=self.device, mesh=mesh)
             for b in self.cfg.buckets}
         self.batcher = ContinuousBatcher(self.cfg.buckets)
         # placed once: every bucket's pipeline is bound to these tensors
@@ -284,5 +289,5 @@ class ServeEngine:
             warmup_s=self.warmup_s,
             ttfr_s=round(self.ttfr_s, 4) if self.ttfr_s is not None
             else None,
-            devices=1,
+            devices=1 if self.mesh is None else self.mesh.size(),
             data_shards={b: p.data_shards for b, p in self.plans.items()})

@@ -369,15 +369,23 @@ def test_count_params_equal_jax(arch):
 
 
 def test_every_arch_builds_and_only_moe_ep_raises():
-    """Every architecture of the registry builds its reduced params; of
-    what ``_check_block`` refuses, only ``moe_ep`` (item 13) is left."""
+    """Every architecture of the registry builds its reduced params, and
+    ``_check_block`` refuses none of them: ``moe_ep``, the last refusal,
+    is lifted (``moe.moe_apply_ep``) — its configs build too, and with no
+    mesh the MoE forward of a ``moe_ep`` config is bitwise
+    ``moe_apply``'s."""
     for arch in ARCH_IDS:
         cfg = get_config(arch).reduced()
         ttfm._check_block(cfg)
         ttfm.init_params(0, cfg, "meta")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttfm._check_block(dataclasses.replace(
-            get_config("deepseek-moe-16b").reduced(), moe_ep=True))
+    for arch in ("deepseek-moe-16b", "deepseek-v2-lite-16b"):
+        base = get_config(arch).reduced()
+        cfg = dataclasses.replace(base, moe_ep=True)
+        ttfm._check_block(cfg)
+        params = ttfm.init_params(0, cfg, "cpu")
+        tokens = torch.arange(8).reshape(1, 8) % cfg.vocab_size
+        assert torch.equal(ttfm.forward(params, tokens, cfg)[0],
+                           ttfm.forward(params, tokens, base)[0])
 
 
 # ---------------------------------------------------------------------------

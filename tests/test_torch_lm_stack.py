@@ -24,8 +24,9 @@ through both packages:
   ``init_compute_params`` is bitwise ``compute_params(init_params(...))``;
   ``count_params`` and ``active_params`` equal JAX's for the six full
   configs; whisper-base and phi-3-vision (``tests/test_torch_encdec_vlm.py``
-  holds them against JAX) build through the same stack, ``moe_ep`` raises
-  naming item 13; ``python -m repro_torch.launch.serve --arch <each>
+  holds them against JAX) build through the same stack, a ``moe_ep``
+  config builds and, with no mesh, runs bitwise ``moe_apply``'s forward;
+  ``python -m repro_torch.launch.serve --arch <each>
   --reduced --device cpu`` prints its stats.
 """
 import dataclasses
@@ -510,10 +511,25 @@ def test_encdec_and_vision_archs_build_through_the_stack(arch):
 
 
 def test_moe_ep_raises_naming_item_13():
-    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(),
-                              moe_ep=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttfm.init_params(0, cfg, "cpu")
+    """A ``moe_ep`` config no longer raises: it builds, and with no mesh
+    (plain tensors) its MoE layers fall back to ``moe_apply`` as the JAX
+    package's ``moe_apply_ep`` does, so its forward is bitwise the
+    forward of the same config without ``moe_ep``."""
+    base = get_config("deepseek-moe-16b").reduced()
+    cfg = dataclasses.replace(base, moe_ep=True)
+    params = ttfm.init_params(0, cfg, "cpu")
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12)))
+    h_ep, _ = ttfm.forward(params, tokens, cfg)
+    h, _ = ttfm.forward(params, tokens, base)
+    assert torch.equal(h_ep, h)
+    x = torch.randn((2, 12, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    p_ffn = ttfm.tree_map(lambda t: t[0], params["layers"]["ffn"])
+    y_ep, aux_ep = tmoe.moe_apply_ep(p_ffn, x, cfg)
+    y, aux = tmoe.moe_apply(p_ffn, x, cfg)
+    assert torch.equal(y_ep, y)
+    assert torch.equal(aux_ep["load_balance_loss"], aux["load_balance_loss"])
 
 
 def test_params_from_numpy_checks_keys_and_shapes():
