@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
-8, 6, 7, 9, 10, 11, 12, 13, 14, 3, so that phase 3 can replay what phases 2,
-4, 5, 6 and 7 handed the kernels, phase 8's graphs are freed before phase
-6 loads its model, and each LM's weights before the next LM's):
+8, 6, 7, 9, 10, 11, 12, 13, 14, 3, 15, so that phase 3 can replay what
+phases 2, 4, 5, 6, 7 and 13 handed the kernels, phase 8's graphs are
+freed before phase 6 loads its model, and each LM's weights before the
+next LM's; phase 15's dry runs run in subprocesses on the host's CPU
+while phase 3 times the kernels from CUDA graphs):
 
 1. Probe and build: the card's name and power limit, TF32 off for the dense
-   oracles, the CUDA kernels (B1-B10) built from src/repro_torch/csrc.
+   oracles, the CUDA kernels (B1-B10 and B10's backward) built from
+   src/repro_torch/csrc.
 2. VGG16 at 224x224, full widths, batch 4 (four requests), f32 events.
    He weights from a seeded torch.Generator with weight sparsity 0.5,
    inputs relu(normal).  Every kernel's launch counter is set to 0 just
@@ -244,12 +247,26 @@ Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
    params within 2 lr + 1e-6); a run stopped by SIGTERM through the loop's preemption
    path writes its checkpoint, restored bitwise, and a resumed run
    starts at that step with losses within 5e-3 of the uninterrupted
-   run's; Hymba's train step on the card raises B10's missing-backward
-   error.  Prints the losses, the step's median ms, tokens/s, peak
+   run's.  Prints the losses, the step's median ms, tokens/s, peak
    memory, the idle share from torch.profiler over 3 steps, and the
    roofline row (counted GFLOP and GB, t_compute, t_memory, the
    bottleneck, model GFLOP, useful_ratio, roofline_frac) with the
-   measured share beside it.
+   measured share beside it.  Then Hymba-1.5B trained at full width (32
+   layers, d 1600, Mamba state 16; f32 params, bf16 compute), batch 8 x
+   1024 (two B10 chunks of 512 a layer: the final state's gradient
+   crosses a chunk boundary), 30 steps of AdamW under
+   warmup_cosine(1e-3, 5, 30) through ``launch.train``, counts set to 0
+   just before and read just after: B10's forward (``mamba_scan_fused``)
+   and backward (``mamba_scan_fused_bwd``) launches equal the plan (the
+   30 steps and the counted one, x 32 layers x 2 chunks, the forward
+   twice under remat "full"), every other kernel 0; the loss falls by
+   0.2 as Qwen2's must; the counted FLOPs at least 6·N·D; its first two
+   backward launches kept for phase 3.  One f32 step of a 2-layer Hymba
+   at full width (batch 2 x 1024) through B10's kernels against the same
+   step with B10's plain forward and backward called explicitly: the loss
+   within 1e-4 relative, each leaf's gradient within 1e-4 of its own
+   max|plain|.  Prints Hymba's step ms, tokens/s, peak
+   memory, idle share and counted roofline.
 14. Parallel and runtime (``parallel_phase``) over a one-rank NCCL mesh
    (one H100: NCCL takes no two ranks on one device; multi-rank numerics
    are the CPU tests' over gloo): ``checked_mesh((1, 1))`` starts the
@@ -271,6 +288,16 @@ Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
    bitwise the stage function.  Every main path with the launch counts
    set to 0 just before and read just after; the group destroyed at
    the end.
+15. The dry run (``repro_torch.launch.dryrun``) of two production cells
+   on this machine's torch, qwen2-1.5b and hymba-1.5b ``train_4k`` at
+   16x16 (a fake world of 256 ranks on the meta device: counts, no card
+   time), started in two subprocesses before phase 3 and read after it:
+   each exits 0 and writes a record of status "ok" with a positive
+   collective term; Hymba's record counts B10's forward and backward by
+   their formulas as the plan says (32 layers x 8 chunks, the forward
+   twice).  Prints each record's ``format_row``, its memory, its
+   collectives by kind and by the shapes moved, and its FLOPs by aten
+   op.
 3. Kernel checks: each kernel against its plain PyTorch version on the
    inputs the forwards handed it (B1, B2 and B5 at the shapes of both
    VGG16 and LeNet-300-100), plus the strip convs at stride 4 and 2
@@ -298,8 +325,14 @@ Phases (any failed check exits non-zero; they run in the order 1, 2, 4, 5,
    inputs, bitwise it), B9' also with its inputs cold in L2 and with its
    wrapper, B9' and both B10 entries also at prompt 2000 (one
    layer, beside the eager building of the streams that the fused entry
-   removes); no single PyTorch call computes a recurrent step or scan:
-   their library columns are null.  B1, B2, B3 and both pools also at
+   removes); B10's backward at the two launches phase 13's Hymba step
+   handed it first (the last layer's chunks: h0 given and gh None, h0
+   None and gh carried; bf16 dt, x, B, C) against
+   ``mamba_scan_fused_bwd_ref`` on the same values in f32, every
+   gradient within 1e-4 of max|plain|, timed from a CUDA graph beside
+   its formula's bound, with its launches on phase 13's main path and
+   per step; no single PyTorch call computes a recurrent step or scan
+   or its gradient: their library columns are null.  B1, B2, B3 and both pools also at
    phase 8's bucket-128 launches (B2 at FC1), against the plain version
    as above, timed beside their bound (``serve128`` in their JSON
    entries).  B1, B2 and B4b also at each distinct launch shape of phase
@@ -368,6 +401,10 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
     # B10's fused entry (dt, x, A, B, C in, the streams formed in registers)
     "mamba_scan_fused": ("src/repro_torch/csrc/mamba_scan.cu",
                          "src/repro/kernels/mamba_scan/kernel.py:70"),
+    # B10's backward: no TPU kernel; it takes the place of XLA's gradient
+    # of the scan the JAX train step differentiates
+    "mamba_scan_fused_bwd": ("src/repro_torch/csrc/mamba_scan.cu",
+                             "src/repro/models/ssm.py:364"),
 }
 
 #: Launches per chained forward that the route plan gives (the JAX
@@ -377,22 +414,22 @@ PLAN_F32_VGG = dict(fire_compact=20, event_matmul=57, event_conv=7,
                     event_pool_window=2, event_pool=3, event_matmul_int8=0,
                     event_conv_int8=0, wkv6_step=0, mamba_step=0,
                     wkv6_single=0, wkv6=0, mamba_scan=0,
-                    mamba_scan_fused=0)
+                    mamba_scan_fused=0, mamba_scan_fused_bwd=0)
 PLAN_INT8_VGG = dict(fire_compact=0, event_matmul=0, event_conv=1,
                      event_pool_window=2, event_pool=3, event_matmul_int8=57,
                      event_conv_int8=6, wkv6_step=0, mamba_step=0,
                      wkv6_single=0, wkv6=0, mamba_scan=0,
-                     mamba_scan_fused=0)
+                     mamba_scan_fused=0, mamba_scan_fused_bwd=0)
 PLAN_F32_MLP = dict(fire_compact=2, event_matmul=3, event_conv=0,
                     event_pool_window=0, event_pool=0, event_matmul_int8=0,
                     event_conv_int8=0, wkv6_step=0, mamba_step=0,
                     wkv6_single=0, wkv6=0, mamba_scan=0,
-                    mamba_scan_fused=0)
+                    mamba_scan_fused=0, mamba_scan_fused_bwd=0)
 PLAN_INT8_MLP = dict(fire_compact=0, event_matmul=1, event_conv=0,
                      event_pool_window=0, event_pool=0, event_matmul_int8=2,
                      event_conv_int8=0, wkv6_step=0, mamba_step=0,
                      wkv6_single=0, wkv6=0, mamba_scan=0,
-                     mamba_scan_fused=0)
+                     mamba_scan_fused=0, mamba_scan_fused_bwd=0)
 
 
 #: Phase 12: AlexNet@224 served through the JAX example's buckets, and the
@@ -414,7 +451,7 @@ PLAN_F32_ALEX = dict(fire_compact=10, event_matmul=176, event_conv=0,
                      event_pool_window=0, event_pool=3, event_matmul_int8=0,
                      event_conv_int8=0, wkv6_step=0, mamba_step=0,
                      wkv6_single=0, wkv6=0, mamba_scan=0,
-                     mamba_scan_fused=0)
+                     mamba_scan_fused=0, mamba_scan_fused_bwd=0)
 
 
 class SmokeFailure(Exception):
@@ -1995,6 +2032,63 @@ def lm_kernels(torch, rwkv, hymba, report, close) -> dict:
 
 
 
+def scan_bwd_kernel(torch, hymba, report, close) -> None:
+    """Phase 3 for B10's backward: the two launches phase 13's Hymba step
+    handed it first (the last layer's chunk 1, h0 given and gh None, and
+    chunk 0, h0 None and gh carried back from chunk 1; bf16 dt, x, B and
+    C as the model hands them) through the launcher against
+    ``mamba_scan_fused_bwd_ref`` on the same values in f32, every
+    gradient within 1e-4 of its max|plain|; each timed from a CUDA graph
+    beside its formula's bound; the entry reports chunk 1's, and a step's
+    sum (each kind x the layers)."""
+    from repro_torch.kernels.mamba_scan.kernel import (
+        mamba_scan_fused_bwd_cuda)
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused_bwd_work
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_fused_bwd_ref
+
+    f32 = lambda t: None if t is None else t.float().contiguous()
+    names = ("dt", "x", "A", "B", "C", "h0")
+    rows = []
+    for args, _ in hymba["bwd_caps"]:
+        dt, x, a, bm, cm, h0, gy, gh = args
+        kargs = (dt, x, f32(a), bm, cm, f32(h0), f32(gy), f32(gh))
+        got = mamba_scan_fused_bwd_cuda(*kargs)
+        want = mamba_scan_fused_bwd_ref(dt.float(), x.float(), a, bm.float(),
+                                        cm.float(), h0, gy, gh)
+        errs = {n: close(g, w, f"mamba_scan_fused_bwd d{n}")
+                for n, g, w in zip(names, got, want) if w is not None}
+        check(all((g is None) == (w is None) for g, w in zip(got, want)),
+              "mamba_scan_fused_bwd: dh0 given where h0 is None or missing")
+        rows.append(dict(
+            err=max(errs.values()), errs=errs,
+            ms=graph_ms(torch, lambda: mamba_scan_fused_bwd_cuda(*kargs),
+                        10),
+            plain_ms=cuda_ms(torch, lambda: mamba_scan_fused_bwd_ref(
+                dt, x, a, bm, cm, h0, gy, gh), 1),
+            bound=bound_ms(*mamba_scan_fused_bwd_work(*args)),
+            what=f"dt/x {tuple(dt.shape)} {dt.dtype}, B/C "
+                 f"{tuple(bm.shape)}, h0 {'None' if h0 is None else 'given'}"
+                 f", gh {'None' if gh is None else 'given'}"))
+    layers = hymba["per_step"]["mamba_scan_fused_bwd"] // 2
+    step_ms = layers * sum(r["ms"] for r in rows)
+    first, second = rows
+    for r in rows:
+        print(f"[3] mamba_scan_fused_bwd at {r['what']}: max|d| by "
+              f"gradient {({n: f'{e:.2e}' for n, e in r['errs'].items()})}, "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+    report("mamba_scan_fused_bwd", max(first["err"], second["err"]),
+           first["ms"], first["plain_ms"], None, first["bound"],
+           f" at {first['what']} (phase 13's Hymba-1.5B step, the last "
+           f"layer's second chunk); the first chunk's {second['ms']:.4f} ms"
+           f" (bound {second['bound'][0]:.4f} ms); "
+           f"{hymba['per_step']['mamba_scan_fused_bwd']} launches a step, "
+           f"{step_ms:.3f} ms a step",
+           chunk0_ms=second["ms"], chunk0_bound_ms=second["bound"][0],
+           per_step_launches=hymba["per_step"]["mamba_scan_fused_bwd"],
+           per_step_ms=step_ms)
+
+
 # ---------------------------------------------------------------------------
 # Phase 9: the attention decoder stack (GQA with QKV biases, Gemma-2's
 # softcaps and windows, MLA, the sort-dispatched MoE) through the same
@@ -2954,6 +3048,69 @@ ACCUM_LR, ACCUM_LOSS_TOL, ACCUM_GN_TOL, ACCUM_MU_TOL = 1e-4, 1e-5, 1e-2, 2e-2
 ACCUM_ZERO_GRAD = ("layers/mix/bk",)
 
 
+#: Phase 13's Hymba-1.5B, trained at full width through launch/train.py:
+#: batch 8 x 1024 (two B10 chunks of 512 a layer, so the final state's
+#: gradient crosses a chunk boundary), AdamW under
+#: warmup_cosine(HYMBA_LR, 5, HYMBA_STEPS) on the Markov corpus; the loss
+#: criterion is TRAIN_DROP's.  At this rate batch 2 and 4 fall by 0.097
+#: and 0.191 in 30 steps, batch 8 by 0.273, and at 3e-3 batch 2 rises
+#: (on the card, a shell loop over ``launch.train``: ``for b in 2 4 8; do
+#: python -m repro_torch.launch.train --arch hymba-1.5b --steps 30 --lr
+#: 1e-3 --warmup 5 --batch $b --seq 1024 --log-every 1; done``).
+HYMBA_STEPS, HYMBA_BATCH, HYMBA_SEQ, HYMBA_LR = 30, 8, 1024, 1e-3
+#: The f32 check: a 2-layer Hymba at full width, batch HYMBA_F32_BATCH x
+#: HYMBA_SEQ, one step's loss and gradients through B10's kernels against
+#: the same step with B10's plain forward and backward called explicitly,
+#: each leaf's gradient within this share of its own max|plain| (the
+#: kernels sum in other orders than the plain versions; the leaves only
+#: B10's backward feeds, as a_log and dt_bias, have gradients orders of
+#: magnitude below the tree's largest).
+HYMBA_F32_BATCH, HYMBA_GRAD_TOL = 2, 1e-4
+
+
+def _leaf_names(tree, path=()) -> list:
+    """The '/'-joined key paths of a param tree's tensors, in the order of
+    ``param_utils.tree_leaves``."""
+    import torch
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, path + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, path + (str(i),))]
+    return ["/".join(path)] if isinstance(tree, torch.Tensor) else []
+
+
+def hymba_step_counts(cfg, seq: int, steps: int) -> dict:
+    """B10's launches over ``steps`` train steps of batch rows of ``seq``
+    tokens: each layer runs ceil(seq / scan_chunk) chunks, each one
+    forward launch (again under remat, which recomputes the layer in the
+    backward) and one backward launch."""
+    chunks = cfg.num_layers * -(-seq // cfg.ssm.scan_chunk)
+    again = 1 if cfg.remat == "none" else 2
+    return dict(mamba_scan_fused=steps * chunks * again,
+                mamba_scan_fused_bwd=steps * chunks)
+
+
+class _PlainScan:
+    """Inside the block, B10's Function runs its plain forward and plain
+    backward (``mamba_scan_fused_ref``, ``mamba_scan_fused_bwd_ref``)
+    called explicitly, on the card's tensors: the reference of the f32
+    check."""
+
+    def __init__(self, ops, ref):
+        self.ops, self.ref = ops, ref
+
+    def __enter__(self):
+        self.orig = (self.ops._fused_forward, self.ops.mamba_scan_fused_bwd)
+        self.ops._fused_forward = self.ref.mamba_scan_fused_ref
+        self.ops.mamba_scan_fused_bwd = self.ref.mamba_scan_fused_bwd_ref
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._fused_forward, self.ops.mamba_scan_fused_bwd = self.orig
+
+
 class _SkippedSaves:
     """Stands in for ``checkpoint.save`` inside the block: records the
     steps the loop asks to save and writes nothing (a checkpoint that
@@ -2987,22 +3144,33 @@ def train_phase(torch, engine, wrappers, card) -> dict:
     each leaf's first moments; half the batch shown to fail the gates); a
     run stopped by the loop's preemption path (SIGTERM) writes its
     checkpoint, which a resumed run restores bitwise, and whose losses
-    match the uninterrupted run's; Hymba's train step on the card raises
-    B10's missing-backward error.  The main and the resumed runs' final
-    checkpoints, which nothing reads, are asked for and not written
-    (:class:`_SkippedSaves`); the preempted run's goes to
-    build/smoke_train, removed at the end."""
+    match the uninterrupted run's.  Then Hymba-1.5B at full width (32
+    layers, d 1600, Mamba state 16) through the same driver, batch 8 x
+    1024 (two B10 chunks a layer), ``HYMBA_STEPS`` steps, counts set to 0
+    just before and read just after: B10's forward and backward
+    launches as planned (``hymba_step_counts``), the loss falling by
+    ``TRAIN_DROP``, the counted FLOPs at least 6·N·D, the step ms,
+    tokens/s, peak memory, idle share and roofline printed; its first two
+    backward launches kept for phase 3; and one f32 step of a 2-layer
+    Hymba at full width through B10's kernels against B10's plain
+    forward and backward called explicitly (:class:`_PlainScan`): the
+    loss within ``HYMBA_GRAD_TOL`` relative, each leaf's gradient within
+    it of its own max|plain|.  The main and
+    the resumed runs' final checkpoints, which nothing reads, are asked
+    for and not written (:class:`_SkippedSaves`); the preempted run's
+    goes to build/smoke_train, removed at the end."""
+    import dataclasses
     import os
     import shutil
     import signal
 
     from repro_torch import checkpoint as ckpt
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import TokenStreamConfig, markov_lm_batch
-    from repro_torch.kernels.mamba_scan.ops import B10BackwardMissing
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mamba_scan import ref as scan_ref
     from repro_torch.launch import roofline, train
-    from repro_torch.models.param_utils import tree_leaves
+    from repro_torch.models.param_utils import tree_leaves, tree_map
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -3202,35 +3370,166 @@ def train_phase(torch, engine, wrappers, card) -> dict:
 
     marks.append(("preemption and resume", time.perf_counter()))
 
-    # -- Hymba: B10 has no backward, and training through it raises
-    hcfg = get_config("hymba-1.5b").reduced()
-    hplan = make_train_step(hcfg, ShapeConfig("h", 16, 2, "train"))
-    hp = tfm.init_params(0, hcfg, "cuda")
-    before = wrappers["mamba_scan_fused"].launches
-    try:
-        hplan.fn(hp, adamw_init(hp), markov_lm_batch(TokenStreamConfig(
-            vocab_size=hcfg.vocab_size, seq_len=16, global_batch=2), 0,
-            device="cuda"))
-        raised = None
-    except B10BackwardMissing as exc:
-        raised = str(exc)
-    check(raised is not None and "item 18" in raised
-          and wrappers["mamba_scan_fused"].launches == before,
-          f"[13] Hymba's train step on the card did not raise B10's "
-          f"missing-backward error ({raised})")
-    print(f"[13] Hymba (reduced) train step on the card raised: {raised}",
+    # -- Hymba-1.5B at full width through launch/train.py: B10's forward
+    # and backward kernels on the main path, counts 0 before, read after;
+    # the first two backward launches (the last layer's chunks 1 and 0)
+    # kept for phase 3
+    hargs = train.parse_args([
+        "--arch", "hymba-1.5b", "--steps", str(HYMBA_STEPS), "--batch",
+        str(HYMBA_BATCH), "--seq", str(HYMBA_SEQ), "--lr", str(HYMBA_LR),
+        "--warmup", "5", "--ckpt-every", str(HYMBA_STEPS + 1),
+        "--log-every", "5", "--ckpt-dir", str(root / "hymba")])
+    hcfg, hshape, hplan = train.build(hargs)
+    check((hcfg.num_layers, hcfg.d_model, hcfg.ssm.state_dim,
+           hcfg.ssm.scan_chunk, hcfg.param_dtype, hcfg.compute_dtype)
+          == (32, 1600, 16, 512, "float32", "bfloat16"),
+          f"[13] unexpected Hymba config {hcfg}")
+    bwd = wrappers["mamba_scan_fused_bwd"]
+
+    def hymba_run():
+        bwd.capture = FirstCalls(2)
+        return train.train(hargs)
+    with _SkippedSaves(ckpt) as skipped:
+        hrun, _, hl, hcaps, hsecs = drive_counted(
+            torch, engine, wrappers, hymba_run, capture=False)
+    # the loop's steps and the roofline's counted step
+    want = {n: 0 for n in wrappers} | hymba_step_counts(
+        hcfg, HYMBA_SEQ, HYMBA_STEPS + 1)
+    check_plan("[13] Hymba train", hl, want)
+    check(hl == want, f"[13] Hymba: B10 launches {hl}, want {want}")
+    check(skipped.steps == [HYMBA_STEPS], f"[13] Hymba: the loop asked to "
+          f"save steps {skipped.steps}")
+    hlosses = [m["loss"] for m in hrun["log"]]
+    h_params = sum(t.numel() for t in tree_leaves(hrun["state"][0]))
+    print(f"[13] {hcfg.name} at full width ({hcfg.num_layers} layers, d "
+          f"{hcfg.d_model}, Mamba state {hcfg.ssm.state_dim}, "
+          f"{h_params / 1e6:.1f} M params f32, bf16 compute, MNF θ=0), "
+          f"batch {HYMBA_BATCH} x {HYMBA_SEQ} (B10 chunks of "
+          f"{hcfg.ssm.scan_chunk}), {HYMBA_STEPS} steps through "
+          f"launch/train.py in {hsecs:.1f} s: B10 forward "
+          f"{hl['mamba_scan_fused']} and backward "
+          f"{hl['mamba_scan_fused_bwd']} launches, as planned ({HYMBA_STEPS}"
+          f" + 1 counted steps x {hcfg.num_layers} layers x "
+          f"{-(-HYMBA_SEQ // hcfg.ssm.scan_chunk)} chunks, the forward again "
+          f"under remat '{hcfg.remat}')", flush=True)
+    print(f"[13] Hymba losses {[round(x, 4) for x in hlosses]}", flush=True)
+    check(hrun["final_step"] == HYMBA_STEPS and not hrun["preempted"],
+          f"[13] the Hymba run ended at {hrun['final_step']}")
+    check(all(math.isfinite(x) for x in hlosses), "[13] a Hymba loss not "
+          "finite")
+    h5, hl5 = statistics.mean(hlosses[:5]), statistics.mean(hlosses[-5:])
+    check(hl5 < h5 - TRAIN_DROP, f"[13] Hymba's loss fell from {h5:.4f} to "
+          f"{hl5:.4f} (mean of the first and last 5): less than "
+          f"{TRAIN_DROP}")
+    hrep = hrun["report"]
+    h_tok = HYMBA_BATCH * HYMBA_SEQ / (hrun["step_ms"] / 1e3)
+    h6nd = 6.0 * h_params * HYMBA_BATCH * HYMBA_SEQ
+    check(hrep.hlo_gflops * 1e9 >= h6nd, f"[13] Hymba: counted "
+          f"{hrep.hlo_gflops:.1f} GFLOP below 6ND {h6nd / 1e9:.1f}")
+    hstate = hrun["state"]
+    hbatch = markov_lm_batch(TokenStreamConfig(
+        vocab_size=hcfg.vocab_size, seq_len=HYMBA_SEQ,
+        global_batch=HYMBA_BATCH), HYMBA_STEPS, device="cuda")
+    hprof = profile(torch, lambda: hplan.fn(*hstate, hbatch),
+                    "[13] Hymba train step", steps=3, top=6, host_ops=False)
+    print(f"[13] Hymba step {hrun['step_ms']:.3f} ms (median of steps 1-"
+          f"{HYMBA_STEPS - 1}; all ms "
+          f"{[round(m['step_time_s'] * 1e3, 2) for m in hrun['log']]}), "
+          f"{h_tok:.1f} tokens/s, peak memory "
+          f"{hrun['peak_bytes'] / 2**30:.3f} GiB, idle share "
+          f"{hprof['idle']:.3f}; mean loss of the first 5 steps {h5:.4f}, "
+          f"of the last 5 {hl5:.4f} (a drop of {h5 - hl5:.4f}, limit >= "
+          f"{TRAIN_DROP}) (card {card})", flush=True)
+    print(f"[13] roofline of Hymba's train step (counted; B10's launches "
+          f"by their formulas {hrun['cost'].kernels}): "
+          f"{hrep.hlo_gflops:.1f} GFLOP ({hrep.hlo_gflops * 1e9 / h6nd:.2f}"
+          f" x 6ND), {hrep.hlo_gbytes:.2f} GB; t_compute "
+          f"{hrep.t_compute * 1e3:.3f} ms, t_memory "
+          f"{hrep.t_memory * 1e3:.3f} ms [{hrep.bottleneck}]; useful_ratio "
+          f"{hrep.useful_ratio:.4f}, roofline_frac {hrep.roofline_frac:.4f};"
+          f" measured share {hrun['measured_frac']:.4f} (card {card})",
           flush=True)
-    del hp, hplan
+    print(roofline.format_row(hrep), flush=True)
+    hymba = dict(step_ms=hrun["step_ms"], tok_s=h_tok, first5=h5,
+                 last5=hl5, idle=hprof["idle"], report=hrep.to_json(),
+                 peak_gib=hrun["peak_bytes"] / 2**30,
+                 measured_frac=hrun["measured_frac"],
+                 fwd_launches=hl["mamba_scan_fused"],
+                 bwd_launches=hl["mamba_scan_fused_bwd"],
+                 per_step=hymba_step_counts(hcfg, HYMBA_SEQ, 1),
+                 bwd_caps=list(hcaps["mamba_scan_fused_bwd"]),
+                 kernels=hrun["cost"].kernels)
+    check(len(hymba["bwd_caps"]) == 2, "[13] the backward's first launches "
+          "were not kept")
+    del hrun, hstate, hbatch, hplan
     gc.collect()
     torch.cuda.empty_cache()
-    marks.append(("Hymba", time.perf_counter()))
+    marks.append(("Hymba main run", time.perf_counter()))
+
+    # -- the f32 check: a 2-layer Hymba at full width, one step's loss and
+    # gradients through B10's kernels against B10's plain forward and
+    # backward called explicitly
+    fcfg = dataclasses.replace(hcfg, num_layers=2, global_layer_ids=(0,),
+                               compute_dtype="float32")
+    fparams = tfm.init_params(0, fcfg, "cuda")
+    fbatch = markov_lm_batch(TokenStreamConfig(
+        vocab_size=fcfg.vocab_size, seq_len=HYMBA_SEQ,
+        global_batch=HYMBA_F32_BATCH), 0, device="cuda")
+
+    def grads():
+        p = tree_map(lambda t: t.detach().requires_grad_(), fparams)
+        loss = tfm.lm_loss(p, fbatch, fcfg)
+        return loss.detach(), torch.autograd.grad(loss, tree_leaves(p),
+                                                  allow_unused=True)
+    before = {n: w.launches for n, w in wrappers.items()}
+    loss_k, g_k = grads()
+    got = {n: w.launches - before[n] for n, w in wrappers.items()}
+    want = {n: 0 for n in wrappers} | hymba_step_counts(fcfg, HYMBA_SEQ, 1)
+    check(got == want, f"[13] f32 check: launches {got}, want {want}")
+    with _PlainScan(scan_ops, scan_ref):
+        loss_p, g_p = grads()
+    check(all(w.launches - before[n] == got[n]
+              for n, w in wrappers.items()),
+          "[13] the plain step launched a kernel")
+    names = _leaf_names(fparams)
+    check(len(names) == len(g_k), "[13] f32 check: leaf names misaligned")
+    trios = [(n, a, b) for n, a, b in zip(names, g_k, g_p) if b is not None]
+    check(all(a is not None for _, a, _ in trios), "[13] f32 check: a "
+          "leaf the plain step reaches has no gradient through the kernels")
+    tree_max = max(float(b.abs().max()) for _, _, b in trios)
+    # each leaf against its own max|plain|; a leaf whose plain gradient is
+    # 0 against the tree's largest
+    per_leaf = sorted(((float((a - b).abs().max())
+                        / (float(b.abs().max()) or tree_max), n)
+                       for n, a, b in trios), reverse=True)
+    worst, worst_leaf = per_leaf[0]
+    loss_d = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    print(f"[13] f32 2-layer Hymba at full width, batch {HYMBA_F32_BATCH} x "
+          f"{HYMBA_SEQ}: one step through B10's kernels "
+          f"({got['mamba_scan_fused']} forward, "
+          f"{got['mamba_scan_fused_bwd']} backward launches) against B10's "
+          f"plain forward and backward: loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f} (relative "
+          f"{loss_d:.3e}), gradients of {len(trios)} leaves, each max|d| "
+          f"against its own max|plain| (the tree's {tree_max:.3e}): worst "
+          f"{[(n, f'{r:.3e}') for r, n in per_leaf[:3]]} (limit "
+          f"{HYMBA_GRAD_TOL})", flush=True)
+    check(worst <= HYMBA_GRAD_TOL and loss_d <= HYMBA_GRAD_TOL,
+          f"[13] f32 Hymba step through B10's kernels off the plain one "
+          f"(worst leaf {worst_leaf})")
+    hymba.update(f32_grad_ratio=worst, f32_grad_leaf=worst_leaf,
+                 f32_loss_rel=loss_d)
+    del fparams, fbatch, g_k, g_p, trios
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("Hymba f32 check", time.perf_counter()))
     seconds = marks[-1][1] - t_phase
     print(f"[13] phase 13 took {seconds:.1f} s: " + ", ".join(
         f"{name} {t1 - t0:.1f} s" for (_, t0), (name, t1) in zip(
             marks, marks[1:])), flush=True)
     return dict(step_ms=step_ms, tok_s=tok_s, first5=first5, last5=last5,
                 idle=prof["idle"], report=rep.to_json(),
-                measured_frac=measured, seconds=seconds)
+                measured_frac=measured, seconds=seconds, hymba=hymba)
 
 
 # ---------------------------------------------------------------------------
@@ -3549,6 +3848,105 @@ def lp_bytes(d, step) -> int:
     return sum(f.stat().st_size for f in sd.iterdir())
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the dry run of two production cells on this machine's torch,
+# each in a subprocess started before phase 2 (on the host's CPU, the
+# meta device and a fake world of 256 ranks: it needs no card).
+# ---------------------------------------------------------------------------
+
+#: The production cells (arch, shape) of phase 15, at 16x16.
+DRY_CELLS = (("qwen2-1.5b", "train_4k"), ("hymba-1.5b", "train_4k"))
+DRY_DIR = ROOT / "build" / "smoke_dryrun"
+#: Seconds phase 15 waits for a dry run that has not ended by then.
+DRY_TIMEOUT = 300
+
+
+#: Phase 15's processes, which :func:`main` stops if they still run when
+#: the script ends.
+DRY_PROCS: list = []
+
+
+def start_dryruns() -> list:
+    """Start phase 15's dry runs: one ``python -m repro_torch.launch.dryrun``
+    a cell, its output to ``DRY_DIR/<arch>.log``, with no card in sight
+    (``CUDA_VISIBLE_DEVICES`` empty) and one thread.  Returns the
+    processes."""
+    import os
+    import shutil
+    shutil.rmtree(DRY_DIR, ignore_errors=True)
+    DRY_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape in DRY_CELLS:
+        with open(DRY_DIR / f"{arch}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--out-dir", str(DRY_DIR)],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def dry_phase(procs, card) -> dict:
+    """Phase 15, after phase 3: wait for the dry runs and check their
+    records: exit 0,
+    status "ok", 256 chips, a positive collective term; Hymba's B10
+    calls as the plan says (``hymba_step_counts`` at 4096 tokens a row,
+    one step).  Prints each record's ``format_row``, memory, collectives
+    by kind and kernels, its FLOPs by aten op and its largest collectives
+    by the shapes they move.  Its numbers are counts of one device's
+    share, not times on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import RooflineReport, format_row
+
+    t0 = time.perf_counter()
+    out = {}
+    for (arch, shape), proc in zip(DRY_CELLS, procs):
+        try:
+            rc = proc.wait(timeout=DRY_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed at the time limit"
+        log = (DRY_DIR / f"{arch}.log").read_text()
+        check(rc == 0, f"[15] the dry run of {arch} {shape} exited {rc}: "
+              f"{log[-3000:]}")
+        rec = json.loads((DRY_DIR / f"{arch}__{shape}__16x16.json")
+                         .read_text())
+        check(rec["status"] == "ok", f"[15] {arch} {shape}: "
+              f"{rec.get('error')} {rec.get('traceback', '')[-3000:]}")
+        r = rec["roofline"]
+        check(r["chips"] == 256 and r["t_collective"] > 0
+              and r["hlo_gflops"] > 0, f"[15] {arch} {shape}: {r}")
+        print(f"[15] {format_row(RooflineReport(**r))}", flush=True)
+        print(f"[15] {arch} {shape} at 16x16 (the meta device, a fake world "
+              f"of 256 ranks; counts of one device's share, not times on "
+              f"the card): traced in {rec['lower_s']} s; memory "
+              f"{rec['memory']}; collective bytes by kind "
+              f"{rec['collectives']}; kernels by formula {rec['kernels']}",
+              flush=True)
+        top = sorted(rec["collective_shapes"].items(),
+                     key=lambda kv: -kv[1][1])[:8]
+        print(f"[15] {arch} {shape}: FLOPs by aten op "
+              f"{rec['flops_by_op']}; model FLOPs a device "
+              f"{r['model_gflops'] / r['chips']:.3f} GFLOP; the largest "
+              f"collectives by the shapes moved [calls, bytes]: {top}",
+              flush=True)
+        out[arch] = rec
+    want = hymba_step_counts(get_config("hymba-1.5b"), SHAPE_SEQ, 1)
+    got = {n: out["hymba-1.5b"]["kernels"][n][0] for n in want}
+    check(got == want, f"[15] Hymba's dry run counted B10 {got}, want "
+          f"{want}")
+    seconds = time.perf_counter() - t0
+    print(f"[15] phase 15 waited {seconds:.1f} s for its dry runs (started "
+          f"before phase 3; card {card})", flush=True)
+    return dict(records=out, seconds=seconds)
+
+
+#: ``train_4k``'s tokens a row.
+SHAPE_SEQ = 4096
+
+
 def main() -> int:
     try:
         import torch
@@ -3572,6 +3970,11 @@ def main() -> int:
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        for proc in DRY_PROCS:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def run(torch) -> int:
@@ -3630,7 +4033,8 @@ def run(torch) -> int:
                 "wkv6_single": wkv_scan_ops.wkv6_single,
                 "wkv6": wkv_scan_ops.wkv6,
                 "mamba_scan": scan_ops.mamba_scan,
-                "mamba_scan_fused": scan_ops.mamba_scan_fused}
+                "mamba_scan_fused": scan_ops.mamba_scan_fused,
+                "mamba_scan_fused_bwd": scan_ops.mamba_scan_fused_bwd}
 
     def drive(fn, capture=True):
         return drive_counted(torch, engine, wrappers, fn, capture)
@@ -3957,6 +4361,10 @@ def run(torch) -> int:
     # -- 14. parallel and runtime over a one-rank NCCL mesh -----------------
     par = parallel_phase(torch, engine, wrappers, drive, card, spec, params)
 
+    # -- 15. the dry run of two production cells, on the host's CPU while
+    # phase 3 times the kernels from CUDA graphs; read after phase 3 -------
+    DRY_PROCS.extend(start_dryruns())
+
     # -- 3. kernel checks on the captured inputs ------------------------------
     results = []
     # the main paths' counts: captured x replayed (the graphed forwards'
@@ -3969,7 +4377,8 @@ def run(torch) -> int:
                 "wkv6_single": rwkv["wkv6_single_launches"],
                 "wkv6": rwkv["wkv6_launches"],
                 "mamba_scan": hymba["streams_launches"],
-                "mamba_scan_fused": hymba["scan_launches"]}
+                "mamba_scan_fused": hymba["scan_launches"],
+                "mamba_scan_fused_bwd": trained["hymba"]["bwd_launches"]}
 
     def unique(calls):
         """The first captured call of each distinct shape."""
@@ -4429,6 +4838,10 @@ def run(torch) -> int:
         entry["alexnet224"] = dict(shapes=rows, per_forward_ms=total)
 
     long_ms = lm_kernels(torch, rwkv, hymba, report, close)
+    scan_bwd_kernel(torch, trained["hymba"], report, close)
+    entry = next(e for e in results if e["name"] == "mamba_scan_fused")
+    entry["train_launches"] = trained["hymba"]["fwd_launches"]
+    dry = dry_phase(DRY_PROCS, card)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all; warm "
           f"forwards eager (graphed): VGG16 f32 {fwd_ms:.3f} ({fwd_g_ms:.3f})"
@@ -4478,7 +4891,16 @@ def run(torch) -> int:
           f"{trained['step_ms']:.3f} ms, {trained['tok_s']:.1f} tokens/s, "
           f"idle share {trained['idle']:.3f}, measured share "
           f"{trained['measured_frac']:.4f}, roofline_frac "
-          f"{trained['report']['roofline_frac']:.4f}; on a one-rank mesh "
+          f"{trained['report']['roofline_frac']:.4f}; Hymba-1.5B trained "
+          f"(batch {HYMBA_BATCH} x {HYMBA_SEQ}): step "
+          f"{trained['hymba']['step_ms']:.3f} ms, "
+          f"{trained['hymba']['tok_s']:.1f} tokens/s, peak "
+          f"{trained['hymba']['peak_gib']:.2f} GiB, idle share "
+          f"{trained['hymba']['idle']:.3f}; the dry run (phase 15): "
+          + ", ".join(f"{a} coll {r['roofline']['t_collective'] * 1e3:.1f} "
+                      f"ms, {r['roofline']['bytes_per_device'] / 2**30:.1f} "
+                      f"GiB/device" for a, r in dry["records"].items())
+          + f"; on a one-rank mesh "
           f"(phase 14, {par['seconds']:.1f} s): the train step "
           f"{par['step_ms']:.3f} ms against {par['ref_step_ms']:.3f} ms "
           f"unsharded; served (phase 8): "

@@ -7,7 +7,8 @@
 //   h_t = da_t h_{t-1} + dbx_t          (h: (DI, N); h_{-1} = h0, or 0)
 //   y_t = sum_{n<N} h_t[:, n] c_t[n]
 //
-// Two entries share one walk.  mnf_mamba_scan takes the streams da and
+// Two entries share one walk (a third, the fused entry's backward
+// mnf_mamba_scan_fused_bwd, closes the file).  mnf_mamba_scan takes the streams da and
 // dbx, (B, T, DI, N) f32, as the TPU kernel does.  mnf_mamba_scan_fused
 // takes their sources — dt and x (B, T, DI), A (DI, N), B and C (B, T, N),
 // f32 or bf16 (bf16 -> f32 is exact) — and forms each element's streams in
@@ -368,4 +369,239 @@ extern "C" int mnf_mamba_scan_fused(
                      MambaScanSources<float, 4, true>,
                      MambaScanSources<float, 4, false>>(g, wide, h0, y, h_out,
                                                         B, T, DI, N, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The backward of the fused entry: mnf_mamba_scan_fused_bwd.
+//
+// Replaces no TPU kernel: the JAX package trains Hymba by differentiating
+// XLA's associative scan (src/repro/models/ssm.py mamba_apply) and has no
+// backward kernel.  The port's forward is this file's kernel, so its
+// gradient is a kernel too.  With lambda_t the loss's gradient in h_t
+// (kernels/mamba_scan/ref.py mamba_scan_fused_bwd_ref, the specification):
+//
+//   lambda_{T-1} = gh + gy_{T-1} c_{T-1},
+//   lambda_t = gy_t c_t + da_{t+1} lambda_{t+1},
+//   d(dbx_t) = lambda_t,  d(da_t) = lambda_t h_{t-1},  dh0 = da_0 lambda_0;
+//   through da = exp(s), s = dt A:  ds = d(da) da,  d(dt) += sum_n ds A,
+//                                   dA += sum_{b,t} ds dt;
+//   through dbx = u B, u = dt x:    du = sum_n lambda B,  d(dt) += du x,
+//                                   dx = du dt,  dB += sum_d lambda u;
+//   through y_t = sum_n h_t c_t:    dC_t = sum_d gy_t h_t.
+//
+// Three kernels a launch, no host sync and no allocation (the wrapper hands
+// one f32 scratch buffer), so the launch can be captured in a CUDA graph:
+//
+// 1. mnf_mamba_scan_bwd_walk: a thread a state element (b, d, n), a
+//    channel's N lanes side by side in one warp (N a power of two up to
+//    32).  It walks the chunk forward from h0 with the forward kernel's own
+//    operations (each h_t bitwise the forward's) and keeps every h_t in the
+//    scratch ((B, T, DI, N) f32): h_{t-1} is read back, never recomputed by
+//    inverting h_t = da h + dbx, since da can be near 0.  Then it walks
+//    t = T-1 .. 0 carrying lambda, stores each lambda_t in the scratch, and
+//    sums its per-element terms over the channel's lanes with xor shuffles
+//    (fixed order) into d(dt) and dx, which need no other thread; dh0 is
+//    per element; dA's sum over t stays in a register, one partial a batch
+//    row.
+// 2. mnf_mamba_scan_bwd_bc: dB and dC are sums over DI channels, which
+//    other CTAs own.  Per-slice partials instead of atomicAdd, so that two
+//    launches give the same bits: a thread a (b, t, n) and slice of DI
+//    (kSlices slices) sums its channels in order from the stored h_t and
+//    lambda_t.
+// 3. mnf_sum_rows: the partials summed in order (dB and dC over the
+//    slices, dA over the batch rows).
+//
+// A simple kernel, right first: the walk's state traffic is 2 x (B, T,
+// DI, N) f32 written and read back through the scratch, far above the
+// bytes the function needs (its inputs and gradients, which are N times
+// narrower), and its step is bound by latency (expf, shuffles).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kBwdThreads = 256;  // threads a CTA of the walk and the sums
+constexpr int kSlices = 16;       // DI slices of the dB / dC partials
+
+template <typename In>
+__global__ void __launch_bounds__(kBwdThreads) mnf_mamba_scan_bwd_walk(
+    MambaScanSourceArgs<In> g, const float* __restrict__ h0,
+    const float* __restrict__ gy, const float* __restrict__ gh,
+    float* __restrict__ hs, float* __restrict__ lam_s,
+    float* __restrict__ g_dt, float* __restrict__ g_x,
+    float* __restrict__ g_h0, float* __restrict__ g_a_part, int64_t T,
+    int DI, int N, int cpc) {
+  const int tid = threadIdx.x;
+  const int ch = tid / N, n = tid - ch * N;
+  const int d = blockIdx.x * cpc + ch;
+  const int64_t b = blockIdx.y;
+  const bool valid = d < DI;           // a channel's lanes agree
+  const int dc = valid ? d : 0;        // masked channels read channel 0
+  const float a = g.A[(int64_t)dc * N + n];
+  const In* pdt = g.dt + b * g.dt_b + dc;
+  const In* px = g.x + b * g.x_b + dc;
+  const In* pb = g.B + b * g.B_b + n;
+  const In* pc = g.C + b * g.C_b + n;
+  const int64_t step = (int64_t)DI * N;
+  const int64_t elem = (b * T * DI + dc) * N + n;  // (b, 0, d, n)
+  const int64_t state = (b * DI + dc) * N + n;     // (b, d, n)
+
+  // the forward walk, each h_t kept
+  float h = (valid && h0 != nullptr) ? h0[state] : 0.f;
+  const float h_init = h;
+  for (int64_t t = 0; t < T; ++t) {
+    const float dt = widen(pdt[t * g.dt_t]);
+    const float da = expf(__fmul_rn(dt, a));
+    const float dbx = __fmul_rn(__fmul_rn(dt, widen(px[t * g.x_t])),
+                                widen(pb[t * g.B_t]));
+    h = __fadd_rn(__fmul_rn(da, h), dbx);
+    if (valid) hs[elem + t * step] = h;
+  }
+
+  // the reverse walk
+  float lam = (valid && gh != nullptr) ? gh[state] : 0.f;
+  float acc_a = 0.f;
+  for (int64_t t = T - 1; t >= 0; --t) {
+    const float dt = widen(pdt[t * g.dt_t]);
+    const float xv = widen(px[t * g.x_t]);
+    const float bv = widen(pb[t * g.B_t]);
+    const float cv = widen(pc[t * g.C_t]);
+    const float gyv = valid ? gy[(b * T + t) * DI + d] : 0.f;
+    const float h_prev =
+        t == 0 ? h_init : (valid ? hs[elem + (t - 1) * step] : 0.f);
+    const float da = expf(__fmul_rn(dt, a));
+    lam = __fadd_rn(lam, __fmul_rn(gyv, cv));          // lambda_t
+    if (valid) lam_s[elem + t * step] = lam;
+    const float gs = __fmul_rn(__fmul_rn(lam, h_prev), da);
+    acc_a = __fadd_rn(acc_a, __fmul_rn(gs, dt));
+    float s1 = __fmul_rn(gs, a);     // d(dt) through da
+    float s2 = __fmul_rn(lam, bv);   // du through dbx
+    for (int m = N >> 1; m > 0; m >>= 1) {
+      s1 = __fadd_rn(s1, __shfl_xor_sync(0xffffffffu, s1, m));
+      s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, m));
+    }
+    if (valid && n == 0) {
+      const int64_t o = (b * T + t) * DI + d;
+      g_dt[o] = __fadd_rn(s1, __fmul_rn(s2, xv));
+      g_x[o] = __fmul_rn(s2, dt);
+    }
+    lam = __fmul_rn(lam, da);         // carried to step t - 1
+  }
+  if (valid) {
+    if (g_h0 != nullptr) g_h0[state] = lam;
+    g_a_part[state] = acc_a;
+  }
+}
+
+// part_b / part_c (kSlices, B, T, N): slice s of DI summed in order.
+template <typename In>
+__global__ void __launch_bounds__(kBwdThreads) mnf_mamba_scan_bwd_bc(
+    MambaScanSourceArgs<In> g, const float* __restrict__ gy,
+    const float* __restrict__ hs, const float* __restrict__ lam_s,
+    float* __restrict__ part_b, float* __restrict__ part_c, int64_t B,
+    int64_t T, int DI, int N, int per) {
+  const int64_t total = B * T * N;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int s = blockIdx.y;
+  const int n = (int)(i % N);
+  const int64_t bt = i / N;
+  const int64_t t = bt % T, b = bt / T;
+  const In* pdt = g.dt + b * g.dt_b + t * g.dt_t;
+  const In* px = g.x + b * g.x_b + t * g.x_t;
+  const float* pgy = gy + bt * DI;
+  const float* ph = hs + bt * DI * N + n;
+  const float* pl = lam_s + bt * DI * N + n;
+  const int d0 = s * per;
+  const int d1 = d0 + per < DI ? d0 + per : DI;
+  float sb = 0.f, sc = 0.f;
+  for (int d = d0; d < d1; ++d) {
+    const float u = __fmul_rn(widen(pdt[d]), widen(px[d]));
+    sb = __fadd_rn(sb, __fmul_rn(u, pl[(int64_t)d * N]));
+    sc = __fadd_rn(sc, __fmul_rn(pgy[d], ph[(int64_t)d * N]));
+  }
+  part_b[s * total + i] = sb;
+  part_c[s * total + i] = sc;
+}
+
+// out[m] = sum over r < R of part[r M + m], in order.
+__global__ void __launch_bounds__(kBwdThreads) mnf_sum_rows(
+    const float* __restrict__ part, float* __restrict__ out, int R,
+    int64_t M) {
+  const int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  float s = 0.f;
+  for (int r = 0; r < R; ++r) s = __fadd_rn(s, part[r * M + m]);
+  out[m] = s;
+}
+
+unsigned blocks(int64_t n) {
+  return (unsigned)((n + kBwdThreads - 1) / kBwdThreads);
+}
+
+template <typename In>
+int launch_scan_bwd(const MambaScanSourceArgs<In>& g, const float* h0,
+                    const float* gy, const float* gh, float* g_dt,
+                    float* g_x, float* g_a, float* g_b, float* g_c,
+                    float* g_h0, float* scratch, int64_t B, int64_t T,
+                    int64_t DI, int64_t N, cudaStream_t st) {
+  const int64_t elems = B * T * DI * N, btn = B * T * N;
+  float* hs = scratch;
+  float* lam = hs + elems;
+  float* part_a = lam + elems;
+  float* part_b = part_a + B * DI * N;
+  float* part_c = part_b + kSlices * btn;
+  const int cpc = kBwdThreads / (int)N;
+  const dim3 grid((unsigned)((DI + cpc - 1) / cpc), (unsigned)B);
+  mnf_mamba_scan_bwd_walk<In><<<grid, kBwdThreads, 0, st>>>(
+      g, h0, gy, gh, hs, lam, g_dt, g_x, g_h0, part_a, T, (int)DI, (int)N,
+      cpc);
+  const int per = (int)((DI + kSlices - 1) / kSlices);
+  mnf_mamba_scan_bwd_bc<In><<<dim3(blocks(btn), kSlices), kBwdThreads, 0,
+                              st>>>(g, gy, hs, lam, part_b, part_c, B, T,
+                                    (int)DI, (int)N, per);
+  mnf_sum_rows<<<blocks(btn), kBwdThreads, 0, st>>>(part_b, g_b, kSlices,
+                                                    btn);
+  mnf_sum_rows<<<blocks(btn), kBwdThreads, 0, st>>>(part_c, g_c, kSlices,
+                                                    btn);
+  mnf_sum_rows<<<blocks(DI * N), kBwdThreads, 0, st>>>(part_a, g_a, (int)B,
+                                                       DI * N);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The gradients of mnf_mamba_scan_fused.  dt, x, bm, cm, a, h0 as there
+// (h0 null: zeros); gy (B, T, DI) f32; gh (B, DI, N) f32 or null (zeros);
+// N a power of two up to 32.  Writes, all f32: g_dt, g_x (B, T, DI), g_a
+// (DI, N), g_b, g_c (B, T, N), g_h0 (B, DI, N; skipped where null).
+// scratch: 2 B T DI N + B DI N + 2 kSlices B T N floats.
+extern "C" int mnf_mamba_scan_fused_bwd(
+    const void* dt, const void* x, const void* a, const void* bm,
+    const void* cm, const void* h0, const void* gy, const void* gh,
+    void* g_dt, void* g_x, void* g_a, void* g_b, void* g_c, void* g_h0,
+    void* scratch, int64_t B, int64_t T, int64_t DI, int64_t N,
+    int64_t dt_b, int64_t dt_t, int64_t x_b, int64_t x_t, int64_t b_b,
+    int64_t b_t, int64_t c_b, int64_t c_t, int64_t bf16, void* stream) {
+  if (N < 1 || N > 32 || (N & (N - 1)) != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float *h0f = (const float*)h0, *gyf = (const float*)gy,
+              *ghf = (const float*)gh;
+  float *o_dt = (float*)g_dt, *o_x = (float*)g_x, *o_a = (float*)g_a,
+        *o_b = (float*)g_b, *o_c = (float*)g_c, *o_h0 = (float*)g_h0,
+        *sc = (float*)scratch;
+  if (bf16) {
+    using In = __nv_bfloat16;
+    const MambaScanSourceArgs<In> g{(const In*)dt, (const In*)x,
+                                    (const float*)a, (const In*)bm,
+                                    (const In*)cm, dt_b, dt_t, x_b, x_t,
+                                    b_b, b_t, c_b, c_t};
+    return launch_scan_bwd<In>(g, h0f, gyf, ghf, o_dt, o_x, o_a, o_b, o_c,
+                               o_h0, sc, B, T, DI, N, st);
+  }
+  const MambaScanSourceArgs<float> g{(const float*)dt, (const float*)x,
+                                     (const float*)a, (const float*)bm,
+                                     (const float*)cm, dt_b, dt_t, x_b, x_t,
+                                     b_b, b_t, c_b, c_t};
+  return launch_scan_bwd<float>(g, h0f, gyf, ghf, o_dt, o_x, o_a, o_b, o_c,
+                                o_h0, sc, B, T, DI, N, st);
 }

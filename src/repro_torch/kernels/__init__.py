@@ -19,17 +19,32 @@ switched off: a kernel's work reads the same whatever implements it, and
 no counter sees the plain version's aten ops.  A wrapper called by
 another (``event_matmul`` handing int8 codes to ``event_matmul_dequant``)
 counts once, as the outer call.
+
+The wrappers a dry-run cell reaches (``launch.dryrun``: B7, B8, B10's
+fused entry and its backward), handed tensors on the ``meta`` device,
+return empty outputs of their kernel's shapes and dtypes: they launch
+nothing and count no launch, and inside :func:`count_work` they are
+counted by their formulas like any other call (:func:`on_meta`; a
+formula that reads the data, as the gated steps' live slots, counts the
+most the shapes allow).
 """
 from __future__ import annotations
 
 import contextlib
 import functools
 
-__all__ = ["count_launches", "count_work", "kernel_wrapper", "note_launch"]
+__all__ = ["count_launches", "count_work", "kernel_wrapper", "note_launch",
+           "on_meta"]
 
 _SINKS: list[dict] = []
 _WORK_SINKS: list[dict] = []
 _DEPTH = [0]
+
+
+def on_meta(t) -> bool:
+    """Whether ``t`` lies on the ``meta`` device: shapes without data,
+    where a wrapper returns empty outputs and launches nothing."""
+    return t.device.type == "meta"
 
 
 def note_launch(wrapper, args: tuple, kwargs: dict) -> None:

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "mnf_wkv6": [_P] * 8 + [_I] * 17 + [_P],
     "mnf_mamba_scan": [_P] * 6 + [_I] * 4 + [_P],
     "mnf_mamba_scan_fused": [_P] * 8 + [_I] * 13 + [_P],
+    "mnf_mamba_scan_fused_bwd": [_P] * 15 + [_I] * 13 + [_P],
 }
 
 

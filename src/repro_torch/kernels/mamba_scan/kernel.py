@@ -5,7 +5,8 @@ Replaces ``repro.kernels.mamba_scan.kernel.mamba_scan_pallas``.  Takes
 CUDA tensors only; ``ops.py`` holds the counting wrappers.
 :func:`mamba_scan_cuda` scans the streams da and dbx as the TPU kernel
 does; :func:`mamba_scan_fused_cuda` runs the same walk on the streams'
-sources (dt, x, A, B, C), forming da and dbx in registers.
+sources (dt, x, A, B, C), forming da and dbx in registers;
+:func:`mamba_scan_fused_bwd_cuda` gives the fused entry's gradients.
 """
 from __future__ import annotations
 
@@ -13,10 +14,15 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["MAX_N", "mamba_scan_cuda", "mamba_scan_fused_cuda"]
+__all__ = ["BWD_N", "BWD_SLICES", "MAX_N", "mamba_scan_cuda",
+           "mamba_scan_fused_bwd_cuda", "mamba_scan_fused_cuda"]
 
 #: Largest state width: a CTA holds at least one channel's N threads.
 MAX_N = 1024
+#: State widths the backward takes: a channel's lanes in one warp.
+BWD_N = (1, 2, 4, 8, 16, 32)
+#: DI slices of the backward's dB / dC partials (``kSlices`` in the source).
+BWD_SLICES = 16
 
 
 def mamba_scan_cuda(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
@@ -48,15 +54,9 @@ def mamba_scan_cuda(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
     return y, h
 
 
-def mamba_scan_fused_cuda(dt: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
-                          bmat: torch.Tensor, cmat: torch.Tensor,
-                          h0: torch.Tensor | None
-                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(y (B, T, DI), h (B, DI, N)) of the scan of da = exp(dt A), dbx =
-    (dt x) B.  dt, x (B, T, DI) and bmat, cmat (B, T, N), all f32 or all
-    bf16, each with unit stride in its last dimension (a slice along T or
-    of a wider last dimension is taken as it lies); a (DI, N) f32; h0 (B,
-    DI, N) f32 or None (zeros)."""
+def _sources(dt, x, a, bmat, cmat, h0) -> tuple:
+    """Check the fused entry's inputs; returns (b, t, di, n, row strides
+    of dt, x, B and C, bf16 flag)."""
     rows = dict(dt=dt, x=x, bmat=bmat, cmat=cmat)
     for name, t in rows.items():
         if t.device.type != "cuda":
@@ -91,9 +91,61 @@ def mamba_scan_fused_cuda(dt: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"batch {b} > 65535 rows of the launch grid")
     if n > MAX_N:
         raise ValueError(f"state width {n} > {MAX_N} threads of a CTA")
+    strides = [s for m in rows.values() for s in m.stride()[:2]]
+    return b, t, di, n, strides, int(dtype == torch.bfloat16)
+
+
+def mamba_scan_fused_cuda(dt: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
+                          bmat: torch.Tensor, cmat: torch.Tensor,
+                          h0: torch.Tensor | None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, T, DI), h (B, DI, N)) of the scan of da = exp(dt A), dbx =
+    (dt x) B.  dt, x (B, T, DI) and bmat, cmat (B, T, N), all f32 or all
+    bf16, each with unit stride in its last dimension (a slice along T or
+    of a wider last dimension is taken as it lies); a (DI, N) f32; h0 (B,
+    DI, N) f32 or None (zeros)."""
+    b, t, di, n, strides, bf16 = _sources(dt, x, a, bmat, cmat, h0)
     y = torch.empty((b, t, di), dtype=torch.float32, device=dt.device)
     h = torch.empty((b, di, n), dtype=torch.float32, device=dt.device)
-    strides = [s for m in rows.values() for s in m.stride()[:2]]
     build.launch("mnf_mamba_scan_fused", dt, x, a, bmat, cmat, h0, y, h, b,
-                 t, di, n, *strides, int(dtype == torch.bfloat16))
+                 t, di, n, *strides, bf16)
     return y, h
+
+
+def mamba_scan_fused_bwd_cuda(dt: torch.Tensor, x: torch.Tensor,
+                              a: torch.Tensor, bmat: torch.Tensor,
+                              cmat: torch.Tensor, h0: torch.Tensor | None,
+                              gy: torch.Tensor, gh: torch.Tensor | None
+                              ) -> tuple:
+    """The gradients of :func:`mamba_scan_fused_cuda` given gy (B, T, DI)
+    f32 (contiguous) and gh (B, DI, N) f32 or None (zeros): (d dt, d x
+    (B, T, DI), d A (DI, N), d B, d C (B, T, N), d h0 (B, DI, N) or None
+    where h0 is None), all f32.  The inputs as the forward takes them; N
+    one of :data:`BWD_N`.  Allocates its outputs and one f32 scratch
+    buffer (2 B T DI N + B DI N + 2 x 16 B T N floats: the states and
+    lambdas of the chunk, the partial sums); no host sync."""
+    b, t, di, n, strides, bf16 = _sources(dt, x, a, bmat, cmat, h0)
+    if n not in BWD_N:
+        raise ValueError(f"the B10 backward takes a state width in {BWD_N} "
+                         f"(a channel's lanes in one warp), not {n}")
+    build.require_cuda(gy=gy, **({} if gh is None else dict(gh=gh)))
+    if gy.dtype != torch.float32 or gy.shape != (b, t, di) \
+            or (gh is not None and (gh.dtype != torch.float32
+                                    or gh.shape != (b, di, n))):
+        raise ValueError(f"gy {gy.dtype} {tuple(gy.shape)}, gh "
+                         f"{None if gh is None else (gh.dtype, tuple(gh.shape))}"
+                         f" for the scan of ({b}, {t}, {di}) x {n}")
+    f32, dev = torch.float32, dt.device
+    g_dt = torch.empty((b, t, di), dtype=f32, device=dev)
+    g_x = torch.empty((b, t, di), dtype=f32, device=dev)
+    g_a = torch.empty((di, n), dtype=f32, device=dev)
+    g_b = torch.empty((b, t, n), dtype=f32, device=dev)
+    g_c = torch.empty((b, t, n), dtype=f32, device=dev)
+    g_h0 = None if h0 is None else torch.empty((b, di, n), dtype=f32,
+                                               device=dev)
+    scratch = torch.empty(2 * b * t * di * n + b * di * n
+                          + 2 * BWD_SLICES * b * t * n, dtype=f32, device=dev)
+    build.launch("mnf_mamba_scan_fused_bwd", dt, x, a, bmat, cmat, h0, gy,
+                 gh, g_dt, g_x, g_a, g_b, g_c, g_h0, scratch, b, t, di, n,
+                 *strides, bf16)
+    return g_dt, g_x, g_a, g_b, g_c, g_h0

@@ -4,7 +4,8 @@
 replaces ``repro.kernels.mamba_scan.step.mamba_step_events_pallas``: a
 CUDA tensor launches the kernel, which derives the live mask from the
 events itself, and counts it (``kernels.note_launch``): no other op runs;
-a CPU tensor takes the plain version (``ref.py``).  Bound on the card:
+a CPU tensor takes the plain version (``ref.py``); a meta tensor (the
+dry run) gives empty outputs and launches nothing.  Bound on the card:
 bytes (the f32 state and decay read and the state written once per row).
 """
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import events as ev
-from repro_torch.kernels import kernel_wrapper, note_launch
+from repro_torch.kernels import kernel_wrapper, note_launch, on_meta
 from repro_torch.kernels.mamba_step.kernel import mamba_step_cuda
 from repro_torch.kernels.mamba_step.ref import mamba_step_events_ref
 
@@ -28,7 +29,9 @@ def mamba_work(bev: ev.BlockEvents, h: torch.Tensor) -> tuple[int, float]:
     each live block (increment)."""
     b, di, n = h.shape
     _, e, _, bk = bev.values.shape
-    slots = int(bev.counts.clamp(max=e).sum())
+    # on meta tensors (the dry run) every slot counts as live
+    slots = bev.counts.numel() * e if on_meta(bev.counts) \
+        else int(bev.counts.clamp(max=e).sum())
     nbytes = 3 * b * di * n * 4 + 2 * b * n * 4 + b * di * 4 \
         + slots * (bk * 4 + 4) + b * 4
     return nbytes, 3.0 * b * di * n + 2.0 * slots * bk * n
@@ -44,6 +47,9 @@ def mamba_step_events(bev: ev.BlockEvents, da: torch.Tensor,
     bitwise the plain version's, y within f32 summation order."""
     if h.device.type == "cpu":
         return mamba_step_events_ref(bev, da, bmat, cmat, h, blk_k=blk_k)
+    if on_meta(h):
+        return (torch.empty(h.shape[:2], dtype=torch.float32, device="meta"),
+                torch.empty(h.shape, dtype=h.dtype, device="meta"))
     if bev.values.shape[-1] != blk_k:
         raise ValueError(f"events of width {bev.values.shape[-1]} handed "
                          f"with blk_k={blk_k}")

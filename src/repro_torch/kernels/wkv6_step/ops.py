@@ -4,7 +4,8 @@
 replaces ``repro.kernels.wkv6.step.wkv6_step_events_pallas``: a CUDA
 tensor launches the kernel, which derives the live mask from the events
 itself, and counts it (``kernels.note_launch``): no other op runs; a CPU
-tensor takes the plain version (``ref.py``).  Bound on the card: bytes
+tensor takes the plain version (``ref.py``); a meta tensor (the dry run)
+gives empty outputs and launches nothing.  Bound on the card: bytes
 (the f32 state read and written once per row).
 """
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import events as ev
-from repro_torch.kernels import kernel_wrapper, note_launch
+from repro_torch.kernels import kernel_wrapper, note_launch, on_meta
 from repro_torch.kernels.wkv6_step.kernel import wkv6_step_cuda
 from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
 
@@ -28,7 +29,9 @@ def wkv6_work(bev: ev.BlockEvents, r: torch.Tensor) -> tuple[int, float]:
     live block (increment)."""
     g, d = r.shape
     _, e, _, bk = bev.values.shape
-    slots = int(bev.counts.clamp(max=e).sum())
+    # on meta tensors (the dry run) every slot counts as live
+    slots = bev.counts.numel() * e if on_meta(bev.counts) \
+        else int(bev.counts.clamp(max=e).sum())
     nbytes = 2 * g * d * d * 4 + 5 * g * d * 4 + slots * (bk * 4 + 4) \
         + g * 4
     return nbytes, 3.0 * g * d * d + 2.0 * slots * bk * d + 5.0 * g * d
@@ -43,6 +46,9 @@ def wkv6_step_events(bev: ev.BlockEvents, r: torch.Tensor, v: torch.Tensor,
     S' bitwise the plain version's, o within f32 summation order."""
     if r.device.type == "cpu":
         return wkv6_step_events_ref(bev, r, v, w, u, s, blk_k=blk_k)
+    if on_meta(r):
+        return (torch.empty(r.shape, dtype=torch.float32, device="meta"),
+                torch.empty(s.shape, dtype=s.dtype, device="meta"))
     if bev.values.shape[-1] != blk_k:
         raise ValueError(f"events of width {bev.values.shape[-1]} handed "
                          f"with blk_k={blk_k}")

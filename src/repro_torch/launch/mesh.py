@@ -17,9 +17,15 @@ All mesh construction funnels through :func:`checked_mesh`:
     (rank 0 of 1, on a ``file://`` store in a fresh temp directory), so a
     single process needs no launcher.  A larger shape needs a group that
     the caller (or ``torchrun``) started.
+
+:func:`dry_mesh` builds the production meshes with no ranks at all, for
+the dry run (``launch.dryrun``): a fake world (torch's testing backend
+``"fake"``: this process is rank 0, every collective returns at once and
+moves nothing) of the mesh's size, torn down when the block ends.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import tempfile
@@ -27,9 +33,9 @@ import warnings
 
 import torch
 
-__all__ = ["MeshCapacityError", "checked_mesh", "init_world",
+__all__ = ["MeshCapacityError", "checked_mesh", "dry_mesh", "init_world",
            "make_production_mesh", "make_serve_mesh", "make_small_mesh",
-           "world_size"]
+           "production_shape", "world_size"]
 
 
 class MeshCapacityError(RuntimeError):
@@ -105,12 +111,42 @@ def checked_mesh(shape, axes, *, fallback: bool = False, device_type=None):
                       mesh_dim_names=axes)
 
 
+def production_shape(multi_pod: bool = False) -> tuple:
+    """(shape, axes) of the production mesh: 16x16 (data, model) for one
+    pod, 2x16x16 (pod, data, model) for two."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False, device_type=None):
     """16x16 (data, model) single pod; 2x16x16 (pod, data, model) for
     two."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return checked_mesh(shape, axes, device_type=device_type)
+    return checked_mesh(*production_shape(multi_pod),
+                        device_type=device_type)
+
+
+@contextlib.contextmanager
+def dry_mesh(shape, axes):
+    """A ``DeviceMesh`` of ``shape`` over ``axes`` with no ranks behind it:
+    a fake world of ``prod(shape)`` ranks (this process rank 0) started
+    for the block and destroyed after it, so that nothing later in the
+    process sees a world.  The mesh's device type is "cpu" (DTensor's
+    sharding propagation asks the device type for a device count, which
+    "meta" has not); the DTensors of a dry run hold meta tensors.
+    Raises where a process group already exists."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("dry_mesh needs a process with no process group "
+                           "(one exists)")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield checked_mesh(shape, axes, device_type="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def make_small_mesh(shape=(2, 4), axes=("data", "model"), *,

@@ -6,7 +6,9 @@ the JAX package's ``results/dryrun`` is neither read nor written), each
 record ``{"arch", "shape", "mesh", "status", "tag", "roofline": {...}}``
 as the JAX package writes them.  The model-FLOP fields are recomputed
 from the port's configs at the H100's peak (``HW()``), and the summary
-lists the records over the card's memory (``HW().hbm_bytes``)::
+lists the records over the card's memory (``HW().hbm_bytes``); run as a
+script it prints the summary, the dry-run table and a roofline table a
+mesh::
 
     python -m repro_torch.launch.report [tag]
 """
@@ -123,4 +125,6 @@ if __name__ == "__main__":
     import sys
     tag = sys.argv[1] if len(sys.argv) > 1 else ""
     print(json.dumps(summarize(tag), indent=1))
-    print(roofline_markdown(tag))
+    print(dryrun_markdown(tag))
+    for mesh in sorted({r["mesh"] for r in load(tag)}):
+        print(f"\nmesh {mesh}\n{roofline_markdown(tag, mesh)}")

@@ -40,9 +40,13 @@ eagerly on DTensors, every rank of the mesh calling them:
   replicated).  Where DTensor (as of torch 2.11) has no sharding rule,
   the model gathers or runs locally, at these points only, each named
   in its function's docstring: an activation product gathers a
-  sequence-sharded stream first (``layers.mm``); the label pick of the
-  cross-entropy gathers its chunk's vocabulary shards
-  (``transformer._label_logits``); attention, MLA's absorbed decode,
+  sequence-sharded stream first (``layers.mm``); a flat head dim whose
+  shards would split a head is gathered before it is split into heads
+  (``layers.split_heads``: 12 heads of 128 over 16 ranks); the
+  embedding lookup and the cross-entropy's logsumexp and label pick run
+  vocab-parallel, each rank on its own vocabulary shard, joined by
+  all-reduces of the rows' results (``layers.embed_apply``,
+  ``transformer._lse_and_label_logits``); attention, MLA's absorbed decode,
   RWKV6's chunked WKV, the cache writes and Mamba's prefill (B10) run
   on each rank's batch rows (``parallel.sharding.batch_local``);
   Mamba's decode step (B8), RWKV6's gated step (B7) and the MoE of a
@@ -193,17 +197,22 @@ def _mesh_train_step(cfg, shape, mesh, rules, opt, accum_steps) -> CellPlan:
 
 
 def _mesh_prefill_step(cfg, shape, mesh, rules) -> CellPlan:
+    from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import implicit_replication
 
     sc = make_sharder(mesh, rules)
     axes, caxes = tfm.param_axes(cfg), tfm.cache_axes(cfg)
 
     def prefill_step(params, batch):
+        tok = batch["tokens"]
+        # the zero cache on the tokens' device: the mesh's, or "meta" in
+        # the dry run
+        dev = (tok.to_local() if isinstance(tok, DTensor) else tok).device
         params = distribute_tree(params, axes, mesh, rules)
         batch = _place_batch(dict(batch), mesh, rules)
         cache = distribute_tree(
-            tfm.init_cache(cfg, shape.global_batch, shape.seq_len,
-                           mesh.device_type), caxes, mesh, rules)
+            tfm.init_cache(cfg, shape.global_batch, shape.seq_len, dev),
+            caxes, mesh, rules)
         with implicit_replication():
             logits, cache = tfm.prefill(
                 params, batch["tokens"], cfg, max_len=shape.seq_len,

@@ -127,8 +127,13 @@ def build(args):
 
 
 def _state_bytes(state) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_leaves(
-        dict(params=state[0], mu=state[1].mu, nu=state[1].nu)))
+    """Bytes of this rank's params and moments (a DTensor's local
+    shard)."""
+    from torch.distributed.tensor import DTensor
+    return sum(t.numel() * t.element_size() for t in (
+        x.to_local() if isinstance(x, DTensor) else x
+        for x in tree_leaves(dict(params=state[0], mu=state[1].mu,
+                                  nu=state[1].nu))))
 
 
 def train(args) -> dict:
@@ -136,9 +141,10 @@ def train(args) -> dict:
     step's metrics), ``state`` ((params, opt_state) at the end),
     ``report`` (the counted step's ``RooflineReport``), ``cost``,
     ``step_ms`` (the median step after the first), ``measured_frac``,
-    ``peak_bytes`` and ``cfg``.  On a mesh the step is not counted
-    (``report`` and ``cost`` None: the sharded step's roofline is
-    ROADMAP.md queue A item 13b)."""
+    ``peak_bytes`` and ``cfg``.  On a mesh the step is counted on this
+    rank's shards, its collective term from the collectives it issues
+    (``launch.roofline.count_cost``), and the report names the mesh and
+    its size."""
     dev = default_device() if args.device is None else torch.device(
         args.device)
     cfg, shape, plan = build(args)
@@ -176,7 +182,7 @@ def train(args) -> dict:
     dt = time.time() - t0
     mesh = getattr(plan, "mesh", None)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
-        else _state_bytes(state) if mesh is None else None
+        else _state_bytes(state)
 
     log = loop.metrics_log
     losses = [m["loss"] for m in log]
@@ -190,19 +196,22 @@ def train(args) -> dict:
         tokens_per_s=round(len(losses) * args.batch * args.seq / dt, 1))
 
     # the roofline of one more step on the final state (its result is
-    # dropped): counted FLOPs and bytes against the card's peaks
-    report = cost = None
-    if mesh is None:
-        batch = {k: v.to(dev) for k, v in markov_lm_batch(
-            ds_cfg, final_step, device="cpu").items()}
-        _, cost = roofline.count_cost(plan.fn, *state, batch)
-        report = roofline.analyze(args.arch, cfg, shape, "1", 1, cost, peak)
+    # dropped): counted FLOPs, bytes and collective bytes of this rank
+    # against the card's peaks
+    batch = {k: v.to(dev) for k, v in markov_lm_batch(
+        ds_cfg, final_step, device="cpu").items()}
+    _, cost = roofline.count_cost(plan.fn, *state, batch)
+    chips = 1 if mesh is None else mesh.size()
+    mesh_name = "1" if mesh is None else "x".join(
+        str(n) for n in mesh.mesh.shape)
+    report = roofline.analyze(args.arch, cfg, shape, mesh_name, chips, cost,
+                              peak)
     times = [m["step_time_s"] for m in log[1:]] or \
         [m["step_time_s"] for m in log]
     step_s = statistics.median(times) if times else None
-    measured = None if step_s is None or dev.type != "cuda" \
-        or report is None else \
-        report.model_gflops * 1e9 / (step_s * roofline.HW().peak_flops)
+    measured = None if step_s is None or dev.type != "cuda" else \
+        report.model_gflops * 1e9 / (chips * step_s
+                                     * roofline.HW().peak_flops)
     return dict(out, log=log, state=state, report=report, cost=cost,
                 step_ms=None if step_s is None else step_s * 1e3,
                 measured_frac=measured, peak_bytes=peak, cfg=cfg)
@@ -218,12 +227,10 @@ def main(argv=None) -> None:
     print(json.dumps({k: run[k] for k in keys}), flush=True)
     report = run["report"]
     print(json.dumps(dict(
-        roofline=None if report is None else report.to_json(),
-        step_ms=run["step_ms"], measured_frac=run["measured_frac"],
-        kernels=None if report is None else run["cost"].kernels)),
-        flush=True)
-    if report is not None:
-        print(roofline.format_row(report), flush=True)
+        roofline=report.to_json(), step_ms=run["step_ms"],
+        measured_frac=run["measured_frac"], kernels=run["cost"].kernels,
+        collectives=run["cost"].collectives)), flush=True)
+    print(roofline.format_row(report), flush=True)
     for m in run["log"][::max(1, args.log_every)]:
         print(f"  step {int(m['step']):5d} loss {m['loss']:.4f} "
               f"gnorm {m['grad_norm']:.3f} {m['step_time_s']*1e3:8.1f}ms")

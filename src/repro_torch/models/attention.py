@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch.models.layers import apply_rope, dtype_of, mm
+from repro_torch.models.layers import apply_rope, dtype_of, mm, split_heads
 from repro_torch.models.param_utils import Init
 
 __all__ = ["ATTN_WEIGHTS", "MLA_WEIGHTS", "attn_apply", "attn_init",
@@ -177,15 +177,15 @@ def attn_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
     q = mm(x, p["wq"].to(cdt))
     if "bq" in p:
         q = q + p["bq"].to(cdt)
-    q = q.reshape(bsz, s, cfg.num_heads, cfg.head_dim)
+    q = split_heads(q, cfg.num_heads, cfg.head_dim)
     if kv_override is None:
         k = mm(x, p["wk"].to(cdt))
         v = mm(x, p["wv"].to(cdt))
         if "bk" in p:
             k = k + p["bk"].to(cdt)
             v = v + p["bv"].to(cdt)
-        k = k.reshape(bsz, s, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(bsz, s, cfg.num_kv_heads, cfg.head_dim)
+        k = split_heads(k, cfg.num_kv_heads, cfg.head_dim)
+        v = split_heads(v, cfg.num_kv_heads, cfg.head_dim)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     else:
@@ -261,7 +261,7 @@ def mla_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
     qk = m.qk_nope_dim + m.qk_rope_dim
     scale = qk ** -0.5
 
-    q = mm(x, p["wq"].to(cdt)).reshape(bsz, s, h, qk)
+    q = split_heads(mm(x, p["wq"].to(cdt)), h, qk)
     q = sc(q, ("batch", "attn_seq", "heads", None))
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -271,8 +271,8 @@ def mla_apply(p, x: torch.Tensor, *, cfg, positions: torch.Tensor, window,
 
     if cache is None:
         # expanded formulation (train / uncached forward)
-        k_nope = mm(c, p["w_uk"].to(cdt)).reshape(bsz, s, h, m.qk_nope_dim)
-        value = mm(c, p["w_uv"].to(cdt)).reshape(bsz, s, h, m.v_head_dim)
+        k_nope = split_heads(mm(c, p["w_uk"].to(cdt)), h, m.qk_nope_dim)
+        value = split_heads(mm(c, p["w_uv"].to(cdt)), h, m.v_head_dim)
         k_nope = sc(k_nope, ("batch", None, "heads", None))
         value = sc(value, ("batch", None, "heads", None))
         kfull = torch.cat([k_nope, kr[:, :, None, :].expand(

@@ -19,7 +19,7 @@ from repro_torch.models.param_utils import Init
 __all__ = ["MLP_WEIGHTS", "activation_fn", "apply_rope", "dtype_of",
            "embed_apply", "embed_init", "is_glu", "layer_norm",
            "max_pool_nhwc", "mlp_apply", "mlp_init", "mm", "mnf_sparsify",
-           "rms_norm", "unembed_matrix"]
+           "rms_norm", "split_heads", "unembed_matrix"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -28,6 +28,25 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 def dtype_of(name: str) -> torch.dtype:
     """The torch dtype of a config's dtype name ("bfloat16", ...)."""
     return _DTYPES[name]
+
+
+def split_heads(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """``t`` (..., heads * head_dim) as (..., heads, head_dim).  A DTensor
+    whose last dim is sharded over mesh dims that ``heads`` does not
+    divide (the flat width divides them, the head count does not, as 12
+    heads of 128 over 16 ranks) is gathered on that dim first: DTensor
+    cannot unflatten a shard that splits a head.  The caller's ``sc``
+    then places the heads by their own rule."""
+    if isinstance(t, DTensor):
+        last = t.dim() - 1
+        split = [i for i, pl in enumerate(t.placements)
+                 if isinstance(pl, Shard) and pl.dim == last]
+        ways = math.prod(t.device_mesh.mesh.shape[i] for i in split)
+        if heads % ways:
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if i in split else pl
+                for i, pl in enumerate(t.placements)])
+    return t.reshape(*t.shape[:-1], heads, head_dim)
 
 
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -194,13 +213,59 @@ def embed_apply(p: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
     """Embedding rows gathered, then cast to the compute dtype — the same
     bits whether the table is f32 or its compute-dtype copy
     (``index_select``: far less host time than advanced indexing of the
-    (V, d) table; PERF.md §5)."""
+    (V, d) table; PERF.md §5).  On DTensors the lookup is vocab-parallel
+    (:func:`_vocab_parallel_embed`)."""
+    if isinstance(tokens, DTensor):
+        return _vocab_parallel_embed(p["tok"], tokens, cfg)
     cdt = dtype_of(cfg.compute_dtype)
     emb = p["tok"].index_select(0, tokens.reshape(-1)).reshape(
         *tokens.shape, -1).to(cdt)
+    return _embed_scale(emb, cfg)
+
+
+def _embed_scale(emb: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.tie_embeddings:
-        emb = emb * torch.tensor(float(cfg.d_model), dtype=cdt) ** 0.5
+        emb = emb * torch.tensor(float(cfg.d_model), dtype=emb.dtype) ** 0.5
     return emb
+
+
+def _vocab_parallel_embed(table: DTensor, tokens: DTensor,
+                          cfg) -> DTensor:
+    """:func:`embed_apply` on DTensors.  Each rank looks up its own batch
+    rows (the tokens' data shards) in its own vocabulary shard of the
+    table, an id outside the shard giving a zero row; one all-reduce over
+    the vocabulary's mesh axes, in the compute dtype, sums the shards'
+    rows (each id's row lies in one shard: the sum is that row, bitwise).
+    The table is gathered only on the mesh dims that shard it otherwise
+    (FSDP's embed dim over the data axis), and its gradient comes back
+    into those placements, a partial sum over the data axes.  DTensor's
+    own ``index_select`` is not used: DTensor 2.11 gives its backward the
+    global indices against the local gradient."""
+    from torch.distributed.tensor import Partial
+
+    from repro_torch.parallel.sharding import shard_range, sum_over_group
+    mesh = tokens.device_mesh
+    rows = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in tokens.placements]
+    vocab = [i for i, pl in enumerate(table.placements)
+             if isinstance(pl, Shard) and pl.dim == 0
+             and not isinstance(rows[i], Shard)]
+    tbl = table.redistribute(mesh, [
+        Shard(0) if i in vocab else Replicate() for i in range(mesh.ndim)
+    ]).to_local(grad_placements=[
+        Shard(0) if i in vocab else Partial() if isinstance(rows[i], Shard)
+        else Replicate() for i in range(mesh.ndim)])
+    ids = tokens.redistribute(mesh, rows).to_local()
+    lo, n = shard_range(mesh, vocab, table.shape[0])
+    flat = ids.reshape(-1) - lo
+    miss = (flat < 0) | (flat >= n)
+    emb = tbl.index_select(0, flat.masked_fill(miss, 0)).masked_fill(
+        miss[:, None], 0).reshape(*ids.shape, -1).to(
+        dtype_of(cfg.compute_dtype))
+    for i in vocab:
+        emb = sum_over_group(emb, mesh.get_group(i))
+    return DTensor.from_local(_embed_scale(emb, cfg), mesh, rows,
+                              run_check=False)
 
 
 def unembed_matrix(p: dict, cfg) -> torch.Tensor:

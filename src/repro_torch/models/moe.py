@@ -35,6 +35,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.models import layers
 from repro_torch.models.param_utils import Init, fold_in
+from repro_torch.parallel.sharding import sum_over_group
 
 __all__ = ["moe_apply", "moe_apply_ep", "moe_capacity", "moe_init", "route"]
 
@@ -161,24 +162,6 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, sc=lambda x, ax: x):
     return y.reshape(bsz, s, d), aux
 
 
-class _SumOverGroup(torch.autograd.Function):
-    """All-reduce SUM over a group whose output is one replicated value
-    (the ep psum): the backward hands each rank's share the output's
-    gradient unchanged, as the transpose of a psum into a replicated
-    output."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        import torch.distributed as dist
-        y = x.clone()
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 def moe_apply_ep(p: dict, x: torch.Tensor, cfg, sc=lambda x, ax: x):
     """Explicit expert parallelism (the JAX package's ``shard_map`` over
     dp x ep=``model``; here ``parallel.sharding.local_map``).
@@ -274,7 +257,7 @@ def moe_apply_ep(p: dict, x: torch.Tensor, cfg, sc=lambda x, ax: x):
         unsorted = torch.empty_like(contrib).index_copy_(0, order, contrib)
         y = unsorted.reshape(tl, k, d).sum(dim=1)
         # each ep rank holds the contributions of ITS experts only
-        y = _SumOverGroup.apply(y, ep_group)
+        y = sum_over_group(y, ep_group)
 
         me = probs.mean(dim=0)
         if my != 0:
@@ -286,7 +269,7 @@ def moe_apply_ep(p: dict, x: torch.Tensor, cfg, sc=lambda x, ax: x):
         drop = ((rank >= cap).sum().float() / (tl * k))[None]
         stats = torch.cat([me, ce, drop])
         for group, n in dp_groups:                 # pmean over the data axes
-            stats = _SumOverGroup.apply(stats, group) / n
+            stats = sum_over_group(stats, group) / n
         me, ce, drop = stats[:e], stats[e:2 * e], stats[2 * e]
         return y.reshape(bl, s, d), e * torch.sum(me * ce), drop
 

@@ -347,10 +347,12 @@ def mamba_apply(p, x: torch.Tensor, cfg, sc=lambda x, ax: x):
     (B10) a chunk, whose final state starts the next chunk: it takes dt,
     x, A, B and C and forms the decay exp(dt A) and increment (dt x) B
     itself (on the card in registers; the plain version on the CPU builds
-    the chunk's (B, C, DI, N) streams at once).  On DTensors each rank
-    runs the block on its own batch rows (``parallel.sharding.
-    batch_local``): the scan is independent per row, and B10 takes plain
-    tensors."""
+    the chunk's (B, C, DI, N) streams at once).  B10 is differentiable in
+    all its inputs, h included (its backward kernel on the card, the plain
+    reverse scan on the CPU: ``kernels.mamba_scan.ops``), so the train
+    step runs this same code.  On DTensors each rank runs the block on
+    its own batch rows (``parallel.sharding.batch_local``): the scan is
+    independent per row, and B10 takes plain tensors."""
     if isinstance(x, DTensor):
         from repro_torch.parallel.sharding import batch_local
         return batch_local(lambda x_, p_: mamba_apply(p_, x_, cfg, sc=sc),

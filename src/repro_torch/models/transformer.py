@@ -466,10 +466,12 @@ def _cross_kv(params, enc_out: torch.Tensor, cfg) -> tuple:
     cross = params["layers"]["cross"]
     ks, vs = [], []
     for i in range(cross["wk"].shape[0]):
-        ks.append(layers.mm(enc_out, cross["wk"][i].to(enc_out.dtype))
-                  .reshape(b, f, cfg.num_kv_heads, cfg.head_dim))
-        vs.append(layers.mm(enc_out, cross["wv"][i].to(enc_out.dtype))
-                  .reshape(b, f, cfg.num_kv_heads, cfg.head_dim))
+        ks.append(layers.split_heads(
+            layers.mm(enc_out, cross["wk"][i].to(enc_out.dtype)),
+            cfg.num_kv_heads, cfg.head_dim))
+        vs.append(layers.split_heads(
+            layers.mm(enc_out, cross["wv"][i].to(enc_out.dtype)),
+            cfg.num_kv_heads, cfg.head_dim))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -581,18 +583,63 @@ def _forward(params, tokens: torch.Tensor, cfg, *, cache=None,
     return x, new_cache, aux
 
 
-def _label_logits(logits: torch.Tensor, tc: torch.Tensor) -> torch.Tensor:
-    """Each row's logit at its label.  DTensor has no rule for a gather
-    along a sharded dim, so logits sharded over the vocabulary are
-    gathered whole on that dim first (an all-gather of the chunk's
-    logits)."""
+class _ShardedLogSumExp(torch.autograd.Function):
+    """logsumexp over a last dim sharded over ``groups``: the max and the
+    sum of exponentials all-reduced, no logits gathered; the backward is
+    the local slice of the softmax."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        import torch.distributed as dist
+        m = x.amax(dim=-1)
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        s = torch.exp(x - m[..., None]).sum(dim=-1)
+        for g in groups:
+            dist.all_reduce(s, op=dist.ReduceOp.SUM, group=g)
+        lse = m + torch.log(s)
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(x - lse[..., None]), None
+
+
+def _lse_and_label_logits(logits: torch.Tensor, tc: torch.Tensor) -> tuple:
+    """Each row's logsumexp and its logit at its label.  Logits sharded
+    over the vocabulary (DTensors) stay sharded, as in Megatron's
+    vocab-parallel cross-entropy: each rank reduces its own shard and
+    picks the labels that fall in it (a zero elsewhere), and small
+    all-reduces over the vocabulary's mesh axes join the rows' maxima,
+    sums of exponentials and picked logits — where DTensor would gather
+    the chunk's whole logits for both."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
-    if isinstance(logits, DTensor):
-        last = logits.ndim - 1
-        logits = logits.redistribute(logits.device_mesh, [
-            Replicate() if isinstance(pl, Shard) and pl.dim == last else pl
-            for pl in logits.placements])
-    return logits.gather(-1, tc.clamp(min=0).long()[..., None])[..., 0]
+
+    from repro_torch.parallel.sharding import shard_range, sum_over_group
+    last = logits.ndim - 1
+    vocab = [] if not isinstance(logits, DTensor) else [
+        i for i, pl in enumerate(logits.placements)
+        if isinstance(pl, Shard) and pl.dim == last]
+    if not vocab:
+        return (torch.logsumexp(logits, dim=-1),
+                logits.gather(-1, tc.clamp(min=0).long()[..., None])[..., 0])
+    mesh = logits.device_mesh
+    rows = [Replicate() if i in vocab else pl
+            for i, pl in enumerate(logits.placements)]
+    local = logits.to_local(grad_placements=logits.placements)
+    groups = [mesh.get_group(i) for i in vocab]
+    lse = _ShardedLogSumExp.apply(local, groups)
+    lo, n = shard_range(mesh, vocab, logits.shape[-1])
+    idx = tc.redistribute(mesh, rows).to_local().clamp(min=0).long() - lo
+    miss = (idx < 0) | (idx >= n)
+    ll = local.gather(-1, idx.masked_fill(miss, 0)[..., None])[..., 0] \
+        .masked_fill(miss, 0)
+    for g in groups:
+        ll = sum_over_group(ll, g)
+    return tuple(DTensor.from_local(t, mesh, rows, run_check=False)
+                 for t in (lse, ll))
 
 
 def _xent_chunk(hc: torch.Tensor, tc: torch.Tensor, w: torch.Tensor, cfg,
@@ -605,8 +652,7 @@ def _xent_chunk(hc: torch.Tensor, tc: torch.Tensor, w: torch.Tensor, cfg,
     if cfg.final_logit_softcap:
         logits = cfg.final_logit_softcap * torch.tanh(
             logits / cfg.final_logit_softcap)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = _label_logits(logits, tc)
+    lse, ll = _lse_and_label_logits(logits, tc)
     valid = tc >= 0
     loss = torch.where(valid, lse - ll, 0.0)
     return loss.sum(), valid.sum()

@@ -31,7 +31,7 @@ __all__ = ["MeshShape", "ShardingRules", "data_axis_size",
            "distribute_tree", "local_map", "logical_to_pspec", "make_rules",
            "make_sharder", "mesh_axis_size", "mesh_sizes", "place",
            "batch_local", "replicated_call", "serve_batch_pspec",
-           "to_placements", "whole"]
+           "shard_range", "sum_over_group", "to_placements", "whole"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,6 +263,38 @@ def _mesh_of(*trees):
     for t in trees:
         _map(lambda x: found.append(x) if isinstance(x, DTensor) else x, t)
     return found[0].device_mesh if found else None
+
+
+class _SumOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        y = x.clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce SUM of a local tensor over ``group`` into one value
+    replicated on its ranks (a psum): the backward hands each rank's
+    share the output's gradient unchanged, as the transpose of a psum
+    into a replicated output."""
+    return _SumOverGroup.apply(x, group)
+
+
+def shard_range(mesh, dims, size: int) -> tuple[int, int]:
+    """(start, length) of this rank's block of a tensor dim of ``size``
+    sharded evenly over the mesh dims ``dims``, major to minor (DTensor's
+    order of a dim's ``Shard`` placements)."""
+    start, n = 0, size
+    for i in dims:
+        n //= mesh.size(i)
+        start += mesh.get_local_rank(i) * n
+    return start, n
 
 
 def replicated_call(fn: Callable, *args):

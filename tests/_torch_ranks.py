@@ -231,6 +231,37 @@ def moe_ep_rank(rank, world, mesh_shape, cfg_kw, p_np, x_np, r_np):
         grads=[_np(t) for t in g], grads_ref=[_np(t) for t in g_ref])
 
 
+def moe_ep_count_rank(rank, world, cfg_kw, x_np):
+    """``moe_apply_ep``'s forward on a (1, world) mesh under
+    ``launch.roofline.count_cost``: the collectives it counts, and the
+    bytes of this rank's output (the tensor the ep all-reduce writes)."""
+    from torch.distributed.tensor import (DTensor, Replicate,
+                                          distribute_tensor)
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import checked_mesh
+    from repro_torch.launch.roofline import count_cost
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import (distribute_tree, make_rules,
+                                               make_sharder)
+    cfg = _reduced_lm("deepseek-moe-16b", **cfg_kw)
+    mesh = checked_mesh((1, world), ("data", "model"), device_type="cpu")
+    rules = make_rules(mesh)
+    p, axes = moe.moe_init(0, cfg, "cpu", with_axes=True)
+    dp = distribute_tree(p, axes, mesh, rules)
+    xd = distribute_tensor(torch.from_numpy(x_np), mesh,
+                           [Replicate()] * 2, src_data_rank=None)
+
+    def fwd():
+        with implicit_replication():
+            return moe.moe_apply_ep(dp, xd, cfg, sc=make_sharder(mesh, rules))
+    (y, _), cost = count_cost(fwd)
+    yl = y.to_local()
+    return dict(ep=isinstance(y, DTensor), collectives=cost.collectives,
+                y_bytes=yl.numel() * yl.element_size(),
+                flops=cost.flops)
+
+
 def _perturbed_params(cfg, names=("bq", "bk", "bv", "ln_attn", "ln_mlp",
                                   "final_norm"), scale=0.1):
     """``init_params(0, cfg)`` with seeded noise on the leaves the init

@@ -34,10 +34,12 @@ from repro_torch.kernels.event_pool.ref import (event_pool_ref,
                                                 event_pool_window_ref)
 from repro_torch.kernels.fire_compact.ops import fire_compact
 from repro_torch.kernels.fire_compact.ref import fire_compact_ref
-from repro_torch.kernels.mamba_scan.kernel import (MAX_N, mamba_scan_cuda,
-                                                   mamba_scan_fused_cuda)
-from repro_torch.kernels.mamba_scan.ops import mamba_scan, mamba_scan_fused
-from repro_torch.kernels.mamba_scan.ref import (mamba_scan_fused_ref,
+from repro_torch.kernels.mamba_scan.kernel import (
+    MAX_N, mamba_scan_cuda, mamba_scan_fused_bwd_cuda, mamba_scan_fused_cuda)
+from repro_torch.kernels.mamba_scan.ops import (mamba_scan, mamba_scan_fused,
+                                                mamba_scan_fused_bwd)
+from repro_torch.kernels.mamba_scan.ref import (mamba_scan_fused_bwd_ref,
+                                                mamba_scan_fused_ref,
                                                 mamba_scan_ref,
                                                 mamba_scan_streams)
 from repro_torch.kernels.mamba_step.ops import mamba_step_events
@@ -50,13 +52,13 @@ from repro_torch.kernels.wkv6_step.ref import wkv6_step_events_ref
 from repro_torch import serving
 from repro_torch.configs import get_config
 from repro_torch.data import TokenStreamConfig, markov_lm_batch
-from repro_torch.kernels.mamba_scan.ops import (B10BackwardMissing,
-                                                mamba_scan_fused_work)
+from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused_work
 from repro_torch.launch import graphs, serve, steps
 from repro_torch.launch.roofline import count_cost
 from repro_torch.models import cnn, mlp
 from repro_torch.optim import AdamWConfig, adamw_init, warmup_cosine
-from repro_torch.models.param_utils import tree_leaves
+from repro_torch.models.param_utils import tree_leaves, tree_map
 from repro_torch.serving import server
 from repro_torch.models import transformer as tfm
 
@@ -1196,23 +1198,96 @@ def test_train_step_on_card(dev):
             float(b.abs().max()), 1e-30)
 
 
-def test_hymba_training_on_card_raises_the_b10_error(dev):
-    """B10 has no backward: a train step through Hymba's prefill scan on
-    the card raises the named error (ROADMAP.md queue A item 18) and runs
-    no plain version in its place."""
-    cfg, plan = _train_plan("hymba-1.5b", 1)
+def test_hymba_training_on_card_runs_the_b10_backward(dev):
+    """A reduced Hymba train step's gradients on the card (f32 compute, T
+    40 at scan chunk 16: three B10 chunks a layer, the final state's
+    gradient carried across two chunk boundaries): B10's forward launches
+    layers x chunks x 2 (remat "full" runs it again in the backward) and
+    its backward layers x chunks; loss and every gradient within 1e-4 of
+    max|plain| of the same step with the scan's plain forward
+    differentiated by autograd."""
+    cfg = dataclasses.replace(
+        get_config("hymba-1.5b").reduced(compute_dtype="float32"),
+        ssm=dataclasses.replace(get_config("hymba-1.5b").reduced().ssm,
+                                scan_chunk=16))
     params = tfm.init_params(0, cfg, dev)
     batch = markov_lm_batch(TokenStreamConfig(
-        vocab_size=cfg.vocab_size, seq_len=16, global_batch=4), 0,
+        vocab_size=cfg.vocab_size, seq_len=40, global_batch=2), 0,
         device=dev)
-    before = mamba_scan_fused.launches
-    with pytest.raises(B10BackwardMissing, match="item 18"):
-        plan.fn(params, adamw_init(params), batch)
-    assert mamba_scan_fused.launches == before
-    # serving (no grad) still launches B10
-    with torch.no_grad():
-        tfm.prefill(params, batch["tokens"], cfg)
-    assert mamba_scan_fused.launches > before
+
+    def grads():
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss = tfm.lm_loss(p, batch, cfg)
+        return loss.detach(), torch.autograd.grad(loss, tree_leaves(p),
+                                                  allow_unused=True)
+
+    before = (mamba_scan_fused.launches, mamba_scan_fused_bwd.launches)
+    loss, g = grads()
+    chunks = cfg.num_layers * 3
+    assert (mamba_scan_fused.launches - before[0],
+            mamba_scan_fused_bwd.launches - before[1]) == (2 * chunks, chunks)
+    orig = scan_ops._FusedScan.apply
+    try:
+        scan_ops._FusedScan.apply = staticmethod(
+            lambda *a: mamba_scan_fused_ref(*a))
+        loss2, g2 = grads()
+    finally:
+        scan_ops._FusedScan.apply = orig
+    assert abs(float(loss) - float(loss2)) <= 1e-4 * abs(float(loss2))
+    scale = max(float(v.abs().max()) for v in g2 if v is not None)
+    worst = max(float((u - v).abs().max()) for u, v in zip(g, g2)
+                if v is not None)
+    assert worst <= 1e-4 * scale, worst / scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("with_gh", [False, True])
+@pytest.mark.parametrize("di,n", [(40, 4), (40, 16), (1600, 16)])
+def test_mamba_scan_fused_bwd_matches_plain(dev, dtype, with_h0, with_gh,
+                                            di, n):
+    """B10's backward on the prefill's layout (T-sliced rows, B and C
+    slices of one 2N + 100 wide row), T 37: every gradient within 1e-4 of
+    max|plain| of ``mamba_scan_fused_bwd_ref``, in its input's dtype
+    (bf16 ones within a bf16 rounding of the plain gradient cast), one
+    launch; two launches agree bitwise (no atomics)."""
+    b, t_all, t0, t = 2, 50, 6, 37
+    gen = torch.Generator(device=dev).manual_seed(di + n + with_h0)
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    dt_all = torch.nn.functional.softplus(f(b, t_all, di)).to(dtype)
+    x_all = f(b, t_all, di).to(dtype)
+    bc_all = f(b, t_all, 2 * n + 100).to(dtype)
+    sl = slice(t0, t0 + t)
+    args = (dt_all[:, sl], x_all[:, sl],
+            -torch.arange(1, n + 1, dtype=torch.float32,
+                          device=dev).repeat(di, 1),
+            bc_all[:, sl, :n], bc_all[:, sl, n:2 * n],
+            f(b, di, n) if with_h0 else None)
+    gy, gh = f(b, t, di), f(b, di, n) if with_gh else None
+    launches = mamba_scan_fused_bwd.launches
+    got = mamba_scan_fused_bwd(*args, gy, gh)
+    assert mamba_scan_fused_bwd.launches == launches + 1
+    want = mamba_scan_fused_bwd_ref(*args, gy, gh)
+    for name, u, v, src in zip(("dt", "x", "A", "B", "C", "h0"), got, want,
+                               args):
+        if src is None:
+            assert u is None and v is None
+            continue
+        assert u.dtype == src.dtype and u.shape == src.shape, name
+        scale = max(float(v.float().abs().max()), 1e-30)
+        tol = 1e-4 if u.dtype == torch.float32 else 1e-2
+        assert float((u.float() - v.float()).abs().max()) <= tol * scale, \
+            (name, float((u.float() - v.float()).abs().max()) / scale)
+    again = mamba_scan_fused_bwd(*args, gy, gh)
+    assert all(u is None or torch.equal(u, v) for u, v in zip(got, again))
+
+
+def test_scan_bwd_launcher_refuses_other_state_widths(dev):
+    z = lambda *shape: torch.zeros(shape, device=dev)
+    with pytest.raises(ValueError, match="state width"):
+        mamba_scan_fused_bwd_cuda(z(1, 3, 4), z(1, 3, 4), z(4, 6),
+                                  z(1, 3, 6), z(1, 3, 6), None, z(1, 3, 4),
+                                  None)
 
 
 def test_count_cost_counts_a_launch_by_its_formula(dev):

@@ -127,8 +127,10 @@ def test_b8_wrapper_launches_on_the_events_with_no_mask(monkeypatch, di,
                                                          nkb, bk):
     """Off the CPU the wrapper hands B8 the events as they are, with their
     DI-block count, counts one launch and builds no live mask (the kernel
-    derives it).  Meta tensors stand in for the card's; the launcher is a
-    stub, and ``live_block_mask`` raises if anything calls it."""
+    derives it).  Meta tensors stand in for the card's (the wrapper's
+    meta branch, the dry run's, patched off); the launcher is a stub, and
+    ``live_block_mask`` raises if anything calls it.  Then the meta branch
+    itself: empty outputs of the kernel's shapes, no launch."""
     from repro_torch.kernels.mamba_step import ops
     calls = []
 
@@ -143,6 +145,7 @@ def test_b8_wrapper_launches_on_the_events_with_no_mask(monkeypatch, di,
 
     monkeypatch.setattr(ops, "mamba_step_cuda", kernel)
     monkeypatch.setattr(tev, "live_block_mask", no_mask)
+    monkeypatch.setattr(ops, "on_meta", lambda t: False)
     b, e = 4, nkb
 
     def meta(*shape, dtype=torch.float32):
@@ -162,6 +165,12 @@ def test_b8_wrapper_launches_on_the_events_with_no_mask(monkeypatch, di,
     assert y.shape == (b, di) and h_new.shape == (b, di, N_STATE)
     with pytest.raises(ValueError, match="blk_k"):
         ops.mamba_step_events(bev, da, bm, cm, h, blk_k=bk + 1)
+    monkeypatch.undo()
+    y, h_new = ops.mamba_step_events(bev, da, bm, cm, h, blk_k=bk)
+    assert ops.mamba_step_events.launches == launches + 1 and len(calls) == 1
+    assert (y.shape, y.dtype, y.device.type) == ((b, di), torch.float32,
+                                                 "meta")
+    assert (h_new.shape, h_new.dtype) == ((b, di, N_STATE), torch.float32)
 
 
 # ---------------------------------------------------------------------------

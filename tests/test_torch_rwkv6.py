@@ -145,8 +145,10 @@ def test_b7_wrapper_launches_on_the_events_with_no_mask(monkeypatch, d,
                                                          nkb):
     """Off the CPU the wrapper hands B7 the events as they are, with their
     K-block count, counts one launch and builds no live mask (the kernel
-    derives it).  Meta tensors stand in for the card's; the launcher is a
-    stub, and ``live_block_mask`` raises if anything calls it."""
+    derives it).  Meta tensors stand in for the card's (the wrapper's
+    meta branch, the dry run's, patched off); the launcher is a stub, and
+    ``live_block_mask`` raises if anything calls it.  Then the meta branch
+    itself: empty outputs of the kernel's shapes, no launch."""
     from repro_torch.kernels.wkv6_step import ops
     calls = []
 
@@ -159,6 +161,7 @@ def test_b7_wrapper_launches_on_the_events_with_no_mask(monkeypatch, d,
 
     monkeypatch.setattr(ops, "wkv6_step_cuda", kernel)
     monkeypatch.setattr(tev, "live_block_mask", no_mask)
+    monkeypatch.setattr(ops, "on_meta", lambda t: False)
     g, e, bk = 6, 2, 16 if d == 64 else 8
 
     def meta(*shape, dtype=torch.float32):
@@ -176,6 +179,12 @@ def test_b7_wrapper_launches_on_the_events_with_no_mask(monkeypatch, d,
     assert got_nkb == nkb and len(args) == len(want)
     assert all(a is b for a, b in zip(args, want))
     assert o.shape == (g, d) and s_new.shape == (g, d, d)
+    monkeypatch.undo()
+    o, s_new = ops.wkv6_step_events(bev, *rows, s, blk_k=bk)
+    assert ops.wkv6_step_events.launches == launches + 1 and len(calls) == 1
+    assert (o.shape, o.dtype, o.device.type) == ((g, d), torch.float32,
+                                                 "meta")
+    assert (s_new.shape, s_new.dtype) == ((g, d, d), torch.float32)
 
 
 def _ineligible_streams(pkg_engine, asarray, k):

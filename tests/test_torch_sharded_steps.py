@@ -141,7 +141,12 @@ def test_train_driver_in_a_world_of_two(two):
     assert first["final_step"] == 1 and len(first["losses"]) == 1
     # the second run resumed at step 1: one more step, from the saved state
     assert second["final_step"] == 2 and len(second["losses"]) == 1
-    assert first["report"] is None
+    # the step is counted on the mesh: this rank's share, the collectives
+    # it issues over the (1, 2) mesh's model axis
+    rep = first["report"]
+    assert (rep.mesh, rep.chips) == ("1x2", 2)
+    assert rep.coll_gbytes > 0 and rep.t_collective > 0
+    assert rep.coll_breakdown and rep.hlo_gflops > 0
     assert np.isfinite(first["losses"] + second["losses"]).all()
     ranks = [two[r]["driver"][2]["whole"] for r in (0, 1)]
     for a, b in zip(*ranks):
