@@ -329,9 +329,13 @@ while phase 3 times the kernels from CUDA graphs):
    handed it first (the last layer's chunks: h0 given and gh None, h0
    None and gh carried; bf16 dt, x, B, C) against
    ``mamba_scan_fused_bwd_ref`` on the same values in f32, every
-   gradient within 1e-4 of max|plain|, timed from a CUDA graph beside
-   its formula's bound, with its launches on phase 13's main path and
-   per step; no single PyTorch call computes a recurrent step or scan
+   gradient within 1e-4 of max|plain|, two launches bitwise, its scratch
+   bytes beside the 0.84 GB of a design that stores every state and
+   lambda of the chunk, timed from a
+   CUDA graph beside its formula's bound and beside B10's forward fused
+   entry on the same inputs (the backward over the forward printed), with
+   its launches on phase 13's main path and per step; no single PyTorch
+   call computes a recurrent step or scan
    or its gradient: their library columns are null.  B1, B2, B3 and both pools also at
    phase 8's bucket-128 launches (B2 at FC1), against the plain version
    as above, timed beside their bound (``serve128`` in their JSON
@@ -2038,11 +2042,15 @@ def scan_bwd_kernel(torch, hymba, report, close) -> None:
     chunk 0, h0 None and gh carried back from chunk 1; bf16 dt, x, B and
     C as the model hands them) through the launcher against
     ``mamba_scan_fused_bwd_ref`` on the same values in f32, every
-    gradient within 1e-4 of its max|plain|; each timed from a CUDA graph
-    beside its formula's bound; the entry reports chunk 1's, and a step's
-    sum (each kind x the layers)."""
+    gradient within 1e-4 of its max|plain|, and against a second launch
+    bitwise; each timed from a CUDA graph beside its formula's bound and
+    beside the forward fused entry on the same inputs; its scratch
+    beside that of a design that stores every state and lambda (two
+    (B, T, DI, N) f32 arrays and 16 slices of partials); the entry reports chunk 1's, and a step's sum (each kind x
+    the layers)."""
     from repro_torch.kernels.mamba_scan.kernel import (
-        mamba_scan_fused_bwd_cuda)
+        mamba_scan_fused_bwd_cuda, mamba_scan_fused_bwd_scratch,
+        mamba_scan_fused_cuda)
     from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused_bwd_work
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_fused_bwd_ref
 
@@ -2053,40 +2061,59 @@ def scan_bwd_kernel(torch, hymba, report, close) -> None:
         dt, x, a, bm, cm, h0, gy, gh = args
         kargs = (dt, x, f32(a), bm, cm, f32(h0), f32(gy), f32(gh))
         got = mamba_scan_fused_bwd_cuda(*kargs)
+        again = mamba_scan_fused_bwd_cuda(*kargs)
+        check(all(u is None or torch.equal(u, v) for u, v in
+                  zip(got, again)),
+              "mamba_scan_fused_bwd: two launches differ")
         want = mamba_scan_fused_bwd_ref(dt.float(), x.float(), a, bm.float(),
                                         cm.float(), h0, gy, gh)
         errs = {n: close(g, w, f"mamba_scan_fused_bwd d{n}")
                 for n, g, w in zip(names, got, want) if w is not None}
         check(all((g is None) == (w is None) for g, w in zip(got, want)),
               "mamba_scan_fused_bwd: dh0 given where h0 is None or missing")
+        b, t, di = dt.shape
+        n = a.shape[-1]
+        fwd = kargs[:6]
         rows.append(dict(
             err=max(errs.values()), errs=errs,
             ms=graph_ms(torch, lambda: mamba_scan_fused_bwd_cuda(*kargs),
                         10),
+            fwd_ms=graph_ms(torch, lambda: mamba_scan_fused_cuda(*fwd), 10),
             plain_ms=cuda_ms(torch, lambda: mamba_scan_fused_bwd_ref(
                 dt, x, a, bm, cm, h0, gy, gh), 1),
             bound=bound_ms(*mamba_scan_fused_bwd_work(*args)),
+            scratch=mamba_scan_fused_bwd_scratch(b, t, di, n) * 4,
+            scratch_pr29=(2 * b * t * di * n + b * di * n
+                          + 2 * 16 * b * t * n) * 4,
             what=f"dt/x {tuple(dt.shape)} {dt.dtype}, B/C "
                  f"{tuple(bm.shape)}, h0 {'None' if h0 is None else 'given'}"
                  f", gh {'None' if gh is None else 'given'}"))
+        del got, again, want
     layers = hymba["per_step"]["mamba_scan_fused_bwd"] // 2
     step_ms = layers * sum(r["ms"] for r in rows)
     first, second = rows
     for r in rows:
         print(f"[3] mamba_scan_fused_bwd at {r['what']}: max|d| by "
               f"gradient {({n: f'{e:.2e}' for n, e in r['errs'].items()})}, "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
-              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+              f"two launches bitwise, {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]}); the forward fused entry on the same "
+              f"inputs {r['fwd_ms']:.4f} ms, backward / forward "
+              f"{r['ms'] / r['fwd_ms']:.2f}; scratch "
+              f"{r['scratch'] / 1e9:.4f} GB (storing every state and lambda: "
+              f"{r['scratch_pr29'] / 1e9:.4f} GB)", flush=True)
     report("mamba_scan_fused_bwd", max(first["err"], second["err"]),
            first["ms"], first["plain_ms"], None, first["bound"],
            f" at {first['what']} (phase 13's Hymba-1.5B step, the last "
            f"layer's second chunk); the first chunk's {second['ms']:.4f} ms"
            f" (bound {second['bound'][0]:.4f} ms); "
            f"{hymba['per_step']['mamba_scan_fused_bwd']} launches a step, "
-           f"{step_ms:.3f} ms a step",
+           f"{step_ms:.3f} ms a step; the forward fused entry "
+           f"{first['fwd_ms']:.4f} ms on the same inputs",
            chunk0_ms=second["ms"], chunk0_bound_ms=second["bound"][0],
            per_step_launches=hymba["per_step"]["mamba_scan_fused_bwd"],
-           per_step_ms=step_ms)
+           per_step_ms=step_ms, fwd_ms=first["fwd_ms"],
+           chunk0_fwd_ms=second["fwd_ms"], scratch_bytes=first["scratch"])
 
 
 # ---------------------------------------------------------------------------

@@ -389,153 +389,389 @@ extern "C" int mnf_mamba_scan_fused(
 //                                   dx = du dt,  dB += sum_d lambda u;
 //   through y_t = sum_n h_t c_t:    dC_t = sum_d gy_t h_t.
 //
-// Three kernels a launch, no host sync and no allocation (the wrapper hands
-// one f32 scratch buffer), so the launch can be captured in a CUDA graph:
+// Two kernels a call, no host sync, no atomics and no allocation (the
+// wrapper hands one f32 scratch buffer), so a call can be captured in a
+// CUDA graph and two calls give the same bits:
 //
-// 1. mnf_mamba_scan_bwd_walk: a thread a state element (b, d, n), a
-//    channel's N lanes side by side in one warp (N a power of two up to
-//    32).  It walks the chunk forward from h0 with the forward kernel's own
-//    operations (each h_t bitwise the forward's) and keeps every h_t in the
-//    scratch ((B, T, DI, N) f32): h_{t-1} is read back, never recomputed by
-//    inverting h_t = da h + dbx, since da can be near 0.  Then it walks
-//    t = T-1 .. 0 carrying lambda, stores each lambda_t in the scratch, and
-//    sums its per-element terms over the channel's lanes with xor shuffles
-//    (fixed order) into d(dt) and dx, which need no other thread; dh0 is
-//    per element; dA's sum over t stays in a register, one partial a batch
-//    row.
-// 2. mnf_mamba_scan_bwd_bc: dB and dC are sums over DI channels, which
-//    other CTAs own.  Per-slice partials instead of atomicAdd, so that two
-//    launches give the same bits: a thread a (b, t, n) and slice of DI
-//    (kSlices slices) sums its channels in order from the stored h_t and
-//    lambda_t.
-// 3. mnf_sum_rows: the partials summed in order (dB and dC over the
-//    slices, dA over the batch rows).
+// 1. mnf_mamba_scan_bwd: the forward kernel's thread layout (at N = 16 a
+//    thread keeps V = 4 state elements of one channel, 4 lanes a channel,
+//    64 channels a CTA; any other N a thread an element, a channel's N
+//    lanes in one warp).  Nothing of (B, T, DI, N) goes through memory:
+//    - forward, the chunk from h0 with the forward's own operations,
+//      keeping only the state entering each segment of kBwdSeg (S) steps
+//      (a checkpoint) in a (B, ceil(T/S), DI, N) f32 scratch;
+//    - backward, segments last to first: the segment's states and decays
+//      recomputed from its checkpoint into shared memory (each h_t
+//      bitwise the forward's; h_{t-1} is never recovered by inverting the
+//      update, da can be near 0), then walked back carrying lambda in
+//      registers with no expf.  A thread sums its V terms of d(dt) and du
+//      in registers, and a channel's lanes reduce 4 steps at once
+//      (reduce_steps: 3 shuffles for 4 steps).  dA's sum over t stays in
+//      registers, one partial a batch row.
+//    - every segment's inputs (dt, x, gy of the CTA's channels, B, C) are
+//      read from device memory by the whole CTA a segment ahead, all loads
+//      of a segment in flight at once, into registers, then stored to one
+//      of two shared tiles: the walks read shared memory only.  The walk
+//      is bound by its instructions and the latency of its steps: with
+//      each step's loads from device memory on its chain, the walk took
+//      1.5x as long (measured at Hymba-1.5B's training launch).
+//    - dB_t and dC_t sum over channels, which this CTA and others own: the
+//      warp's channels are summed by shuffles (at V = 4 all 8 products of
+//      the warp's 8 channels at once, reduce_steps: 7 shuffles a step),
+//      each warp's sums stored in shared memory for the segment, and at
+//      the segment's end (one barrier) the warps are summed in order into
+//      one partial a CTA column.
+// 2. mnf_mamba_scan_bwd_sum: the partials summed in order (dB and dC over
+//    the CTA columns, dA over the batch rows).
 //
-// A simple kernel, right first: the walk's state traffic is 2 x (B, T,
-// DI, N) f32 written and read back through the scratch, far above the
-// bytes the function needs (its inputs and gradients, which are N times
-// narrower), and its step is bound by latency (expf, shuffles).
+// Each order is fixed and depends only on the shape.  Bound on the H100:
+// operations (mamba_scan_fused_bwd_work: 20N + 4 a (b, t, d)), ~0.03 ms at
+// Hymba-1.5B's training launch; the kernel walks each state three times
+// (forward for the checkpoints, the recompute, the walk back).
 // ---------------------------------------------------------------------------
 
 namespace {
 
-constexpr int kBwdThreads = 256;  // threads a CTA of the walk and the sums
-constexpr int kSlices = 16;       // DI slices of the dB / dC partials
+// Picked by measurement (tools/torch_mamba_variants.py): S 8 against 4
+// and 16, 64 channels a CTA against 16 and 32.  The checkpoints stay in
+// device memory: at 64 channels a CTA the rest of its shared memory is
+// 86 KB, so within two CTAs an SM its checkpoints would fit beside it
+// only up to T 48, and at 16 channels a CTA keeping them in shared memory
+// measured no faster.
+constexpr int kBwdSeg = 8;            // S: steps a segment
+constexpr int kBwdChannels4 = 64;     // channels a CTA at V = 4 (N = 16)
+constexpr int kBwdThreads1 = 256;     // threads a CTA at V = 1
+constexpr int kBwdMaxSmem = 232448;   // the H100's shared memory a CTA
+constexpr int kSumThreads = 256;
 
-template <typename In>
-__global__ void __launch_bounds__(kBwdThreads) mnf_mamba_scan_bwd_walk(
+// A CTA's shape and shared memory: kernels/mamba_scan/kernel.py bwd_plan
+// mirrors it (the launcher sizes the scratch from it).
+struct BwdPlan {
+  int V, threads, cpc, warps, nseg, ncol;
+  size_t smem;   // bytes: the products (S, warps, 2, N), the segment's
+                 // states and decays (2, S, threads, V), two input tiles
+                 // (S, 3 cpc + 2 N)
+};
+
+BwdPlan bwd_plan(int64_t T, int64_t DI, int64_t N) {
+  BwdPlan p;
+  p.V = N == 16 ? 4 : 1;
+  p.threads = p.V == 4 ? kBwdChannels4 * 4 : kBwdThreads1;
+  p.cpc = p.threads / (int)(N / p.V);
+  p.warps = p.threads / 32;
+  p.nseg = (int)((T + kBwdSeg - 1) / kBwdSeg);
+  p.ncol = (int)((DI + p.cpc - 1) / p.cpc);
+  p.smem = sizeof(float) * (size_t)kBwdSeg *
+           (p.warps * 2 * N + 2 * p.cpc * N + 2 * (3 * p.cpc + 2 * N));
+  return p;
+}
+
+__device__ __forceinline__ float pick4(const float (&v)[4], int q) {
+  return q == 0 ? v[0] : q == 1 ? v[1] : q == 2 ? v[2] : v[3];
+}
+
+template <int V>
+__host__ __device__ constexpr int bwd_threads() {
+  return V == 4 ? kBwdChannels4 * 4 : kBwdThreads1;
+}
+
+template <typename In, int V>
+__global__ void __launch_bounds__(bwd_threads<V>()) mnf_mamba_scan_bwd(
     MambaScanSourceArgs<In> g, const float* __restrict__ h0,
     const float* __restrict__ gy, const float* __restrict__ gh,
-    float* __restrict__ hs, float* __restrict__ lam_s,
-    float* __restrict__ g_dt, float* __restrict__ g_x,
-    float* __restrict__ g_h0, float* __restrict__ g_a_part, int64_t T,
+    float* __restrict__ ck_g, float* __restrict__ g_dt,
+    float* __restrict__ g_x, float* __restrict__ g_h0,
+    float* __restrict__ part_a, float* __restrict__ part_bc, int64_t T,
     int DI, int N, int cpc) {
+  constexpr int S = kBwdSeg;
+  constexpr int NT = bwd_threads<V>();
+  static_assert(V == 1 || S % 4 == 0, "V = 4 reduces 4 steps at once");
+  // a thread's share of a tile: per-channel rows (dt, x, gy: S cpc each,
+  // cpc <= NT / 4 at V = 4, <= NT at V = 1) and B, C (S N each, N <= 32)
+  constexpr int KCH = V == 4 ? S / 4 : S;
+  constexpr int KBC = (S * (V == 4 ? 16 : 32) + NT - 1) / NT;
+  extern __shared__ __align__(16) float bwd_smem[];
+  if constexpr (V == 4) N = 16, cpc = NT / 4;   // constants at V = 4
   const int tid = threadIdx.x;
-  const int ch = tid / N, n = tid - ch * N;
-  const int d = blockIdx.x * cpc + ch;
+  const int lane = tid & 31, warp = tid >> 5;
+  constexpr int warps = NT / 32;
+  const int lanes = N / V;
+  const int ch = tid / lanes, q = tid - ch * lanes;
+  const int col0 = blockIdx.x * cpc;
+  const int d = col0 + ch;
   const int64_t b = blockIdx.y;
-  const bool valid = d < DI;           // a channel's lanes agree
-  const int dc = valid ? d : 0;        // masked channels read channel 0
-  const float a = g.A[(int64_t)dc * N + n];
-  const In* pdt = g.dt + b * g.dt_b + dc;
-  const In* px = g.x + b * g.x_b + dc;
-  const In* pb = g.B + b * g.B_b + n;
-  const In* pc = g.C + b * g.C_b + n;
-  const int64_t step = (int64_t)DI * N;
-  const int64_t elem = (b * T * DI + dc) * N + n;  // (b, 0, d, n)
-  const int64_t state = (b * DI + dc) * N + n;     // (b, d, n)
+  const bool valid = d < DI;            // a channel's lanes agree
+  const int dc = valid ? d : 0;
+  const int n0 = q * V;
+  const int nseg = (int)((T + S - 1) / S);
+  const int lcpc = __ffs(cpc) - 1, ln = __ffs(N) - 1;   // both powers of 2
+  const int sc = S * cpc, sn = S * N;   // a tile: dt, x, gy, then B, C
+  const int tile = 3 * sc + 2 * sn;
+  const int red_row = warps * 2 * N;    // a step's products: (warps, 2, N)
+  float* red = bwd_smem;
+  // the segment's states h_{t0 + j - 1} at hbs[j * NT * V] and decays
+  // da_{t0 + j} at das[j * NT * V]
+  float* hbs = red + S * red_row + tid * V;
+  float* das = hbs + S * NT * V;
+  float* tiles = red + S * red_row + 2 * S * NT * V;
+  // the checkpoint of segment k at ck[k * ck_step] (masked threads keep
+  // none)
+  float* ck = ck_g + ((int64_t)b * nseg * DI + dc) * N + n0;
+  const int64_t ck_step = (int64_t)DI * N;
+  const int64_t state = ((int64_t)b * DI + dc) * N + n0;
+  float a[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) a[v] = __ldg(g.A + (int64_t)dc * N + n0 + v);
 
-  // the forward walk, each h_t kept
-  float h = (valid && h0 != nullptr) ? h0[state] : 0.f;
-  const float h_init = h;
-  for (int64_t t = 0; t < T; ++t) {
-    const float dt = widen(pdt[t * g.dt_t]);
-    const float da = expf(__fmul_rn(dt, a));
-    const float dbx = __fmul_rn(__fmul_rn(dt, widen(px[t * g.x_t])),
-                                widen(pb[t * g.B_t]));
-    h = __fadd_rn(__fmul_rn(da, h), dbx);
-    if (valid) hs[elem + t * step] = h;
+  // a segment's inputs, read from device memory a segment ahead into
+  // registers (every load of a tile in flight at once), then stored to
+  // one of two shared tiles: the walk reads shared memory only
+  float pre_ch[3][KCH], pre_bc[2][KBC];
+  auto prefetch = [&](int k) {
+    const int64_t t0 = (int64_t)k * S;
+#pragma unroll
+    for (int i = 0; i < KCH; ++i) {
+      const int e = tid + i * NT;
+      const int64_t t = t0 + (e >> lcpc);
+      const int dd = col0 + (e & (cpc - 1));
+      const bool ok = e < sc && t < T && dd < DI;
+      pre_ch[0][i] =
+          ok ? widen(__ldg(g.dt + b * g.dt_b + t * g.dt_t + dd)) : 0.f;
+      pre_ch[1][i] =
+          ok ? widen(__ldg(g.x + b * g.x_b + t * g.x_t + dd)) : 0.f;
+      pre_ch[2][i] = ok ? __ldg(gy + (b * T + t) * DI + dd) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < KBC; ++i) {
+      const int e = tid + i * NT;
+      const int64_t t = t0 + (e >> ln);
+      const int n = e & (N - 1);
+      const bool ok = e < sn && t < T;
+      pre_bc[0][i] = ok ? widen(__ldg(g.B + b * g.B_b + t * g.B_t + n)) : 0.f;
+      pre_bc[1][i] = ok ? widen(__ldg(g.C + b * g.C_b + t * g.C_t + n)) : 0.f;
+    }
+  };
+  auto commit = [&](float* tl) {
+#pragma unroll
+    for (int i = 0; i < KCH; ++i) {
+      const int e = tid + i * NT;
+      if (e < sc) {
+        tl[e] = pre_ch[0][i];
+        tl[sc + e] = pre_ch[1][i];
+        tl[2 * sc + e] = pre_ch[2][i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KBC; ++i) {
+      const int e = tid + i * NT;
+      if (e < sn) {
+        tl[3 * sc + e] = pre_bc[0][i];
+        tl[3 * sc + sn + e] = pre_bc[1][i];
+      }
+    }
+  };
+  // one step of the forward, its own operations: h_t from h_{t-1}
+  auto step = [&](const float* tl, int j, float (&h)[V], float (&da)[V]) {
+    const float dt = tl[j * cpc + ch];
+    const float u = __fmul_rn(dt, tl[sc + j * cpc + ch]);
+    float bv[V];
+    ldv<V>(tl + 3 * sc + j * N + n0, bv);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      da[v] = expf(__fmul_rn(dt, a[v]));
+      h[v] = __fadd_rn(__fmul_rn(da[v], h[v]), __fmul_rn(u, bv[v]));
+    }
+  };
+
+  // 1. the forward walk, keeping the state entering each segment
+  float h[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    h[v] = (valid && h0 != nullptr) ? h0[state + v] : 0.f;
+  int buf = 0;
+  prefetch(0);
+  for (int k = 0; k < nseg; ++k) {
+    if (valid) stv<V>(ck + k * ck_step, h);
+    if (k + 1 == nseg) break;           // the last segment's states: in 2.
+    float* tl = tiles + buf * tile;
+    commit(tl);
+    buf ^= 1;
+    __syncthreads();
+    prefetch(k + 1);
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      float da[V];
+      step(tl, j, h, da);
+    }
   }
 
-  // the reverse walk
-  float lam = (valid && gh != nullptr) ? gh[state] : 0.f;
-  float acc_a = 0.f;
-  for (int64_t t = T - 1; t >= 0; --t) {
-    const float dt = widen(pdt[t * g.dt_t]);
-    const float xv = widen(px[t * g.x_t]);
-    const float bv = widen(pb[t * g.B_t]);
-    const float cv = widen(pc[t * g.C_t]);
-    const float gyv = valid ? gy[(b * T + t) * DI + d] : 0.f;
-    const float h_prev =
-        t == 0 ? h_init : (valid ? hs[elem + (t - 1) * step] : 0.f);
-    const float da = expf(__fmul_rn(dt, a));
-    lam = __fadd_rn(lam, __fmul_rn(gyv, cv));          // lambda_t
-    if (valid) lam_s[elem + t * step] = lam;
-    const float gs = __fmul_rn(__fmul_rn(lam, h_prev), da);
-    acc_a = __fadd_rn(acc_a, __fmul_rn(gs, dt));
-    float s1 = __fmul_rn(gs, a);     // d(dt) through da
-    float s2 = __fmul_rn(lam, bv);   // du through dbx
-    for (int m = N >> 1; m > 0; m >>= 1) {
-      s1 = __fadd_rn(s1, __shfl_xor_sync(0xffffffffu, s1, m));
-      s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, m));
+  // 2. the reverse walk, a segment at a time
+  float lam[V], acc_a[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    lam[v] = (valid && gh != nullptr) ? gh[state + v] : 0.f;
+    acc_a[v] = 0.f;
+  }
+  float p1[4], p2[4], dtq[4], xq[4];    // V = 4: 4 steps' sums over n
+  for (int k = nseg - 1; k >= 0; --k) {
+    const int64_t t0 = (int64_t)k * S;
+    const int len = (int)(T - t0 < S ? T - t0 : S);   // the same in a CTA
+    float* tl = tiles + buf * tile;
+    commit(tl);
+    buf ^= 1;
+    __syncthreads();                    // the tile in; red free again
+    if (k > 0) prefetch(k - 1);
+    if (valid) {
+      ldv<V>(ck + k * ck_step, h);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) h[v] = 0.f;
     }
-    if (valid && n == 0) {
-      const int64_t o = (b * T + t) * DI + d;
-      g_dt[o] = __fadd_rn(s1, __fmul_rn(s2, xv));
-      g_x[o] = __fmul_rn(s2, dt);
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      if (j < len) {
+        float da[V];
+        stv<V>(hbs + j * NT * V, h);
+        step(tl, j, h, da);
+        stv<V>(das + j * NT * V, da);
+      }
     }
-    lam = __fmul_rn(lam, da);         // carried to step t - 1
+    // h = h_{t0 + len - 1}
+#pragma unroll
+    for (int j = S - 1; j >= 0; --j) {
+      float dt = 0.f, xv = 0.f, s1 = 0.f, s2 = 0.f;
+      if (j < len) {
+        dt = tl[j * cpc + ch];
+        xv = tl[sc + j * cpc + ch];
+        const float gyv = tl[2 * sc + j * cpc + ch];
+        const float u = __fmul_rn(dt, xv);
+        float bv[V], cv[V], hp[V];      // hp = h_{t-1}
+        ldv<V>(tl + 3 * sc + j * N + n0, bv);
+        ldv<V>(tl + 3 * sc + sn + j * N + n0, cv);
+        ldv<V>(hbs + j * NT * V, hp);
+        float da[V];
+        ldv<V>(das + j * NT * V, da);
+        float pbc[2 * V];               // lambda u (dB), then gy h (dC)
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          pbc[V + v] = valid ? __fmul_rn(gyv, h[v]) : 0.f;
+          lam[v] = __fadd_rn(lam[v], __fmul_rn(gyv, cv[v]));
+          pbc[v] = valid ? __fmul_rn(lam[v], u) : 0.f;
+          const float gs = __fmul_rn(__fmul_rn(lam[v], hp[v]), da[v]);
+          acc_a[v] = __fadd_rn(acc_a[v], __fmul_rn(gs, dt));
+          const float e1 = __fmul_rn(gs, a[v]);
+          const float e2 = __fmul_rn(lam[v], bv[v]);
+          s1 = v == 0 ? e1 : __fadd_rn(s1, e1);
+          s2 = v == 0 ? e2 : __fadd_rn(s2, e2);
+          lam[v] = __fmul_rn(lam[v], da[v]);   // carried to step t - 1
+          h[v] = hp[v];
+        }
+        // the warp's channels summed; a warp's (2, N) sums of step j
+        float* row = red + j * red_row + warp * 2 * N;
+        if constexpr (V == 4) {
+          const int c = lane >> 2;      // the channel in the warp, 0..7
+          reduce_steps<8, 4>(pbc, c);
+          row[(c >> 2) * N + n0 + (c & 3)] = pbc[0];
+        } else {
+          for (int m = lanes; m < 32; m <<= 1) {
+            pbc[0] = __fadd_rn(pbc[0],
+                               __shfl_xor_sync(0xffffffffu, pbc[0], m));
+            pbc[1] = __fadd_rn(pbc[1],
+                               __shfl_xor_sync(0xffffffffu, pbc[1], m));
+          }
+          if (lane < lanes) row[q] = pbc[0], row[N + q] = pbc[1];
+        }
+      }
+      // d(dt) and dx: the channel's lanes summed
+      if constexpr (V == 4) {
+        p1[j & 3] = s1, p2[j & 3] = s2, dtq[j & 3] = dt, xq[j & 3] = xv;
+        if ((j & 3) == 0 && j < len) {
+          reduce_steps<4>(p1, q);
+          reduce_steps<4>(p2, q);
+          if (valid && j + q < len) {
+            const int64_t o = (b * T + t0 + j + q) * DI + d;
+            g_dt[o] = __fadd_rn(p1[0], __fmul_rn(p2[0], pick4(xq, q)));
+            g_x[o] = __fmul_rn(p2[0], pick4(dtq, q));
+          }
+        }
+      } else if (j < len) {
+        for (int m = lanes >> 1; m > 0; m >>= 1) {
+          s1 = __fadd_rn(s1, __shfl_xor_sync(0xffffffffu, s1, m));
+          s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, m));
+        }
+        if (valid && q == 0) {
+          const int64_t o = (b * T + t0 + j) * DI + d;
+          g_dt[o] = __fadd_rn(s1, __fmul_rn(s2, xv));
+          g_x[o] = __fmul_rn(s2, dt);
+        }
+      }
+    }
+    // the segment's dB, dC of this CTA column: its warps summed in order
+    __syncthreads();
+    const int64_t btn = (int64_t)gridDim.y * T * N;
+    for (int i = tid; i < len * 2 * N; i += NT) {
+      const int j = i >> (ln + 1), r = i - j * 2 * N;
+      const int kind = r >> ln, n = r - kind * N;
+      const float* p = red + j * red_row + r;
+      float s = p[0];
+#pragma unroll
+      for (int w = 1; w < warps; ++w) s = __fadd_rn(s, p[w * 2 * N]);
+      part_bc[((int64_t)kind * gridDim.x + blockIdx.x) * btn +
+              (b * T + t0 + j) * N + n] = s;
+    }
   }
   if (valid) {
-    if (g_h0 != nullptr) g_h0[state] = lam;
-    g_a_part[state] = acc_a;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (g_h0 != nullptr) g_h0[state + v] = lam[v];
+      part_a[state + v] = acc_a[v];
+    }
   }
 }
 
-// part_b / part_c (kSlices, B, T, N): slice s of DI summed in order.
-template <typename In>
-__global__ void __launch_bounds__(kBwdThreads) mnf_mamba_scan_bwd_bc(
-    MambaScanSourceArgs<In> g, const float* __restrict__ gy,
-    const float* __restrict__ hs, const float* __restrict__ lam_s,
-    float* __restrict__ part_b, float* __restrict__ part_c, int64_t B,
-    int64_t T, int DI, int N, int per) {
-  const int64_t total = B * T * N;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int s = blockIdx.y;
-  const int n = (int)(i % N);
-  const int64_t bt = i / N;
-  const int64_t t = bt % T, b = bt / T;
-  const In* pdt = g.dt + b * g.dt_b + t * g.dt_t;
-  const In* px = g.x + b * g.x_b + t * g.x_t;
-  const float* pgy = gy + bt * DI;
-  const float* ph = hs + bt * DI * N + n;
-  const float* pl = lam_s + bt * DI * N + n;
-  const int d0 = s * per;
-  const int d1 = d0 + per < DI ? d0 + per : DI;
-  float sb = 0.f, sc = 0.f;
-  for (int d = d0; d < d1; ++d) {
-    const float u = __fmul_rn(widen(pdt[d]), widen(px[d]));
-    sb = __fadd_rn(sb, __fmul_rn(u, pl[(int64_t)d * N]));
-    sc = __fadd_rn(sc, __fmul_rn(pgy[d], ph[(int64_t)d * N]));
-  }
-  part_b[s * total + i] = sb;
-  part_c[s * total + i] = sc;
-}
-
-// out[m] = sum over r < R of part[r M + m], in order.
-__global__ void __launch_bounds__(kBwdThreads) mnf_sum_rows(
-    const float* __restrict__ part, float* __restrict__ out, int R,
-    int64_t M) {
+// g_b / g_c [m] = sum over the ncol CTA columns of part_bc, g_a [m] = sum
+// over the B batch rows of part_a, each in order.
+__global__ void __launch_bounds__(kSumThreads) mnf_mamba_scan_bwd_sum(
+    const float* __restrict__ part_bc, const float* __restrict__ part_a,
+    float* __restrict__ g_b, float* __restrict__ g_c,
+    float* __restrict__ g_a, int ncol, int B, int64_t btn, int64_t din) {
   const int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  float s = 0.f;
-  for (int r = 0; r < R; ++r) s = __fadd_rn(s, part[r * M + m]);
-  out[m] = s;
+  if (m < 2 * btn) {
+    const int kind = m >= btn;
+    const int64_t r = m - kind * btn;
+    const float* p = part_bc + (int64_t)kind * ncol * btn + r;
+    float s = p[0];
+    for (int c = 1; c < ncol; ++c) s = __fadd_rn(s, p[c * btn]);
+    (kind ? g_c : g_b)[r] = s;
+  } else if (m < 2 * btn + din) {
+    const int64_t r = m - 2 * btn;
+    float s = part_a[r];
+    for (int i = 1; i < B; ++i) s = __fadd_rn(s, part_a[i * din + r]);
+    g_a[r] = s;
+  }
 }
 
-unsigned blocks(int64_t n) {
-  return (unsigned)((n + kBwdThreads - 1) / kBwdThreads);
+template <typename In, int V>
+int launch_bwd(const MambaScanSourceArgs<In>& g, const BwdPlan& p,
+               const float* h0, const float* gy, const float* gh,
+               float* ck, float* g_dt, float* g_x, float* g_h0,
+               float* part_a, float* part_bc, int64_t B, int64_t T,
+               int64_t DI, int64_t N, cudaStream_t st) {
+  static bool set = false;
+  if (!set) {
+    cudaFuncSetAttribute(mnf_mamba_scan_bwd<In, V>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kBwdMaxSmem);
+    cudaFuncSetAttribute(mnf_mamba_scan_bwd<In, V>,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    set = true;
+  }
+  mnf_mamba_scan_bwd<In, V>
+      <<<dim3((unsigned)p.ncol, (unsigned)B), p.threads, p.smem, st>>>(
+          g, h0, gy, gh, ck, g_dt, g_x, g_h0, part_a, part_bc, T, (int)DI,
+          (int)N, p.cpc);
+  return (int)cudaGetLastError();
 }
 
 template <typename In>
@@ -544,27 +780,24 @@ int launch_scan_bwd(const MambaScanSourceArgs<In>& g, const float* h0,
                     float* g_x, float* g_a, float* g_b, float* g_c,
                     float* g_h0, float* scratch, int64_t B, int64_t T,
                     int64_t DI, int64_t N, cudaStream_t st) {
-  const int64_t elems = B * T * DI * N, btn = B * T * N;
-  float* hs = scratch;
-  float* lam = hs + elems;
-  float* part_a = lam + elems;
-  float* part_b = part_a + B * DI * N;
-  float* part_c = part_b + kSlices * btn;
-  const int cpc = kBwdThreads / (int)N;
-  const dim3 grid((unsigned)((DI + cpc - 1) / cpc), (unsigned)B);
-  mnf_mamba_scan_bwd_walk<In><<<grid, kBwdThreads, 0, st>>>(
-      g, h0, gy, gh, hs, lam, g_dt, g_x, g_h0, part_a, T, (int)DI, (int)N,
-      cpc);
-  const int per = (int)((DI + kSlices - 1) / kSlices);
-  mnf_mamba_scan_bwd_bc<In><<<dim3(blocks(btn), kSlices), kBwdThreads, 0,
-                              st>>>(g, gy, hs, lam, part_b, part_c, B, T,
-                                    (int)DI, (int)N, per);
-  mnf_sum_rows<<<blocks(btn), kBwdThreads, 0, st>>>(part_b, g_b, kSlices,
-                                                    btn);
-  mnf_sum_rows<<<blocks(btn), kBwdThreads, 0, st>>>(part_c, g_c, kSlices,
-                                                    btn);
-  mnf_sum_rows<<<blocks(DI * N), kBwdThreads, 0, st>>>(part_a, g_a, (int)B,
-                                                       DI * N);
+  const BwdPlan p = bwd_plan(T, DI, N);
+  if (p.smem > (size_t)kBwdMaxSmem) return (int)cudaErrorInvalidValue;
+  const int64_t btn = B * T * N, din = DI * N;
+  float* ck = scratch;
+  float* part_a = ck + B * p.nseg * din;
+  float* part_bc = part_a + B * din;
+  const int rc =
+      p.V == 4 ? launch_bwd<In, 4>(g, p, h0, gy, gh, ck, g_dt, g_x, g_h0,
+                                   part_a, part_bc, B, T, DI, N, st)
+               : launch_bwd<In, 1>(g, p, h0, gy, gh, ck, g_dt, g_x, g_h0,
+                                   part_a, part_bc, B, T, DI, N, st);
+  if (rc) return rc;
+  const int64_t total = 2 * btn + din;
+  mnf_mamba_scan_bwd_sum<<<(unsigned)((total + kSumThreads - 1) /
+                                      kSumThreads),
+                           kSumThreads, 0, st>>>(part_bc, part_a, g_b, g_c,
+                                                 g_a, p.ncol, (int)B, btn,
+                                                 din);
   return (int)cudaGetLastError();
 }
 
@@ -574,7 +807,9 @@ int launch_scan_bwd(const MambaScanSourceArgs<In>& g, const float* h0,
 // (h0 null: zeros); gy (B, T, DI) f32; gh (B, DI, N) f32 or null (zeros);
 // N a power of two up to 32.  Writes, all f32: g_dt, g_x (B, T, DI), g_a
 // (DI, N), g_b, g_c (B, T, N), g_h0 (B, DI, N; skipped where null).
-// scratch: 2 B T DI N + B DI N + 2 kSlices B T N floats.
+// scratch (bwd_plan; kernel.py mamba_scan_fused_bwd_scratch): the
+// checkpoints (B, ceil(T / S), DI, N), then part_a (B, DI, N), then
+// part_bc (2, ncol, B, T, N) floats.
 extern "C" int mnf_mamba_scan_fused_bwd(
     const void* dt, const void* x, const void* a, const void* bm,
     const void* cm, const void* h0, const void* gy, const void* gh,
@@ -595,13 +830,13 @@ extern "C" int mnf_mamba_scan_fused_bwd(
                                     (const float*)a, (const In*)bm,
                                     (const In*)cm, dt_b, dt_t, x_b, x_t,
                                     b_b, b_t, c_b, c_t};
-    return launch_scan_bwd<In>(g, h0f, gyf, ghf, o_dt, o_x, o_a, o_b, o_c,
-                               o_h0, sc, B, T, DI, N, st);
+    return launch_scan_bwd<In>(g, h0f, gyf, ghf, o_dt, o_x, o_a, o_b,
+                               o_c, o_h0, sc, B, T, DI, N, st);
   }
   const MambaScanSourceArgs<float> g{(const float*)dt, (const float*)x,
                                      (const float*)a, (const float*)bm,
                                      (const float*)cm, dt_b, dt_t, x_b, x_t,
                                      b_b, b_t, c_b, c_t};
-  return launch_scan_bwd<float>(g, h0f, gyf, ghf, o_dt, o_x, o_a, o_b, o_c,
-                                o_h0, sc, B, T, DI, N, st);
+  return launch_scan_bwd<float>(g, h0f, gyf, ghf, o_dt, o_x, o_a, o_b,
+                                o_c, o_h0, sc, B, T, DI, N, st);
 }

@@ -119,14 +119,14 @@ __device__ __forceinline__ void lds(const float* p, float (&v)[K]) {
 }
 
 // The K products v[s] of K steps in each of a group's K lanes (lane q of
-// the group: K consecutive lanes of a warp, K a power of two <= 16; the
-// selective scan B10, the WKV6 recurrence B9) reduced over the lanes at
-// once: at each level m = K/2, ..., 1 a lane keeps half its values and
-// adds the partner lane q ^ m's other half, so lane q ends with step q's
-// sum in v[0].  Each step's sum pairs the lanes as the butterfly xor m = K/2,
-// ..., 1 does, and an add does not depend on the order of its two
-// operands: bitwise that butterfly's, with K - 1 shuffles for K steps.
-template <int K>
+// the group: K lanes of a warp STRIDE apart, K a power of two <= 16 / 32
+// / STRIDE; the selective scan B10, the WKV6 recurrence B9) reduced over
+// the lanes at once: at each level m = K/2, ..., 1 a lane keeps half its
+// values and adds the partner lane q ^ m's other half, so lane q ends with
+// step q's sum in v[0].  Each step's sum pairs the lanes as the butterfly
+// xor m = K/2, ..., 1 does, and an add does not depend on the order of its
+// two operands: bitwise that butterfly's, with K - 1 shuffles for K steps.
+template <int K, int STRIDE = 1>
 __device__ __forceinline__ void reduce_steps(float (&v)[K], int q) {
 #pragma unroll
   for (int m = K / 2; m >= 1; m >>= 1) {
@@ -135,7 +135,8 @@ __device__ __forceinline__ void reduce_steps(float (&v)[K], int q) {
     for (int i = 0; i < m; ++i) {
       const float send = upper ? v[i] : v[i + m];
       const float keep = upper ? v[i + m] : v[i];
-      v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, m));
+      v[i] = __fadd_rn(keep,
+                       __shfl_xor_sync(0xffffffffu, send, m * STRIDE));
     }
   }
 }

@@ -14,15 +14,45 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["BWD_N", "BWD_SLICES", "MAX_N", "mamba_scan_cuda",
-           "mamba_scan_fused_bwd_cuda", "mamba_scan_fused_cuda"]
+__all__ = ["BWD_CHANNELS4", "BWD_N", "BWD_SEG", "BWD_THREADS1", "MAX_N", "bwd_plan", "mamba_scan_cuda",
+           "mamba_scan_fused_bwd_cuda", "mamba_scan_fused_bwd_scratch",
+           "mamba_scan_fused_cuda"]
 
 #: Largest state width: a CTA holds at least one channel's N threads.
 MAX_N = 1024
 #: State widths the backward takes: a channel's lanes in one warp.
 BWD_N = (1, 2, 4, 8, 16, 32)
-#: DI slices of the backward's dB / dC partials (``kSlices`` in the source).
-BWD_SLICES = 16
+#: The backward's constants, as the source names them (``kBwdSeg``,
+#: ``kBwdChannels4``, ``kBwdThreads1``): steps a segment (S), channels a
+#: CTA at N = 16, threads a CTA at any other N.
+BWD_SEG = 8
+BWD_CHANNELS4 = 64
+BWD_THREADS1 = 256
+
+
+def bwd_plan(t: int, di: int, n: int) -> dict:
+    """The backward's CTA shape at (T, DI, N), as the source's
+    ``bwd_plan`` computes it: ``v`` state elements a thread (4 at N = 16,
+    else 1), ``threads`` and ``cpc`` channels a CTA, ``nseg`` segments of
+    :data:`BWD_SEG` steps, ``ncol`` CTA columns over DI, ``smem`` its
+    shared bytes."""
+    v = 4 if n == 16 else 1
+    threads = BWD_CHANNELS4 * 4 if v == 4 else BWD_THREADS1
+    cpc = threads // (n // v)
+    smem = 4 * BWD_SEG * ((threads // 32) * 2 * n + 2 * cpc * n
+                          + 2 * (3 * cpc + 2 * n))
+    return dict(v=v, threads=threads, cpc=cpc, nseg=-(-t // BWD_SEG),
+                ncol=-(-di // cpc), smem=smem)
+
+
+def mamba_scan_fused_bwd_scratch(b: int, t: int, di: int, n: int) -> int:
+    """f32 elements of the backward's scratch: the checkpoints (B,
+    ceil(T / S), DI, N), the dA partials (B, DI, N) and the dB / dC
+    partials (2, ncol, B, T, N), ncol = ceil(DI / channels a CTA).  No
+    term is B T DI N: the states stay in the kernel's registers."""
+    p = bwd_plan(t, di, n)
+    return (b * p["nseg"] * di * n + b * di * n
+            + 2 * p["ncol"] * b * t * n)
 
 
 def mamba_scan_cuda(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
@@ -122,8 +152,10 @@ def mamba_scan_fused_bwd_cuda(dt: torch.Tensor, x: torch.Tensor,
     (B, T, DI), d A (DI, N), d B, d C (B, T, N), d h0 (B, DI, N) or None
     where h0 is None), all f32.  The inputs as the forward takes them; N
     one of :data:`BWD_N`.  Allocates its outputs and one f32 scratch
-    buffer (2 B T DI N + B DI N + 2 x 16 B T N floats: the states and
-    lambdas of the chunk, the partial sums); no host sync."""
+    buffer of :func:`mamba_scan_fused_bwd_scratch` elements (checkpoints
+    every :data:`BWD_SEG` steps and the partial sums; 66.4 MB at
+    Hymba-1.5B's training launch, (8, 512, 1600) x 16); two kernel
+    launches, no host sync."""
     b, t, di, n, strides, bf16 = _sources(dt, x, a, bmat, cmat, h0)
     if n not in BWD_N:
         raise ValueError(f"the B10 backward takes a state width in {BWD_N} "
@@ -143,8 +175,8 @@ def mamba_scan_fused_bwd_cuda(dt: torch.Tensor, x: torch.Tensor,
     g_c = torch.empty((b, t, n), dtype=f32, device=dev)
     g_h0 = None if h0 is None else torch.empty((b, di, n), dtype=f32,
                                                device=dev)
-    scratch = torch.empty(2 * b * t * di * n + b * di * n
-                          + 2 * BWD_SLICES * b * t * n, dtype=f32, device=dev)
+    scratch = torch.empty(mamba_scan_fused_bwd_scratch(b, t, di, n),
+                          dtype=f32, device=dev)
     build.launch("mnf_mamba_scan_fused_bwd", dt, x, a, bmat, cmat, h0, gy,
                  gh, g_dt, g_x, g_a, g_b, g_c, g_h0, scratch, b, t, di, n,
                  *strides, bf16)

@@ -16,9 +16,10 @@ counterpart: the kernel masks the ragged channels and loops to T.
 The fused entry is differentiable: under autograd it runs as
 :class:`_FusedScan`, whose backward is the wrapper
 :func:`mamba_scan_fused_bwd` — on the card the backward kernel
-(``mnf_mamba_scan_fused_bwd``, one launch a call, counted under its own
-name), on the CPU the plain reverse scan ``mamba_scan_fused_bwd_ref``.
-It saves the inputs and h0, not the states (the kernel recomputes them).
+(``mnf_mamba_scan_fused_bwd``: the walk and the ordered sums of its
+partials, counted once a call under its own name), on the CPU the plain
+reverse scan ``mamba_scan_fused_bwd_ref``.  It saves the inputs and h0,
+not the states (the kernel recomputes them from checkpoints).
 The streams entry is on no model's path and has no backward: on the card
 a call that autograd would differentiate raises
 :class:`B10BackwardMissing`.
@@ -190,8 +191,9 @@ def mamba_scan_fused_bwd(dt: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
     """The gradients of :func:`mamba_scan_fused` given gy (B, T, DI) and gh
     (B, DI, N), either None for zeros: (d dt, d x, d A, d B, d C, d h0),
     each in its input's dtype (d h0 None where h0 is None).  On CUDA
-    tensors one launch of the backward kernel (N a power of two up to
-    32), within f32 summation order of the plain version."""
+    tensors one call of the backward kernel's C entry (N a power of two
+    up to 32; two launches), within f32 summation order of the plain
+    version."""
     if on_meta(dt):
         return tuple(None if t is None else torch.empty(
             t.shape, dtype=t.dtype, device="meta")

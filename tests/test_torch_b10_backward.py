@@ -15,7 +15,19 @@ through both.
   counts one call of each by its formula.
 - The reduced Hymba train step differentiates through the Function: one
   backward a layer and scan chunk, the forward again under remat.
+- A model of the backward kernel's schedule (``csrc/mamba_scan.cu``
+  ``mnf_mamba_scan_bwd``) in plain torch: checkpoints every S steps,
+  each segment recomputed from its checkpoint and walked back, dB and dC
+  summed over a warp's channels by the shuffles' tree, the warps in
+  order, then the CTA columns in order, dA over the batch rows; held
+  against ``jax.vjp`` at the segment boundaries.  It checks the design,
+  not the kernel: the card tests hold the kernel at the same boundaries.
+  The launcher's scratch (``bwd_plan``, ``mamba_scan_fused_bwd_scratch``)
+  holds no (B, T, DI, N) term, and its constants are the source's.
 """
+import pathlib
+import re
+
 import dataclasses
 
 import jax
@@ -33,7 +45,11 @@ from repro_torch.kernels.mamba_scan.ops import (mamba_scan_fused,
                                                 mamba_scan_fused_bwd,
                                                 mamba_scan_fused_bwd_work,
                                                 mamba_scan_fused_work)
-from repro_torch.kernels.mamba_scan.ref import mamba_scan_fused_bwd_ref
+from repro_torch.kernels.mamba_scan.kernel import (
+    BWD_CHANNELS4, BWD_N, BWD_SEG, BWD_THREADS1, bwd_plan,
+    mamba_scan_fused_bwd_scratch)
+from repro_torch.kernels.mamba_scan.ref import (mamba_scan_fused_bwd_ref,
+                                                mamba_scan_streams)
 from repro_torch.models import transformer as ttfm
 from repro_torch.models.param_utils import tree_leaves, tree_map
 
@@ -234,3 +250,145 @@ def test_reduced_hymba_train_step_runs_the_backward(remat):
                 if v is not None)
     assert worst <= TOL * scale, worst / scale
 
+
+
+def _column_sums(prod, plan):
+    """(ncol, B, N): a step's dB or dC products (B, DI, N) summed over
+    each CTA column's channels in the kernel's order: a warp's channels by
+    the shuffles' tree (at V 4 the channels 4 apart first, ``reduce_steps
+    <8, 4>``; at V 1 the neighbours first), then the warps in order."""
+    b, di, n = prod.shape
+    cpc, ncol = plan["cpc"], plan["ncol"]
+    per_warp = 32 * plan["v"] // n
+    x = torch.nn.functional.pad(prod, (0, 0, 0, ncol * cpc - di))
+    x = x.reshape(b, ncol, cpc // per_warp, per_warp, n)
+    while x.shape[3] > 1:
+        h = x.shape[3] // 2
+        x = (x[:, :, :, :h] + x[:, :, :, h:] if plan["v"] == 4
+             else x[:, :, :, 0::2] + x[:, :, :, 1::2])
+    s = x[:, :, 0, 0]
+    for w in range(1, x.shape[2]):
+        s = s + x[:, :, w, 0]
+    return s.transpose(0, 1)
+
+
+def _schedule_bwd(dt, x, a, bm, cm, h0, gy, gh):
+    """A model of the backward kernel's schedule in plain torch (f32),
+    with its constants (``bwd_plan``): the forward walk keeps the state
+    entering each segment of S steps; segments last to first, each
+    recomputed from its checkpoint and walked back carrying lambda; dB
+    and dC of a step summed over each CTA column's channels
+    (:func:`_column_sums`), then over the columns in order; dA's
+    per-batch-row partials summed over the rows in order.  It tests the
+    design's indices at the segment boundaries, not the kernel, which the
+    card tests hold against the plain version at the same boundaries."""
+    b, t, di = dt.shape
+    n = a.shape[-1]
+    plan = bwd_plan(t, di, n)
+    seg, ncol = BWD_SEG, plan["ncol"]
+    da, dbx, c = mamba_scan_streams(dt, x, a, bm, cm)
+    u = dt * x
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32)
+    h = zeros(b, di, n) if h0 is None else h0.clone()
+    cks = []
+    for k in range(plan["nseg"]):
+        cks.append(h)
+        if k + 1 == plan["nseg"]:
+            break
+        for i in range(k * seg, (k + 1) * seg):
+            h = da[:, i] * h + dbx[:, i]
+    lam = zeros(b, di, n) if gh is None else gh.clone()
+    acc_a = zeros(b, di, n)
+    g_dt, g_x = zeros(b, t, di), zeros(b, t, di)
+    part = zeros(2, ncol, b, t, n)
+    for k in reversed(range(plan["nseg"])):
+        t0, t1 = k * seg, min((k + 1) * seg, t)
+        h, hb = cks[k], []
+        for i in range(t0, t1):
+            hb.append(h)                      # h_{i-1}
+            h = da[:, i] * h + dbx[:, i]
+        for i in reversed(range(t0, t1)):
+            lam = lam + gy[:, i, :, None] * c[:, i, None, :]
+            p_c = gy[:, i, :, None] * h       # h = h_i
+            p_b = lam * u[:, i, :, None]
+            gs = lam * hb[i - t0] * da[:, i]
+            acc_a = acc_a + gs * dt[:, i, :, None]
+            s1 = (gs * a).sum(-1)
+            s2 = (lam * bm[:, i, None, :]).sum(-1)
+            g_dt[:, i] = s1 + s2 * x[:, i]
+            g_x[:, i] = s2 * dt[:, i]
+            part[0, :, :, i] = _column_sums(p_b, plan)
+            part[1, :, :, i] = _column_sums(p_c, plan)
+            lam = lam * da[:, i]
+            h = hb[i - t0]
+    g_b, g_c = part[0, 0].clone(), part[1, 0].clone()
+    for col in range(1, ncol):
+        g_b, g_c = g_b + part[0, col], g_c + part[1, col]
+    g_a = acc_a[0].clone()
+    for row in range(1, b):
+        g_a = g_a + acc_a[row]
+    return g_dt, g_x, g_a, g_b, g_c, None if h0 is None else lam
+
+
+@pytest.mark.parametrize("n", [4, 16])
+@pytest.mark.parametrize("t", [1, BWD_SEG - 1, BWD_SEG, BWD_SEG + 1,
+                               3 * BWD_SEG + 5])
+def test_schedule_model_matches_jax_vjp(t, n):
+    """The kernel's schedule at the segment boundaries (T 1, S - 1, S,
+    S + 1, 3S + 5), DI 40 (ragged against a CTA's channels at N 16), h0
+    and both cotangents non-zero: every gradient within 1e-4 of max|JAX|,
+    and of the plain reverse scan."""
+    vals = _inputs(t * 7 + n, 2, t, 40, n)
+    want = _jax_grads(*vals)
+    got = _schedule_bwd(*map(torch.from_numpy, vals))
+    plain = mamba_scan_fused_bwd_ref(*map(torch.from_numpy, vals))
+    for name, g, w, p_ in zip(NAMES, got, want, plain):
+        assert tuple(g.shape) == w.shape, name
+        assert _rel(g, w) <= TOL, (name, _rel(g, w))
+        assert _rel(g, p_) <= TOL, (name, _rel(g, p_))
+
+
+#: (B, T, DI, N): Hymba-1.5B's training launch (chunk 512 of a 1024-token
+#: row at batch 8), a prefill chunk at batch 4, the card tests' shapes.
+SCRATCH_SHAPES = [(8, 512, 1600, 16), (4, 2000, 1600, 16),
+                  (2, 37, 40, 16), (2, 600, 40, 4), (1, 64, 40, 32),
+                  (3, 96, 257, 1), (2, 128, 40, 2), (2, 128, 40, 8)]
+
+
+@pytest.mark.parametrize("shape", SCRATCH_SHAPES)
+def test_backward_scratch_holds_no_state_array(shape):
+    """The launcher's scratch (checkpoints every S steps and partial
+    sums) is under half of B T DI N (storing every state and lambda takes
+    2 B T DI N), under a quarter at N 16 (four state elements a thread,
+    64 channels a CTA), and a CTA's shared memory fits the H100's."""
+    b, t, di, n = shape
+    plan = bwd_plan(t, di, n)
+    floats = mamba_scan_fused_bwd_scratch(b, t, di, n)
+    assert floats < b * t * di * n / (4 if n == 16 else 2)
+    assert plan["smem"] <= 232448
+    assert plan["threads"] % 32 == 0 and plan["threads"] <= 256
+    assert plan["cpc"] * n == plan["threads"] * plan["v"]
+
+
+def test_backward_scratch_at_the_training_launch():
+    """Hymba-1.5B's training launch, (8, 512, 1600) x 16: 66.4 MB of
+    scratch (52.4 of checkpoints every 8 steps, 13.1 of dB/dC partials
+    over 25 CTA columns) where storing the chunk's (B, T, DI, N) states and
+    lambdas takes 838.9 MB."""
+    floats = mamba_scan_fused_bwd_scratch(8, 512, 1600, 16)
+    assert floats * 4 <= 70e6
+    assert floats * 4 * 12 < 2 * 8 * 512 * 1600 * 16 * 4
+
+
+def test_backward_constants_are_the_sources():
+    """The Python mirror of ``bwd_plan`` reads the source's constants."""
+    src = (pathlib.Path(kernels.__file__).parent.parent / "csrc"
+           / "mamba_scan.cu").read_text()
+    consts = {m[0]: eval(m[1]) for m in re.findall(
+        r"constexpr int (kBwd\w+) = ([\d *]+);", src)}
+    assert consts["kBwdSeg"] == BWD_SEG
+    assert consts["kBwdChannels4"] == BWD_CHANNELS4
+    assert consts["kBwdThreads1"] == BWD_THREADS1
+    assert "mnf_mamba_scan_bwd_bc" not in src
+    assert not re.search(r"\batomic\w*\(", src)
+    assert BWD_N == (1, 2, 4, 8, 16, 32)

@@ -35,7 +35,8 @@ from repro_torch.kernels.event_pool.ref import (event_pool_ref,
 from repro_torch.kernels.fire_compact.ops import fire_compact
 from repro_torch.kernels.fire_compact.ref import fire_compact_ref
 from repro_torch.kernels.mamba_scan.kernel import (
-    MAX_N, mamba_scan_cuda, mamba_scan_fused_bwd_cuda, mamba_scan_fused_cuda)
+    BWD_N, BWD_SEG, MAX_N, mamba_scan_cuda,
+    mamba_scan_fused_bwd_cuda, mamba_scan_fused_cuda)
 from repro_torch.kernels.mamba_scan.ops import (mamba_scan, mamba_scan_fused,
                                                 mamba_scan_fused_bwd)
 from repro_torch.kernels.mamba_scan.ref import (mamba_scan_fused_bwd_ref,
@@ -1240,19 +1241,15 @@ def test_hymba_training_on_card_runs_the_b10_backward(dev):
     assert worst <= 1e-4 * scale, worst / scale
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("with_h0", [False, True])
-@pytest.mark.parametrize("with_gh", [False, True])
-@pytest.mark.parametrize("di,n", [(40, 4), (40, 16), (1600, 16)])
-def test_mamba_scan_fused_bwd_matches_plain(dev, dtype, with_h0, with_gh,
-                                            di, n):
-    """B10's backward on the prefill's layout (T-sliced rows, B and C
-    slices of one 2N + 100 wide row), T 37: every gradient within 1e-4 of
-    max|plain| of ``mamba_scan_fused_bwd_ref``, in its input's dtype
-    (bf16 ones within a bf16 rounding of the plain gradient cast), one
-    launch; two launches agree bitwise (no atomics)."""
-    b, t_all, t0, t = 2, 50, 6, 37
-    gen = torch.Generator(device=dev).manual_seed(di + n + with_h0)
+def _check_scan_bwd(dev, dtype, di, n, t, with_h0, with_gh, seed):
+    """B10's backward on the prefill's layout (rows T-sliced out of a
+    longer chunk, B and C slices of one 2N + 100 wide row): one launch,
+    every gradient within 1e-4 of max|plain| of
+    ``mamba_scan_fused_bwd_ref`` in its input's dtype (bf16 ones within a
+    bf16 rounding of the plain gradient cast), two launches bitwise."""
+    b, t0 = 2, 6
+    t_all = t0 + t + 7
+    gen = torch.Generator(device=dev).manual_seed(seed)
     f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     dt_all = torch.nn.functional.softplus(f(b, t_all, di)).to(dtype)
     x_all = f(b, t_all, di).to(dtype)
@@ -1280,6 +1277,31 @@ def test_mamba_scan_fused_bwd_matches_plain(dev, dtype, with_h0, with_gh,
             (name, float((u.float() - v.float()).abs().max()) / scale)
     again = mamba_scan_fused_bwd(*args, gy, gh)
     assert all(u is None or torch.equal(u, v) for u, v in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("with_gh", [False, True])
+@pytest.mark.parametrize("di,n", [(40, 4), (40, 16), (1600, 16)])
+def test_mamba_scan_fused_bwd_matches_plain(dev, dtype, with_h0, with_gh,
+                                            di, n):
+    """B10's backward at T 37 (``_check_scan_bwd``)."""
+    _check_scan_bwd(dev, dtype, di, n, 37, with_h0, with_gh,
+                    di + n + with_h0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h0_gh", [(False, False), (True, False),
+                                   (False, True), (True, True)])
+@pytest.mark.parametrize("n", BWD_N)
+@pytest.mark.parametrize("t", [1, BWD_SEG - 1, BWD_SEG, 3 * BWD_SEG + 5,
+                               1000])
+def test_mamba_scan_fused_bwd_segments(dev, dtype, h0_gh, n, t):
+    """B10's backward at the segment boundaries of its schedule (T 1,
+    S - 1, S, 3S + 5) and at a long chunk (T 1000), every state width it
+    takes, DI 40 (not a multiple of a CTA's channels), h0 and gh each
+    None and given (``_check_scan_bwd``)."""
+    _check_scan_bwd(dev, dtype, 40, n, t, *h0_gh, 7 * t + n)
 
 
 def test_scan_bwd_launcher_refuses_other_state_widths(dev):

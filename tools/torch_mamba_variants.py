@@ -10,9 +10,9 @@ Each variant is the source with one edit, built on its own with the
 package's nvcc flags into ``build/variants/`` and called through its C
 entry.  ``--parent`` names another tree's ``src`` (e.g. the parent commit
 unpacked by ``git archive`` under the git-ignored ``build/``): its two
-sources are built as they are and timed beside the variants (B8 with the
-live mask built by ``live_block_mask``; B10's streams entry, the only one
-such a tree may have).
+sources are built as they are and timed beside the variants (B8, with
+the live mask built by ``live_block_mask`` where its entry takes one;
+B10's streams entry; B10's backward where the tree has one).
 
 B8 at Hymba-1.5B batch 4's decode shape (state (4, 1600, 16), B/C (4, 16),
 events (4, 100, 1, 16) of a normal gate at θ = 0, every block live):
@@ -24,11 +24,12 @@ events (4, 100, 1, 16) of a normal gate at θ = 0, every block live):
 - ``loads_4B``: the 4-byte path;
 - ``blocks_1``, ``blocks_4``: 1 or 4 DI-blocks a CTA;
 - ``always_search``: every warp searches every slot below the count;
-- ``parent``: the other tree's kernel, fed the live mask; ``parent+mask``:
-  ``live_block_mask`` and the parent kernel, as the parent's wrapper ran
-  them; ``wrapper``: ``mamba_step_events`` as the model calls it;
+- ``parent``: the other tree's kernel (fed the live mask where its C
+  entry takes one, and then ``parent+mask``: ``live_block_mask`` and the
+  parent kernel, as the parent's wrapper ran them); ``wrapper``:
+  ``mamba_step_events`` as the model calls it;
 
-beside the byte bound (``chip_smoke.mamba_work``).  The wrappers are also
+beside the byte bound (``mamba_step.ops.mamba_work``).  The wrappers are also
 timed eagerly on the host clock (200 calls, one synchronize), which is
 what a decode step pays for them.
 
@@ -51,12 +52,35 @@ torch builds) and the fused entry (``fused_*``):
 - ``parent``: the other tree's streams entry;
 
 beside ``build``, the eager building of the two streams alone (what the
-fused entry removes), and each entry's bound (``chip_smoke``'s
+fused entry removes), and each entry's bound (``mamba_scan.ops``'s
 ``mamba_scan_work`` and ``mamba_scan_fused_work``).
+
+B10's backward (``mnf_mamba_scan_fused_bwd``) at the two launches of a
+Hymba-1.5B train step of batch 8 x 1024 (two chunks of 512 a layer:
+dt, x (8, 512, 1600) bf16 T-slices of (8, 1024, 1600), B and C slices
+of one 2N + 100 wide row; chunk 1 with h0 given and gh None, chunk 0
+with h0 None and gh given, gy f32):
+
+- ``kernel``: the source as it is (checkpoints every 8 steps in the
+  global scratch, 64 channels a CTA of 256 threads at N 16, the
+  segment's states and decays in shared memory);
+- ``seg_4``, ``seg_16``: segments of 4 or 16 steps; ``seg_32_cta_16``:
+  of 32 steps at 16 channels a CTA (64 threads: 32 steps at 64 channels
+  take more shared memory than a CTA has);
+- ``cta_16``, ``cta_32``: 16 or 32 channels a CTA (64, 128 threads);
+- ``parent``: the other tree's ``mnf_mamba_scan_fused_bwd``, with the
+  scratch its own launcher sized;
+
+beside B10's forward fused entry on the same launch's inputs (the
+backward over the forward is printed) and the bound
+(``mamba_scan_fused_bwd_work``).  ``--bwd-only`` times the backward
+alone.
 
 Every variant is checked against the plain version (states
 ``torch.equal``, readouts within 1e-4 of max|plain|; the fused entry's
-y ``torch.equal`` the streams entry's of the same build).  Each is a
+y ``torch.equal`` the streams entry's of the same build; the backward's
+gradients within 1e-4 of max|plain| of ``mamba_scan_fused_bwd_ref`` and
+two launches bitwise).  Each is a
 CUDA graph of a few calls; the graphs are replayed in turns, 3 replays a
 turn between CUDA events, for 7 rounds: the median and the range.  Prints
 the card line, ptxas registers of each build, each shape's ms, and one
@@ -122,6 +146,19 @@ SCAN_EDITS = {
 }
 #: variants whose output is wrong on purpose (not checked)
 INEXACT = {"no_shfl", "no_store", "no_exp", "const_loads"}
+BWD_SEG = "constexpr int kBwdSeg = 8; "
+BWD_CTA = "constexpr int kBwdChannels4 = 64;"
+CTA16 = (BWD_CTA, BWD_CTA.replace("64", "16"))
+BWD_EDITS = {
+    "kernel": [],
+    "seg_4": [(BWD_SEG, BWD_SEG.replace("8", "4"))],
+    "seg_16": [(BWD_SEG, BWD_SEG.replace("8", "16"))],
+    "seg_32_cta_16": [(BWD_SEG, BWD_SEG.replace("8", "32")), CTA16],
+    "cta_16": [CTA16],
+    "cta_32": [(BWD_CTA, BWD_CTA.replace("64", "32"))],
+}
+#: Hymba-1.5B's train step in chip_smoke [13]: batch 8 x 1024, chunks of 512.
+TRAIN_B, TRAIN_SEQ = 8, 1024
 #: Hymba-1.5B batch 4: DI 1600, state 16, DI-blocks of 16 (RECURRENT_BLK_K).
 B, DI, N, BK = 4, 1600, 16, 16
 PROMPT, LONG, CHUNK = 32, 2000, 512
@@ -132,6 +169,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default=None,
                     help="another tree's src whose B8 and B10 to time")
+    ap.add_argument("--bwd-only", action="store_true",
+                    help="time B10's backward alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -147,7 +186,10 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.mamba_scan.ref import (mamba_scan_fused_ref,
                                                     mamba_scan_streams)
-    from repro_torch.kernels.mamba_step.ops import mamba_step_events
+    from repro_torch.kernels.mamba_scan.ops import (mamba_scan_fused_work,
+                                                    mamba_scan_work)
+    from repro_torch.kernels.mamba_step.ops import (mamba_step_events,
+                                                    mamba_work)
     from repro_torch.kernels.mamba_step.ref import mamba_step_events_ref
     from torch_pool_step_variants import build_all, edited
 
@@ -155,14 +197,28 @@ def main() -> int:
     out.mkdir(parents=True, exist_ok=True)
     step_src = (build.CSRC / "mamba_step.cu").read_text()
     scan_src = (build.CSRC / "mamba_scan.cu").read_text()
-    jobs = {f"step_{n}": (edited(step_src, e), build.CSRC)
-            for n, e in STEP_EDITS.items()}
-    jobs.update({f"scan_{n}": (edited(scan_src, e), build.CSRC)
-                 for n, e in SCAN_EDITS.items()})
+    jobs = {} if args.bwd_only else {
+        f"step_{n}": (edited(step_src, e), build.CSRC)
+        for n, e in STEP_EDITS.items()}
+    if not args.bwd_only:
+        jobs.update({f"scan_{n}": (edited(scan_src, e), build.CSRC)
+                     for n, e in SCAN_EDITS.items()})
+    jobs.update({f"bwd_{n}": (edited(scan_src, e), build.CSRC)
+                 for n, e in BWD_EDITS.items()})
     if args.parent:
         pc = pathlib.Path(args.parent).resolve() / "repro_torch" / "csrc"
-        jobs["step_parent"] = ((pc / "mamba_step.cu").read_text(), pc)
-        jobs["scan_parent"] = ((pc / "mamba_scan.cu").read_text(), pc)
+        if not args.bwd_only:
+            jobs["step_parent"] = ((pc / "mamba_step.cu").read_text(), pc)
+            jobs["scan_parent"] = ((pc / "mamba_scan.cu").read_text(), pc)
+        scan_parent = (pc / "mamba_scan.cu").read_text()
+        if "mnf_mamba_scan_fused_bwd" in scan_parent:
+            jobs["bwd_parent"] = (scan_parent, pc)
+    # a parent whose B8 takes the live mask (one pointer more)
+    parent_mask = False
+    if args.parent and not args.bwd_only:
+        text = (pc / "mamba_step.cu").read_text()
+        head = text[text.index('extern "C" int mnf_mamba_step('):]
+        parent_mask = head[:head.index(")")].count("void*") == 11
     t0 = time.perf_counter()
     libs = build_all(jobs, out)
     print(f"{len(jobs)} builds in {time.perf_counter() - t0:.1f} s",
@@ -179,7 +235,7 @@ def main() -> int:
     sig = build._SIGNATURES
     step_fns = {n[5:]: entry(lib, "mnf_mamba_step", (
         [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
-        if n == "step_parent" else sig["mnf_mamba_step"]))
+        if n == "step_parent" and parent_mask else sig["mnf_mamba_step"]))
         for n, (lib, _) in libs.items() if n.startswith("step_")}
     streams_fns = {n[5:]: entry(lib, "mnf_mamba_scan", sig["mnf_mamba_scan"])
                    for n, (lib, _) in libs.items() if n.startswith("scan_")}
@@ -187,6 +243,10 @@ def main() -> int:
                               sig["mnf_mamba_scan_fused"])
                  for n, (lib, _) in libs.items()
                  if n.startswith("scan_") and n != "scan_parent"}
+
+    bwd_fns = {n[4:]: entry(lib, "mnf_mamba_scan_fused_bwd",
+                            sig["mnf_mamba_scan_fused_bwd"])
+               for n, (lib, _) in libs.items() if n.startswith("bwd_")}
 
     card = chip_smoke.card_line()
     print(card, flush=True)
@@ -236,6 +296,9 @@ def main() -> int:
                                                    1e-30)
 
     report = {}
+    if args.bwd_only:
+        return finish(bwd_part(torch, dev, f, bwd_fns, libs, capture,
+                               rounds, line, ratio, report), card, report)
 
     # -- B8 ------------------------------------------------------------------
     g, bm, cm, h = f(B, DI), f(B, N), f(B, N), f(B, DI, N)
@@ -259,7 +322,7 @@ def main() -> int:
                     stream_ptr())
             if rc:
                 raise RuntimeError(f"B8 {name}: CUDA error {rc}")
-        if name == "parent":
+        if name == "parent" and parent_mask:
             mask = ev.live_block_mask(bev).to(torch.int32)
             call = (lambda call=call, mask=mask: call(mask=mask))
         h_new.fill_(-1.0)
@@ -271,7 +334,7 @@ def main() -> int:
                   f" of max|plain|)", file=sys.stderr)
             return 1
         graphs[name] = capture(call, 20)
-        if name == "parent":
+        if name == "parent" and parent_mask:
             def parent_wrapper():
                 live = ev.live_block_mask(bev).to(torch.int32)
                 rc = step_fns["parent"](
@@ -286,11 +349,11 @@ def main() -> int:
         return mamba_step_events(bev, da, bm, cm, h, blk_k=BK)
 
     graphs["wrapper"] = capture(wrapper, 20)
-    b = chip_smoke.bound_ms(*chip_smoke.mamba_work(bev, h))
+    b = chip_smoke.bound_ms(*mamba_work(bev, h))
     row = rounds(graphs)
     del graphs
     eager = {"wrapper": wrapper}
-    if "parent" in step_fns:
+    if parent_mask:
         eager["parent+mask"] = parent_wrapper
     host = {}
     for name, fn in eager.items():
@@ -391,11 +454,10 @@ def main() -> int:
         graphs["build"] = capture(
             lambda: [mamba_scan_streams(*p) for p in parts], 1)
         bs = chip_smoke.bound_ms(*map(sum, zip(*(
-            chip_smoke.mamba_scan_work(s[0], None if i == 0 else s[0])
+            mamba_scan_work(*s[:3], None if i == 0 else s[0])
             for i, s in enumerate(streams)))))
         bf = chip_smoke.bound_ms(*map(sum, zip(*(
-            chip_smoke.mamba_scan_fused_work(p[0], p[2],
-                                             None if i == 0 else p[0])
+            mamba_scan_fused_work(*p[:5], None if i == 0 else p[0])
             for i, p in enumerate(parts)))))
         row = rounds(graphs)
         del graphs, outs
@@ -408,8 +470,105 @@ def main() -> int:
              f"ms ({bf[1]})")
         del parts, streams, want, ys, hs, h0s
         torch.cuda.empty_cache()
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "card": card,
-                      "results": report}), flush=True)
+    return finish(bwd_part(torch, dev, f, bwd_fns, libs, capture, rounds,
+                           line, ratio, report), card, report)
+
+
+def finish(rc: int, card: str, report: dict) -> int:
+    import torch
+    if rc == 0:
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "card": card, "results": report}), flush=True)
+    return rc
+
+
+def bwd_part(torch, dev, f, fns, libs, capture, rounds, line, ratio,
+             report) -> int:
+    """B10's backward at the two launches of [13]'s Hymba step (module
+    docstring): each build checked, then timed in 7 interleaved rounds
+    beside the forward fused entry on the same inputs."""
+    import chip_smoke
+    from repro_torch.kernels.mamba_scan.kernel import mamba_scan_fused_cuda
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused_bwd_work
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_fused_bwd_ref
+
+    def stream_ptr():
+        return torch.cuda.current_stream().cuda_stream
+
+    t = TRAIN_SEQ // 2
+    dt_all = torch.nn.functional.softplus(
+        f(TRAIN_B, TRAIN_SEQ, DI)).bfloat16()
+    x_all = f(TRAIN_B, TRAIN_SEQ, DI).bfloat16()
+    bc_all = f(TRAIN_B, TRAIN_SEQ, 2 * N + 100).bfloat16()
+    a = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(DI,
+                                                                        1)
+    launches = {}
+    for chunk in (1, 0):
+        sl = slice(chunk * t, (chunk + 1) * t)
+        h0 = f(TRAIN_B, DI, N) if chunk else None
+        gh = None if chunk else f(TRAIN_B, DI, N) * 1e-2
+        launches[f"chunk {chunk}"] = (
+            dt_all[:, sl], x_all[:, sl], a, bc_all[:, sl, :N],
+            bc_all[:, sl, N:2 * N], h0, f(TRAIN_B, t, DI) * 1e-2, gh)
+    # one scratch for every build: the parent's size, the largest
+    parent_floats = 2 * TRAIN_B * t * DI * N + TRAIN_B * DI * N \
+        + 2 * 16 * TRAIN_B * t * N
+    scratch = torch.empty(parent_floats, dtype=torch.float32, device=dev)
+    for what, args in launches.items():
+        dt, x, a_, bm, cm, h0, gy, gh = args
+        want = mamba_scan_fused_bwd_ref(dt.float(), x.float(), a_,
+                                        bm.float(), cm.float(), h0, gy, gh)
+        outs = [torch.empty(w.shape, dtype=torch.float32, device=dev)
+                if w is not None else None for w in want]
+        strides = [st for m in (dt, x, bm, cm) for st in m.stride()[:2]]
+        ptr = lambda m: 0 if m is None else m.data_ptr()
+        graphs = {}
+        for name, fn in fns.items():
+            def go(fn=fn, name=name):
+                rc = fn(*(ptr(m) for m in (dt, x, a_, bm, cm, h0, gy, gh)),
+                        *(ptr(o) for o in outs), scratch.data_ptr(),
+                        TRAIN_B, t, DI, N, *strides, 1, stream_ptr())
+                if rc:
+                    raise RuntimeError(f"B10 bwd {name}: CUDA error {rc}")
+            runs = []
+            for _ in range(2):
+                for o in outs:
+                    if o is not None:
+                        o.fill_(float("nan"))
+                go()
+                torch.cuda.synchronize()
+                runs.append([None if o is None else o.clone()
+                             for o in outs])
+            for gname, u, v, w in zip(("dt", "x", "A", "B", "C", "h0"),
+                                      runs[0], runs[1], want):
+                if w is None:
+                    continue
+                r = ratio(u, w.float())
+                if r > 1e-4 or not torch.equal(u, v):
+                    print(f"torch_mamba_variants: B10 bwd {name} d{gname} "
+                          f"off {r:.3e} of max|plain| at {what} (two "
+                          f"launches equal: {torch.equal(u, v)})",
+                          file=sys.stderr)
+                    return 1
+            graphs[name] = capture(go, 5)
+        fwd = (dt, x, a_, bm, cm, h0)
+        graphs["forward"] = capture(lambda: mamba_scan_fused_cuda(*fwd), 5)
+        b = chip_smoke.bound_ms(*mamba_scan_fused_bwd_work(*args))
+        row = rounds(graphs)
+        del graphs
+        shape = (f"dt/x {tuple(dt.shape)} bf16, B/C {tuple(bm.shape)}, h0 "
+                 f"{'given' if h0 is not None else 'None'}, gh "
+                 f"{'given' if gh is not None else 'None'}")
+        report[f"B10 bwd {what}"] = dict(
+            ms=row, bound_ms=b[0], bound_by=b[1], shape=shape,
+            bwd_over_fwd=round(row["kernel"][0] / row["forward"][0], 3),
+            registers={n: libs[f"bwd_{n}"][1] for n in fns})
+        line(f"B10 bwd {what}: {shape}", row,
+             f"; bound {b[0]:.5f} ms ({b[1]}); backward / forward "
+             f"{row['kernel'][0] / row['forward'][0]:.2f}")
+        del want, outs, runs
+    del scratch
+    torch.cuda.empty_cache()
     return 0
 
 
