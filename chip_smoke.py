@@ -238,42 +238,58 @@ while phase 3 times the kernels from CUDA graphs):
    896, vocab 151,936; f32 params, bf16 compute, MNF at θ = 0), batch 8 x
    128, 60 steps of AdamW under warmup_cosine(3e-4, 20, 60) on the Markov
    corpus through ``launch.train`` (the prefetching loader, the
-   resilient loop), every launch count set to 0 just before and read
-   just after: the path reaches no kernel, all stay 0.  Checks: every
-   loss finite, the mean of the last 5 below the mean of the first 5 by
-   0.2 (the JAX system test's criterion); the counted step's FLOPs
-   between 6·N·D and twice it; accum_steps 2 against 1 on one batch
-   (loss within 1e-3, first moments within 2e-2 of the tree's largest,
-   params within 2 lr + 1e-6); a run stopped by SIGTERM through the loop's preemption
-   path writes its checkpoint, restored bitwise, and a resumed run
-   starts at that step with losses within 5e-3 of the uninterrupted
-   run's.  Prints the losses, the step's median ms, tokens/s, peak
-   memory, the idle share from torch.profiler over 3 steps, and the
-   roofline row (counted GFLOP and GB, t_compute, t_memory, the
-   bottleneck, model GFLOP, useful_ratio, roofline_frac) with the
-   measured share beside it.  Then Hymba-1.5B trained at full width (32
-   layers, d 1600, Mamba state 16; f32 params, bf16 compute), batch 8 x
-   1024 (two B10 chunks of 512 a layer: the final state's gradient
-   crosses a chunk boundary), 30 steps of AdamW under
-   warmup_cosine(1e-3, 5, 30) through ``launch.train``, counts set to 0
-   just before and read just after: B10's forward (``mamba_scan_fused``)
-   and backward (``mamba_scan_fused_bwd``) launches equal the plan (the
-   30 steps and the counted one, x 32 layers x 2 chunks, the forward
-   twice under remat "full"), every other kernel 0; the loss falls by
-   0.2 as Qwen2's must; the counted FLOPs at least 6·N·D; its first two
-   backward launches kept for phase 3.  One f32 step of a 2-layer Hymba
-   at full width (batch 2 x 1024) through B10's kernels against the same
-   step with B10's plain forward and backward called explicitly: the loss
-   within 1e-4 relative, each leaf's gradient within 1e-4 of its own
-   max|plain|.  Prints Hymba's step ms, tokens/s, peak
-   memory, idle share and counted roofline.
+   resilient loop) and its graphed train step (one CUDA graph a step,
+   the params and moments updated in place), every launch count set to
+   0 just before and read just after: the path reaches no kernel, all
+   stay 0.  Checks: every loss finite, the mean of the last 5 below the
+   mean of the first 5 by 0.2 (the JAX system test's criterion); one
+   replay a step; the counted step's FLOPs between 6·N·D and twice it;
+   accum_steps 2 against 1 on one batch with the eager step (loss within
+   1e-5 and grad_norm within 1e-2 relative, each leaf's first moments
+   within 2e-2 of its own largest, the key bias's of the tree's); the
+   graphed step against the eager one over 3 steps from the same state
+   and batches, at accum_steps 1 and 2: every param, moment and count
+   and every step's loss, grad_norm and lr bitwise, the caller's state
+   left as it was, replays 2 and 3 under set_sync_debug_mode("error");
+   a run through the graphed step stopped by SIGTERM through the loop's
+   preemption path writes its checkpoint, restored bitwise into new
+   tensors, which the same graph copies in, and a resumed run starts at
+   that step with losses within 5e-3 of the uninterrupted run's.
+   Prints the losses, the graphed step's median ms, tokens/s, peak
+   memory, warm-up and capture s, graph pool GiB and the idle share over
+   3 replays, ``launch.train``'s figures with the step forced eager
+   (median ms, tokens/s, peak memory, idle share over 3 steps), and the
+   roofline row of the eager step (counted GFLOP and GB, t_compute,
+   t_memory, the bottleneck, model GFLOP, useful_ratio, roofline_frac)
+   with the measured share beside it.  Then Hymba-1.5B trained at full
+   width (32 layers, d 1600, Mamba state 16; f32 params, bf16 compute),
+   batch 8 x 1024 (two B10 chunks of 512 a layer: the final state's
+   gradient crosses a chunk boundary), 30 steps of AdamW under
+   warmup_cosine(1e-3, 5, 30) through ``launch.train`` and the graphed
+   step, counts set to 0 just before and read just after: B10's forward
+   (``mamba_scan_fused``) and backward (``mamba_scan_fused_bwd``)
+   launches at the capture equal the plan of one step (32 layers x 2
+   chunks, the forward twice under remat "full"), every other kernel 0,
+   the graph replayed 30 times, the wrappers' counts the warm-up's, the
+   capture's and the counted eager step's; the loss falls by 0.2 as
+   Qwen2's must; the counted FLOPs at least 6·N·D; the graphed peak
+   memory at most 2 GiB above the eager run's; its first two backward
+   launches (the counted eager step's, before the loop) kept for phase
+   3.  The graphed step bitwise the eager one over 3 steps on the
+   2-layer full-width cut (bf16, batch 8 x 1024), B10's launches at the
+   capture that cut's plan.  One f32
+   step of the 2-layer cut (batch 2 x 1024) through B10's kernels
+   against the same step with B10's plain forward and backward called
+   explicitly: the loss within 1e-4 relative, each leaf's gradient
+   within 1e-4 of its own max|plain|.  Prints Hymba's graphed and eager
+   figures as Qwen2's and its counted roofline.
 14. Parallel and runtime (``parallel_phase``) over a one-rank NCCL mesh
    (one H100: NCCL takes no two ranks on one device; multi-rank numerics
    are the CPU tests' over gloo): ``checked_mesh((1, 1))`` starts the
    group and (2, 1) raises ``MeshCapacityError``; Qwen2-0.5B at full
    width, 3 steps of the mesh train step (DTensor params and moments
    under the placements ``logical_to_pspec`` resolves) against the
-   unsharded step from the same params and batches ([13]'s batch 8 x
+   unsharded eager step from the same params and batches ([13]'s batch 8 x
    128): losses within 1e-5 relative, each leaf's update within 2e-2 of
    the unsharded update's largest, both steps' ms; DeepSeek-V2-Lite-16B's
    MoE layer at full width (64 experts, top-6, batch 4 x 32, f32,
@@ -3155,37 +3171,234 @@ class _SkippedSaves:
         self.ckpt.save = self.orig
 
 
+#: The eager step's figures beside the graphed one's: a short run of
+#: ``launch.train`` with the step forced eager (``_EagerSteps``), its
+#: median after the first step (from the third step on it holds what the
+#: long run holds at its peak: the caller's first state, the step's
+#: input and its output).
+TRAIN_EAGER_STEPS, HYMBA_EAGER_STEPS = 8, 5
+#: The graphed step against the eager one, bitwise, from the same params
+#: and batches: Qwen2-0.5B at full width, accum_steps 1 and 2; Hymba's
+#: 2-layer full-width cut in the main path's bf16 at its batch.
+BITWISE_STEPS = 3
+#: Hymba's graphed run may hold at most this much more device memory at
+#: its peak than ``launch.train``'s eager run (GiB).
+HYMBA_PEAK_SLACK_GIB = 2.0
+
+
+class _EagerSteps:
+    """Inside the block, ``launch.train`` builds the eager step
+    (``make_train_step(graph=False)``) where it takes the graphed one."""
+
+    def __init__(self, train):
+        self.train = train
+
+    def __enter__(self):
+        import functools
+        self.orig = self.train.make_train_step
+        self.train.make_train_step = functools.partial(self.orig,
+                                                       graph=False)
+        return self
+
+    def __exit__(self, *exc):
+        self.train.make_train_step = self.orig
+
+
+def graph_figures(torch, run, tag, batch, seq, card) -> dict:
+    """The graphed run's figures (``launch.train``'s result): the step's
+    median ms, tokens/s, peak memory, capture s and graph pool GiB, and
+    the idle share of the graph's replays over 3 steps."""
+    g = run["graph"]
+    prof = profile(torch, g.replay, f"{tag} graphed train step", steps=3,
+                   top=6, host_ops=False)
+    out = dict(step_ms=run["step_ms"],
+               tok_s=batch * seq / (run["step_ms"] / 1e3),
+               peak_gib=run["peak_bytes"] / 2**30, idle=prof["idle"],
+               busy_ms=prof["busy_ms"], warmup_s=g.warmup_s,
+               capture_s=g.capture_s, pool_gib=g.pool_bytes / 2**30)
+    print(f"{tag} graphed step {out['step_ms']:.3f} ms (median of steps "
+          f"1-{len(run['log']) - 1}), {out['tok_s']:.1f} tokens/s, peak "
+          f"memory {out['peak_gib']:.3f} GiB, idle share {out['idle']:.3f}, "
+          f"warm-up {g.warmup_s:.3f} s + capture {g.capture_s:.3f} s, graph "
+          f"pool {out['pool_gib']:.3f} GiB (card {card})", flush=True)
+    return out
+
+
+def eager_figures(torch, train, argv, cfg, shape, opt, batch, seq,
+                  card, tag) -> dict:
+    """``launch.train``'s run with the eager step (``_EagerSteps``): the
+    step's median ms, tokens/s and peak memory, and the idle share of the
+    eager step over 3 steps."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.data import TokenStreamConfig, markov_lm_batch
+    from repro_torch.launch.steps import make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _EagerSteps(train), _SkippedSaves(ckpt):
+        run = train.train(train.parse_args(argv))
+    check(run["graph"] is None, f"{tag} the eager run took a graph")
+    state = run["state"]
+    del run["state"]
+    b = markov_lm_batch(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch), 0,
+        device="cuda")
+    fn = make_train_step(cfg, shape, opt=opt, graph=False).fn
+    prof = profile(torch, lambda: fn(*state, b), f"{tag} eager train step",
+                   steps=3, top=6, host_ops=False)
+    out = dict(step_ms=run["step_ms"],
+               tok_s=batch * seq / (run["step_ms"] / 1e3),
+               peak_gib=run["peak_bytes"] / 2**30, idle=prof["idle"],
+               busy_ms=prof["busy_ms"])
+    print(f"{tag} eager step {out['step_ms']:.3f} ms (median of steps 1-"
+          f"{len(run['log']) - 1} of launch/train.py, the step forced "
+          f"eager), {out['tok_s']:.1f} tokens/s, peak memory "
+          f"{out['peak_gib']:.3f} GiB, idle share {out['idle']:.3f} (card "
+          f"{card})", flush=True)
+    del state, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def graph_vs_eager(torch, wrappers, tag, cfg, shape, opt, batches,
+                   accum, plan) -> dict:
+    """The eager step twice, then the graphed step, over ``batches`` from
+    the same params (seed 0) and a fresh optimizer state: the second
+    eager run bitwise the first (the eager step's own spread, which the
+    graph is held to: none), and the graphed run too: every param,
+    moment and count and every step's loss, grad_norm and lr; each run's
+    first state left as it was; the replays after the first under
+    set_sync_debug_mode("error") (no host sync); the launches the
+    capture saw == ``plan`` a step (the warm-up and the capture counted
+    by the wrappers, the replays by the graph)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.param_utils import tree_leaves
+    from repro_torch.optim import adamw_init
+
+    def leaves(p, o):
+        return tree_leaves((p, o.mu, o.nu, o.count))
+
+    p0 = tfm.init_params(0, cfg, "cuda")
+    runs = {}
+    for run_i, graph in enumerate((False, False, True)):
+        fn = make_train_step(cfg, shape, opt=opt, accum_steps=accum,
+                             graph=graph).fn
+        state, trail = (p0, adamw_init(p0)), []
+        init = [t.clone() for t in leaves(*state)]
+        kept = leaves(*state)
+        before = {n: w.launches for n, w in wrappers.items()}
+        for i, b in enumerate(batches):
+            if graph and i:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                p, o, m = fn(*state, b)
+                trail.append([m[k].clone() for k in ("loss", "grad_norm",
+                                                     "lr")]
+                             + [o.count.clone()])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            state = (p, o)
+        counted = {n: w.launches - before[n] for n, w in wrappers.items()}
+        runs[run_i] = dict(leaves=[t.clone() for t in leaves(*state)],
+                           trail=trail, counted=counted,
+                           graph=fn.graph if graph else None,
+                           kept=all(torch.equal(a, b)
+                                    for a, b in zip(kept, init)))
+        del fn, state, p, o, init, kept
+        gc.collect()
+        torch.cuda.empty_cache()
+    e, e2, g = runs[0], runs[1], runs[2]
+
+    def bitwise(a, b):
+        return ([torch.equal(x, y) for x, y in zip(a["leaves"], b["leaves"])],
+                all(torch.equal(x, y) for sa, sb in zip(a["trail"],
+                                                        b["trail"])
+                    for x, y in zip(sa, sb)))
+    # the eager step against itself first: the spread the graph is held to
+    e_same, e_trail = bitwise(e2, e)
+    same, trail_same = bitwise(g, e)
+    graph = g["graph"]
+    per_step = {n: graph.launches.get(w, 0) for n, w in wrappers.items()}
+    print(f"{tag} eager step vs itself (accum_steps {accum}), "
+          f"{len(batches)} steps from the same state: {sum(e_same)} of "
+          f"{len(e_same)} leaves bitwise, metrics bitwise {e_trail}",
+          flush=True)
+    check(all(e_same) and e_trail, f"{tag} the eager step is not bitwise "
+          f"from run to run (accum_steps {accum}): "
+          f"{len(e_same) - sum(e_same)} leaves differ, metrics same "
+          f"{e_trail}")
+    print(f"{tag} graphed step vs eager (accum_steps {accum}), "
+          f"{len(batches)} steps from the same state: losses "
+          f"{[round(float(s[0]), 6) for s in g['trail']]} vs "
+          f"{[round(float(s[0]), 6) for s in e['trail']]}; {sum(same)} of "
+          f"{len(same)} leaves (params, moments, count) bitwise, metrics "
+          f"bitwise {trail_same}; launches a step at capture {per_step} "
+          f"(plan {plan}), replays {graph.replays}; replays 2-"
+          f"{len(batches)} made no host sync", flush=True)
+    check(all(same) and trail_same, f"{tag} the graphed step is not "
+          f"bitwise the eager one (accum_steps {accum}): "
+          f"{len(same) - sum(same)} leaves differ, metrics same "
+          f"{trail_same}")
+    check(g["kept"] and e["kept"] and e2["kept"]
+          and int(g["trail"][0][3]) == 1,
+          f"{tag} the warm-up or a copy wrote the caller's first state")
+    check(per_step == plan and graph.replays == len(batches)
+          and g["counted"] == {n: 2 * c for n, c in plan.items()}
+          and e["counted"] == {n: len(batches) * c for n, c in plan.items()},
+          f"{tag} launches: at capture {per_step}, the graphed run's "
+          f"warm-up and capture {g['counted']}, the eager run "
+          f"{e['counted']}, want {plan} a step")
+    return dict(accum=accum, leaves=len(same), replays=graph.replays,
+                per_step=per_step)
+
+
 def train_phase(torch, engine, wrappers, card) -> dict:
     """Phase 13: training on the card.
 
     The main path: ``launch.train.train`` on Qwen2-0.5B at full width
     (24 layers, d 896, vocab 151,936; f32 params, bf16 compute, MNF at
-    its θ = 0), every launch count set to 0 just before and read just
-    after (the path reaches none of B1-B10: all stay 0).  Checks: every
-    loss finite, the mean of the last 5 below the mean of the first 5 by
-    ``TRAIN_DROP``; the counted step's FLOPs between 6·N·D and twice it.
-    Prints the step's median ms, tokens/s, peak memory, the idle share
-    from torch.profiler over 3 steps, and the roofline row with the
-    measured share (model FLOPs over the median step at the bf16 peak).
-    Then: ``accum_steps`` 2 against 1 on one batch (loss, grad norm and
-    each leaf's first moments; half the batch shown to fail the gates); a
-    run stopped by the loop's preemption path (SIGTERM) writes its
-    checkpoint, which a resumed run restores bitwise, and whose losses
-    match the uninterrupted run's.  Then Hymba-1.5B at full width (32
-    layers, d 1600, Mamba state 16) through the same driver, batch 8 x
-    1024 (two B10 chunks a layer), ``HYMBA_STEPS`` steps, counts set to 0
-    just before and read just after: B10's forward and backward
-    launches as planned (``hymba_step_counts``), the loss falling by
-    ``TRAIN_DROP``, the counted FLOPs at least 6·N·D, the step ms,
-    tokens/s, peak memory, idle share and roofline printed; its first two
-    backward launches kept for phase 3; and one f32 step of a 2-layer
-    Hymba at full width through B10's kernels against B10's plain
-    forward and backward called explicitly (:class:`_PlainScan`): the
-    loss within ``HYMBA_GRAD_TOL`` relative, each leaf's gradient within
-    it of its own max|plain|.  The main and
-    the resumed runs' final checkpoints, which nothing reads, are asked
-    for and not written (:class:`_SkippedSaves`); the preempted run's
-    goes to build/smoke_train, removed at the end."""
+    its θ = 0) through the graphed train step (one CUDA graph a step,
+    the params and moments updated in place), every launch count set to
+    0 just before and read just after (the path reaches none of B1-B10:
+    all stay 0).  Checks: every loss finite, the mean of the last 5
+    below the mean of the first 5 by ``TRAIN_DROP``; the counted step's
+    FLOPs between 6·N·D and twice it; the graph replayed once a step.
+    Prints the step's median ms, tokens/s, peak memory, capture s, graph
+    pool GiB, the idle share over 3 replays, and the roofline row with
+    the measured share (model FLOPs over the median step at the bf16
+    peak); then ``launch.train`` with the step forced eager
+    (``TRAIN_EAGER_STEPS`` steps): its ms, tokens/s, peak memory and
+    idle share.  Then: ``accum_steps`` 2 against 1 on one batch with the
+    eager step (loss, grad norm and each leaf's first moments; half the
+    batch shown to fail the gates); the graphed step bitwise the eager
+    one over ``BITWISE_STEPS`` steps at accum_steps 1 and 2
+    (:func:`graph_vs_eager`); a run through the graphed step stopped by
+    the loop's preemption path (SIGTERM) writes its checkpoint, which a
+    resumed run through the same graph restores bitwise and copies in,
+    and whose losses match the uninterrupted run's.  Then Hymba-1.5B at
+    full width (32 layers, d 1600, Mamba state 16) through
+    ``launch.train``, batch 8 x 1024 (two B10 chunks a layer),
+    ``HYMBA_STEPS`` steps, counts set to 0 just before and read just
+    after: B10's
+    forward and backward launches at the capture a step as planned
+    (``hymba_step_counts``), the wrappers' counts the warm-up's, the
+    capture's and the counted eager step's, the main path's launches
+    the capture's times the replays plus the counted step's; the loss
+    falling by ``TRAIN_DROP``, the counted FLOPs at least 6·N·D; the
+    graphed and the eager figures as Qwen2's, the graphed peak at most
+    ``HYMBA_PEAK_SLACK_GIB`` above the eager one; its first two backward
+    launches (the counted eager step's) kept for phase 3; the graphed
+    step bitwise the eager one on the 2-layer full-width cut; and one
+    f32 step of the 2-layer cut through B10's kernels against B10's
+    plain forward and backward called explicitly (:class:`_PlainScan`):
+    the loss
+    within ``HYMBA_GRAD_TOL`` relative, each leaf's gradient within it
+    of its own max|plain|.  The main and the resumed runs' final
+    checkpoints, which nothing reads, are asked for and not written
+    (:class:`_SkippedSaves`); the preempted run's goes to
+    build/smoke_train, removed at the end."""
     import dataclasses
     import os
     import shutil
@@ -3200,7 +3413,7 @@ def train_phase(torch, engine, wrappers, card) -> dict:
     from repro_torch.models.param_utils import tree_leaves, tree_map
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import transformer as tfm
-    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim import (AdamWConfig, adamw_init, warmup_cosine)
     from repro_torch.runtime import LoopConfig, ResilientLoop
 
     t_phase = time.perf_counter()
@@ -3208,24 +3421,30 @@ def train_phase(torch, engine, wrappers, card) -> dict:
     torch.cuda.empty_cache()
     root = ROOT / "build" / "smoke_train"
     shutil.rmtree(root, ignore_errors=True)
-    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
-            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", "3e-4",
-            "--warmup", "20", "--ckpt-every", str(TRAIN_STEPS + 1),
-            "--log-every", "5"]
-    args = train.parse_args(argv + ["--ckpt-dir", str(root / "main")])
+    argv = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--lr", "3e-4", "--warmup", "20",
+            "--ckpt-every", str(TRAIN_STEPS + 1), "--log-every", "5"]
+    args = train.parse_args(argv + ["--steps", str(TRAIN_STEPS),
+                                    "--ckpt-dir", str(root / "main")])
     cfg, shape, plan = train.build(args)
     check((cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.param_dtype,
            cfg.compute_dtype, cfg.mnf.enabled, cfg.mnf.threshold)
           == (24, 896, 151936, "float32", "bfloat16", True, 0.0),
           f"[13] unexpected config {cfg}")
+    opt = AdamWConfig(schedule=warmup_cosine(3e-4, 20, TRAIN_STEPS))
 
-    # -- the main path: launch/train.py, counts 0 before, read after; its
-    # final checkpoint is asked for and not written (nothing reads it)
+    # -- the main path: launch/train.py through the graphed step, counts 0
+    # before, read after; its final checkpoint is asked for and not
+    # written (nothing reads it)
     with _SkippedSaves(ckpt) as skipped:
         run, _, launches, _, secs = drive_counted(
             torch, engine, wrappers, lambda: train.train(args),
             capture=False)
     check_plan("[13] train", launches, {n: 0 for n in wrappers})
+    check(run["graph"] is not None
+          and run["graph"].replays == TRAIN_STEPS,
+          f"[13] launch/train.py did not replay one graph a step: "
+          f"{run['graph']}")
     n_params = sum(t.numel() for t in tree_leaves(run["state"][0]))
     check(skipped.steps == [TRAIN_STEPS], f"[13] the loop asked to save "
           f"steps {skipped.steps}, not its final step {TRAIN_STEPS} alone")
@@ -3236,9 +3455,9 @@ def train_phase(torch, engine, wrappers, card) -> dict:
     print(f"[13] {cfg.name} at full width ({cfg.num_layers} layers, d "
           f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e6:.1f} M "
           f"params f32, bf16 compute, MNF θ=0), batch {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps through launch/train.py in "
-          f"{secs:.1f} s: " + json.dumps({k: run[k] for k in keys}),
-          flush=True)
+          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps through launch/train.py (the "
+          f"graphed step) in {secs:.1f} s: "
+          + json.dumps({k: run[k] for k in keys}), flush=True)
     print(f"[13] losses {[round(x, 4) for x in losses]}", flush=True)
     check(run["final_step"] == TRAIN_STEPS and not run["preempted"],
           f"[13] the run ended at {run['final_step']}")
@@ -3247,50 +3466,45 @@ def train_phase(torch, engine, wrappers, card) -> dict:
     check(last5 < first5 - TRAIN_DROP, f"[13] the loss fell from "
           f"{first5:.4f} to {last5:.4f} (mean of the first and last 5): "
           f"less than {TRAIN_DROP}")
-    step_ms = run["step_ms"]
-    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
     rep = run["report"]
     six_nd = 6.0 * n_params * TRAIN_BATCH * TRAIN_SEQ
     check(six_nd <= rep.hlo_gflops * 1e9 <= 2 * six_nd,
           f"[13] counted {rep.hlo_gflops:.1f} GFLOP outside [6ND, 12ND] = "
           f"[{six_nd / 1e9:.1f}, {2 * six_nd / 1e9:.1f}]")
-    print(f"[13] step {step_ms:.3f} ms (median of steps 1-"
-          f"{TRAIN_STEPS - 1}; all ms "
-          f"{[round(m['step_time_s'] * 1e3, 2) for m in log]}), "
-          f"{tok_s:.1f} tokens/s, peak memory {run['peak_bytes'] / 2**30:.3f}"
-          f" GiB; mean loss of the first 5 steps {first5:.4f}, of the last "
-          f"5 {last5:.4f} (a drop of {first5 - last5:.4f}, limit "
-          f">= {TRAIN_DROP}) (card {card})", flush=True)
-    print(f"[13] roofline of the train step (counted: FlopCounterMode and "
-          f"the byte counter, eager, nothing fused): {rep.hlo_gflops:.1f} "
-          f"GFLOP, {rep.hlo_gbytes:.2f} GB; t_compute "
+    print(f"[13] all step ms "
+          f"{[round(m['step_time_s'] * 1e3, 2) for m in log]}; mean loss "
+          f"of the first 5 steps {first5:.4f}, of the last 5 {last5:.4f} "
+          f"(a drop of {first5 - last5:.4f}, limit >= {TRAIN_DROP})",
+          flush=True)
+    print(f"[13] roofline of the train step (counted on the eager step: "
+          f"FlopCounterMode and the byte counter, nothing fused): "
+          f"{rep.hlo_gflops:.1f} GFLOP, {rep.hlo_gbytes:.2f} GB; t_compute "
           f"{rep.t_compute * 1e3:.3f} ms, t_memory {rep.t_memory * 1e3:.3f} "
           f"ms [{rep.bottleneck}]; model (6·N·D) {rep.model_gflops:.1f} GFLOP,"
           f" useful_ratio {rep.useful_ratio:.4f}, roofline_frac "
           f"{rep.roofline_frac:.4f}; measured share (model FLOPs over the "
-          f"median step at {roofline.HW().peak_flops / 1e12:.0f} TFLOP/s) "
-          f"{run['measured_frac']:.4f} (card {card})", flush=True)
+          f"median graphed step at {roofline.HW().peak_flops / 1e12:.0f} "
+          f"TFLOP/s) {run['measured_frac']:.4f} (card {card})", flush=True)
     print(roofline.format_row(rep), flush=True)
-
     marks = [("", t_phase), ("main run", time.perf_counter())]
-    params, opt_state = run["state"]
+    params = run["state"][0]
     measured = run["measured_frac"]
     ds = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                            global_batch=TRAIN_BATCH)
     batch = markov_lm_batch(ds, TRAIN_STEPS, device="cuda")
-    prof = profile(torch, lambda: plan.fn(params, opt_state, batch),
-                   "[13] train step", steps=3, top=6, host_ops=False)
-    marks.append(("profile", time.perf_counter()))
 
-    # -- accum_steps 2 against 1, one batch, a fresh optimizer state, no
-    # clipping; half the batch alone shows what the gates would see
-    opt = AdamWConfig(lr=ACCUM_LR, grad_clip=math.inf)
+    # -- accum_steps 2 against 1 with the eager step, one batch, a fresh
+    # optimizer state, no clipping, from the params after TRAIN_STEPS
+    # steps (before the graph's profile replays step them on); half the
+    # batch alone shows what the gates would see
+    aopt = AdamWConfig(lr=ACCUM_LR, grad_clip=math.inf)
     fresh = adamw_init(params)
-    outs = [make_train_step(cfg, shape, opt=opt, accum_steps=a).fn(
-        params, fresh, batch) for a in (1, 2)]
+    outs = [make_train_step(cfg, shape, opt=aopt, accum_steps=a,
+                            graph=False).fn(params, fresh, batch)
+            for a in (1, 2)]
     (p1, s1, m1), (p2, s2, m2) = outs
     half_shape = ShapeConfig("half", TRAIN_SEQ, TRAIN_BATCH // 2, "train")
-    m_half = make_train_step(cfg, half_shape, opt=opt).fn(
+    m_half = make_train_step(cfg, half_shape, opt=aopt, graph=False).fn(
         params, fresh, {k: v[:TRAIN_BATCH // 2]
                         for k, v in batch.items()})[2]
 
@@ -3322,14 +3536,35 @@ def train_phase(torch, engine, wrappers, card) -> dict:
           "[13] half the batch passes the accum gates: they test nothing")
     check(loss_d <= ACCUM_LOSS_TOL and gn_d <= ACCUM_GN_TOL
           and mu_d <= ACCUM_MU_TOL, "[13] accum_steps 2 != 1")
-    del outs, p1, p2, s1, s2, fresh, m_half
+    del outs, p1, p2, s1, s2, fresh, m_half, params
+    graphed = graph_figures(torch, run, "[13]", TRAIN_BATCH, TRAIN_SEQ,
+                            card)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("accum and profile", time.perf_counter()))
 
-    marks.append(("accum", time.perf_counter()))
+    # -- the eager step's figures: launch/train.py, the step forced eager
+    eager = eager_figures(
+        torch, train, argv + ["--steps", str(TRAIN_EAGER_STEPS),
+                              "--ckpt-dir", str(root / "eager")],
+        cfg, shape, opt, TRAIN_BATCH, TRAIN_SEQ, card, "[13]")
+    marks.append(("eager run", time.perf_counter()))
 
-    # -- preemption: a run stopped by SIGTERM checkpoints; a resumed run
-    # restores it (held bitwise against the stopped run's state at its
-    # first step), starts at that step and tracks the uninterrupted run's
-    # losses; its own final checkpoint is asked for and not written
+    # -- the graphed step bitwise the eager one, accum_steps 1 and 2
+    batches = [markov_lm_batch(ds, i, device="cuda")
+               for i in range(BITWISE_STEPS)]
+    bitwise = [graph_vs_eager(torch, wrappers, "[13]", cfg, shape, opt,
+                              batches, a, {n: 0 for n in wrappers})
+               for a in (1, 2)]
+    del batches
+    marks.append(("graph vs eager", time.perf_counter()))
+
+    # -- preemption through the graphed step: a run stopped by SIGTERM
+    # checkpoints; a resumed run restores it (held bitwise against the
+    # stopped run's state) and the same graph copies it in, starts at that
+    # step and tracks the uninterrupted run's losses; its own final
+    # checkpoint is asked for and not written
     def loop(total, kill_at=None, first=None):
         def batch_fn(step):
             if step == kill_at:
@@ -3348,9 +3583,6 @@ def train_phase(torch, engine, wrappers, card) -> dict:
                              step_fn, batch_fn), (fresh_p,
                                                   adamw_init(fresh_p))
 
-    del params, opt_state, run
-    gc.collect()
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     lp, init = loop(TRAIN_STEPS, kill_at=TRAIN_PREEMPT_AT)
     state_b, final_b, pre_b = lp.run(init)
@@ -3359,6 +3591,10 @@ def train_phase(torch, engine, wrappers, card) -> dict:
           and ckpt.latest_step(str(root / "pre")) == final_b,
           f"[13] preempted run: final {final_b}, preempted {pre_b}, latest "
           f"{ckpt.latest_step(str(root / 'pre'))}")
+    # the graph's own buffers: the resumed run rewrites them
+    state_b = tree_map(lambda t: t.clone(), dict(
+        p=state_b[0], mu=state_b[1].mu, nu=state_b[1].nu,
+        count=state_b[1].count))
     pre_gib = lp_bytes(root / "pre", final_b) / 2**30
     del init, lp
     first = []
@@ -3368,11 +3604,15 @@ def train_phase(torch, engine, wrappers, card) -> dict:
         _, final_c, pre_c = lc.run(init)
     check(len(first) == 1, "[13] the resumed run took no step")
     restore_s = first[0][0] - t0
-    restored = first[0][1]
+    restored = dict(p=first[0][1][0], mu=first[0][1][1].mu,
+                    nu=first[0][1][1].nu, count=first[0][1][1].count)
     same = [(pa, torch.equal(a, b)) for (pa, a), (pb, b) in zip(
         flat(restored), flat(state_b)) if pa == pb]
     same = len(same) == len(flat(state_b)) and all(e for _, e in same)
     check(same, "[13] the restored leaves are not bitwise the saved ones")
+    check(all(a is not b for a, b in zip(tree_leaves(restored),
+                                         tree_leaves(plan.fn.state))),
+          "[13] the restore handed the graph its own buffers")
     del restored, state_b, first
     resumed = [m["loss"] for m in lc.metrics_log]
     steps_c = [int(m["step"]) for m in lc.metrics_log]
@@ -3384,33 +3624,37 @@ def train_phase(torch, engine, wrappers, card) -> dict:
     want = losses[TRAIN_PREEMPT_AT + 1:TRAIN_RESUME_TO]
     res_d = max(abs(a - b) / abs(b) for a, b in zip(resumed, want))
     print(f"[13] preempted by SIGTERM before the end of step "
-          f"{TRAIN_PREEMPT_AT}: checkpoint of step {final_b} written "
-          f"({pre_gib:.2f} GiB on disk; the run and its save {save_s:.1f} "
-          f"s); the resumed run restored it bitwise (restore and first "
-          f"batch {restore_s:.1f} s), ran steps {steps_c}, losses "
+          f"{TRAIN_PREEMPT_AT} (the graphed step): checkpoint of step "
+          f"{final_b} written ({pre_gib:.2f} GiB on disk; the run and its "
+          f"save {save_s:.1f} s); the resumed run restored it bitwise and "
+          f"the same graph copied it in (restore and first batch "
+          f"{restore_s:.1f} s), ran steps {steps_c}, losses "
           f"{[round(x, 4) for x in resumed]} against the uninterrupted "
           f"run's {[round(x, 4) for x in want]} (worst relative {res_d:.2e},"
           f" limit {RESUME_TOL})", flush=True)
     check(res_d <= RESUME_TOL, f"[13] resumed losses off by {res_d:.2e}")
-    del lc, init
+    del lc, init, plan
+    gc.collect()
+    torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
-
     marks.append(("preemption and resume", time.perf_counter()))
 
-    # -- Hymba-1.5B at full width through launch/train.py: B10's forward
-    # and backward kernels on the main path, counts 0 before, read after;
-    # the first two backward launches (the last layer's chunks 1 and 0)
-    # kept for phase 3
-    hargs = train.parse_args([
-        "--arch", "hymba-1.5b", "--steps", str(HYMBA_STEPS), "--batch",
-        str(HYMBA_BATCH), "--seq", str(HYMBA_SEQ), "--lr", str(HYMBA_LR),
-        "--warmup", "5", "--ckpt-every", str(HYMBA_STEPS + 1),
-        "--log-every", "5", "--ckpt-dir", str(root / "hymba")])
+    # -- Hymba-1.5B at full width through launch/train.py and the graphed
+    # step: B10's forward and backward kernels on the main path, counts 0
+    # before, read after; the first two backward launches (the counted
+    # eager step's: the last layer's chunks 1 and 0) kept for phase 3
+    hargv = ["--arch", "hymba-1.5b", "--batch", str(HYMBA_BATCH), "--seq",
+             str(HYMBA_SEQ), "--lr", str(HYMBA_LR), "--warmup", "5",
+             "--ckpt-every", str(HYMBA_STEPS + 1), "--log-every", "5"]
+    hargs = train.parse_args(hargv + ["--steps", str(HYMBA_STEPS),
+                                      "--ckpt-dir", str(root / "hymba")])
     hcfg, hshape, hplan = train.build(hargs)
+    del hplan
     check((hcfg.num_layers, hcfg.d_model, hcfg.ssm.state_dim,
            hcfg.ssm.scan_chunk, hcfg.param_dtype, hcfg.compute_dtype)
           == (32, 1600, 16, 512, "float32", "bfloat16"),
           f"[13] unexpected Hymba config {hcfg}")
+    hopt = AdamWConfig(schedule=warmup_cosine(HYMBA_LR, 5, HYMBA_STEPS))
     bwd = wrappers["mamba_scan_fused_bwd"]
 
     def hymba_run():
@@ -3419,11 +3663,20 @@ def train_phase(torch, engine, wrappers, card) -> dict:
     with _SkippedSaves(ckpt) as skipped:
         hrun, _, hl, hcaps, hsecs = drive_counted(
             torch, engine, wrappers, hymba_run, capture=False)
-    # the loop's steps and the roofline's counted step
-    want = {n: 0 for n in wrappers} | hymba_step_counts(
-        hcfg, HYMBA_SEQ, HYMBA_STEPS + 1)
-    check_plan("[13] Hymba train", hl, want)
-    check(hl == want, f"[13] Hymba: B10 launches {hl}, want {want}")
+    hg = hrun["graph"]
+    per_step = {n: 0 for n in wrappers} | hymba_step_counts(
+        hcfg, HYMBA_SEQ, 1)
+    captured = {n: hg.launches.get(w, 0) for n, w in wrappers.items()}
+    # the wrappers count the graph's warm-up, its capture and the counted
+    # eager step; the main path's launches are the capture's times the
+    # replays, and the counted step's
+    main_path = {n: c * hg.replays + c for n, c in captured.items()}
+    check_plan("[13] Hymba train, one step at capture", captured, per_step)
+    check(captured == per_step and hg.replays == HYMBA_STEPS
+          and hl == {n: 3 * c for n, c in per_step.items()},
+          f"[13] Hymba: B10 launches at capture {captured} (plan "
+          f"{per_step}) over {hg.replays} replays; the wrappers counted "
+          f"{hl}, want 3 steps' (warm-up, capture, counted step)")
     check(skipped.steps == [HYMBA_STEPS], f"[13] Hymba: the loop asked to "
           f"save steps {skipped.steps}")
     hlosses = [m["loss"] for m in hrun["log"]]
@@ -3433,12 +3686,17 @@ def train_phase(torch, engine, wrappers, card) -> dict:
           f"{h_params / 1e6:.1f} M params f32, bf16 compute, MNF θ=0), "
           f"batch {HYMBA_BATCH} x {HYMBA_SEQ} (B10 chunks of "
           f"{hcfg.ssm.scan_chunk}), {HYMBA_STEPS} steps through "
-          f"launch/train.py in {hsecs:.1f} s: B10 forward "
-          f"{hl['mamba_scan_fused']} and backward "
-          f"{hl['mamba_scan_fused_bwd']} launches, as planned ({HYMBA_STEPS}"
-          f" + 1 counted steps x {hcfg.num_layers} layers x "
+          f"launch/train.py (the graphed step) in {hsecs:.1f} s: B10 "
+          f"forward {captured['mamba_scan_fused']} and backward "
+          f"{captured['mamba_scan_fused_bwd']} launches at capture, as "
+          f"planned ({hcfg.num_layers} layers x "
           f"{-(-HYMBA_SEQ // hcfg.ssm.scan_chunk)} chunks, the forward again "
-          f"under remat '{hcfg.remat}')", flush=True)
+          f"under remat '{hcfg.remat}'), x {hg.replays} replays + the "
+          f"counted eager step = {main_path['mamba_scan_fused']} and "
+          f"{main_path['mamba_scan_fused_bwd']} on the main path (the "
+          f"wrappers counted {hl['mamba_scan_fused']} and "
+          f"{hl['mamba_scan_fused_bwd']}: the warm-up, the capture, the "
+          f"counted step)", flush=True)
     print(f"[13] Hymba losses {[round(x, 4) for x in hlosses]}", flush=True)
     check(hrun["final_step"] == HYMBA_STEPS and not hrun["preempted"],
           f"[13] the Hymba run ended at {hrun['final_step']}")
@@ -3449,26 +3707,17 @@ def train_phase(torch, engine, wrappers, card) -> dict:
           f"{hl5:.4f} (mean of the first and last 5): less than "
           f"{TRAIN_DROP}")
     hrep = hrun["report"]
-    h_tok = HYMBA_BATCH * HYMBA_SEQ / (hrun["step_ms"] / 1e3)
     h6nd = 6.0 * h_params * HYMBA_BATCH * HYMBA_SEQ
     check(hrep.hlo_gflops * 1e9 >= h6nd, f"[13] Hymba: counted "
           f"{hrep.hlo_gflops:.1f} GFLOP below 6ND {h6nd / 1e9:.1f}")
-    hstate = hrun["state"]
-    hbatch = markov_lm_batch(TokenStreamConfig(
-        vocab_size=hcfg.vocab_size, seq_len=HYMBA_SEQ,
-        global_batch=HYMBA_BATCH), HYMBA_STEPS, device="cuda")
-    hprof = profile(torch, lambda: hplan.fn(*hstate, hbatch),
-                    "[13] Hymba train step", steps=3, top=6, host_ops=False)
-    print(f"[13] Hymba step {hrun['step_ms']:.3f} ms (median of steps 1-"
-          f"{HYMBA_STEPS - 1}; all ms "
-          f"{[round(m['step_time_s'] * 1e3, 2) for m in hrun['log']]}), "
-          f"{h_tok:.1f} tokens/s, peak memory "
-          f"{hrun['peak_bytes'] / 2**30:.3f} GiB, idle share "
-          f"{hprof['idle']:.3f}; mean loss of the first 5 steps {h5:.4f}, "
-          f"of the last 5 {hl5:.4f} (a drop of {h5 - hl5:.4f}, limit >= "
-          f"{TRAIN_DROP}) (card {card})", flush=True)
-    print(f"[13] roofline of Hymba's train step (counted; B10's launches "
-          f"by their formulas {hrun['cost'].kernels}): "
+    print(f"[13] Hymba all step ms "
+          f"{[round(m['step_time_s'] * 1e3, 2) for m in hrun['log']]}; mean "
+          f"loss of the first 5 steps {h5:.4f}, of the last 5 {hl5:.4f} (a "
+          f"drop of {h5 - hl5:.4f}, limit >= {TRAIN_DROP})", flush=True)
+    hgraphed = graph_figures(torch, hrun, "[13] Hymba", HYMBA_BATCH,
+                             HYMBA_SEQ, card)
+    print(f"[13] roofline of Hymba's train step (counted on the eager step;"
+          f" B10's launches by their formulas {hrun['cost'].kernels}): "
           f"{hrep.hlo_gflops:.1f} GFLOP ({hrep.hlo_gflops * 1e9 / h6nd:.2f}"
           f" x 6ND), {hrep.hlo_gbytes:.2f} GB; t_compute "
           f"{hrep.t_compute * 1e3:.3f} ms, t_memory "
@@ -3477,27 +3726,51 @@ def train_phase(torch, engine, wrappers, card) -> dict:
           f" measured share {hrun['measured_frac']:.4f} (card {card})",
           flush=True)
     print(roofline.format_row(hrep), flush=True)
-    hymba = dict(step_ms=hrun["step_ms"], tok_s=h_tok, first5=h5,
-                 last5=hl5, idle=hprof["idle"], report=hrep.to_json(),
-                 peak_gib=hrun["peak_bytes"] / 2**30,
+    hymba = dict(hgraphed, first5=h5, last5=hl5, report=hrep.to_json(),
                  measured_frac=hrun["measured_frac"],
-                 fwd_launches=hl["mamba_scan_fused"],
-                 bwd_launches=hl["mamba_scan_fused_bwd"],
+                 fwd_launches=main_path["mamba_scan_fused"],
+                 bwd_launches=main_path["mamba_scan_fused_bwd"],
                  per_step=hymba_step_counts(hcfg, HYMBA_SEQ, 1),
                  bwd_caps=list(hcaps["mamba_scan_fused_bwd"]),
                  kernels=hrun["cost"].kernels)
     check(len(hymba["bwd_caps"]) == 2, "[13] the backward's first launches "
           "were not kept")
-    del hrun, hstate, hbatch, hplan
+    del hrun, hg
     gc.collect()
     torch.cuda.empty_cache()
     marks.append(("Hymba main run", time.perf_counter()))
 
+    # -- Hymba's eager figures, then the graphed step bitwise the eager one
+    # on the 2-layer full-width cut, in the main path's bf16
+    heager = eager_figures(
+        torch, train, hargv + ["--steps", str(HYMBA_EAGER_STEPS),
+                               "--ckpt-dir", str(root / "hymba_eager")],
+        hcfg, hshape, hopt, HYMBA_BATCH, HYMBA_SEQ, card, "[13] Hymba")
+    hymba["eager"] = heager
+    print(f"[13] Hymba graphed against eager: step {hgraphed['step_ms']:.3f}"
+          f" vs {heager['step_ms']:.3f} ms, peak memory "
+          f"{hgraphed['peak_gib']:.3f} vs {heager['peak_gib']:.3f} GiB "
+          f"(limit: at most {HYMBA_PEAK_SLACK_GIB} GiB above)", flush=True)
+    check(hgraphed["peak_gib"] <= heager["peak_gib"] + HYMBA_PEAK_SLACK_GIB,
+          f"[13] Hymba's graphed run peaks at {hgraphed['peak_gib']:.3f} "
+          f"GiB, more than {HYMBA_PEAK_SLACK_GIB} GiB above the eager "
+          f"run's {heager['peak_gib']:.3f}")
+    ccfg = dataclasses.replace(hcfg, num_layers=2, global_layer_ids=(0,))
+    cshape = ShapeConfig("cut", HYMBA_SEQ, HYMBA_BATCH, "train")
+    cds = TokenStreamConfig(vocab_size=ccfg.vocab_size, seq_len=HYMBA_SEQ,
+                            global_batch=HYMBA_BATCH)
+    hymba["bitwise"] = graph_vs_eager(
+        torch, wrappers, "[13] Hymba 2-layer cut", ccfg, cshape, hopt,
+        [markov_lm_batch(cds, i, device="cuda")
+         for i in range(BITWISE_STEPS)], 1,
+        {n: 0 for n in wrappers} | hymba_step_counts(ccfg, HYMBA_SEQ, 1))
+    marks.append(("Hymba eager run and graph vs eager",
+                  time.perf_counter()))
+
     # -- the f32 check: a 2-layer Hymba at full width, one step's loss and
     # gradients through B10's kernels against B10's plain forward and
     # backward called explicitly
-    fcfg = dataclasses.replace(hcfg, num_layers=2, global_layer_ids=(0,),
-                               compute_dtype="float32")
+    fcfg = dataclasses.replace(ccfg, compute_dtype="float32")
     fparams = tfm.init_params(0, fcfg, "cuda")
     fbatch = markov_lm_batch(TokenStreamConfig(
         vocab_size=fcfg.vocab_size, seq_len=HYMBA_SEQ,
@@ -3554,9 +3827,9 @@ def train_phase(torch, engine, wrappers, card) -> dict:
     print(f"[13] phase 13 took {seconds:.1f} s: " + ", ".join(
         f"{name} {t1 - t0:.1f} s" for (_, t0), (name, t1) in zip(
             marks, marks[1:])), flush=True)
-    return dict(step_ms=step_ms, tok_s=tok_s, first5=first5, last5=last5,
-                idle=prof["idle"], report=rep.to_json(),
-                measured_frac=measured, seconds=seconds, hymba=hymba)
+    return dict(graphed, first5=first5, last5=last5, report=rep.to_json(),
+                measured_frac=measured, seconds=seconds, eager=eager,
+                bitwise=bitwise, hymba=hymba)
 
 
 # ---------------------------------------------------------------------------
@@ -3658,7 +3931,7 @@ def parallel_phase(torch, engine, wrappers, drive, card, vgg_spec,
     cfg = get_config(TRAIN_ARCH)
     shape = ShapeConfig("par", TRAIN_SEQ, TRAIN_BATCH, "train")
     opt = AdamWConfig(schedule=warmup_cosine(3e-4, 20, TRAIN_STEPS))
-    ref = steps.make_train_step(cfg, shape, opt=opt)
+    ref = steps.make_train_step(cfg, shape, opt=opt, graph=False)
     plan = steps.make_train_step(cfg, shape, opt=opt, mesh=mesh)
     ds = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                            global_batch=TRAIN_BATCH)

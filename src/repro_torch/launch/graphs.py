@@ -8,7 +8,9 @@ what ``jax.jit`` is to the JAX package, which has no module for it::
 :func:`capture` runs ``fn(*static)`` once eagerly on a side stream (the
 warm-up: it builds and loads the kernels, triggers CUDA's lazy module load
 at each kernel's first launch, fills the cached device plans and creates
-the cuBLAS handles), then captures one more call with ``torch.cuda.graph``.
+the cuBLAS handles), then captures one more call with ``torch.cuda.graph``
+(which first hands the blocks the warm-up left cached back to the device:
+the capture allocates from its own pool, which could not reuse them).
 What the capture saw — each kernel wrapper's launches
 (``kernels.count_launches``) and the ``engine.trace`` records — is kept on
 the graph: they are Python side effects, made at capture and never at
@@ -48,7 +50,8 @@ class Graph:
     it returned (rewritten by each replay), ``launches`` {wrapper:
     launches} and ``records`` (trace records) as the capture saw them,
     ``warmup_s`` the eager warm-up's and ``capture_s`` the capture's host
-    seconds, ``replays`` the replays so far."""
+    seconds, ``pool_bytes`` the device memory the capture left reserved
+    (its pool's growth), ``replays`` the replays so far."""
 
     graph: torch.cuda.CUDAGraph
     static: tuple
@@ -57,6 +60,7 @@ class Graph:
     records: list
     warmup_s: float
     capture_s: float
+    pool_bytes: int
     replays: int = 0
 
     def replay(self):
@@ -78,6 +82,8 @@ def capture(fn, *static, pool=None) -> Graph:
     with torch.cuda.stream(side):
         fn(*static)
     side.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
     t1 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
     with kernels.count_launches() as launches, \
@@ -86,5 +92,7 @@ def capture(fn, *static, pool=None) -> Graph:
         outputs = fn(*static)
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    torch.cuda.empty_cache()
     return Graph(graph, static, outputs, dict(launches), records, t1 - t0,
-                 time.perf_counter() - t1)
+                 t2 - t1, torch.cuda.memory_reserved() - reserved)

@@ -3,15 +3,15 @@
 on one device or, given a ``mesh``, sharded over it (:class:`CellPlan`,
 :func:`plan_cell`).
 
-The train step runs eagerly: autograd over ``transformer.lm_loss`` under
-the config's remat policy, then ``optim.adamw_update``, with
-``accum_steps`` microbatches summed into one optimizer step (capturing
-it as a CUDA graph is ROADMAP.md queue A item 19).
+The train step is autograd over ``transformer.lm_loss`` under the
+config's remat policy, then AdamW, with ``accum_steps`` microbatches
+summed into one optimizer step.
 
 On CUDA tensors a step is compiled as the JAX package's is under
 ``jax.jit``, here as a CUDA graph (``launch.graphs``): one graph per
 prompt length for the prefill, one per (batch, max_len) for the decode,
-captured at the first call (or by ``fn.capture``) with the parameter
+one for the train step, captured at the first call (or by
+``fn.capture``).  The prefill and decode graphs read the parameter
 tensors of that call; a call with other parameter tensors raises.  Each
 call copies the caller's tensors — the prefill's tokens, audio frames
 and patch embeddings alike — into the graph's static buffers, skipping
@@ -19,9 +19,16 @@ any that already are those buffers, and replays.  The decode
 graph owns its cache (updated in place, the counterpart of the JAX serve
 step's donated cache) and its position, a 0-d device integer that each
 replay advances by one: a caller that hands back ``fn.position`` and the
-returned cache copies nothing but the new tokens.  What a step returns
-is rewritten by its next replay.  On CPU tensors, or with ``graph=False``,
-``fn`` is the eager callable.
+returned cache copies nothing but the new tokens.  The train graph owns
+the params, the AdamW moments and count (updated in place by
+``optim.adamw_update_``: the JAX train step's donated buffers) and the
+batch: a call with other state tensors (the first call, a restore from
+a checkpoint) copies them in leaf by leaf, and a caller that hands back
+the returned trees copies nothing but the batch.  What a step returns
+is rewritten by its next replay.  On CPU tensors (the train step: on
+any tensors off the card), or with ``graph=False``, ``fn`` is the eager
+callable; a train step's ``fn.eager`` is always the eager functional
+step (``optim.adamw_update``), which leaves its inputs as they are.
 
 With a ``mesh`` (a ``DeviceMesh``, ``launch.mesh``) the LM steps run
 eagerly on DTensors, every rank of the mesh calling them:
@@ -72,7 +79,8 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.engine.config import EngineConfig
 from repro_torch.launch import graphs
 from repro_torch.models import transformer as tfm
-from repro_torch.optim import AdamWConfig, OptState, adamw_update
+from repro_torch.optim import (AdamWConfig, OptState, adamw_update,
+                               adamw_update_)
 from repro_torch.models.param_utils import tree_leaves, tree_map
 from repro_torch.parallel.sharding import (ShardingRules, data_axis_size,
                                            distribute_tree, logical_to_pspec,
@@ -193,6 +201,7 @@ def _mesh_train_step(cfg, shape, mesh, rules, opt, accum_steps) -> CellPlan:
         assert all(isinstance(t, DTensor) for t in tree_leaves(new_p))
         return new_p, new_o, metrics
 
+    train_step.eager = train_step
     return _cell(cfg, shape, mesh, rules, train_step)
 
 
@@ -349,20 +358,111 @@ class _GraphedServe:
         return g.replay(), s_cache
 
 
+def _copy_leaves(dst, src, what: str) -> None:
+    """Copy each leaf of ``src`` into the matching leaf of ``dst``,
+    skipping those that already are it."""
+    dl, sl = tree_leaves(dst), tree_leaves(src)
+    if len(dl) != len(sl) or any(d.shape != t.shape or d.dtype != t.dtype
+                                 for d, t in zip(dl, sl)):
+        raise ValueError(f"the {what} handed to the graphed train step do "
+                         f"not match the ones it was captured with")
+    for d, t in zip(dl, sl):
+        if d is not t:
+            d.copy_(t)
+
+
+class _GraphedTrain:
+    """fn(params, opt_state, batch) -> (params, opt_state, metrics), the
+    train graph's own trees (module docstring).  ``metrics`` (``loss``,
+    ``grad_norm``, ``lr``) are 0-d f32 tensors on the device that the
+    next replay rewrites: read or clone them first.  The batch is copied
+    in on the current stream, the one the replay runs on (where
+    ``data.PrefetchLoader`` puts its non_blocking copies: the default
+    stream).  ``eager`` is the functional step; ``state`` the graph's
+    (params, opt_state), None before the capture."""
+
+    def __init__(self, loss_and_grads, opt, pool, eager):
+        self.loss_and_grads, self.opt, self.pool = loss_and_grads, opt, pool
+        self.eager = eager
+        self.graph: graphs.Graph | None = None
+
+    def _step(self, params, mu, nu, count, batch):
+        loss, grads = self.loss_and_grads(params, batch)
+        with torch.no_grad():
+            metrics = adamw_update_(grads, OptState(mu, nu, count), params,
+                                    self.opt)
+        return dict(loss=loss, **metrics)
+
+    @property
+    def state(self):
+        if self.graph is None:
+            return None
+        params, mu, nu, count, _ = self.graph.static
+        return params, OptState(mu, nu, count)
+
+    def capture(self, params, opt_state: OptState, batch) -> graphs.Graph:
+        """The graph of the step (captured once), its buffers holding
+        ``params`` and ``opt_state``."""
+        if self.graph is None:
+            clone = lambda t: t.detach().clone()  # noqa: E731
+            self.graph = graphs.capture(
+                self._step, tree_map(clone, params),
+                tree_map(clone, opt_state.mu), tree_map(clone, opt_state.nu),
+                opt_state.count.clone(),
+                {k: clone(v) for k, v in batch.items()}, pool=self.pool)
+            # the eager warm-up stepped the buffers: the first replay
+            # starts from the state handed in
+            self._copy_in(params, opt_state)
+        return self.graph
+
+    def _copy_in(self, params, opt_state: OptState) -> None:
+        s_params, s_mu, s_nu, s_count, _ = self.graph.static
+        _copy_leaves(s_params, params, "params")
+        _copy_leaves((s_mu, s_nu, s_count),
+                     (opt_state.mu, opt_state.nu, opt_state.count),
+                     "optimizer state")
+
+    def __call__(self, params, opt_state: OptState, batch):
+        if batch["tokens"].device.type != "cuda":
+            return self.eager(params, opt_state, batch)
+        return self._replay(params, opt_state, batch)
+
+    def _replay(self, params, opt_state: OptState, batch):
+        if self.graph is None:
+            self.capture(params, opt_state, batch)
+        else:
+            self._copy_in(params, opt_state)
+        g = self.graph
+        s_batch = g.static[4]
+        if batch.keys() != s_batch.keys():
+            raise ValueError(f"batch keys {sorted(batch)}: the graph was "
+                             f"captured with {sorted(s_batch)}")
+        _copy_leaves([s_batch[k] for k in batch], [batch[k] for k in batch],
+                     "batch tensors")
+        metrics = g.replay()
+        return self.state + (metrics,)
+
+
 def make_train_step(cfg: ModelConfig, shape: ShapeConfig, *,
                     opt: AdamWConfig | None = None,
-                    accum_steps: int = 1, mesh=None,
-                    rules: ShardingRules | None = None):
+                    accum_steps: int = 1, graph: bool = True, pool=None,
+                    mesh=None, rules: ShardingRules | None = None):
     """fn(params, opt_state, batch) -> (params, opt_state, metrics): one
     AdamW step on the mean ``lm_loss`` of ``batch`` (``shape.global_batch``
-    rows), the new trees returned and the old ones left as they are (the
-    JAX step's donated buffers are freed once the caller drops them).
-    ``metrics``: ``loss``, ``grad_norm`` and ``lr``, 0-d f32 tensors.
-    With ``accum_steps`` > 1 the batch splits into that many microbatches
-    along its rows, run one after another: their gradients summed in f32
-    and averaged, their losses averaged, one optimizer step.  With a
-    ``mesh``: a :class:`CellPlan` whose ``fn`` is the sharded step (the
-    module docstring)."""
+    rows).  ``metrics``: ``loss``, ``grad_norm`` and ``lr``, 0-d f32
+    tensors.  With ``accum_steps`` > 1 the batch splits into that many
+    microbatches along its rows, run one after another: their gradients
+    summed in f32 and averaged, their losses averaged, one optimizer step.
+    On CUDA tensors with ``graph`` (the default) ``fn`` replays a CUDA
+    graph that owns the state and updates it in place (the module
+    docstring; ``pool``: a graph memory pool to share); on other tensors
+    (the CPU's, the meta device's), or with ``graph=False``, it is the
+    eager step, which returns new trees and leaves the old ones as they
+    are (the JAX step's donated buffers are freed once the caller drops
+    them).  ``fn.eager`` is the
+    eager step either way.  With a ``mesh``: a :class:`CellPlan` whose
+    ``fn`` is the sharded step, eager (the module docstring; ``graph``
+    and ``pool`` unused)."""
     opt = opt or AdamWConfig()
     if shape.global_batch % accum_steps:
         raise ValueError(f"batch {shape.global_batch} does not split into "
@@ -371,7 +471,7 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, *,
         return _mesh_train_step(cfg, shape, mesh, _rules(cfg, mesh, rules),
                                 opt, accum_steps)
 
-    def loss_and_grads(params, batch):
+    def one_batch(params, batch):
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         loss = tfm.lm_loss(leaves, batch, cfg)
         # a leaf the loss does not read gets a zero gradient, as in JAX
@@ -381,27 +481,30 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, *,
             lambda p: torch.zeros_like(p) if (g := next(it)) is None else g,
             leaves)
 
-    def train_step(params, opt_state, batch):
+    def loss_and_grads(params, batch):
         if accum_steps == 1:
-            loss, grads = loss_and_grads(params, batch)
-        else:
-            micro = {k: v.chunk(accum_steps) for k, v in batch.items()}
-            loss = 0.0
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            for i in range(accum_steps):
-                l_i, g_i = loss_and_grads(
-                    params, {k: v[i] for k, v in micro.items()})
-                grads = tree_map(lambda a, b: a + b.float(), grads, g_i)
-                loss = loss + l_i
-            loss = loss / accum_steps
-            grads = tree_map(lambda g: g / accum_steps, grads)
+            return one_batch(params, batch)
+        micro = {k: v.chunk(accum_steps) for k, v in batch.items()}
+        loss = 0.0
+        grads = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+        for i in range(accum_steps):
+            l_i, g_i = one_batch(params, {k: v[i] for k, v in micro.items()})
+            grads = tree_map(lambda a, b: a + b.float(), grads, g_i)
+            loss = loss + l_i
+        return loss / accum_steps, tree_map(lambda g: g / accum_steps, grads)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads(params, batch)
         with torch.no_grad():
             new_p, new_o, metrics = adamw_update(grads, opt_state, params,
                                                  opt)
         return new_p, new_o, dict(loss=loss, **metrics)
 
-    return StepPlan(cfg, shape, train_step, cell_engine_config(cfg))
+    train_step.eager = train_step
+    fn = _GraphedTrain(loss_and_grads, opt, pool, train_step) if graph \
+        else train_step
+    return StepPlan(cfg, shape, fn, cell_engine_config(cfg))
 
 
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, *,

@@ -1,7 +1,8 @@
 """End-to-end training driver — port of ``repro.launch.train``.
 
 Wires config -> train step (``launch.steps.make_train_step``: AdamW under
-``warmup_cosine(--lr, --warmup, --steps)``) -> resilient loop
+``warmup_cosine(--lr, --warmup, --steps)``; on the card a CUDA graph that
+updates the params and moments in place) -> resilient loop
 (``runtime.ResilientLoop``: async checkpoints every ``--ckpt-every``
 steps, auto-resume from ``--ckpt-dir``, straggler detection, a final
 checkpoint on SIGTERM or SIGINT) -> the synthetic Markov corpus
@@ -27,8 +28,10 @@ starts no process group::
 
 Prints the JAX driver's JSON summary (``final_step``, ``preempted``,
 ``wall_s``, ``first_loss``, ``last_loss``, ``stragglers_flagged``,
-``tokens_per_s``), then the roofline of one more step counted by
-``launch.roofline.count_cost`` (a JSON line and ``format_row``'s row:
+``tokens_per_s``), then the roofline of one step, counted before the
+loop by ``launch.roofline.count_cost`` on the eager functional step
+(``fn.eager``: a graph's replay dispatches no op to count) (a JSON line
+and ``format_row``'s row:
 the counted GFLOP and GB, the compute and memory terms, the bottleneck,
 the model GFLOP, ``useful_ratio``, ``roofline_frac``, and the measured
 share on the card, model FLOPs over the median step time at the peak),
@@ -58,7 +61,9 @@ from repro_torch.launch.mesh import (checked_mesh, init_world,
                                      make_production_mesh)
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import transformer as tfm
-from repro_torch.optim import AdamWConfig, adamw_init, warmup_cosine
+from repro_torch.optim import (AdamWConfig, OptState, adamw_init,
+                               warmup_cosine)
+from repro_torch.parallel.sharding import distribute_tree
 from repro_torch.models.param_utils import tree_leaves
 from repro_torch.runtime import LoopConfig, ResilientLoop
 
@@ -136,12 +141,23 @@ def _state_bytes(state) -> int:
                                   nu=state[1].nu))))
 
 
+def _placed(plan, state):
+    """``state`` under the mesh step's placements (as is off a mesh)."""
+    if getattr(plan, "mesh", None) is None:
+        return state
+    place = lambda tree: distribute_tree(  # noqa: E731
+        tree, plan.param_axes, plan.mesh, plan.rules)
+    return place(state[0]), OptState(place(state[1].mu),
+                                     place(state[1].nu), state[1].count)
+
+
 def train(args) -> dict:
     """Run the driver.  Returns the summary's keys, and ``log`` (each
     step's metrics), ``state`` ((params, opt_state) at the end),
     ``report`` (the counted step's ``RooflineReport``), ``cost``,
     ``step_ms`` (the median step after the first), ``measured_frac``,
-    ``peak_bytes`` and ``cfg``.  On a mesh the step is counted on this
+    ``peak_bytes``, ``cfg`` and ``graph`` (the step's ``graphs.Graph``,
+    None where the step runs eagerly).  On a mesh the step is counted on this
     rank's shards, its collective term from the collectives it issues
     (``launch.roofline.count_cost``), and the report names the mesh and
     its size."""
@@ -153,6 +169,20 @@ def train(args) -> dict:
     ds_cfg = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                global_batch=args.batch)
     start = ckpt_lib.latest_step(args.ckpt_dir) or 0
+
+    # the roofline of one step (its result dropped), counted before the
+    # loop on the eager step: a graph's replay dispatches no op to count,
+    # and the eager step's working set would not fit on the card beside
+    # the graph's state and pool at Hymba-1.5B's size.  Counted FLOPs,
+    # bytes and collective bytes of this rank against the card's peaks;
+    # on a mesh from the state already placed, as the loop's steps get it
+    batch = {k: v.to(dev) for k, v in markov_lm_batch(
+        ds_cfg, start, device="cpu").items()}
+    cost = roofline.count_cost(plan.fn.eager, *_placed(plan, state),
+                               batch)[1]
+    del batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     loader = PrefetchLoader(
         lambda step: markov_lm_batch(ds_cfg, step, device="cpu"),
         start_step=start, device=dev)
@@ -195,12 +225,6 @@ def train(args) -> dict:
         stragglers_flagged=int(sum(m["straggler"] for m in log)),
         tokens_per_s=round(len(losses) * args.batch * args.seq / dt, 1))
 
-    # the roofline of one more step on the final state (its result is
-    # dropped): counted FLOPs, bytes and collective bytes of this rank
-    # against the card's peaks
-    batch = {k: v.to(dev) for k, v in markov_lm_batch(
-        ds_cfg, final_step, device="cpu").items()}
-    _, cost = roofline.count_cost(plan.fn, *state, batch)
     chips = 1 if mesh is None else mesh.size()
     mesh_name = "1" if mesh is None else "x".join(
         str(n) for n in mesh.mesh.shape)
@@ -214,7 +238,8 @@ def train(args) -> dict:
                                      * roofline.HW().peak_flops)
     return dict(out, log=log, state=state, report=report, cost=cost,
                 step_ms=None if step_s is None else step_s * 1e3,
-                measured_frac=measured, peak_bytes=peak, cfg=cfg)
+                measured_frac=measured, peak_bytes=peak, cfg=cfg,
+                graph=getattr(plan.fn, "graph", None))
 
 
 def main(argv=None) -> None:

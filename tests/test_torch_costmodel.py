@@ -327,8 +327,9 @@ def test_paper_fig8_ratios_equal_jax_benchmark(benchmarks_pkg):
 
 
 def test_benchmark_twin_harness_lists_the_five(benchmarks_pkg):
+    """The five paper twins, then the dry run's roofline rows."""
     run = importlib.import_module("benchmarks.torch_run")
     assert [tag for tag, _ in run.MODULES] == \
-        ["fig1", "fig2", "fig8", "table4", "table5"]
+        ["fig1", "fig2", "fig8", "table4", "table5", "roofline"]
     assert [m.__name__ for _, m in run.MODULES] == \
-        [f"benchmarks.torch_{n}" for n in BENCHES]
+        [f"benchmarks.torch_{n}" for n in BENCHES + ("roofline_table",)]

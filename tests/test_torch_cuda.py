@@ -1241,6 +1241,118 @@ def test_hymba_training_on_card_runs_the_b10_backward(dev):
     assert worst <= 1e-4 * scale, worst / scale
 
 
+def _train_cfg(arch):
+    """A reduced config of ``arch``; Hymba's scan chunk 16, so that T 40
+    runs three B10 chunks a layer."""
+    cfg = get_config(arch).reduced()
+    if cfg.ssm is not None:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, scan_chunk=16))
+    return cfg
+
+
+def _state_leaves(p, o):
+    return tree_leaves((p, o.mu, o.nu, o.count))
+
+
+TRAIN_GRAPH_CASES = [("qwen2-0.5b", 1), ("qwen2-0.5b", 2),
+                     ("hymba-1.5b", 1), ("hymba-1.5b", 2)]
+
+
+@pytest.mark.parametrize("arch,accum", TRAIN_GRAPH_CASES,
+                         ids=[f"{a}-accum{n}" for a, n in TRAIN_GRAPH_CASES])
+def test_graphed_train_step_bitwise_eager(dev, arch, accum):
+    """The graphed train step (``make_train_step``: one CUDA graph, the
+    params and moments updated in place) against the eager functional
+    step over 3 steps from the same state and batches (reduced config,
+    bf16 compute, batch 4 x 40): every param, moment and count and
+    every step's loss, grad_norm and lr bitwise; the first replay is
+    step 1 (the warm-up advanced nothing); the returned leaves are the
+    graph's buffers and the caller's first state is left as it was;
+    replays 2 and 3 make no host sync; B10's launches at the capture
+    are the eager step's a step (Hymba), and the wrappers count only
+    the warm-up and the capture."""
+    cfg = _train_cfg(arch)
+    shape = ShapeConfig("t", 40, 4, "train")
+    opt = AdamWConfig(schedule=warmup_cosine(1e-3, 1, 10))
+    params = tfm.init_params(0, cfg, dev)
+    ds = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=40,
+                           global_batch=4)
+    batches = [markov_lm_batch(ds, i, device=dev) for i in range(3)]
+    wrappers = (mamba_scan_fused, mamba_scan_fused_bwd)
+    runs = []
+    for graph in (False, True):
+        fn = steps.make_train_step(cfg, shape, opt=opt, accum_steps=accum,
+                                   graph=graph).fn
+        init = (params, adamw_init(params))
+        before = [t.clone() for t in _state_leaves(*init)]
+        counts = [w.launches for w in wrappers]
+        state, trail = init, []
+        for i, b in enumerate(batches):
+            if graph and i:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                p, o, m = fn(*state, b)
+                trail.append([m[k].clone() for k in ("loss", "grad_norm",
+                                                     "lr")]
+                             + [o.count.clone()])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            state = (p, o)
+        assert all(torch.equal(a, b) for a, b in zip(
+            _state_leaves(*init), before))
+        runs.append(dict(leaves=[t.clone() for t in _state_leaves(*state)],
+                         trail=trail, state=state, fn=fn,
+                         counted=[w.launches - c
+                                  for w, c in zip(wrappers, counts)]))
+    eager, graphed = runs
+    assert all(torch.equal(a, b) for a, b in zip(graphed["leaves"],
+                                                 eager["leaves"]))
+    for step, (a, b) in enumerate(zip(graphed["trail"], eager["trail"])):
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), step
+    assert int(graphed["trail"][0][3]) == 1
+    fn = graphed["fn"]
+    assert all(x is y for x, y in zip(_state_leaves(*graphed["state"]),
+                                      _state_leaves(*fn.state)))
+    assert fn.graph.replays == 3
+    per_step = [fn.graph.launches.get(w, 0) for w in wrappers]
+    assert [3 * c for c in per_step] == eager["counted"]
+    assert graphed["counted"] == [2 * c for c in per_step]
+    assert (min(per_step) > 0) == (cfg.ssm is not None)
+
+
+def test_graphed_train_step_copies_a_restore_in(dev):
+    """Between replays, a state held in other tensors (a restore from a
+    checkpoint) is copied into the graph's buffers leaf by leaf: the next
+    replay continues from it, bitwise the eager step; a batch of another
+    shape is refused."""
+    cfg = _train_cfg("hymba-1.5b")
+    shape = ShapeConfig("t", 40, 4, "train")
+    opt = AdamWConfig(schedule=warmup_cosine(1e-3, 1, 10))
+    params = tfm.init_params(0, cfg, dev)
+    ds = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=40,
+                           global_batch=4)
+    b0, b1 = (markov_lm_batch(ds, i, device=dev) for i in range(2))
+    eager = steps.make_train_step(cfg, shape, opt=opt, graph=False).fn
+    p1, o1, _ = eager(params, adamw_init(params), b0)
+    p2, o2, m2 = eager(p1, o1, b1)
+    fn = steps.make_train_step(cfg, shape, opt=opt).fn
+    state = (params, adamw_init(params))
+    for b in (b0, b1, b0):                  # the graph moves on
+        state = fn(*state, b)[:2]
+    restored = (tree_map(lambda t: t.clone(), p1),
+                type(o1)(tree_map(lambda t: t.clone(), o1.mu),
+                         tree_map(lambda t: t.clone(), o1.nu),
+                         o1.count.clone()))
+    p, o, m = fn(*restored, b1)
+    assert p is state[0] and o.count is state[1].count
+    assert all(torch.equal(a, b) for a, b in zip(_state_leaves(p, o),
+                                                 _state_leaves(p2, o2)))
+    assert torch.equal(m["loss"], m2["loss"])
+    with pytest.raises(ValueError, match="batch"):
+        fn(p, o, {k: v[:2] for k, v in b1.items()})
+
+
 def _check_scan_bwd(dev, dtype, di, n, t, with_h0, with_gh, seed):
     """B10's backward on the prefill's layout (rows T-sliced out of a
     longer chunk, B and C slices of one 2N + 100 wide row): one launch,
